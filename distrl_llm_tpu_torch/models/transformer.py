@@ -1,0 +1,285 @@
+"""GQA decoder (Qwen2 / Llama-3 / Mistral / Gemma-1 family) as ``nn.Module``s.
+
+Counterpart of the JAX package's ``models/transformer.py``. Weights keep its
+``[in, out]`` layout and names (``wq``, ``bq``, ``w_gate``, ...), one
+``DecoderLayer`` per layer instead of a stacked ``[L, ...]`` tree. LoRA
+adapters stay stacked dicts (``models/lora.py``) and are sliced per layer.
+
+The dense KV cache is ``{"k": [L × [B, K, Smax, hd]], "v": ...}``. The forward
+writes the new positions into it IN PLACE (slice assignment) and returns the
+same dict — the port has no functional-update constraint, so no cache-sized
+copy is ever made.
+
+Ported: the no-cache (prefill/self-attention) and dense-cache branches with
+``attn_impl="reference"``. Paged, int8-KV, quantized-base, ring and ulysses
+branches raise ``NotImplementedError`` naming their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from distrl_llm_tpu_torch.models.configs import ModelConfig
+from distrl_llm_tpu_torch.ops.attention import (
+    attention, attention_cached, causal_padding_mask,
+)
+from distrl_llm_tpu_torch.ops.linear import linear, lora_delta
+
+Params = dict[str, Any]
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float,
+             offset: bool = False) -> torch.Tensor:
+    orig_dtype = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(x.pow(2).mean(dim=-1, keepdim=True) + eps)
+    w = weight.float()
+    if offset:  # Gemma stores the norm weight as a delta around 1
+        w = w + 1.0
+    return (x * w).to(orig_dtype)
+
+
+def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float):
+    """positions [B, S] → (cos, sin) each [B, S, head_dim/2], f32."""
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=positions.device) / head_dim
+    inv_freq = 1.0 / (theta**exps)
+    angles = positions.float()[..., None] * inv_freq
+    return torch.cos(angles), torch.sin(angles)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Rotate [B, S, H, D] by per-position angles (HF rotate-half convention)."""
+    d2 = x.shape[-1] // 2
+    x1, x2 = x[..., :d2], x[..., d2:]
+    cos = cos[:, :, None, :].to(x.dtype)
+    sin = sin[:, :, None, :].to(x.dtype)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+def _check_cache(kv_cache: Params) -> None:
+    if "page_indices" in kv_cache:
+        raise NotImplementedError(
+            "paged KV cache is not ported yet (ROADMAP: paged engine with "
+            "kernel K2)"
+        )
+    if "k_scale" in kv_cache:
+        raise NotImplementedError(
+            "int8 dense KV cache is not ported yet (ROADMAP: leftovers of "
+            "the dense slice)"
+        )
+
+
+class DecoderLayer(nn.Module):
+    """One pre-norm decoder layer: GQA attention + gated MLP, each with a
+    residual; every projection may carry a LoRA delta."""
+
+    def __init__(self, cfg: ModelConfig, dtype: torch.dtype,
+                 device: torch.device | str | None = None):
+        super().__init__()
+        self.cfg = cfg
+        D, F_ = cfg.hidden_size, cfg.intermediate_size
+
+        def param(*shape):
+            return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
+                                requires_grad=False)
+
+        self.attn_norm = param(D)
+        self.mlp_norm = param(D)
+        self.wq = param(D, cfg.q_dim)
+        self.wk = param(D, cfg.kv_dim)
+        self.wv = param(D, cfg.kv_dim)
+        self.wo = param(cfg.q_dim, D)
+        self.w_gate = param(D, F_)
+        self.w_up = param(D, F_)
+        self.w_down = param(F_, D)
+        if cfg.attention_bias:
+            self.bq = param(cfg.q_dim)
+            self.bk = param(cfg.kv_dim)
+            self.bv = param(cfg.kv_dim)
+        else:
+            self.bq = self.bk = self.bv = None
+
+    def _proj(self, h, name: str, bias, lora: Params | None, lora_scale: float):
+        y = linear(h, getattr(self, name), bias)
+        if lora is not None and name in lora:
+            y = y + lora_delta(h, lora[name]["a"], lora[name]["b"], lora_scale)
+        return y
+
+    def forward(
+        self,
+        x: torch.Tensor,  # [B, S, D]
+        lora: Params | None,  # this layer's {target: {"a", "b"}} or None
+        cache_k: torch.Tensor | None,  # [B, K, Smax, hd], written in place
+        cache_v: torch.Tensor | None,
+        *,
+        cos: torch.Tensor,
+        sin: torch.Tensor,
+        mask: torch.Tensor | None,
+        cache_offset: int,
+        lora_scale: float,
+        attn_impl: str,
+    ) -> torch.Tensor:
+        cfg = self.cfg
+        b, s, _ = x.shape
+        h = rms_norm(x, self.attn_norm, cfg.rms_norm_eps, offset=cfg.rmsnorm_offset)
+        q = self._proj(h, "wq", self.bq, lora, lora_scale).reshape(
+            b, s, cfg.num_heads, cfg.head_dim)
+        k = self._proj(h, "wk", self.bk, lora, lora_scale).reshape(
+            b, s, cfg.num_kv_heads, cfg.head_dim)
+        v = self._proj(h, "wv", self.bv, lora, lora_scale).reshape(
+            b, s, cfg.num_kv_heads, cfg.head_dim)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+        if cache_k is not None:
+            # in-place cache write of the new positions, then attention over
+            # the whole window (positions not yet written are masked off)
+            cache_k[:, :, cache_offset:cache_offset + s] = k.transpose(1, 2)
+            cache_v[:, :, cache_offset:cache_offset + s] = v.transpose(1, 2)
+            att = attention_cached(q, cache_k.to(q.dtype), cache_v.to(q.dtype), mask)
+        else:
+            att = attention(q, k, v, mask, impl=attn_impl)
+        att = att.reshape(b, s, cfg.q_dim)
+        x = x + self._proj(att, "wo", None, lora, lora_scale)
+
+        h = rms_norm(x, self.mlp_norm, cfg.rms_norm_eps, offset=cfg.rmsnorm_offset)
+        gate = self._proj(h, "w_gate", None, lora, lora_scale)
+        gate = (F.silu(gate) if cfg.hidden_act == "silu"
+                else F.gelu(gate, approximate="tanh"))  # Gemma gelu_pytorch_tanh
+        up = self._proj(h, "w_up", None, lora, lora_scale)
+        return x + self._proj(gate * up, "w_down", None, lora, lora_scale)
+
+
+class Decoder(nn.Module):
+    """Embedding, ``num_layers`` decoder layers, final norm, LM head (or the
+    tied embedding). Parameters are created uninitialized; fill them with
+    ``init_params`` or ``models.convert.params_from_numpy``."""
+
+    def __init__(self, cfg: ModelConfig, dtype: torch.dtype = torch.float32,
+                 device: torch.device | str | None = None):
+        super().__init__()
+        self.cfg = cfg
+        D = cfg.hidden_size
+        self.embed = nn.Parameter(
+            torch.empty(cfg.vocab_size, D, dtype=dtype, device=device),
+            requires_grad=False)
+        self.final_norm = nn.Parameter(
+            torch.empty(D, dtype=dtype, device=device), requires_grad=False)
+        self.lm_head = (
+            None if cfg.tie_word_embeddings
+            else nn.Parameter(torch.empty(D, cfg.vocab_size, dtype=dtype,
+                                          device=device), requires_grad=False)
+        )
+        self.layers = nn.ModuleList(
+            DecoderLayer(cfg, dtype, device) for _ in range(cfg.num_layers))
+
+    def forward(
+        self,
+        input_ids: torch.Tensor,  # [B, S]
+        *,
+        attention_mask: torch.Tensor | None = None,  # [B, Sk]; 1 = attendable
+        lora: Params | None = None,
+        lora_scale: float = 1.0,
+        kv_cache: Params | None = None,  # init_kv_cache dict, written in place
+        cache_offset: int = 0,
+        attn_impl: str = "reference",
+        logits_slice: tuple[int, int] | None = None,  # (start, length) along seq
+    ) -> tuple[torch.Tensor, Params | None]:
+        """Returns (logits f32 [B, S, V], kv_cache).
+
+        Without a cache: causal self-attention over the input (prefill /
+        training). With a dense cache: new K/V are written at
+        ``cache_offset`` and queries attend to every cache key that
+        ``attention_mask`` (length Smax) marks valid. RoPE positions are
+        ``cache_offset + arange(S)`` — they COUNT left-pad columns, as the
+        JAX package's do."""
+        cfg = self.cfg
+        b, s = input_ids.shape
+        dev = input_ids.device
+        if attn_impl != "reference":
+            raise NotImplementedError(
+                f"attn_impl={attn_impl!r} is not ported yet (ROADMAP: "
+                "learner with kernel K4 for flash/splash; multi-GPU for "
+                "ring/ulysses)")
+        if kv_cache is not None:
+            _check_cache(kv_cache)
+            smax = kv_cache["k"][0].shape[2]
+            if cache_offset + s > smax:
+                raise ValueError(
+                    f"KV cache overflow: offset {cache_offset} + seq {s} > "
+                    f"capacity {smax}")
+        positions = cache_offset + torch.arange(s, dtype=torch.int32, device=dev)
+        cos, sin = rope_cos_sin(positions[None, :].expand(b, s), cfg.head_dim,
+                                cfg.rope_theta)
+
+        x = F.embedding(input_ids, self.embed)
+        if cfg.scale_embeddings:  # Gemma: hidden states enter at sqrt(D) scale
+            x = x * torch.tensor(cfg.hidden_size**0.5, dtype=x.dtype)
+
+        sk = smax if kv_cache is not None else s
+        cfg.check_within_window(sk)
+        if attention_mask is None:
+            attention_mask = torch.ones((b, sk), dtype=torch.int32, device=dev)
+        mask = causal_padding_mask(attention_mask, q_len=s, q_offset=cache_offset)
+
+        layer_loras = _split_lora(lora, cfg.num_layers)
+        for i, layer in enumerate(self.layers):
+            x = layer(
+                x, layer_loras[i],
+                kv_cache["k"][i] if kv_cache is not None else None,
+                kv_cache["v"][i] if kv_cache is not None else None,
+                cos=cos, sin=sin, mask=mask, cache_offset=cache_offset,
+                lora_scale=lora_scale, attn_impl=attn_impl,
+            )
+
+        x = rms_norm(x, self.final_norm, cfg.rms_norm_eps, offset=cfg.rmsnorm_offset)
+        if logits_slice is not None:
+            # project only the needed positions (prefill needs the last one)
+            x = x[:, logits_slice[0]:logits_slice[0] + logits_slice[1]]
+        lm_head = self.embed.T if cfg.tie_word_embeddings else self.lm_head
+        logits = linear(x, lm_head).float()
+        return logits, kv_cache
+
+
+def _split_lora(lora: Params | None, num_layers: int) -> list[Params | None]:
+    """Stacked adapter dict → per-layer ``{target: {"a", "b"}}`` views."""
+    if lora is None:
+        return [None] * num_layers
+    return [
+        {t: {"a": ab["a"][i], "b": ab["b"][i]} for t, ab in lora["layers"].items()}
+        for i in range(num_layers)
+    ]
+
+
+@torch.no_grad()
+def init_params(generator: torch.Generator, cfg: ModelConfig,
+                dtype: torch.dtype = torch.float32) -> Decoder:
+    """Random init on the generator's device with HF-comparable scales:
+    N(0, 0.02) projections and embeddings, unit norms, zero biases."""
+    model = Decoder(cfg, dtype=dtype, device=generator.device)
+    for name, p in model.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf in ("attn_norm", "mlp_norm", "final_norm"):
+            p.fill_(1.0)
+        elif leaf in ("bq", "bk", "bv"):
+            p.zero_()
+        else:
+            p.normal_(0.0, 0.02, generator=generator)
+    return model
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int,
+                  dtype: torch.dtype = torch.bfloat16,
+                  device: torch.device | str | None = None) -> Params:
+    """Per-layer lists of zeroed ``[B, K, Smax, hd]`` buffers."""
+    shape = (batch, cfg.num_kv_heads, max_seq, cfg.head_dim)
+    return {
+        "k": [torch.zeros(shape, dtype=dtype, device=device)
+              for _ in range(cfg.num_layers)],
+        "v": [torch.zeros(shape, dtype=dtype, device=device)
+              for _ in range(cfg.num_layers)],
+    }

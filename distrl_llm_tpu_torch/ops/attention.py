@@ -1,0 +1,72 @@
+"""Masked GQA attention, plain PyTorch (the JAX package's XLA paths).
+
+Queries keep the JAX layout ``[B, Sq, H, D]``. Grouped query heads contract
+against their kv head directly (``[B, K, G·Sq, D] @ [B, K, D, Sk]``), never
+materializing a repeated K/V. The decode cache is ``[B, K, S, D]`` — PyTorch's
+natural layout for a batched matmul over keys.
+
+Only ``impl="reference"`` is ported. The flash/splash learner kernels are
+ROADMAP: learner with kernel K4.
+"""
+
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30  # large-negative for masked logits; avoids NaNs from true -inf
+
+
+def _gqa_attention(q, k, v, mask, scale):
+    """q [B, Sq, H, D]; k, v [B, K, Sk, D]; mask [B, 1|H, Sq, Sk] (True =
+    attend). Scores in the input dtype, softmax in f32, probabilities cast
+    back to the value dtype for the PV product (the JAX order)."""
+    b, sq, h, d = q.shape
+    kh = k.shape[1]
+    g = h // kh
+    if scale is None:
+        scale = d**-0.5
+    qg = q.reshape(b, sq, kh, g, d).permute(0, 2, 3, 1, 4).reshape(b, kh, g * sq, d)
+    logits = (qg @ k.transpose(-1, -2)).reshape(b, kh, g, sq, -1).float() * scale
+    if mask is not None:
+        m = (mask[:, :, None] if mask.shape[1] == 1
+             else mask.reshape(b, kh, g, *mask.shape[2:]))
+        logits = logits.masked_fill(~m, NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = probs.reshape(b, kh, g * sq, -1) @ v  # [B, K, G·Sq, D]
+    return out.reshape(b, kh, g, sq, d).permute(0, 3, 1, 2, 4).reshape(b, sq, h, d)
+
+
+def attention_reference(q, k, v, mask, scale: float | None = None):
+    """q [B, Sq, H, D], k/v [B, Sk, K, D] (training/prefill layout)."""
+    return _gqa_attention(q, k.transpose(1, 2), v.transpose(1, 2), mask, scale)
+
+
+def causal_padding_mask(attention_mask: torch.Tensor, q_len: int,
+                        q_offset: int = 0) -> torch.Tensor:
+    """[B, 1, Sq, Sk] boolean mask combining causality with key padding.
+    ``q_offset`` is the absolute position of the first query row."""
+    sk = attention_mask.shape[-1]
+    dev = attention_mask.device
+    q_pos = q_offset + torch.arange(q_len, device=dev)[:, None]
+    k_pos = torch.arange(sk, device=dev)[None, :]
+    causal = k_pos <= q_pos
+    pad = attention_mask[:, None, None, :].bool()
+    return causal[None, None] & pad
+
+
+def attention_cached(q, k, v, mask, scale: float | None = None):
+    """Masked GQA attention against a ``[B, K, Sk, D]`` KV cache (the JAX
+    ``attention_cached`` "dot" formulation; "mulred" exists there only for
+    XLA layout reasons inside scan programs)."""
+    return _gqa_attention(q, k, v, mask, scale)
+
+
+def attention(q, k, v, mask, scale: float | None = None,
+              impl: str = "reference"):
+    """Dispatching front door. Only ``"reference"`` is ported."""
+    if impl != "reference":
+        raise NotImplementedError(
+            f"attn_impl={impl!r} is not ported yet (ROADMAP: learner "
+            "with kernel K4, a hand-written flash attention)"
+        )
+    return attention_reference(q, k, v, mask, scale=scale)

@@ -1,0 +1,229 @@
+"""Batched token sampling: temperature, top-p (nucleus), greedy.
+
+Counterpart of the JAX package's ``ops/sampling.py``. The engines' one entry
+point is ``sample_with_logprob``:
+
+* ``top_p_impl="bisect"`` (the default) goes through ``fused_sample``, the
+  hand-written Hopper kernel (``csrc/fused_sample.cu``) that replaces the TPU
+  kernel ``_fused_sample_kernel``: temperature, bisect top-p, Gumbel-max
+  draw and the chosen token's raw-basis logprob in one launch. A CUDA tensor
+  launches the kernel or raises; a CPU tensor runs its plain PyTorch version
+  ``fused_sample_reference``.
+* ``top_p_impl="exact"`` runs the plain multi-pass ``sample`` with the
+  rank-based sort filter, as the JAX package sends it to XLA.
+* ``"bisect_mw"`` is not ported yet (ROADMAP: leftovers of the dense slice).
+
+Randomness is a per-row int32 seed: the draw's uniforms hash
+``(seed, column)`` (murmur3 fmix32), so the kernel, its plain version and the
+JAX kernel in interpret mode draw the same token from the same seeds.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from distrl_llm_tpu_torch.ops.attention import NEG_INF
+
+#: launches of the CUDA kernel (one per ``fused_sample`` call on the GPU);
+#: CPU calls, which run the plain version, do not count
+fused_sample_launches = 0
+
+_U32 = 0xFFFFFFFF
+
+
+def top_p_filter(logits: torch.Tensor, top_p: float) -> torch.Tensor:
+    """Exact nucleus: sort descending, keep tokens until the cumulative
+    probability first reaches ``top_p`` (the crossing token is kept).
+    Membership maps back by RANK (stable sort), so ties at the cutoff don't
+    widen the nucleus. [B, V] → [B, V]."""
+    order = torch.argsort(-logits, dim=-1, stable=True)
+    sorted_logits = torch.gather(logits, -1, order)
+    sorted_probs = torch.softmax(sorted_logits, dim=-1)
+    cum = torch.cumsum(sorted_probs, dim=-1)
+    keep_sorted = (cum - sorted_probs) < top_p
+    ranks = torch.argsort(order, dim=-1)
+    keep = torch.gather(keep_sorted, -1, ranks)
+    return logits.masked_fill(~keep, NEG_INF)
+
+
+def _bisect_threshold(probs: torch.Tensor, top_p: float, iters: int) -> torch.Tensor:
+    """Low end of the bisected keep threshold τ: Σ p·[p ≥ τ] ≥ top_p."""
+    lo = torch.zeros(probs.shape[:-1], dtype=torch.float32, device=probs.device)
+    hi = probs.max(dim=-1).values
+    for _ in range(iters):
+        mid = 0.5 * (lo + hi)
+        mass = torch.where(probs >= mid[..., None], probs, 0.0).sum(dim=-1)
+        ok = mass >= top_p
+        lo, hi = torch.where(ok, mid, lo), torch.where(ok, hi, mid)
+    return lo
+
+
+def top_p_filter_bisect(logits: torch.Tensor, top_p: float,
+                        iters: int = 16) -> torch.Tensor:
+    """Sort-free nucleus: bisect a probability threshold τ so the kept mass
+    just reaches ``top_p``, keep p ≥ τ (interval LOW end: kept mass ≥ top_p)."""
+    probs = torch.softmax(logits.float(), dim=-1)
+    lo = _bisect_threshold(probs, top_p, iters)
+    return torch.where(probs >= lo[..., None], logits, NEG_INF)
+
+
+TOP_P_IMPLS = {"exact": top_p_filter, "bisect": top_p_filter_bisect}
+
+
+def _mul_u32(h: torch.Tensor, c: int) -> torch.Tensor:
+    """(h · c) mod 2³² for int64 ``h`` in [0, 2³²), split in 16-bit halves
+    so no intermediate leaves int64 (CPU uint32 arithmetic is not reliable)."""
+    lo = h * (c & 0xFFFF)
+    hi = ((h * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _U32
+
+
+def gumbel_noise(seeds: torch.Tensor, vocab: int) -> torch.Tensor:
+    """Gumbel(0, 1) noise [B, V] f32 from the counter hash of (seed, column)
+    — bit-for-bit the kernel's: h = col·0x9E3779B9 + seed, murmur3 fmix32,
+    u = (h >> 9)·2⁻²³ + 2⁻²⁴, g = −log(−log u)."""
+    col = torch.arange(vocab, dtype=torch.int64, device=seeds.device)
+    seed = seeds.to(torch.int64)[:, None] & _U32
+    h = (_mul_u32(col, 0x9E3779B9)[None, :] + seed) & _U32
+    h = h ^ (h >> 16)
+    h = _mul_u32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul_u32(h, 0xC2B2AE35)
+    h = h ^ (h >> 16)
+    u = (h >> 9).float() * (2.0**-23) + (2.0**-24)
+    return -torch.log(-torch.log(u))
+
+
+def sample(logits: torch.Tensor, temperature: float, top_p: float,
+           seeds: torch.Tensor, top_p_impl: str = "bisect") -> torch.Tensor:
+    """Token ids [B] int32: greedy argmax at ``temperature == 0``, else a
+    Gumbel-max draw from the tempered, top-p-filtered distribution."""
+    if temperature == 0.0:
+        return logits.argmax(dim=-1).to(torch.int32)
+    scaled = logits.float() / max(temperature, 1e-6)
+    filtered = TOP_P_IMPLS[top_p_impl](scaled, top_p)
+    noisy = filtered + gumbel_noise(seeds, logits.shape[-1])
+    return noisy.argmax(dim=-1).to(torch.int32)
+
+
+def token_logprob(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """RAW-model log-probability of ``tokens`` under ``logits`` ([..., V] ×
+    [...] → [...] f32) — the rollout-time behavior logprob (unscaled
+    log_softmax, the RLHF/vLLM convention)."""
+    lg = logits.float()
+    logz = torch.logsumexp(lg, dim=-1)
+    picked = torch.gather(lg, -1, tokens[..., None].long())[..., 0]
+    return picked - logz
+
+
+def fused_sample_scores(logits: torch.Tensor, temperature: float, top_p: float,
+                        seeds: torch.Tensor, iters: int = 16) -> torch.Tensor:
+    """The [B, V] scores whose first argmax is the fused sampler's token: the
+    raw logits at ``temperature == 0``, else the bisect-filtered tempered
+    logits plus the (seed, column) Gumbel noise — the kernel's arithmetic in
+    its order (division by t, exp(scaled − max)/Σ, low-end threshold)."""
+    raw = logits.float()
+    if temperature == 0.0:
+        return raw
+    scaled = raw / max(temperature, 1e-6)
+    m = scaled.max(dim=-1, keepdim=True).values
+    e = torch.exp(scaled - m)
+    probs = e / e.sum(dim=-1, keepdim=True)
+    lo = _bisect_threshold(probs, top_p, iters)
+    filtered = torch.where(probs >= lo[:, None], scaled, NEG_INF)
+    return filtered + gumbel_noise(seeds, raw.shape[-1])
+
+
+def fused_sample_reference(logits: torch.Tensor, temperature: float,
+                           top_p: float, seeds: torch.Tensor,
+                           iters: int = 16) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the fused kernel: (tokens [B] int32,
+    raw-basis logprobs [B] f32), on whatever device the inputs are."""
+    scores = fused_sample_scores(logits, temperature, top_p, seeds, iters)
+    tok = scores.argmax(dim=-1)
+    return tok.to(torch.int32), token_logprob(logits, tok)
+
+
+def _check_fused_args(logits: torch.Tensor, seeds: torch.Tensor) -> None:
+    if logits.dim() != 2 or logits.shape[-1] < 1:
+        raise ValueError(f"logits must be [B, V] with V >= 1, got {tuple(logits.shape)}")
+    if logits.dtype != torch.float32:
+        raise TypeError(f"logits must be float32, got {logits.dtype}")
+    if seeds.dtype != torch.int32 or tuple(seeds.shape) != (logits.shape[0],):
+        raise ValueError(
+            f"seeds must be int32 [{logits.shape[0]}], got {seeds.dtype} "
+            f"{tuple(seeds.shape)}")
+    if seeds.device != logits.device:
+        raise ValueError(f"seeds on {seeds.device}, logits on {logits.device}")
+    if not logits.is_contiguous() or not seeds.is_contiguous():
+        raise ValueError("logits and seeds must be contiguous")
+
+
+def _kernel_lib() -> ctypes.CDLL:
+    """The built kernel library with its C signatures declared (builds at
+    first use; see ops/_build.py)."""
+    from distrl_llm_tpu_torch.ops import _build
+
+    lib = _build.load("fused_sample").lib
+    if lib.fused_sample_launch.argtypes is None:
+        lib.fused_sample_launch.argtypes = [
+            ctypes.c_void_p, ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        lib.fused_sample_launch.restype = ctypes.c_int
+        lib.fused_sample_error_string.argtypes = [ctypes.c_int]
+        lib.fused_sample_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def fused_sample(logits: torch.Tensor, temperature: float, top_p: float,
+                 seeds: torch.Tensor, *,
+                 iters: int = 16) -> tuple[torch.Tensor, torch.Tensor]:
+    """(tokens [B] int32, raw-basis logprobs [B] f32) for f32 logits [B, V]
+    and int32 seeds [B]. On a CUDA tensor: one launch of the Hopper kernel
+    on the current stream, or an exception — never a fallback. On a CPU
+    tensor: the plain version."""
+    global fused_sample_launches
+    _check_fused_args(logits, seeds)
+    if logits.device.type == "cpu":
+        return fused_sample_reference(logits, temperature, top_p, seeds, iters)
+    if logits.device.type != "cuda":
+        raise ValueError(f"fused_sample runs on cuda or cpu, got {logits.device}")
+    lib = _kernel_lib()
+    b, v = logits.shape
+    tok = torch.empty((b,), dtype=torch.int32, device=logits.device)
+    logp = torch.empty((b,), dtype=torch.float32, device=logits.device)
+    scratch = torch.empty_like(logits)  # the kernel's probability rows
+    stream = torch.cuda.current_stream(logits.device).cuda_stream
+    err = lib.fused_sample_launch(
+        logits.data_ptr(), float(temperature), float(top_p), seeds.data_ptr(),
+        tok.data_ptr(), logp.data_ptr(), scratch.data_ptr(), b, v, iters,
+        logits.device.index or 0, stream)
+    if err != 0:
+        msg = lib.fused_sample_error_string(err).decode()
+        raise RuntimeError(f"fused_sample kernel launch failed: {msg} ({err})")
+    fused_sample_launches += 1
+    return tok, logp
+
+
+def sample_with_logprob(
+    logits: torch.Tensor, temperature: float, top_p: float,
+    seeds: torch.Tensor, *, top_p_impl: str = "bisect",
+    capture_logprob: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The engines' one sampling entry point: (tokens [B] int32, behavior
+    logprobs [B] or None)."""
+    if top_p_impl == "bisect":
+        tok, logp = fused_sample(logits.float().contiguous(), temperature,
+                                 top_p, seeds)
+        return tok, (logp if capture_logprob else None)
+    if top_p_impl == "exact":
+        tok = sample(logits, temperature, top_p, seeds, top_p_impl="exact")
+        return tok, (token_logprob(logits, tok) if capture_logprob else None)
+    if top_p_impl == "bisect_mw":
+        raise NotImplementedError(
+            "top_p_impl='bisect_mw' is not ported yet (ROADMAP: leftovers "
+            "of the dense slice)")
+    raise ValueError(f"unknown top_p_impl {top_p_impl!r}")
