@@ -13,12 +13,19 @@ printing its own lines:
 3. kernels: each kernel's wrapper against its plain PyTorch version on the
    card, at the main path's shapes, with its time, the plain version's time
    and the card's least time for the same work (the bound);
-4. rollout: the port's dense rollout engine at Qwen2.5-7B width (random bf16
+4. rollout: the port's rollout engines at Qwen2.5-7B width (random bf16
    weights from a seed, a rank-32 LoRA with non-zero B), 4 math prompts x 16
-   candidates x 128 new tokens: one sampled round scored by the reward
-   function, then two greedy rounds that must agree. The kernels' launch
-   counts are set to 0 just before these rounds and read just after; every
-   kernel of the path must have been launched.
+   candidates x 128 new tokens: the dense engine, then the paged engine
+   (wave scheduler, 128-token pages) with bf16 and with int8 KV pages. Each
+   runs one sampled round scored by the reward function and two greedy
+   rounds that must agree. The kernels' launch counts are set to 0 just
+   before each engine's rounds and read just after; every kernel of that
+   path must have been launched, K1 once per decode step and K2 once per
+   layer per decode forward. Then the paged engine's logits are held to the
+   dense engine's, teacher-forced over the prefill and a few decode
+   forwards (K2 at every layer): in f32 with f32 pages, in bf16, and with
+   int8 pages; and the greedy tokens' agreement with the dense engine is
+   printed beside its yardsticks (dense bf16 vs f32, paged vs dense in f32).
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Any failed check raises and the script
@@ -28,6 +35,7 @@ exits 1 without that last line.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import importlib
 import json
@@ -91,7 +99,36 @@ KERNELS = (
      "source": "distrl_llm_tpu_torch/csrc/fused_sample.cu",
      "replaces": "distrl_llm_tpu/ops/sampling.py:260",
      "module": "distrl_llm_tpu_torch.ops.sampling", "counter": "fused_sample_launches"},
+    {"name": "paged_attention", "route": "cuda",
+     "source": "distrl_llm_tpu_torch/csrc/paged_attention.cu",
+     "replaces": "distrl_llm_tpu/ops/paged_native.py:695",
+     "module": "distrl_llm_tpu_torch.ops.paged_native",
+     "counter": "paged_attention_launches"},
 )
+
+# K2 at the main path's full configuration: Qwen2.5-7B heads (28 / 4, hd
+# 128), 128-token pages, 4 prompts x 16 candidates, and the page geometry of
+# max_prompt_tokens 350 / max_new_tokens 1200 (the JAX package's
+# config.py:126-127): 3 prompt pages + 1 + 10 private pages per row
+PA_HEADS, PA_KV_HEADS, PA_HEAD_DIM, PA_PAGE = 28, 4, 128, 128
+PA_PROMPTS, PA_N = 4, 16
+PA_PROMPT_PAGES, PA_PRIVATE_PAGES = 3, 1 + 10
+PA_TIMED_LENGTH = 1550
+BF16_PEAK_OPS_PER_S = 989e12
+# f32 pages with f32 q: sums in another order, |dout| <= F32_ATOL. bf16 out:
+# each version rounds its f32 result once, so the two differ by at most one
+# bf16 ulp of the value plus F32_ATOL
+F32_ATOL = 1e-5
+# paged vs dense engine logits, teacher-forced (prefill and decode). The
+# engines put RoPE at other absolute positions (packed vs left-padded) and
+# attend over other widths: equal math, other rounding. In f32 (logits of std
+# ~1.2) the sums differ in order only: LOGIT_F32_ATOL. In bf16 the two may be
+# as far apart as bf16 rounding moves either one: twice the dense engine's
+# own bf16-vs-f32 distance on the same input, measured in the same run. int8
+# pages likewise: twice their own distance from dense, measured in the same
+# run with K2's plain version reading the same pages
+LOGIT_F32_ATOL = 1e-3
+LOGIT_STEPS = 4  # teacher-forced decode forwards compared
 
 
 def reset_counts() -> None:
@@ -229,6 +266,171 @@ def time_fused_sample(seed: int) -> dict:
             "bound_by": bound_by, "library_ms": None}
 
 
+def paged_attention_bound_ms(lengths, page_indices, *, q_dtype, kv_dtype,
+                             page_size: int = PA_PAGE, heads: int = PA_HEADS,
+                             kv_heads: int = PA_KV_HEADS,
+                             head_dim: int = PA_HEAD_DIM) -> tuple[float, str]:
+    """Least time on the card for one K2 call over rows of these lengths and
+    this page table: the bytes the function must move over HBM bandwidth,
+    against the QK and PV products (2 · 2 · H · length · hd operations per
+    row) over the peak of their type: the bf16 tensor cores for bf16 q (int8
+    pages dequantize to it), f32 outside the tensor cores for f32 q. The
+    bytes are every K/V position some row attends to, read once: a page that
+    several rows reach through the table (the n candidates of a prompt share
+    its full prompt pages) counts once, up to the furthest position any of
+    them reads, with its f32 scales for int8 pages; then q, the output, the
+    lengths and the table entries the rows use."""
+    import torch
+
+    lens = [int(x) for x in lengths]
+    reach: dict[int, int] = {}  # page -> positions of it that some row reads
+    entries = 0
+    for row, n in zip(page_indices.tolist(), lens):
+        for j in range(-(-n // page_size)):
+            reach[row[j]] = max(reach.get(row[j], 0), min(page_size, n - j * page_size))
+            entries += 1
+    per_position = head_dim * kv_dtype.itemsize + (4 if kv_dtype == torch.int8 else 0)
+    rows = len(lens)
+    nbytes = (2 * kv_heads * sum(reach.values()) * per_position
+              + 2 * rows * heads * head_dim * q_dtype.itemsize + rows * 4 + entries * 4)
+    ops = 4 * heads * sum(lens) * head_dim
+    peak = F32_OPS_PER_S if q_dtype == torch.float32 else BF16_PEAK_OPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def paged_case(device, seed: int, *, q_dtype, kv: str, prompt_lens, lengths):
+    """K2's inputs at the main path's geometry: random pages in a pool of
+    ``PA_PROMPTS · 3 + 64 · 11`` pages, bf16/f32 or int8 (quantized from
+    bf16), q pre-scaled by hd^-0.5 in its dtype, and the page table the
+    paged engine's fan-out builds for prompts of ``prompt_lens`` real tokens
+    (shared full prompt pages, private tails). Returns the wrapper's
+    positional and keyword arguments."""
+    import torch
+
+    from distrl_llm_tpu_torch.engine.paged_engine import _page_table_rows
+    from distrl_llm_tpu_torch.ops.paged import quantize_pages
+
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rows = PA_PROMPTS * PA_N
+    total = PA_PROMPTS * PA_PROMPT_PAGES + rows * PA_PRIVATE_PAGES
+    shape = (PA_KV_HEADS, total, PA_PAGE, PA_HEAD_DIM)
+    full = torch.tensor(prompt_lens, device=dev) // PA_PAGE
+    table = _page_table_rows(
+        torch.arange(PA_PROMPTS, device=dev).repeat_interleave(PA_N),
+        full.repeat_interleave(PA_N),
+        PA_PROMPTS * PA_PROMPT_PAGES + torch.arange(rows, device=dev) * PA_PRIVATE_PAGES,
+        prompt_pages=PA_PROMPT_PAGES, private_pages=PA_PRIVATE_PAGES)
+    pages = [torch.randn(shape, generator=gen, device=dev) for _ in range(2)]
+    kw = {}
+    if kv == "int8":
+        qk, qv = (quantize_pages(x.bfloat16()) for x in pages)
+        pages = [qk.weight, qv.weight]
+        kw = {"k_scales": qk.scales, "v_scales": qv.scales}
+    else:
+        pages = [x.to(getattr(torch, kv)) for x in pages]
+    q = (torch.randn((rows, PA_HEADS, PA_HEAD_DIM), generator=gen, device=dev)
+         .to(q_dtype) * PA_HEAD_DIM**-0.5)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    return (q, pages[0], pages[1], lens, table), kw
+
+
+# (q dtype, page format) pairs K2 is held to: the engine's bf16 and int8 KV
+# under bf16 activations, and f32 throughout
+PA_CASES = (("bfloat16", "bfloat16"), ("bfloat16", "int8"), ("float32", "float32"))
+
+
+def compare_paged_attention(device, seed: int) -> float:
+    """K2 against its plain version on ``device`` at the main path's
+    geometry, for each of ``PA_CASES`` and pages_per_block 1, 3 and 8: 64
+    rows whose lengths cover 0, 1, 127, 128, 129, a page-aligned 256, 1550
+    (clipped to the row's table) and random lengths. Rows of length 0 must
+    be exactly 0, and garbage table entries past every row's length must
+    change nothing. Returns the largest |dout| over all cases."""
+    import torch
+
+    from distrl_llm_tpu_torch.ops.paged_native import (
+        paged_attention_native, paged_attention_native_reference,
+    )
+
+    dev = torch.device(device)
+    prompt_lens = (350, 256, 128, 60)  # two full pages, two aligned, one, none
+    rng = torch.Generator().manual_seed(seed)
+    fixed = (0, 1, 127, 128, 129, 256, 1550)
+    lengths = []
+    for r in range(PA_PROMPTS * PA_N):
+        cap = (prompt_lens[r // PA_N] // PA_PAGE + PA_PRIVATE_PAGES) * PA_PAGE
+        want = fixed[r % 8] if r % 8 < len(fixed) else int(torch.randint(2, 1700, (1,), generator=rng))
+        lengths.append(min(want, cap))
+    worst = 0.0
+    for qn, kv in PA_CASES:
+        q_dtype = getattr(torch, qn)
+        args, kw = paged_case(dev, seed, q_dtype=q_dtype, kv=kv,
+                              prompt_lens=prompt_lens, lengths=lengths)
+        want = paged_attention_native_reference(*args, **kw).float()
+        for ppb in (1, 3, 8):
+            got = paged_attention_native(*args, **kw, pages_per_block=ppb)
+            gf = got.float()
+            err = (gf - want).abs()
+            if q_dtype == torch.float32:
+                tol = torch.full_like(err, F32_ATOL)
+            else:  # one bf16 ulp of the value, plus the f32 difference
+                mag = torch.maximum(gf.abs(), want.abs()).clamp_min(2.0**-126)
+                tol = torch.exp2(torch.floor(torch.log2(mag)) - 7) + F32_ATOL
+            bad = err > tol
+            check(bool(torch.isfinite(gf).all()), f"K2 {qn}/{kv} ppb={ppb}: non-finite output")
+            check(not bool(bad.any()),
+                  f"K2 {qn}/{kv} ppb={ppb}: |dout| {float(err.max()):.3g} above the "
+                  f"tolerance on {int(bad.sum())} elements")
+            zero_rows = args[3] == 0
+            check(bool((got[zero_rows] == 0).all()), f"K2 {qn}/{kv} ppb={ppb}: a "
+                  "length-0 row is not exactly 0")
+            worst = max(worst, float(err.max()))
+            print(f"kernel paged_attention q {qn}, pages {kv}, pages_per_block {ppb}: "
+                  f"max |dout| {float(err.max()):.3g} over {got.numel()} outputs")
+        # the table past each row's length is never read: poison it
+        q, kp, vp, lens, table = args
+        live = -(-lens.long() // PA_PAGE)
+        cols = torch.arange(table.shape[1], device=dev)[None, :]
+        poisoned = torch.where(cols >= live[:, None], 10**6, table).to(torch.int32)
+        base = paged_attention_native(q, kp, vp, lens, table, **kw)
+        again = paged_attention_native(q, kp, vp, lens, poisoned.contiguous(), **kw)
+        check(torch.equal(base, again), f"K2 {qn}/{kv}: garbage table entries past "
+              "the length changed the output")
+    print(f"kernel paged_attention: all cases within tolerance (f32 {F32_ATOL}; bf16 "
+          f"one ulp + {F32_ATOL}); length-0 rows exactly 0; max |dout| {worst:.3g}")
+    return worst
+
+
+def time_paged_attention(seed: int) -> dict:
+    """K2's and the plain version's times at B = 64 with every row at length
+    1550 (prompts of 350 tokens), bf16 and int8 pages under bf16 q, beside
+    the card's bound. The K/V these rows read (172 MB in bf16, each shared
+    prompt page once) exceeds the 50 MB L2, as a decode step's layer finds
+    it."""
+    import torch
+
+    from distrl_llm_tpu_torch.ops.paged_native import (
+        paged_attention_native, paged_attention_native_reference,
+    )
+
+    out = {}
+    lengths = [PA_TIMED_LENGTH] * (PA_PROMPTS * PA_N)
+    for kv in ("bfloat16", "int8"):
+        args, kw = paged_case("cuda", seed, q_dtype=torch.bfloat16, kv=kv,
+                              prompt_lens=(350,) * PA_PROMPTS, lengths=lengths)
+        ms = _time_ms(lambda: paged_attention_native(*args, **kw))
+        plain_ms = _time_ms(lambda: paged_attention_native_reference(*args, **kw), calls=20)
+        bound_ms, bound_by = paged_attention_bound_ms(
+            lengths, args[4].cpu(), q_dtype=torch.bfloat16, kv_dtype=args[1].dtype)
+        # no single PyTorch call takes a page table: library_ms is null
+        out[kv] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                   "bound_by": bound_by, "library_ms": None}
+    return out
+
+
 def _check_round(res, *, rows: int, n: int, steps: int, vocab: int,
                  eos: int, pad: int, what: str) -> None:
     import numpy as np
@@ -279,25 +481,13 @@ def profile_decode(run_round, steps=(8, 40), top: int = 12) -> dict:
             "kernels_per_step": len(per_step)}
 
 
-def rollout(cfg, device, *, seed: int, max_prompt_tokens: int = 350,
-            max_new_tokens: int = 128, n: int = 16, rank: int = 32,
-            alpha: float = 16.0, card: str = "", profile: bool = False) -> dict:
-    """The port's main path: random weights and a LoRA from ``seed``, the
-    math prompts through the tokenizer, a short warm-up round, then (with
-    the kernels' launch counts reset) one sampled round scored by the reward
-    function and two greedy rounds that must agree. Returns the counts, the
-    decode steps dispatched and the timings; with ``profile``, also the
-    device time per decode step by kernel (after the counts are read)."""
-    import numpy as np
+def make_weights(cfg, device, *, seed: int, rank: int = 32):
+    """Random weights (bf16 on the GPU, f32 on the CPU) and a rank-``rank``
+    LoRA with non-zero B, from ``seed``."""
     import torch
 
-    from distrl_llm_tpu_torch.config import SamplingConfig
-    from distrl_llm_tpu_torch.data import process_dataset
-    from distrl_llm_tpu_torch.engine.engine import GenerationEngine
-    from distrl_llm_tpu_torch.models.lora import init_lora_params, lora_scale
+    from distrl_llm_tpu_torch.models.lora import init_lora_params
     from distrl_llm_tpu_torch.models.transformer import init_params
-    from distrl_llm_tpu_torch.rewards import RewardComputer
-    from distrl_llm_tpu_torch.tokenizer import CharTokenizer, decode_batch, encode_fixed
 
     device = torch.device(device)
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
@@ -313,28 +503,85 @@ def rollout(cfg, device, *, seed: int, max_prompt_tokens: int = 350,
           f"F={cfg.intermediate_size} H={cfg.num_heads}/K={cfg.num_kv_heads} "
           f"hd={cfg.head_dim} V={cfg.vocab_size}, {dtype} weights and a rank-{rank} "
           f"LoRA made in {time.perf_counter() - t0:.1f} s")
+    return model, lora
+
+
+def prompt_batch(max_prompt_tokens: int):
+    """The math prompts through the tokenizer, left-padded: (tokenizer, ids,
+    mask, solutions)."""
+    from distrl_llm_tpu_torch.data import process_dataset
+    from distrl_llm_tpu_torch.tokenizer import CharTokenizer, encode_fixed
 
     tok = CharTokenizer()
     prompts = process_dataset(tok, {"problem": [p for p, _ in PROBLEMS]})["problem"]
     ids, mask = encode_fixed(tok, prompts, max_prompt_tokens, side="left")
-    solutions = [s for _, s in PROBLEMS]
-    engine = GenerationEngine(
-        cfg, max_prompt_tokens=max_prompt_tokens, max_new_tokens=max_new_tokens,
-        eos_token_ids=[tok.eos_token_id], pad_token_id=tok.pad_token_id,
-        lora_scale=lora_scale(rank, alpha), cache_dtype=dtype,
-        capture_logprobs=True, device=device)
+    return tok, ids, mask, [s for _, s in PROBLEMS]
+
+
+def make_engine(cfg, device, *, engine: str, kv_quant: str, cache_dtype,
+                max_prompt_tokens: int, max_new_tokens: int, page_size: int,
+                scale: float):
+    """The engine a rollout drives: ("dense" or "paged" with ``kv_quant``)
+    and its label, with the tokenizer's EOS and pad ids."""
+    from distrl_llm_tpu_torch.engine import GenerationEngine, PagedGenerationEngine
+    from distrl_llm_tpu_torch.tokenizer import CharTokenizer
+
+    tok = CharTokenizer()
+    common = dict(max_prompt_tokens=max_prompt_tokens, max_new_tokens=max_new_tokens,
+                  eos_token_ids=[tok.eos_token_id], pad_token_id=tok.pad_token_id,
+                  lora_scale=scale, cache_dtype=cache_dtype, capture_logprobs=True,
+                  device=device)
+    if engine == "dense":
+        return GenerationEngine(cfg, **common), "dense"
+    eng = PagedGenerationEngine(cfg, page_size=page_size, kv_quant=kv_quant, **common)
+    return eng, f"paged {'int8' if kv_quant == 'int8' else str(cache_dtype).split('.')[-1]} KV"
+
+
+def rollout(cfg, device, *, seed: int, max_prompt_tokens: int = 350,
+            max_new_tokens: int = 128, n: int = 16, rank: int = 32,
+            alpha: float = 16.0, card: str = "", profile: bool = False,
+            engine: str = "dense", kv_quant: str = "none", page_size: int = 128,
+            weights=None) -> dict:
+    """The port's main path through one engine ("dense", or "paged" with
+    ``kv_quant`` "none"/"int8" pages): ``weights`` (or new ones from
+    ``seed``), the math prompts through the tokenizer, a short warm-up round,
+    then (with the kernels' launch counts reset) one sampled round scored by
+    the reward function and two greedy rounds that must agree. Returns the
+    counts, the decode steps dispatched, the decode forwards, the timings and
+    the first greedy round's tokens; with ``profile``, also the device time
+    per decode step by kernel (after the counts are read)."""
+    import numpy as np
+    import torch
+
+    from distrl_llm_tpu_torch.config import SamplingConfig
+    from distrl_llm_tpu_torch.models.lora import lora_scale
+    from distrl_llm_tpu_torch.rewards import RewardComputer
+    from distrl_llm_tpu_torch.tokenizer import decode_batch
+
+    device = torch.device(device)
+    dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+    model, lora = weights or make_weights(cfg, device, seed=seed, rank=rank)
+    tok, ids, mask, solutions = prompt_batch(max_prompt_tokens)
+    eng, label = make_engine(cfg, device, engine=engine, kv_quant=kv_quant,
+                             cache_dtype=dtype, max_prompt_tokens=max_prompt_tokens,
+                             max_new_tokens=max_new_tokens, page_size=page_size,
+                             scale=lora_scale(rank, alpha))
     train = SamplingConfig(max_tokens=max_new_tokens, temperature=1.2, top_p=0.95, n=n)
     greedy = train.replace(temperature=0.0)
-    engine.generate(model, lora, ids, mask, train.replace(max_tokens=4), seed)  # warm-up
+    eng.generate(model, lora, ids, mask, train.replace(max_tokens=4), seed)  # warm-up
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    forwards = [0]
 
     def run(sampling, round_seed, what):
         t = time.perf_counter()
-        res = engine.generate(model, lora, ids, mask, sampling, round_seed)
+        res = eng.generate(model, lora, ids, mask, sampling, round_seed)
         wall = time.perf_counter() - t
-        st = engine.last_round_stats
+        st = eng.last_round_stats
+        forwards[0] += st.get("decode_forwards", 0)
         _check_round(res, rows=len(PROBLEMS), n=n, steps=max_new_tokens,
                      vocab=cfg.vocab_size, eos=tok.eos_token_id,
-                     pad=tok.pad_token_id, what=what)
+                     pad=tok.pad_token_id, what=f"{label} {what}")
         timing = {
             "prefill_tok_s": st["prefill_tokens"] / st["prefill_s"],
             "decode_tok_s": st["gen_tokens"] / st["decode_s"],
@@ -342,7 +589,7 @@ def rollout(cfg, device, *, seed: int, max_prompt_tokens: int = 350,
             "steps": res.steps_dispatched, "gen_tokens": st["gen_tokens"],
             "wall_s": wall,
         }
-        print(f"rollout {what}: {res.steps_dispatched} decode steps, "
+        print(f"rollout {label} {what}: {res.steps_dispatched} decode steps, "
               f"{st['gen_tokens']} tokens; prefill {timing['prefill_tok_s']:.1f} tok/s "
               f"({st['prefill_tokens']} prompt tokens, {st['prefill_s'] * 1e3:.1f} ms); "
               f"decode {timing['decode_tok_s']:.1f} tok/s, "
@@ -356,12 +603,13 @@ def rollout(cfg, device, *, seed: int, max_prompt_tokens: int = 350,
     counts = read_counts()
 
     check(np.array_equal(g1.tokens, g2.tokens) and np.array_equal(g1.lengths, g2.lengths),
-          "two greedy rounds differ")
+          f"{label}: two greedy rounds differ")
     dlogp = float(np.abs(g1.logprobs - g2.logprobs).max())
-    check(not np.array_equal(sampled.tokens, g1.tokens), "the sampled round equals greedy")
+    check(not np.array_equal(sampled.tokens, g1.tokens), f"{label}: the sampled round equals greedy")
     steps = sampled.steps_dispatched + g1.steps_dispatched + g2.steps_dispatched
-    print(f"rollout: two greedy rounds identical (max |dlogp| {dlogp:.3g}); "
-          f"{steps} decode steps dispatched in all; launches {counts}")
+    print(f"rollout {label}: two greedy rounds identical (max |dlogp| {dlogp:.3g}); "
+          f"{steps} decode steps and {forwards[0]} decode forwards dispatched in all; "
+          f"launches {counts}")
 
     flat = decode_batch(tok, sampled.tokens.reshape(-1, max_new_tokens),
                         sampled.lengths.reshape(-1))
@@ -370,24 +618,197 @@ def rollout(cfg, device, *, seed: int, max_prompt_tokens: int = 350,
     check(all(r.shape == (n, 2) and np.isfinite(r).all() for r in rewards),
           "reward arrays of the wrong shape or non-finite")
     mean = np.concatenate(rewards).mean(axis=0)
-    print(f"rollout: sampled round scored, mean format reward {mean[0]:.4f}, "
+    print(f"rollout {label}: sampled round scored, mean format reward {mean[0]:.4f}, "
           f"mean accuracy {mean[1]:.4f}")
     peak = (torch.cuda.max_memory_allocated(device) / 2**30
             if device.type == "cuda" else float("nan"))
-    out = {"counts": counts, "steps": steps, "sampled": t_sampled,
-           "greedy": [t_g1, t_g2], "peak_gib": peak}
+    out = {"label": label, "counts": counts, "steps": steps, "forwards": forwards[0],
+           "sampled": t_sampled, "greedy": [t_g1, t_g2], "peak_gib": peak,
+           "greedy_tokens": g1.tokens, "greedy_lengths": g1.lengths}
     if profile:
-        prof = profile_decode(lambda k: engine.generate(
+        prof = profile_decode(lambda k: eng.generate(
             model, lora, ids, mask, greedy.replace(max_tokens=k), seed).steps_dispatched)
         wall = t_g2["ms_per_step"]
-        print(f"profile: {prof['device_ms_per_step']:.3f} ms of device time per decode "
-              f"step in {prof['kernels_per_step']} kernel names, against "
+        print(f"profile {label}: {prof['device_ms_per_step']:.3f} ms of device time per "
+              f"decode step in {prof['kernels_per_step']} kernel names, against "
               f"{wall:.3f} ms/step unprofiled: device idle "
               f"{100 * (1 - prof['device_ms_per_step'] / wall):.1f}%; {card}")
         for name, ms in prof["top"]:
-            print(f"profile: {ms:8.4f} ms/step  {name[:110]}")
+            print(f"profile {label}: {ms:8.4f} ms/step  {name[:110]}")
         out["profile"] = prof
     return out
+
+
+def widen(weights):
+    """The same weight values in f32 (on the weights' device)."""
+    import torch
+
+    from distrl_llm_tpu_torch.models.transformer import Decoder
+
+    model, lora = weights
+    wide = Decoder(model.cfg, dtype=torch.float32, device=model.embed.device)
+    wide.load_state_dict(model.state_dict())
+    return wide, lora
+
+
+@contextlib.contextmanager
+def k2_plain_version():
+    """Within the block the paged engine's decode attention runs K2's plain
+    version on the card instead of launching K2 (``paged_attention_op``
+    looks the wrapper up at every call): a yardstick, never the main path."""
+    from distrl_llm_tpu_torch.ops import paged_native
+
+    kernel = paged_native.paged_attention_native
+    paged_native.paged_attention_native = paged_native.paged_attention_native_reference
+    try:
+        yield
+    finally:
+        paged_native.paged_attention_native = kernel
+
+
+def engine_logits(weights, ids, mask, tokens, *, engine: str, kv_quant: str = "none",
+                  max_prompt_tokens: int, max_new_tokens: int, page_size: int,
+                  scale: float) -> list:
+    """Teacher-forced logits of one engine, in the weights' dtype (its KV
+    too): the prefill's last position [B, V], then one [B·n, V] per column
+    of ``tokens`` [B·n, steps], each fed at every row's next position. The
+    paged engine runs its own prefill, fan-out and decode forward (packed
+    positions, the fan-out page table, K2 per layer on the card); the dense
+    one its prefill and candidate expansion."""
+    import torch
+
+    from distrl_llm_tpu_torch.engine.engine import _decode_init, _prefill
+    from distrl_llm_tpu_torch.engine.paged_engine import _paged_fanout, _paged_forward, _paged_prefill
+
+    model, lora = weights
+    cfg, dtype = model.cfg, model.embed.dtype
+    b, p = ids.shape
+    n = tokens.shape[0] // b
+    alive = mask.sum(dim=-1) > 0
+    eng, _ = make_engine(cfg, ids.device, engine=engine, kv_quant=kv_quant,
+                         cache_dtype=dtype, max_prompt_tokens=max_prompt_tokens,
+                         max_new_tokens=max_new_tokens, page_size=page_size, scale=scale)
+    out = []
+    with torch.inference_mode():
+        if engine == "dense":
+            cache, key_mask, last = _prefill(
+                model, lora, ids, mask, max_total=max_prompt_tokens + max_new_tokens,
+                lora_scale=scale, cache_dtype=dtype, attn_impl="reference")
+            st = _decode_init(cache, key_mask, last, alive, n=n, max_steps=max_new_tokens,
+                              pad_id=eng.pad_id)
+            out.append(last)
+            for i in range(tokens.shape[1]):
+                st.key_mask[:, p + i] = 1
+                logits, _ = model(tokens[:, i:i + 1], attention_mask=st.key_mask,
+                                  lora=lora, lora_scale=scale, kv_cache=st.cache,
+                                  cache_offset=p + i)
+                out.append(logits[:, 0])
+            return out
+        k, v, last, real_len = _paged_prefill(
+            model, lora, ids, mask, prompt_pages=eng.prompt_pages, page_size=page_size,
+            lora_scale=scale, cache_dtype=dtype, attn_impl="reference", kv_quant=kv_quant,
+            total_pages=b * eng.prompt_pages + b * n * eng.private_pages)
+        st, table = _paged_fanout(
+            k, v, last, real_len, alive, n=n, b=b, prompt_pages=eng.prompt_pages,
+            private_pages=eng.private_pages, page_size=page_size,
+            max_steps=max_new_tokens, pad_id=eng.pad_id)
+        out.append(last)
+        for i in range(tokens.shape[1]):
+            _paged_forward(model, lora, st, tokens[:, i], table, page_size=page_size,
+                           lora_scale=scale)
+            st.seq_lengths += 1
+            out.append(st.logits)
+    return out
+
+
+def compare_engine_logits(weights, wide, *, seed: int, steps: int = LOGIT_STEPS,
+                          n: int = PA_N,
+                          max_prompt_tokens: int = 350, max_new_tokens: int = 128,
+                          page_size: int = 128, rank: int = 32,
+                          alpha: float = 16.0) -> dict:
+    """The paged engine's logits against the dense engine's on the math
+    prompts, teacher-forced with the same random tokens for ``n`` candidates
+    per prompt (so decode reads shared full prompt pages through the fan-out
+    table): the prefill's last position, then ``steps`` decode forwards,
+    each of which runs K2 at every layer on the card. ``weights`` are the
+    rollout's (bf16 on the card), ``wide`` the same values in f32. Returns
+    the largest |dlogit| over all positions for:
+
+    * ``low``: paged vs dense, both in the weights' dtype (bf16 pages);
+    * ``noise``: dense in the weights' dtype vs dense in f32, how far
+      rounding alone moves these logits;
+    * ``f32``: paged with f32 pages vs dense, f32;
+    * ``int8``: paged with int8 pages vs dense, f32 activations;
+    * ``int8_plain``: the same with K2's plain version in K2's place, the
+      int8 pages' own distance from dense;
+    * ``int8_k2``: int8 pages, K2 against its plain version;
+
+    with the dense f32 logits' std and K2's launches in the plain-version
+    run (which must be 0)."""
+    import numpy as np
+    import torch
+
+    from distrl_llm_tpu_torch.models.lora import lora_scale
+    from distrl_llm_tpu_torch.ops import paged_native
+
+    model = weights[0]
+    dev = model.embed.device
+    _, ids, mask, _ = prompt_batch(max_prompt_tokens)
+    ids = torch.as_tensor(np.asarray(ids), dtype=torch.int32, device=dev)
+    mask = torch.as_tensor(np.asarray(mask), dtype=torch.int32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tokens = torch.randint(0, model.cfg.vocab_size, (ids.shape[0] * n, steps),
+                           generator=gen, device=dev, dtype=torch.int32)
+    kw = dict(max_prompt_tokens=max_prompt_tokens, max_new_tokens=max_new_tokens,
+              page_size=page_size, scale=lora_scale(rank, alpha))
+
+    def dist(a, b):
+        return max(float((x - y).abs().max()) for x, y in zip(a, b))
+
+    dense = engine_logits(weights, ids, mask, tokens, engine="dense", **kw)
+    dense32 = engine_logits(wide, ids, mask, tokens, engine="dense", **kw)
+    out = {"low": dist(engine_logits(weights, ids, mask, tokens, engine="paged", **kw), dense),
+           "noise": dist(dense, dense32),
+           "f32": dist(engine_logits(wide, ids, mask, tokens, engine="paged", **kw), dense32),
+           "std": float(torch.cat(dense32).std())}
+    del dense
+    int8 = engine_logits(wide, ids, mask, tokens, engine="paged", kv_quant="int8", **kw)
+    before = paged_native.paged_attention_launches
+    with k2_plain_version():
+        plain = engine_logits(wide, ids, mask, tokens, engine="paged", kv_quant="int8", **kw)
+    out.update(int8=dist(int8, dense32), int8_plain=dist(plain, dense32),
+               int8_k2=dist(int8, plain),
+               plain_launches=paged_native.paged_attention_launches - before)
+    return out
+
+
+def greedy_agreement(cfg, device, wide, reference_tokens, *, seed: int,
+                     max_prompt_tokens: int = 350, max_new_tokens: int = 128,
+                     n: int = PA_N, page_size: int = 128, rank: int = 32,
+                     alpha: float = 16.0) -> dict:
+    """Yardsticks for the share of greedy tokens two engines have in common:
+    one greedy round of the dense engine and one of the paged engine (f32
+    pages) with the f32 weights. Returns the share of positions equal
+    between dense f32 and ``reference_tokens`` (the dense engine's round in
+    the weights' dtype) and between paged f32 and dense f32."""
+    import numpy as np
+
+    from distrl_llm_tpu_torch.config import SamplingConfig
+    from distrl_llm_tpu_torch.models.lora import lora_scale
+
+    _, ids, mask, _ = prompt_batch(max_prompt_tokens)
+    greedy = SamplingConfig(max_tokens=max_new_tokens, temperature=0.0, top_p=0.95, n=n)
+    wide_model = wide[0]
+    got = {}
+    for engine in ("dense", "paged"):
+        eng, _ = make_engine(cfg, device, engine=engine, kv_quant="none",
+                             cache_dtype=wide_model.embed.dtype,
+                             max_prompt_tokens=max_prompt_tokens,
+                             max_new_tokens=max_new_tokens, page_size=page_size,
+                             scale=lora_scale(rank, alpha))
+        got[engine] = eng.generate(wide_model, wide[1], ids, mask, greedy, seed).tokens
+    return {"dense_low_vs_f32": float(np.mean(reference_tokens == got["dense"])),
+            "paged_vs_dense_f32": float(np.mean(got["paged"] == got["dense"]))}
 
 
 def main(argv=None) -> int:
@@ -433,36 +854,106 @@ def main(argv=None) -> int:
     print(f"build: {sorted(built)} in {time.perf_counter() - t:.1f} s "
           f"into {_build.BUILD_DIR}")
     for kname, b in built.items():
+        # ptxas -v: per entry function (each template instance), its spills
+        # and then its registers; print one line per entry
+        entry, spill = "", ""
         for line in b.log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                print(f"build {kname}: {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else line.strip()
+                # a template instance by its mangled arguments, e.g.
+                # kernelI13__nv_bfloat16aLi4EE: bf16 q, int8 pages, 4 lanes
+                start, end = entry.find("_kernelI"), entry.find("EE")
+                entry = entry[start + 1:end + 2] if 0 <= start < end else "kernel"
+            elif "spill" in line:
+                spill = line.strip()
+            elif "registers" in line or "error" in line:
+                print(f"build {kname}: {entry}: {line.split(':', 1)[-1].strip()}; {spill}")
 
     # 3. kernels against their plain versions
     err = compare_fused_sample("cuda", args.seed)
     results = {"fused_sample": {"max_abs_err": err, **time_fused_sample(args.seed)}}
-    for kname, r in results.items():
-        print(f"kernel {kname} at [{ROWS},{VOCAB}]: {r['ms']:.4f} ms, plain version "
-              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}); "
-              f"{card}")
+    print(f"kernel fused_sample at [{ROWS},{VOCAB}]: {results['fused_sample']['ms']:.4f} ms, "
+          f"plain version {results['fused_sample']['plain_ms']:.4f} ms, bound "
+          f"{results['fused_sample']['bound_ms']:.4f} ms "
+          f"({results['fused_sample']['bound_by']}); {card}")
+    err = compare_paged_attention("cuda", args.seed)
+    pa_times = time_paged_attention(args.seed)
+    for kv, r in pa_times.items():
+        print(f"kernel paged_attention at B={PA_PROMPTS * PA_N} x length {PA_TIMED_LENGTH}, "
+              f"{kv} pages, bf16 q: {r['ms']:.4f} ms, plain version {r['plain_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}); {card}")
+    # the line's headline is the main path's default format, bf16 pages
+    results["paged_attention"] = {"max_abs_err": err, **pa_times["bfloat16"]}
 
-    # 4. the main path at full width
+    # 4. the main path at full width: the dense engine, then the paged engine
+    # with bf16 and with int8 pages, each with the counts reset around it
     cfg = dataclasses.replace(QWEN2_7B, num_layers=args.layers)
-    out = rollout(cfg, "cuda", seed=args.seed, card=card, profile=args.profile)
-    check(out["steps"] > 0, "no decode step ran")
-    for kname, count in out["counts"].items():
-        check(count > 0, f"kernel {kname} was not launched on the main path")
-    check(out["counts"]["fused_sample"] == out["steps"],
-          f"fused_sample launches {out['counts']['fused_sample']} != decode steps "
-          f"{out['steps']}")
-    print(f"rollout: peak device memory {out['peak_gib']:.2f} GiB; "
-          f"total {time.perf_counter() - t_start:.1f} s")
+    weights = make_weights(cfg, "cuda", seed=args.seed)
+    runs = []
+    for engine, kv_quant in (("dense", "none"), ("paged", "none"), ("paged", "int8")):
+        out = rollout(cfg, "cuda", seed=args.seed, card=card, profile=args.profile,
+                      engine=engine, kv_quant=kv_quant, weights=weights)
+        label, counts = out["label"], out["counts"]
+        check(out["steps"] > 0, f"{label}: no decode step ran")
+        check(counts["fused_sample"] == out["steps"],
+              f"{label}: fused_sample launches {counts['fused_sample']} != decode steps "
+              f"{out['steps']}")
+        want_pa = cfg.num_layers * out["forwards"] if engine == "paged" else 0
+        check(counts["paged_attention"] == want_pa,
+              f"{label}: paged_attention launches {counts['paged_attention']} != "
+              f"{want_pa} (num_layers x decode forwards)")
+        check(engine == "dense" or out["forwards"] > 0, f"{label}: no decode forward ran")
+        print(f"rollout {label}: peak device memory {out['peak_gib']:.2f} GiB; "
+              f"total {time.perf_counter() - t_start:.1f} s; {card}")
+        runs.append(out)
+    # the paged engine's logits against the dense engine's, teacher-forced;
+    # then greedy tokens, each share beside its yardstick
+    wide = widen(weights)
+    lc = compare_engine_logits(weights, wide, seed=args.seed)
+    low_tol = 2 * lc["noise"] + LOGIT_F32_ATOL
+    int8_tol = 2 * lc["int8_plain"] + LOGIT_F32_ATOL
+    print(f"rollout: logits, paged vs dense engine, teacher-forced over the prefill's last "
+          f"position and {LOGIT_STEPS} decode forwards of {PA_PROMPTS * PA_N} rows (dense f32 logit "
+          f"std {lc['std']:.4g}): max |dlogit| {lc['f32']:.4g} with f32 pages in f32 "
+          f"(tolerance {LOGIT_F32_ATOL}); {lc['low']:.4g} with bf16 pages in bf16 "
+          f"(tolerance {low_tol:.4g}: twice the dense engine's own bf16-vs-f32 distance "
+          f"{lc['noise']:.4g}, plus {LOGIT_F32_ATOL}); {lc['int8']:.4g} with int8 pages in "
+          f"f32 (tolerance {int8_tol:.4g}: twice the int8 pages' own distance "
+          f"{lc['int8_plain']:.4g}, measured with K2's plain version, plus "
+          f"{LOGIT_F32_ATOL}); int8 pages, K2 vs its plain version {lc['int8_k2']:.4g} "
+          f"(tolerance {lc['int8_plain']:.4g}, the int8 pages' own distance)")
+    check(lc["plain_launches"] == 0, f"K2 launched {lc['plain_launches']} times while "
+          "its plain version stood in its place")
+    check(lc["f32"] <= LOGIT_F32_ATOL, f"f32 logits of the paged and dense engines "
+          f"differ by {lc['f32']:.4g} > {LOGIT_F32_ATOL}")
+    check(lc["low"] <= low_tol, f"bf16 logits of the paged and dense engines differ "
+          f"by {lc['low']:.4g} > {low_tol:.4g}")
+    check(lc["int8"] <= int8_tol, f"int8-page logits of the paged engine differ from "
+          f"the dense engine's by {lc['int8']:.4g} > {int8_tol:.4g}")
+    check(lc["int8_k2"] <= lc["int8_plain"], f"int8 pages: K2 and its plain version "
+          f"differ by {lc['int8_k2']:.4g}, more than the pages' own distance "
+          f"{lc['int8_plain']:.4g} from dense")
+    dense = runs[0]
+    ga = greedy_agreement(cfg, "cuda", wide, dense["greedy_tokens"], seed=args.seed)
+    del wide
+    torch.cuda.empty_cache()
+    for out in runs[1:]:
+        same = out["greedy_tokens"] == dense["greedy_tokens"]
+        rows_same = same.reshape(-1, same.shape[-1]).all(axis=1)
+        print(f"rollout {out['label']}: greedy tokens equal to the dense engine's on "
+              f"{100 * same.mean():.2f}% of positions, {int(rows_same.sum())}/"
+              f"{rows_same.size} rows whole (not asserted: bf16 at {cfg.num_layers} "
+              f"layers flips near-ties). Yardsticks: the dense engine in bf16 vs in f32 "
+              f"{100 * ga['dense_low_vs_f32']:.2f}%; the paged engine (f32 pages) vs the "
+              f"dense engine, both f32, {100 * ga['paged_vs_dense_f32']:.2f}%")
 
     kernels = []
     for k in KERNELS:
         r = results[k["name"]]
         kernels.append({
             "name": k["name"], "route": k["route"], "source": k["source"],
-            "replaces": k["replaces"], "launches": out["counts"][k["name"]],
+            "replaces": k["replaces"],
+            "launches": sum(out["counts"][k["name"]] for out in runs),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],

@@ -13,3 +13,6 @@ explicitly to run the plain PyTorch versions on the CPU, as the tests do.
 __version__ = "0.1.0"
 
 from distrl_llm_tpu_torch.config import SamplingConfig  # noqa: F401
+from distrl_llm_tpu_torch.engine import (  # noqa: F401
+    GenerationEngine, GenerationResult, PagedGenerationEngine,
+)

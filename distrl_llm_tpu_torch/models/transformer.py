@@ -10,9 +10,18 @@ writes the new positions into it IN PLACE (slice assignment) and returns the
 same dict — the port has no functional-update constraint, so no cache-sized
 copy is ever made.
 
-Ported: the no-cache (prefill/self-attention) and dense-cache branches with
-``attn_impl="reference"``. Paged, int8-KV, quantized-base, ring and ulysses
-branches raise ``NotImplementedError`` naming their ROADMAP item.
+A PAGED cache (``ops/paged.py``: per-layer page pools, bf16/f32 or int8
+``QuantizedPages``, plus ``"lengths"`` [B] and ``"page_indices"`` [B, pps])
+switches to the packed path: prefill (S > 1) writes the prompt pages and
+attends over the input; decode (S = 1) writes the token at ``lengths`` and
+runs ``paged_attention_op`` (kernel K2 on the GPU) over ``lengths + 1``. The
+write slots and ``lengths + 1`` are computed once per forward, not per layer.
+
+Ported: the no-cache (prefill/self-attention), dense-cache and paged
+(prefill, decode) branches with ``attn_impl="reference"``. The int8 dense
+cache, quantized bases, ring and ulysses raise ``NotImplementedError``
+naming their ROADMAP item; the paged chunked/prefix/verify branches are not
+ported (ROADMAP queue 1 items 4 and 7).
 """
 
 from __future__ import annotations
@@ -28,6 +37,9 @@ from distrl_llm_tpu_torch.ops.attention import (
     attention, attention_cached, causal_padding_mask,
 )
 from distrl_llm_tpu_torch.ops.linear import linear, lora_delta
+from distrl_llm_tpu_torch.ops.paged import (
+    paged_attention_op, token_slots, write_prompt_to_pages, write_token_at,
+)
 
 Params = dict[str, Any]
 
@@ -62,11 +74,6 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 
 
 def _check_cache(kv_cache: Params) -> None:
-    if "page_indices" in kv_cache:
-        raise NotImplementedError(
-            "paged KV cache is not ported yet (ROADMAP: paged engine with "
-            "kernel K2)"
-        )
     if "k_scale" in kv_cache:
         raise NotImplementedError(
             "int8 dense KV cache is not ported yet (ROADMAP: leftovers of "
@@ -114,8 +121,8 @@ class DecoderLayer(nn.Module):
         self,
         x: torch.Tensor,  # [B, S, D]
         lora: Params | None,  # this layer's {target: {"a", "b"}} or None
-        cache_k: torch.Tensor | None,  # [B, K, Smax, hd], written in place
-        cache_v: torch.Tensor | None,
+        cache_k,  # [B, K, Smax, hd] dense or a page pool; written in place
+        cache_v,
         *,
         cos: torch.Tensor,
         sin: torch.Tensor,
@@ -123,6 +130,10 @@ class DecoderLayer(nn.Module):
         cache_offset: int,
         lora_scale: float,
         attn_impl: str,
+        page_indices: torch.Tensor | None = None,  # [B, pps] — paged-cache mode
+        page_size: int = 0,
+        attn_lengths: torch.Tensor | None = None,  # [B] decode: lengths + 1
+        write_at: tuple[torch.Tensor, torch.Tensor] | None = None,  # decode: (page, slot)
     ) -> torch.Tensor:
         cfg = self.cfg
         b, s, _ = x.shape
@@ -135,7 +146,20 @@ class DecoderLayer(nn.Module):
             b, s, cfg.num_kv_heads, cfg.head_dim)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-        if cache_k is not None:
+        if cache_k is not None and page_indices is not None:
+            if s == 1:
+                # decode: write the token at each row's length, then attend
+                # over the row's [0, length + 1) prefix
+                write_token_at(cache_k, k[:, 0], *write_at)
+                write_token_at(cache_v, v[:, 0], *write_at)
+                att = paged_attention_op(
+                    q[:, 0], cache_k, cache_v, attn_lengths, page_indices)[:, None]
+            else:
+                # packed prefill: write the prompt pages, attend over the input
+                write_prompt_to_pages(cache_k, k, page_indices, page_size)
+                write_prompt_to_pages(cache_v, v, page_indices, page_size)
+                att = attention(q, k, v, mask, impl=attn_impl)
+        elif cache_k is not None:
             # in-place cache write of the new positions, then attention over
             # the whole window (positions not yet written are masked off)
             cache_k[:, :, cache_offset:cache_offset + s] = k.transpose(1, 2)
@@ -188,15 +212,25 @@ class Decoder(nn.Module):
         cache_offset: int = 0,
         attn_impl: str = "reference",
         logits_slice: tuple[int, int] | None = None,  # (start, length) along seq
+        positions: torch.Tensor | None = None,  # [B, S] absolute positions
+        logits_positions: torch.Tensor | None = None,  # [B] per-row gather
+        page_size: int = 0,  # paged-cache mode (ops/paged.py)
     ) -> tuple[torch.Tensor, Params | None]:
         """Returns (logits f32 [B, S, V], kv_cache).
 
         Without a cache: causal self-attention over the input (prefill /
         training). With a dense cache: new K/V are written at
         ``cache_offset`` and queries attend to every cache key that
-        ``attention_mask`` (length Smax) marks valid. RoPE positions are
-        ``cache_offset + arange(S)`` — they COUNT left-pad columns, as the
-        JAX package's do."""
+        ``attention_mask`` (length Smax) marks valid. RoPE positions default
+        to ``cache_offset + arange(S)`` — they COUNT left-pad columns, as the
+        JAX package's do.
+
+        With a paged cache (``page_size`` > 0): prefill (S > 1) self-attends
+        over the packed input (``attention_mask`` [B, S]) while writing the
+        prompt pages; decode (S = 1) attends over each row's ``[0, lengths +
+        1)``. The paged engine passes packed ``positions``.
+        ``logits_positions`` projects only one position per row (the packed
+        prefill's last real token)."""
         cfg = self.cfg
         b, s = input_ids.shape
         dev = input_ids.device
@@ -205,26 +239,44 @@ class Decoder(nn.Module):
                 f"attn_impl={attn_impl!r} is not ported yet (ROADMAP: "
                 "learner with kernel K4 for flash/splash; multi-GPU for "
                 "ring/ulysses)")
+        paged = kv_cache is not None and "page_indices" in kv_cache
         if kv_cache is not None:
             _check_cache(kv_cache)
+        if paged:
+            if page_size <= 0:
+                raise ValueError("a paged cache needs page_size > 0")
+        elif kv_cache is not None:
             smax = kv_cache["k"][0].shape[2]
             if cache_offset + s > smax:
                 raise ValueError(
                     f"KV cache overflow: offset {cache_offset} + seq {s} > "
                     f"capacity {smax}")
-        positions = cache_offset + torch.arange(s, dtype=torch.int32, device=dev)
-        cos, sin = rope_cos_sin(positions[None, :].expand(b, s), cfg.head_dim,
-                                cfg.rope_theta)
+        if positions is None:
+            positions = (cache_offset + torch.arange(s, dtype=torch.int32, device=dev)
+                         )[None, :].expand(b, s)
+        cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
 
         x = F.embedding(input_ids, self.embed)
         if cfg.scale_embeddings:  # Gemma: hidden states enter at sqrt(D) scale
             x = x * torch.tensor(cfg.hidden_size**0.5, dtype=x.dtype)
 
-        sk = smax if kv_cache is not None else s
+        # a paged cache attends raggedly by length (decode) or over the
+        # packed input (prefill): the dense key window is the input itself
+        sk = smax if (kv_cache is not None and not paged) else s
         cfg.check_within_window(sk)
         if attention_mask is None:
             attention_mask = torch.ones((b, sk), dtype=torch.int32, device=dev)
-        mask = causal_padding_mask(attention_mask, q_len=s, q_offset=cache_offset)
+        mask = (None if paged and s == 1 else causal_padding_mask(
+            attention_mask, q_len=s, q_offset=0 if paged else cache_offset))
+        paged_kw = {}
+        if paged:
+            paged_kw = {"page_indices": kv_cache["page_indices"], "page_size": page_size}
+            if s == 1:  # decode: one write slot per row and the attended
+                # lengths, shared by every layer
+                lengths = kv_cache["lengths"]
+                paged_kw["write_at"] = token_slots(lengths, paged_kw["page_indices"],
+                                                   page_size)
+                paged_kw["attn_lengths"] = (lengths + 1).to(torch.int32)
 
         layer_loras = _split_lora(lora, cfg.num_layers)
         for i, layer in enumerate(self.layers):
@@ -233,13 +285,16 @@ class Decoder(nn.Module):
                 kv_cache["k"][i] if kv_cache is not None else None,
                 kv_cache["v"][i] if kv_cache is not None else None,
                 cos=cos, sin=sin, mask=mask, cache_offset=cache_offset,
-                lora_scale=lora_scale, attn_impl=attn_impl,
+                lora_scale=lora_scale, attn_impl=attn_impl, **paged_kw,
             )
 
         x = rms_norm(x, self.final_norm, cfg.rms_norm_eps, offset=cfg.rmsnorm_offset)
         if logits_slice is not None:
             # project only the needed positions (prefill needs the last one)
             x = x[:, logits_slice[0]:logits_slice[0] + logits_slice[1]]
+        elif logits_positions is not None:
+            # per-row gather: packed prompts end at different columns
+            x = x[torch.arange(b, device=dev), logits_positions.long()][:, None]
         lm_head = self.embed.T if cfg.tie_word_embeddings else self.lm_head
         logits = linear(x, lm_head).float()
         return logits, kv_cache

@@ -151,9 +151,9 @@ def test_unported_branches_raise_naming_roadmap():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             model(ids, attn_impl=impl)
     cache = ttf.init_kv_cache(cfg, 1, 8, dtype=torch.float32, device="cpu")
-    for extra in ({"page_indices": None}, {"k_scale": None}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            model(ids, kv_cache={**cache, **extra})
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        model(ids, kv_cache={**cache, "k_scale": None})
+    # the paged cache is ported (tests/test_torch_paged*.py)
 
 
 def test_params_from_numpy_rejects_mismatched_trees():
