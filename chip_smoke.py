@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (``distrl_llm_tpu_torch``).
 
-    python3 chip_smoke.py [--layers N] [--seed S]
+    python3 chip_smoke.py [--layers N] [--seed S] [--profile]
 
 Needs one NVIDIA GPU (Hopper: the kernels build for ``sm_90a``) and ``nvcc``.
 Without a GPU it exits non-zero before computing anything. Phases, each
@@ -26,6 +26,20 @@ printing its own lines:
    forwards (K2 at every layer): in f32 with f32 pages, in bf16, and with
    int8 pages; and the greedy tokens' agreement with the dense engine is
    printed beside its yardsticks (dense bf16 vs f32, paged vs dense in f32).
+   The paged engine also runs one greedy round with ``attn_impl="splash"``:
+   K4 in its prefill, 28 launches, logits held to "reference" in f32;
+5. learner: the dense engine's sampled round through shaping into 8
+   microbatches of 8 x 1550 tokens, two Adam8bit steps at Qwen2.5-7B width
+   with K4 (2 x 28 x 8 forward and 28 x 8 backward launches per step, its
+   plain version never called), every adapter element within Adam8bit's
+   clip; the adapter pushed into the dense engine's mailbox for one greedy
+   round; then, at 2 layers in f32, the learner's loss and LoRA grads with
+   K4 against its plain version and its logprobs of the engine's greedy
+   tokens against the logprobs the engine captured.
+
+Phase 3 holds K4 (forward and backward) against its plain version at the
+learner's [8, 1550, 28 / 4, 128], f32 and bf16, with its time, bound and
+``scaled_dot_product_attention`` as the library yardstick.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Any failed check raises and the script
@@ -39,6 +53,8 @@ import contextlib
 import dataclasses
 import importlib
 import json
+import math
+import re
 import statistics
 import subprocess
 import sys
@@ -104,6 +120,16 @@ KERNELS = (
      "replaces": "distrl_llm_tpu/ops/paged_native.py:695",
      "module": "distrl_llm_tpu_torch.ops.paged_native",
      "counter": "paged_attention_launches"},
+    {"name": "flash_attention_fwd", "route": "cuda",
+     "source": "distrl_llm_tpu_torch/csrc/flash_attention.cu",
+     "replaces": "distrl_llm_tpu/ops/splash.py:58",
+     "module": "distrl_llm_tpu_torch.ops.flash_attention",
+     "counter": "flash_attention_fwd_launches"},
+    {"name": "flash_attention_bwd", "route": "cuda",
+     "source": "distrl_llm_tpu_torch/csrc/flash_attention.cu",
+     "replaces": "distrl_llm_tpu/ops/splash.py:58",
+     "module": "distrl_llm_tpu_torch.ops.flash_attention",
+     "counter": "flash_attention_bwd_launches"},
 )
 
 # K2 at the main path's full configuration: Qwen2.5-7B heads (28 / 4, hd
@@ -129,6 +155,29 @@ F32_ATOL = 1e-5
 # run with K2's plain version reading the same pages
 LOGIT_F32_ATOL = 1e-3
 LOGIT_STEPS = 4  # teacher-forced decode forwards compared
+
+# K4 at the learner's shape: a microbatch of 8 rows of max_prompt_tokens 350
+# + max_new_tokens 1200 (the JAX package's config.py:126-127), Qwen2.5-7B
+# heads; left-padded prompts and right-padded answers of these real lengths
+# (row 0 has no valid key at all; rows 1 and 6 one prompt token)
+FA_BATCH, FA_PROMPT, FA_ANSWER = 8, 350, 1200
+FA_PROMPT_LENS = (0, 1, 200, 350, 350, 120, 1, 350)
+FA_ANSWER_LENS = (0, 1200, 1, 700, 0, 1200, 37, 1200)
+# f32: out, dq, dk, dv are sums of up to 1550 (dk, dv: 1550 · 7) products,
+# taken in another order than the plain version's. Their rounding grows with
+# the size of the sum: about 2^-24 times the square root of the terms (~100)
+# times the largest value, some 1e-5 of it. So the tolerance is FA_F32_ATOL
+# times the tensor's largest plain value, at least 1: 1e-4 absolute for the
+# O(1) outputs, relative for the grads that sum long (|dk| reaches ~30 at
+# this shape). A masking or indexing fault moves values by O(1).
+FA_F32_ATOL = 1e-4
+# the learner in f32, K4 vs its plain version: the loss and every LoRA grad
+# (max |d| over max |g|) relative; the same sums in another order through
+# 2 layers of forward and backward. Learner vs engine logprobs in f32: the
+# engine's cached reference attention and K4 sum in other orders, as the
+# paged and dense engines do (LOGIT_F32_ATOL)
+LEARNER_REL = 1e-4
+LEARNER_LOGP_ATOL = 1e-3
 
 
 def reset_counts() -> None:
@@ -431,6 +480,173 @@ def time_paged_attention(seed: int) -> dict:
     return out
 
 
+def flash_bound_ms(valid, *, heads: int, kv_heads: int, head_dim: int, itemsize: int,
+                   backward: bool) -> tuple[float, str]:
+    """Least time on the card for one K4 forward (or backward) over these
+    key-validity rows: the operations over the causal pairs whose key is
+    valid (every query row i counts the valid keys j <= i), 4·hd per pair
+    and head forward (q·k and p·v), 10·hd backward (s, dp, dv, dk, dq), at
+    the bf16 tensor cores' peak; against the bytes, each input read and
+    each output written once (forward: q, k, v, key_valid, out, lse;
+    backward: q, k, v, key_valid, out, lse, dout, dq, dk, dv)."""
+    b, s = valid.shape
+    pairs = float(valid.long().cumsum(dim=1).sum())
+    q_elems, kv_elems = b * s * heads * head_dim, b * s * kv_heads * head_dim
+    if backward:
+        ops = 10 * head_dim * heads * pairs
+        nbytes = itemsize * (4 * q_elems + 4 * kv_elems) + 4 * b * s + 4 * b * heads * s
+    else:
+        ops = 4 * head_dim * heads * pairs
+        nbytes = itemsize * (2 * q_elems + 2 * kv_elems) + 4 * b * s + 4 * b * heads * s
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / BF16_PEAK_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def flash_case(device, seed: int, dtype, *, batch: int = FA_BATCH, prompt: int = FA_PROMPT,
+               answer: int = FA_ANSWER, heads: int = PA_HEADS, kv_heads: int = PA_KV_HEADS,
+               head_dim: int = PA_HEAD_DIM, prompt_lens=FA_PROMPT_LENS,
+               answer_lens=FA_ANSWER_LENS):
+    """K4's inputs at the learner's shape: q, k, v and an output gradient
+    from ``seed`` in ``dtype``, and the key validity of left-padded prompts
+    of ``prompt_lens`` real tokens followed by right-padded answers of
+    ``answer_lens`` (the learner's [prompt | answer] concatenation)."""
+    import torch
+
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    s = prompt + answer
+    q, dout = (torch.randn((batch, s, heads, head_dim), generator=gen, device=dev)
+               for _ in range(2))
+    k, v = (torch.randn((batch, s, kv_heads, head_dim), generator=gen, device=dev)
+            for _ in range(2))
+    valid = torch.zeros((batch, s), dtype=torch.int32, device=dev)
+    for r in range(batch):
+        pl, al = prompt_lens[r % len(prompt_lens)], answer_lens[r % len(answer_lens)]
+        valid[r, prompt - min(pl, prompt):prompt] = 1
+        valid[r, prompt:prompt + min(al, answer)] = 1
+    return [x.to(dtype) for x in (q, k, v, dout)] + [valid]
+
+
+def _flash_run(fn, q, k, v, dout, valid):
+    """out, dq, dk, dv of ``fn`` (K4's wrapper or its plain version)."""
+    import torch
+
+    q, k, v = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+    out = fn(q, k, v, valid)
+    return (out.detach(), *torch.autograd.grad(out, (q, k, v), dout))
+
+
+def compare_flash_attention(device, seed: int, **shape) -> dict:
+    """K4 against its plain version on ``device`` at the learner's shape
+    (``flash_case``), forward and backward: in f32 every one of out, dq,
+    dk, dv within ``FA_F32_ATOL`` times its largest plain value (at least 1);
+    in bf16 within twice the plain version's
+    own bf16-vs-f32 distance on the same inputs plus 1e-3 (each measured per
+    tensor in this run). Rows with no valid key must be exactly 0, nothing
+    may be non-finite, and a second run must give the same bits (K4 sums
+    without atomics). Returns the largest f32 difference and the bf16
+    distances."""
+    import torch
+
+    from distrl_llm_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_reference,
+    )
+
+    names = ("out", "dq", "dk", "dv")
+    q, k, v, dout, valid = flash_case(device, seed, torch.float32, **shape)
+    keyless = ~(valid.cumsum(dim=1) > 0)
+    res = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        args = [x.to(dtype) for x in (q, k, v, dout)] + [valid]
+        got = _flash_run(flash_attention, *args)
+        want = _flash_run(flash_attention_reference, *args)
+        label = str(dtype).split(".")[-1]
+        for name, x in zip(names, got):
+            check(bool(torch.isfinite(x.float()).all()), f"K4 {label}: non-finite {name}")
+        check(bool((got[0][keyless] == 0).all()), f"K4 {label}: a row with no valid key "
+              "is not exactly 0")
+        again = _flash_run(flash_attention, *args)
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"K4 {label}: two runs differ (the backward must be deterministic)")
+        errs = {n: float((a.float() - b.float()).abs().max()) for n, a, b in zip(names, got, want)}
+        if dtype == torch.float32:
+            res["f32"] = errs
+            res["f32_tol"] = {n: FA_F32_ATOL * max(1.0, float(w.abs().max()))
+                              for n, w in zip(names, want)}
+            for n, e in errs.items():
+                check(e <= res["f32_tol"][n], f"K4 f32 {n}: |d| {e:.3g} > {res['f32_tol'][n]:.3g}")
+            wide = want
+        else:
+            noise = {n: float((a.float() - b).abs().max()) for n, a, b in zip(names, want, wide)}
+            res["bf16"], res["bf16_noise"] = errs, noise
+            for n in names:
+                tol = 2 * noise[n] + 1e-3
+                check(errs[n] <= tol, f"K4 bf16 {n}: |d| {errs[n]:.3g} > {tol:.3g} (twice "
+                      f"the plain version's own bf16-vs-f32 distance {noise[n]:.3g}, + 1e-3)")
+        print(f"kernel flash_attention {label} at {list(q.shape)} / k,v {list(k.shape)}: "
+              + ", ".join(f"max |{n} - plain| {e:.3g}" for n, e in errs.items())
+              + ("; tolerances " + ", ".join(f"{n} {t:.3g}" for n, t in res["f32_tol"].items())
+                 if dtype == torch.float32 else
+                 "; plain version's own bf16-vs-f32 distance " + ", ".join(
+                     f"{n} {e:.3g}" for n, e in res["bf16_noise"].items()))
+              + f"; {int(keyless.sum())} keyless rows exactly 0; a second run bit-identical")
+    res["max_abs_err"] = max(res["f32"].values())
+    return res
+
+
+def time_flash_attention(seed: int) -> dict:
+    """K4's forward and backward at the learner's shape in bf16 (the main
+    path's dtype) with its masks, beside the plain version's forward and
+    backward, the card's bound, and ``F.scaled_dot_product_attention`` with
+    a boolean [B, 1, S, S] mask and ``enable_gqa`` as the library yardstick
+    (timed here only; the port never calls it). Backward times are the
+    backward alone (autograd's over a kept graph for plain and library)."""
+    import torch
+    import torch.nn.functional as F
+
+    from distrl_llm_tpu_torch.ops.flash_attention import (
+        flash_attention_backward, flash_attention_forward, flash_attention_reference,
+    )
+
+    q, k, v, dout, valid = flash_case("cuda", seed, torch.bfloat16)
+    scale = q.shape[-1] ** -0.5
+    fwd_ms = _time_ms(lambda: flash_attention_forward(q, k, v, valid, scale), calls=10)
+    out, lse = flash_attention_forward(q, k, v, valid, scale)
+    bwd_ms = _time_ms(lambda: flash_attention_backward(q, k, v, valid, out, lse, dout, scale),
+                      calls=10)
+
+    def fwd_bwd_ms(fn):
+        with torch.no_grad():
+            f_ms = _time_ms(lambda: fn(q, k, v), calls=5, warmup=1)
+        leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+        o = fn(*leaves)
+        b_ms = _time_ms(lambda: torch.autograd.grad(o, leaves, dout, retain_graph=True),
+                        calls=5, warmup=1)
+        del o
+        torch.cuda.empty_cache()
+        return f_ms, b_ms
+
+    plain = fwd_bwd_ms(lambda q_, k_, v_: flash_attention_reference(q_, k_, v_, valid))
+    s = q.shape[1]
+    pos = torch.arange(s, device=q.device)
+    mask = ((pos[None, :] <= pos[:, None])[None] & valid.bool()[:, None, :])[:, None]
+    try:
+        library = fwd_bwd_ms(lambda q_, k_, v_: F.scaled_dot_product_attention(
+            q_.transpose(1, 2), k_.transpose(1, 2), v_.transpose(1, 2), attn_mask=mask,
+            enable_gqa=True).transpose(1, 2))
+    except RuntimeError as e:  # the yardstick only: report, never fail the run
+        print(f"kernel flash_attention: the library yardstick did not run: {e}")
+        library = (None, None)
+    dims = dict(heads=q.shape[2], kv_heads=k.shape[2], head_dim=q.shape[3], itemsize=2)
+    out = {}
+    for i, (name, ms) in enumerate((("fwd", fwd_ms), ("bwd", bwd_ms))):
+        bound_ms, bound_by = flash_bound_ms(valid, backward=name == "bwd", **dims)
+        out[name] = {"ms": ms, "plain_ms": plain[i], "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": library[i]}
+    return out
+
+
 def _check_round(res, *, rows: int, n: int, steps: int, vocab: int,
                  eos: int, pad: int, what: str) -> None:
     import numpy as np
@@ -455,24 +671,28 @@ def _check_round(res, *, rows: int, n: int, steps: int, vocab: int,
           f"{what}: steps_dispatched {res.steps_dispatched}")
 
 
-def profile_decode(run_round, steps=(8, 40), top: int = 12) -> dict:
-    """Device time per decode step, by kernel: ``run_round(n)`` runs a
-    greedy round of ``n`` steps (returning the steps dispatched) under
-    ``torch.profiler``; the difference of two rounds cancels the prefill."""
+def device_us_by_kernel(fn):
+    """``fn()`` under ``torch.profiler``: (its result, device microseconds
+    summed by kernel name)."""
     from collections import defaultdict
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    totals = []
-    for n in steps:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            dispatched = run_round(n)
-        by_name = defaultdict(float)
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                by_name[e.name] += e.time_range.elapsed_us()
-        totals.append((dispatched, by_name))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        result = fn()
+    by_name = defaultdict(float)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] += e.time_range.elapsed_us()
+    return result, by_name
+
+
+def profile_decode(run_round, steps=(8, 40), top: int = 12) -> dict:
+    """Device time per decode step, by kernel: ``run_round(n)`` runs a
+    greedy round of ``n`` steps (returning the steps dispatched) under
+    ``torch.profiler``; the difference of two rounds cancels the prefill."""
+    totals = [device_us_by_kernel(lambda: run_round(n)) for n in steps]
     (s0, k0), (s1, k1) = totals
     check(s1 > s0, f"profiled rounds dispatched {s0} and {s1} steps")
     per_step = {name: (k1[name] - k0.get(name, 0.0)) / (s1 - s0) / 1e3 for name in k1}
@@ -481,16 +701,17 @@ def profile_decode(run_round, steps=(8, 40), top: int = 12) -> dict:
             "kernels_per_step": len(per_step)}
 
 
-def make_weights(cfg, device, *, seed: int, rank: int = 32):
-    """Random weights (bf16 on the GPU, f32 on the CPU) and a rank-``rank``
-    LoRA with non-zero B, from ``seed``."""
+def make_weights(cfg, device, *, seed: int, rank: int = 32, dtype=None):
+    """Random weights (``dtype``, by default bf16 on the GPU and f32 on the
+    CPU) and an f32 rank-``rank`` LoRA with non-zero B, from ``seed``."""
     import torch
 
     from distrl_llm_tpu_torch.models.lora import init_lora_params
     from distrl_llm_tpu_torch.models.transformer import init_params
 
     device = torch.device(device)
-    dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+    if dtype is None:
+        dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     gen = torch.Generator(device=device).manual_seed(seed)
     t0 = time.perf_counter()
     model = init_params(gen, cfg, dtype=dtype)
@@ -506,21 +727,27 @@ def make_weights(cfg, device, *, seed: int, rank: int = 32):
     return model, lora
 
 
+def prompt_texts() -> list[str]:
+    """The math prompts through the chat template, as the engines see them."""
+    from distrl_llm_tpu_torch.data import process_dataset
+    from distrl_llm_tpu_torch.tokenizer import CharTokenizer
+
+    return process_dataset(CharTokenizer(), {"problem": [p for p, _ in PROBLEMS]})["problem"]
+
+
 def prompt_batch(max_prompt_tokens: int):
     """The math prompts through the tokenizer, left-padded: (tokenizer, ids,
     mask, solutions)."""
-    from distrl_llm_tpu_torch.data import process_dataset
     from distrl_llm_tpu_torch.tokenizer import CharTokenizer, encode_fixed
 
     tok = CharTokenizer()
-    prompts = process_dataset(tok, {"problem": [p for p, _ in PROBLEMS]})["problem"]
-    ids, mask = encode_fixed(tok, prompts, max_prompt_tokens, side="left")
+    ids, mask = encode_fixed(tok, prompt_texts(), max_prompt_tokens, side="left")
     return tok, ids, mask, [s for _, s in PROBLEMS]
 
 
 def make_engine(cfg, device, *, engine: str, kv_quant: str, cache_dtype,
                 max_prompt_tokens: int, max_new_tokens: int, page_size: int,
-                scale: float):
+                scale: float, attn_impl: str = "reference"):
     """The engine a rollout drives: ("dense" or "paged" with ``kv_quant``)
     and its label, with the tokenizer's EOS and pad ids."""
     from distrl_llm_tpu_torch.engine import GenerationEngine, PagedGenerationEngine
@@ -530,7 +757,7 @@ def make_engine(cfg, device, *, engine: str, kv_quant: str, cache_dtype,
     common = dict(max_prompt_tokens=max_prompt_tokens, max_new_tokens=max_new_tokens,
                   eos_token_ids=[tok.eos_token_id], pad_token_id=tok.pad_token_id,
                   lora_scale=scale, cache_dtype=cache_dtype, capture_logprobs=True,
-                  device=device)
+                  attn_impl=attn_impl, device=device)
     if engine == "dense":
         return GenerationEngine(cfg, **common), "dense"
     eng = PagedGenerationEngine(cfg, page_size=page_size, kv_quant=kv_quant, **common)
@@ -624,7 +851,8 @@ def rollout(cfg, device, *, seed: int, max_prompt_tokens: int = 350,
             if device.type == "cuda" else float("nan"))
     out = {"label": label, "counts": counts, "steps": steps, "forwards": forwards[0],
            "sampled": t_sampled, "greedy": [t_g1, t_g2], "peak_gib": peak,
-           "greedy_tokens": g1.tokens, "greedy_lengths": g1.lengths}
+           "greedy_tokens": g1.tokens, "greedy_lengths": g1.lengths,
+           "round": sampled, "rewards": rewards, "answers": flat}
     if profile:
         prof = profile_decode(lambda k: eng.generate(
             model, lora, ids, mask, greedy.replace(max_tokens=k), seed).steps_dispatched)
@@ -811,14 +1039,315 @@ def greedy_agreement(cfg, device, wide, reference_tokens, *, seed: int,
             "paged_vs_dense_f32": float(np.mean(got["paged"] == got["dense"]))}
 
 
+@contextlib.contextmanager
+def k4_plain_version():
+    """Within the block ``attention(impl="flash"|"splash")`` runs K4's plain
+    version on the card instead of launching K4 (``attention`` looks the
+    wrapper up at every call): a yardstick, never the main path."""
+    from distrl_llm_tpu_torch.ops import flash_attention as fa
+
+    kernel = fa.flash_attention
+    fa.flash_attention = fa.flash_attention_reference
+    try:
+        yield
+    finally:
+        fa.flash_attention = kernel
+
+
+@contextlib.contextmanager
+def counting_k4_plain_calls(calls: list):
+    """Counts, in ``calls[0]``, the calls of K4's plain version within the
+    block (the main path on the card must make none)."""
+    from distrl_llm_tpu_torch.ops import flash_attention as fa
+
+    plain = fa.flash_attention_reference
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return plain(*a, **kw)
+
+    fa.flash_attention_reference = counted
+    try:
+        yield
+    finally:
+        fa.flash_attention_reference = plain
+
+
+def splash_prefill(cfg, device, weights, wide, *, seed: int, max_prompt_tokens: int = 350,
+                   max_new_tokens: int = 128, n: int = PA_N, page_size: int = 128,
+                   rank: int = 32, alpha: float = 16.0) -> dict:
+    """K4 on the engines' prefill: one greedy round of the paged engine
+    built with ``attn_impl="splash"`` (its packed prefill attends through
+    K4, decode through K2), the launch counts reset just before and read
+    just after; then the f32 prefill's last-position logits of that engine
+    against the same engine with ``attn_impl="reference"``, on ``wide``
+    (the same weights in f32)."""
+    import numpy as np
+    import torch
+
+    from distrl_llm_tpu_torch.config import SamplingConfig
+    from distrl_llm_tpu_torch.engine.paged_engine import _paged_prefill
+    from distrl_llm_tpu_torch.models.lora import lora_scale
+
+    model, lora = weights
+    scale = lora_scale(rank, alpha)
+    tok, ids, mask, _ = prompt_batch(max_prompt_tokens)
+    eng, label = make_engine(cfg, device, engine="paged", kv_quant="none",
+                             cache_dtype=model.embed.dtype, max_prompt_tokens=max_prompt_tokens,
+                             max_new_tokens=max_new_tokens, page_size=page_size, scale=scale,
+                             attn_impl="splash")
+    greedy = SamplingConfig(max_tokens=max_new_tokens, temperature=0.0, top_p=0.95, n=n)
+    reset_counts()
+    res = eng.generate(model, lora, ids, mask, greedy, seed)
+    counts = read_counts()
+    _check_round(res, rows=len(PROBLEMS), n=n, steps=max_new_tokens, vocab=cfg.vocab_size,
+                 eos=tok.eos_token_id, pad=tok.pad_token_id, what=f"{label} splash prefill")
+    dev = wide[0].embed.device
+    ids_t = torch.as_tensor(np.asarray(ids), dtype=torch.int32, device=dev)
+    mask_t = torch.as_tensor(np.asarray(mask), dtype=torch.int32, device=dev)
+    last = {}
+    with torch.inference_mode():
+        for impl in ("splash", "reference"):
+            last[impl] = _paged_prefill(wide[0], wide[1], ids_t, mask_t,
+                                        prompt_pages=eng.prompt_pages, page_size=page_size,
+                                        lora_scale=scale, cache_dtype=torch.float32,
+                                        attn_impl=impl)[2]
+    return {"counts": counts, "steps": res.steps_dispatched,
+            "forwards": eng.last_round_stats["decode_forwards"],
+            "logit_err": float((last["splash"] - last["reference"]).abs().max()),
+            "logit_std": float(last["reference"].std()), "label": label}
+
+
+def learner_batch(out: dict, *, n: int, seed: int, device, max_prompt_tokens: int = 350,
+                  max_new_tokens: int = 1200, micro: int = 8):
+    """The learner's input from the dense engine's sampled round ``out``
+    (``rollout``'s result): its rewards through ``shape_rewards`` (PG:
+    reward − group mean) and ``flatten_for_update``, then
+    ``prepare_update_batch``. The engine's own tokens and behavior
+    logprobs ride along (``raw_rollout``): the download-free
+    CharTokenizer decodes only ids below 256, so the retokenized text of
+    a random-weight model's answers would be nearly empty. Random weights
+    score 0 on every row, which makes every coefficient 0 and would skip
+    every microbatch: then the coefficients are drawn from ``seed``.
+    Returns (batch, where the coefficients came from)."""
+    import numpy as np
+
+    from distrl_llm_tpu_torch.learner.train_step import prepare_update_batch
+    from distrl_llm_tpu_torch.shaping import flatten_for_update, shape_rewards
+    from distrl_llm_tpu_torch.tokenizer import CharTokenizer
+
+    res = out["round"]
+    prompts = prompt_texts()
+    b = len(prompts)
+    cand = {"rewards": list(out["rewards"]),
+            "token_lengths": [res.lengths[i] for i in range(b)],
+            "answers": [out["answers"][i * n:(i + 1) * n] for i in range(b)],
+            "problem": [[p] * n for p in prompts],
+            "answer_tokens": [res.tokens[i] for i in range(b)],
+            "behavior_logps": [res.logprobs[i] for i in range(b)],
+            "gen_lengths": [res.lengths[i] for i in range(b)]}
+    shape_rewards([cand], "pg")
+    problems, answers, coeffs, raw = flatten_for_update([cand], "pg")
+    source = "the rewards (reward - group mean)"
+    if not np.any(coeffs != 0):
+        coeffs = np.random.default_rng(seed).standard_normal(coeffs.shape).astype(np.float32)
+        source = ("drawn from the seed: every reward - group mean is 0 under random "
+                  "weights, which would skip every microbatch")
+    batch = prepare_update_batch(CharTokenizer(), problems, answers, coeffs,
+                                 max_prompt_tokens=max_prompt_tokens,
+                                 max_new_tokens=max_new_tokens, micro_size=micro,
+                                 raw_rollout=raw, device=device)
+    return batch, source
+
+
+def _trainable_copy(lora):
+    return {"layers": {t: {k: x.detach().clone().requires_grad_(True) for k, x in ab.items()}
+                       for t, ab in lora["layers"].items()}}
+
+
+def _lora_leaves(lora):
+    return [x for t in sorted(lora["layers"]) for x in (lora["layers"][t]["a"],
+                                                        lora["layers"][t]["b"])]
+
+
+def learner_run(weights, batch, *, steps: int = 2, lr: float = 2e-5, scale: float,
+                micro: int = 8, logit_chunk: int = 128, card: str = "",
+                profile: bool = False, top: int = 12) -> dict:
+    """The learner's main path: ``make_train_step`` with the trainer's
+    defaults (PG, Adam8bit at ``lr``, micro ``micro``, chunked logprobs,
+    remat, ``attn_impl="splash"``) over a trainable copy of the adapter in
+    ``weights``, ``steps`` optimizer steps. The kernels' launch counts are
+    reset just before each step and read just after; the plain version of
+    K4 is counted. Returns per-step loss, seconds, counts and adapter
+    movement, the trained adapter, token counts and peak memory; with
+    ``profile``, one more step under ``torch.profiler``: device time by
+    kernel against the last unprofiled step's wall time."""
+    import torch
+
+    from distrl_llm_tpu_torch.learner.optim import make_optimizer
+    from distrl_llm_tpu_torch.learner.train_step import make_train_step
+
+    model, lora0 = weights
+    dev = model.embed.device
+    lora = _trainable_copy(lora0)
+    leaves = _lora_leaves(lora)
+    opt = make_optimizer(leaves, lr)
+    step = make_train_step(model.cfg, learner_type="pg", optimizer=opt, lora_scale=scale,
+                           micro_size=micro, remat=True, attn_impl="splash",
+                           logit_chunk=logit_chunk)
+    real = batch.sample_mask > 0
+    real_tokens = int(batch.prompt_mask[real].sum() + batch.answer_mask[real].sum())
+    n, s = batch.prompt_ids.shape[0], batch.prompt_ids.shape[1] + batch.answer_ids.shape[1]
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    plain = [0]
+    per_step = []
+    with counting_k4_plain_calls(plain):
+        for i in range(steps):
+            before = [x.detach().clone() for x in leaves]
+            reset_counts()
+            t = time.perf_counter()
+            loss = float(step(lora, model, batch))
+            if cuda:
+                torch.cuda.synchronize(dev)
+            secs = time.perf_counter() - t
+            counts = read_counts()
+            delta = [(x.detach() - b).abs() for x, b in zip(leaves, before)]
+            # Adam8bit's clip: |step| <= 5 lr, plus the rounding of p + step
+            within = all(bool((d <= 5 * lr * (1 + 1e-6) + b.abs() * 2.0**-23).all())
+                         for d, b in zip(delta, before))
+            moved = sum(int((d > 0).sum()) for d in delta) / sum(d.numel() for d in delta)
+            per_step.append({"loss": loss, "s": secs, "counts": counts, "within_clip": within,
+                             "moved_share": moved,
+                             "max_delta": max(float(d.max()) for d in delta)})
+            print(f"learner step {i + 1}: loss_sum {loss:.6g}, {secs * 1e3:.1f} ms; "
+                  f"{real_tokens / secs:.1f} real / {n * s / secs:.1f} padded learner tokens/s "
+                  f"({real_tokens} real of {n} x {s}); adapter max |step| "
+                  f"{per_step[-1]['max_delta']:.3g} (clip 5 lr = {5 * lr:.3g}), "
+                  f"{100 * moved:.2f}% of elements moved; launches {counts}; {card}")
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30 if cuda else float("nan")
+    out = {"steps": per_step, "lora": lora, "plain_calls": plain[0], "real_tokens": real_tokens,
+           "padded_tokens": n * s, "peak_gib": peak, "num_micro": n // micro}
+    if profile:
+        _, by_name = device_us_by_kernel(lambda: float(step(lora, model, batch)))
+        device_ms = sum(by_name.values()) / 1e3
+        wall_ms = per_step[-1]["s"] * 1e3
+        k4_ms = sum(us for name, us in by_name.items() if "flash_" in name) / 1e3
+        print(f"profile learner: {device_ms:.1f} ms of device time per step in "
+              f"{len(by_name)} kernel names, against {wall_ms:.1f} ms/step unprofiled: "
+              f"device idle {100 * (1 - device_ms / wall_ms):.1f}%; K4 {k4_ms:.1f} ms "
+              f"({100 * k4_ms / device_ms:.1f}% of device time); {card}")
+        for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
+            print(f"profile learner: {us / 1e3:10.2f} ms/step  {name[:110]}")
+        out["profile"] = {"device_ms": device_ms, "k4_ms": k4_ms}
+    return out
+
+
+def push_and_round(cfg, device, weights, lora, *, seed: int, version: int, n: int = PA_N,
+                   max_prompt_tokens: int = 350, max_new_tokens: int = 128, rank: int = 32,
+                   alpha: float = 16.0) -> dict:
+    """The trained adapter pushed into a dense engine's ``LoraMailbox``
+    (a detached copy: the optimizer's in-place updates never touch what a
+    round reads), then one greedy round that swaps it in at its first
+    decode step. Returns the engine's swap log and the round."""
+    from distrl_llm_tpu_torch.config import SamplingConfig
+    from distrl_llm_tpu_torch.models.lora import lora_scale
+
+    model, old = weights
+    tok, ids, mask, _ = prompt_batch(max_prompt_tokens)
+    eng, label = make_engine(cfg, device, engine="dense", kv_quant="none",
+                             cache_dtype=model.embed.dtype, max_prompt_tokens=max_prompt_tokens,
+                             max_new_tokens=max_new_tokens, page_size=128,
+                             scale=lora_scale(rank, alpha))
+    eng.push_lora({"layers": {t: {k: x.detach().clone() for k, x in ab.items()}
+                              for t, ab in lora["layers"].items()}}, version=version)
+    greedy = SamplingConfig(max_tokens=max_new_tokens, temperature=0.0, top_p=0.95, n=n)
+    res = eng.generate(model, old, ids, mask, greedy, seed)
+    _check_round(res, rows=len(PROBLEMS), n=n, steps=max_new_tokens, vocab=cfg.vocab_size,
+                 eos=tok.eos_token_id, pad=tok.pad_token_id, what=f"{label} after the push")
+    return {"versions": list(eng.last_swap_versions), "swap_steps": list(eng.last_swap_steps),
+            "tokens": res.tokens}
+
+
+def learner_parity(cfg, device, *, seed: int, n: int = 2, max_prompt_tokens: int = 350,
+                   max_new_tokens: int = 1200, gen_tokens: int = 128, rank: int = 32,
+                   alpha: float = 16.0, logit_chunk: int = 128) -> dict:
+    """The learner in f32 (``cfg``'s widths, f32 weights from ``seed``), two
+    ways: (1) the dense engine's greedy round (4 prompts x ``n``, K1 and
+    the cached forward) against the learner's ``answer_logprobs`` of the
+    same tokens (K4, no cache) on the generated positions; (2) the PG loss
+    and LoRA grads of one microbatch of those rows (``max_prompt_tokens`` +
+    ``max_new_tokens`` tokens each) with K4 against the same with K4's
+    plain version in its place (``k4_plain_version``). Returns the
+    differences and the launch counts of both runs."""
+    import numpy as np
+    import torch
+
+    from distrl_llm_tpu_torch.config import SamplingConfig
+    from distrl_llm_tpu_torch.learner.losses import answer_logprobs, pg_loss
+    from distrl_llm_tpu_torch.learner.train_step import prepare_update_batch
+    from distrl_llm_tpu_torch.models.lora import lora_scale
+
+    model, lora = make_weights(cfg, device, seed=seed, rank=rank, dtype=torch.float32)
+    scale = lora_scale(rank, alpha)
+    tok, ids, mask, _ = prompt_batch(max_prompt_tokens)
+    eng, _ = make_engine(cfg, device, engine="dense", kv_quant="none", cache_dtype=torch.float32,
+                         max_prompt_tokens=max_prompt_tokens, max_new_tokens=gen_tokens,
+                         page_size=128, scale=scale)
+    res = eng.generate(model, lora, ids, mask,
+                       SamplingConfig(max_tokens=gen_tokens, temperature=0.0, top_p=0.95, n=n),
+                       seed)
+    raw = {"answer_tokens": res.tokens.reshape(-1, gen_tokens),
+           "behavior_logps": res.logprobs.reshape(-1, gen_tokens),
+           "lengths": res.lengths.reshape(-1)}
+    problems = [p for p in prompt_texts() for _ in range(n)]
+    coeffs = np.random.default_rng(seed).standard_normal(len(problems)).astype(np.float32)
+    batch = prepare_update_batch(tok, problems, [""] * len(problems), coeffs,
+                                 max_prompt_tokens=max_prompt_tokens,
+                                 max_new_tokens=max_new_tokens, micro_size=len(problems),
+                                 raw_rollout=raw, device=device)
+    args = (batch.prompt_ids, batch.prompt_mask, batch.answer_ids, batch.answer_mask)
+    gen = batch.answer_mask.bool()
+    with torch.no_grad():
+        lp = answer_logprobs(model, *args, lora=lora, lora_scale=scale, attn_impl="splash",
+                             logit_chunk=logit_chunk)
+    logp_err = float((lp - batch.behavior_logps)[gen].abs().max())
+
+    def loss_and_grads():
+        tl = _trainable_copy(lora)
+        logps = answer_logprobs(model, *args, lora=tl, lora_scale=scale, remat=True,
+                                attn_impl="splash", logit_chunk=logit_chunk)
+        loss = pg_loss(logps, batch.answer_mask.float(), batch.coeffs, batch.sample_mask)
+        loss.backward()
+        return float(loss.detach()), torch.cat([x.grad.reshape(-1) for x in _lora_leaves(tl)])
+
+    reset_counts()
+    loss_k4, grads_k4 = loss_and_grads()
+    counts_k4 = read_counts()
+    with k4_plain_version():
+        reset_counts()
+        loss_plain, grads_plain = loss_and_grads()
+        counts_plain = read_counts()
+    return {"logp_err": logp_err, "gen_positions": int(gen.sum()),
+            "loss_k4": loss_k4, "loss_plain": loss_plain,
+            "loss_rel": abs(loss_k4 - loss_plain) / max(abs(loss_plain), 1e-30),
+            "grad_rel": float((grads_k4 - grads_plain).abs().max() / grads_plain.abs().max()),
+            "grad_max": float(grads_plain.abs().max()),
+            "counts_k4": counts_k4, "counts_plain": counts_plain,
+            "shape": [int(batch.prompt_ids.shape[0]), int(args[0].shape[1] + args[2].shape[1])]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=28,
                     help="decoder depth of the Qwen2.5-7B-wide model (28 = full)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="also print the device time per decode step by kernel "
-                         "(torch.profiler) and the device's idle share")
+                    help="also print the device time per decode step and per "
+                         "learner step by kernel (torch.profiler) and the "
+                         "device's idle share")
     args = ap.parse_args(argv)
 
     import torch
@@ -860,10 +1389,11 @@ def main(argv=None) -> int:
         for line in b.log.splitlines():
             if "Compiling entry function" in line:
                 entry = line.split("'")[1] if "'" in line else line.strip()
-                # a template instance by its mangled arguments, e.g.
-                # kernelI13__nv_bfloat16aLi4EE: bf16 q, int8 pages, 4 lanes
-                start, end = entry.find("_kernelI"), entry.find("EE")
-                entry = entry[start + 1:end + 2] if 0 <= start < end else "kernel"
+                # a kernel and its template instance by its mangled
+                # arguments, e.g. paged_attention_kernelI13__nv_bfloat16aLi4EE:
+                # bf16 q, int8 pages, 4 lanes
+                m = re.search(r"\d+([a-z_]+_kernel)(I\w*?EE)?", entry)
+                entry = m.group(1) + (m.group(2) or "") if m else "kernel"
             elif "spill" in line:
                 spill = line.strip()
             elif "registers" in line or "error" in line:
@@ -884,6 +1414,18 @@ def main(argv=None) -> int:
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}); {card}")
     # the line's headline is the main path's default format, bf16 pages
     results["paged_attention"] = {"max_abs_err": err, **pa_times["bfloat16"]}
+    fa_err = compare_flash_attention("cuda", args.seed)
+    fa_times = time_flash_attention(args.seed)
+    for part, r in fa_times.items():
+        lib = "not run" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        print(f"kernel flash_attention {part} at q [{FA_BATCH},{FA_PROMPT + FA_ANSWER},"
+              f"{PA_HEADS},{PA_HEAD_DIM}], k/v {PA_KV_HEADS} heads, bf16, the learner's "
+              f"masks: {r['ms']:.4f} ms, plain version {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), library (scaled_dot_product_"
+              f"attention, bool mask, enable_gqa) {lib}; {card}")
+    results["flash_attention_fwd"] = {"max_abs_err": fa_err["f32"]["out"], **fa_times["fwd"]}
+    results["flash_attention_bwd"] = {
+        "max_abs_err": max(fa_err["f32"][n] for n in ("dq", "dk", "dv")), **fa_times["bwd"]}
 
     # 4. the main path at full width: the dense engine, then the paged engine
     # with bf16 and with int8 pages, each with the counts reset around it
@@ -903,6 +1445,8 @@ def main(argv=None) -> int:
               f"{label}: paged_attention launches {counts['paged_attention']} != "
               f"{want_pa} (num_layers x decode forwards)")
         check(engine == "dense" or out["forwards"] > 0, f"{label}: no decode forward ran")
+        check(counts["flash_attention_fwd"] == counts["flash_attention_bwd"] == 0,
+              f"{label}: K4 launched with attn_impl='reference'")
         print(f"rollout {label}: peak device memory {out['peak_gib']:.2f} GiB; "
               f"total {time.perf_counter() - t_start:.1f} s; {card}")
         runs.append(out)
@@ -933,6 +1477,20 @@ def main(argv=None) -> int:
     check(lc["int8_k2"] <= lc["int8_plain"], f"int8 pages: K2 and its plain version "
           f"differ by {lc['int8_k2']:.4g}, more than the pages' own distance "
           f"{lc['int8_plain']:.4g} from dense")
+    # K4 on the engines' prefill: the paged engine with attn_impl="splash"
+    sp = splash_prefill(cfg, "cuda", weights, wide, seed=args.seed)
+    sc = sp["counts"]
+    print(f"rollout {sp['label']}, attn_impl='splash': one greedy round, {sp['steps']} decode "
+          f"steps; launches {sc}; f32 prefill logits, splash vs reference: max |dlogit| "
+          f"{sp['logit_err']:.4g} (tolerance {LOGIT_F32_ATOL}; logit std {sp['logit_std']:.4g})")
+    check(sc["flash_attention_fwd"] == cfg.num_layers and sc["flash_attention_bwd"] == 0,
+          f"splash prefill: K4 launched {sc['flash_attention_fwd']} times forward, "
+          f"{sc['flash_attention_bwd']} backward; want {cfg.num_layers} (one per layer) and 0")
+    check(sc["paged_attention"] == cfg.num_layers * sp["forwards"]
+          and sc["fused_sample"] == sp["steps"], "splash prefill round: K1/K2 launches off")
+    check(sp["logit_err"] <= LOGIT_F32_ATOL, f"splash prefill logits differ from reference "
+          f"by {sp['logit_err']:.4g} > {LOGIT_F32_ATOL}")
+    counted = [out["counts"] for out in runs] + [sc]  # every main-path run's launches
     dense = runs[0]
     ga = greedy_agreement(cfg, "cuda", wide, dense["greedy_tokens"], seed=args.seed)
     del wide
@@ -947,13 +1505,75 @@ def main(argv=None) -> int:
               f"{100 * ga['dense_low_vs_f32']:.2f}%; the paged engine (f32 pages) vs the "
               f"dense engine, both f32, {100 * ga['paged_vs_dense_f32']:.2f}%")
 
+    # 5. the learner at full width: the dense engine's sampled round through
+    # shaping into 8 microbatches of 8 x 1550 tokens, two optimizer steps
+    batch, source = learner_batch(dense, n=PA_N, seed=args.seed, device="cuda")
+    print(f"learner: {batch.prompt_ids.shape[0]} rows x ({batch.prompt_ids.shape[1]} + "
+          f"{batch.answer_ids.shape[1]}) tokens, micro 8; coefficients from {source}; "
+          f"total {time.perf_counter() - t_start:.1f} s")
+    lr, scale = 2e-5, 16.0 / 32
+    lrn = learner_run(weights, batch, lr=lr, scale=scale, card=card, profile=args.profile)
+    want_fwd = 2 * cfg.num_layers * lrn["num_micro"]
+    want_bwd = cfg.num_layers * lrn["num_micro"]
+    for i, st in enumerate(lrn["steps"]):
+        c = st["counts"]
+        check(math.isfinite(st["loss"]), f"learner step {i + 1}: loss {st['loss']}")
+        check(c["flash_attention_fwd"] == want_fwd and c["flash_attention_bwd"] == want_bwd,
+              f"learner step {i + 1}: K4 launched {c['flash_attention_fwd']} forward / "
+              f"{c['flash_attention_bwd']} backward, want {want_fwd} (2 x layers x "
+              f"microbatches: forward and remat recompute) / {want_bwd}")
+        check(c["fused_sample"] == c["paged_attention"] == 0,
+              f"learner step {i + 1}: K1/K2 launched")
+        check(st["within_clip"], f"learner step {i + 1}: an adapter element moved by "
+              f"{st['max_delta']:.3g}, beyond Adam8bit's clip 5 lr = {5 * lr:.3g}")
+        check(st["moved_share"] > 0, f"learner step {i + 1}: the adapter did not move")
+        counted.append(c)
+    check(lrn["plain_calls"] == 0, f"K4's plain version ran {lrn['plain_calls']} times "
+          "on the learner's main path")
+    ms = [1e3 * st["s"] for st in lrn["steps"]]
+    print(f"learner: {len(ms)} steps at Qwen2.5-7B width, {cfg.num_layers} layers: "
+          f"{', '.join(f'{m:.1f}' for m in ms)} ms/step; "
+          f"{lrn['real_tokens'] / (ms[-1] / 1e3):.1f} real and "
+          f"{lrn['padded_tokens'] / (ms[-1] / 1e3):.1f} padded learner tokens/s (last step); "
+          f"peak device memory {lrn['peak_gib']:.2f} GiB; K4's plain version called "
+          f"{lrn['plain_calls']} times; total {time.perf_counter() - t_start:.1f} s; {card}")
+    pushed = push_and_round(cfg, "cuda", weights, lrn["lora"], seed=args.seed, version=1)
+    check(pushed["versions"] == [1], f"the dense engine reports adapter versions "
+          f"{pushed['versions']} after the push, want [1]")
+    same = pushed["tokens"] == dense["greedy_tokens"]
+    print(f"learner: the trained adapter pushed into the dense engine's mailbox: swapped in "
+          f"at decode step {pushed['swap_steps']}, version {pushed['versions']}; its greedy "
+          f"round equals the pre-update round on {100 * same.mean():.2f}% of positions")
+    del lrn, batch, pushed
+    torch.cuda.empty_cache()
+
+    # the learner in f32 at full width, 2 layers: K4 against its plain
+    # version (loss and LoRA grads), and the learner's logprobs of the dense
+    # engine's greedy tokens against the logprobs that engine captured
+    lp = learner_parity(dataclasses.replace(cfg, num_layers=2), "cuda", seed=args.seed)
+    print(f"learner parity (f32, 2 layers, {lp['shape'][0]} rows x {lp['shape'][1]}): loss "
+          f"K4 {lp['loss_k4']:.8g} vs plain {lp['loss_plain']:.8g} (relative "
+          f"{lp['loss_rel']:.3g}), LoRA grads max |d| / max |g| {lp['grad_rel']:.3g} "
+          f"(tolerance {LEARNER_REL} each; max |g| {lp['grad_max']:.3g}); learner vs engine "
+          f"logprobs on {lp['gen_positions']} generated positions: max |d| "
+          f"{lp['logp_err']:.3g} (tolerance {LEARNER_LOGP_ATOL}); launches with K4 "
+          f"{lp['counts_k4']}, with its plain version {lp['counts_plain']}")
+    check(lp["counts_k4"]["flash_attention_bwd"] > 0 and
+          lp["counts_plain"]["flash_attention_fwd"] == lp["counts_plain"]["flash_attention_bwd"]
+          == 0, "learner parity: K4 ran where it should not, or not where it should")
+    check(lp["loss_rel"] <= LEARNER_REL and lp["grad_rel"] <= LEARNER_REL,
+          "learner parity: K4 and its plain version disagree beyond the tolerance")
+    check(lp["logp_err"] <= LEARNER_LOGP_ATOL, f"learner vs engine logprobs differ by "
+          f"{lp['logp_err']:.3g} > {LEARNER_LOGP_ATOL}")
+    print(f"chip_smoke: done in {time.perf_counter() - t_start:.1f} s; {card}")
+
     kernels = []
     for k in KERNELS:
         r = results[k["name"]]
         kernels.append({
             "name": k["name"], "route": k["route"], "source": k["source"],
             "replaces": k["replaces"],
-            "launches": sum(out["counts"][k["name"]] for out in runs),
+            "launches": sum(c[k["name"]] for c in counted),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],

@@ -4,9 +4,10 @@
 ``init_params`` keys (``embed``, ``final_norm``, optional ``lm_head``, and
 ``layers`` of stacked ``[L, ...]`` arrays) as nested dicts of numpy arrays and
 returns the port's ``Decoder``. ``lora_from_numpy`` does the same for an
-adapter tree (``{"layers": {target: {"a", "b"}}}``). The caller converts on the
-JAX side (``jax.tree_util.tree_map(np.asarray, tree)``), so the port never
-sees a JAX array.
+adapter tree (``{"layers": {target: {"a", "b"}}}``), and ``lora_to_numpy``
+carries an adapter back (to compare adapters after a learner step). The
+caller converts on the JAX side (``jax.tree_util.tree_map(np.asarray,
+tree)``), so the port never sees a JAX array.
 """
 
 from __future__ import annotations
@@ -83,8 +84,15 @@ def lora_from_numpy(tree: Tree, cfg: ModelConfig,
             raise ValueError(
                 f"LoRA {target}: shapes {a.shape}/{b.shape} do not fit the "
                 f"config at rank {rank}")
-        out[target] = {
-            "a": torch.from_numpy(np.require(a, requirements=["C", "W"])).to(dev, dtype),
-            "b": torch.from_numpy(np.require(b, requirements=["C", "W"])).to(dev, dtype),
-        }
+        # always a copy: the learner updates the adapter in place, which
+        # must never write into the caller's numpy arrays
+        out[target] = {"a": torch.tensor(a, dtype=dtype, device=dev),
+                       "b": torch.tensor(b, dtype=dtype, device=dev)}
     return {"layers": out}
+
+
+def lora_to_numpy(lora: dict) -> dict:
+    """The port's adapter dict → a JAX-layout numpy tree (f32 copies on the
+    host), the inverse of ``lora_from_numpy``."""
+    return {"layers": {t: {k: x.detach().float().cpu().numpy() for k, x in ab.items()}
+                       for t, ab in lora["layers"].items()}}

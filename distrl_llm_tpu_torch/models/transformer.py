@@ -17,11 +17,24 @@ attends over the input; decode (S = 1) writes the token at ``lengths`` and
 runs ``paged_attention_op`` (kernel K2 on the GPU) over ``lengths + 1``. The
 write slots and ``lengths + 1`` are computed once per forward, not per layer.
 
-Ported: the no-cache (prefill/self-attention), dense-cache and paged
-(prefill, decode) branches with ``attn_impl="reference"``. The int8 dense
-cache, quantized bases, ring and ulysses raise ``NotImplementedError``
-naming their ROADMAP item; the paged chunked/prefix/verify branches are not
-ported (ROADMAP queue 1 items 4 and 7).
+Ported: the no-cache (prefill/self-attention, training), dense-cache and
+paged (prefill, decode) branches. ``attn_impl`` "flash" and "splash" run
+kernel K4 (``ops/flash_attention.py``) on the uncached forward and the paged
+prefill, fed the ``[B, S]`` key-validity vector (no ``[B, 1, S, S]`` mask is
+built for them), and "flash" on the dense-cache prefill at
+``cache_offset == 0``, as in the JAX package.
+
+Training: the adapter's stacked f32 factors are the leaves that train (the
+per-layer factors are ``unbind`` views, so every layer's grad lands in its
+stacked leaf); the base stays frozen. ``remat`` wraps each layer in
+``torch.utils.checkpoint`` (non-reentrant), the counterpart of
+``jax.checkpoint(..., nothing_saveable)``; LoRA dropout draws its masks from
+seeds derived per (layer, target), so the recompute draws the same masks.
+
+The int8 dense cache, quantized bases, ring and ulysses raise
+``NotImplementedError`` naming their ROADMAP item; the paged
+chunked/prefix/verify branches are not ported (ROADMAP queue 1 items 4 and
+7).
 """
 
 from __future__ import annotations
@@ -31,17 +44,24 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from distrl_llm_tpu_torch.models.configs import ModelConfig
 from distrl_llm_tpu_torch.ops.attention import (
     attention, attention_cached, causal_padding_mask,
 )
-from distrl_llm_tpu_torch.ops.linear import linear, lora_delta
+from distrl_llm_tpu_torch.ops.linear import dropout_stream, linear, lora_delta
 from distrl_llm_tpu_torch.ops.paged import (
     paged_attention_op, token_slots, write_prompt_to_pages, write_token_at,
 )
 
 Params = dict[str, Any]
+
+# stable per-target stream ids so each projection's dropout mask differs
+_TARGET_STREAM = {
+    "wq": 0, "wk": 1, "wv": 2, "wo": 3, "w_gate": 4, "w_up": 5, "w_down": 6,
+}
+ATTN_IMPLS = ("reference", "flash", "splash", "ring", "ulysses")
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float,
@@ -111,10 +131,14 @@ class DecoderLayer(nn.Module):
         else:
             self.bq = self.bk = self.bv = None
 
-    def _proj(self, h, name: str, bias, lora: Params | None, lora_scale: float):
+    def _proj(self, h, name: str, bias, lora: Params | None, lora_scale: float,
+              lora_dropout: float = 0.0, layer_seed: int | None = None):
         y = linear(h, getattr(self, name), bias)
         if lora is not None and name in lora:
-            y = y + lora_delta(h, lora[name]["a"], lora[name]["b"], lora_scale)
+            seed = (dropout_stream(layer_seed, _TARGET_STREAM[name])
+                    if layer_seed is not None else None)
+            y = y + lora_delta(h, lora[name]["a"], lora[name]["b"], lora_scale,
+                               dropout_rate=lora_dropout, dropout_seed=seed)
         return y
 
     def forward(
@@ -134,16 +158,20 @@ class DecoderLayer(nn.Module):
         page_size: int = 0,
         attn_lengths: torch.Tensor | None = None,  # [B] decode: lengths + 1
         write_at: tuple[torch.Tensor, torch.Tensor] | None = None,  # decode: (page, slot)
+        key_valid: torch.Tensor | None = None,  # [B, Sk] for flash/splash
+        lora_dropout: float = 0.0,
+        layer_seed: int | None = None,  # this layer's dropout seed (training)
     ) -> torch.Tensor:
         cfg = self.cfg
         b, s, _ = x.shape
+
+        def proj(inp, name, bias=None):
+            return self._proj(inp, name, bias, lora, lora_scale, lora_dropout, layer_seed)
+
         h = rms_norm(x, self.attn_norm, cfg.rms_norm_eps, offset=cfg.rmsnorm_offset)
-        q = self._proj(h, "wq", self.bq, lora, lora_scale).reshape(
-            b, s, cfg.num_heads, cfg.head_dim)
-        k = self._proj(h, "wk", self.bk, lora, lora_scale).reshape(
-            b, s, cfg.num_kv_heads, cfg.head_dim)
-        v = self._proj(h, "wv", self.bv, lora, lora_scale).reshape(
-            b, s, cfg.num_kv_heads, cfg.head_dim)
+        q = proj(h, "wq", self.bq).reshape(b, s, cfg.num_heads, cfg.head_dim)
+        k = proj(h, "wk", self.bk).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+        v = proj(h, "wv", self.bv).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         if cache_k is not None and page_indices is not None:
@@ -158,24 +186,30 @@ class DecoderLayer(nn.Module):
                 # packed prefill: write the prompt pages, attend over the input
                 write_prompt_to_pages(cache_k, k, page_indices, page_size)
                 write_prompt_to_pages(cache_v, v, page_indices, page_size)
-                att = attention(q, k, v, mask, impl=attn_impl)
+                att = attention(q, k, v, mask, impl=attn_impl, key_valid=key_valid)
         elif cache_k is not None:
             # in-place cache write of the new positions, then attention over
             # the whole window (positions not yet written are masked off)
             cache_k[:, :, cache_offset:cache_offset + s] = k.transpose(1, 2)
             cache_v[:, :, cache_offset:cache_offset + s] = v.transpose(1, 2)
-            att = attention_cached(q, cache_k.to(q.dtype), cache_v.to(q.dtype), mask)
+            if attn_impl == "flash" and cache_offset == 0 and s > 1:
+                # prefill: the cache holds nothing beyond the prompt being
+                # written, so this is self-attention over the input: K4 on
+                # the fresh k/v, the cache only written
+                att = attention(q, k, v, None, impl="flash", key_valid=key_valid[:, :s])
+            else:
+                att = attention_cached(q, cache_k.to(q.dtype), cache_v.to(q.dtype), mask)
         else:
-            att = attention(q, k, v, mask, impl=attn_impl)
+            att = attention(q, k, v, mask, impl=attn_impl, key_valid=key_valid)
         att = att.reshape(b, s, cfg.q_dim)
-        x = x + self._proj(att, "wo", None, lora, lora_scale)
+        x = x + proj(att, "wo")
 
         h = rms_norm(x, self.mlp_norm, cfg.rms_norm_eps, offset=cfg.rmsnorm_offset)
-        gate = self._proj(h, "w_gate", None, lora, lora_scale)
+        gate = proj(h, "w_gate")
         gate = (F.silu(gate) if cfg.hidden_act == "silu"
                 else F.gelu(gate, approximate="tanh"))  # Gemma gelu_pytorch_tanh
-        up = self._proj(h, "w_up", None, lora, lora_scale)
-        return x + self._proj(gate * up, "w_down", None, lora, lora_scale)
+        up = proj(h, "w_up")
+        return x + proj(gate * up, "w_down")
 
 
 class Decoder(nn.Module):
@@ -215,8 +249,14 @@ class Decoder(nn.Module):
         positions: torch.Tensor | None = None,  # [B, S] absolute positions
         logits_positions: torch.Tensor | None = None,  # [B] per-row gather
         page_size: int = 0,  # paged-cache mode (ops/paged.py)
+        remat: bool = False,  # checkpoint each layer (training, no cache)
+        lora_dropout: float = 0.0,  # adapter-input dropout (training)
+        dropout_seed: int | None = None,  # this forward's dropout seed
+        skip_lm_head: bool = False,  # return final-norm hidden states
     ) -> tuple[torch.Tensor, Params | None]:
-        """Returns (logits f32 [B, S, V], kv_cache).
+        """Returns (logits f32 [B, S, V], kv_cache); with ``skip_lm_head``
+        the final-norm hidden states [B, S, D] in the model dtype instead
+        (the learner's chunked logprob path projects them itself).
 
         Without a cache: causal self-attention over the input (prefill /
         training). With a dense cache: new K/V are written at
@@ -230,15 +270,21 @@ class Decoder(nn.Module):
         prompt pages; decode (S = 1) attends over each row's ``[0, lengths +
         1)``. The paged engine passes packed ``positions``.
         ``logits_positions`` projects only one position per row (the packed
-        prefill's last real token)."""
+        prefill's last real token).
+
+        Training: ``remat`` checkpoints each layer of the uncached forward
+        while grad is enabled; ``lora_dropout`` with a ``dropout_seed``
+        drops the adapter input, one seed per layer and target derived from
+        it."""
         cfg = self.cfg
         b, s = input_ids.shape
         dev = input_ids.device
-        if attn_impl != "reference":
+        if attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"unknown attn_impl {attn_impl!r}")
+        if attn_impl in ("ring", "ulysses"):
             raise NotImplementedError(
-                f"attn_impl={attn_impl!r} is not ported yet (ROADMAP: "
-                "learner with kernel K4 for flash/splash; multi-GPU for "
-                "ring/ulysses)")
+                f"attn_impl={attn_impl!r} is not ported yet (ROADMAP: queue 1, "
+                "multi-GPU: ring/ulysses sequence parallelism)")
         paged = kv_cache is not None and "page_indices" in kv_cache
         if kv_cache is not None:
             _check_cache(kv_cache)
@@ -266,8 +312,15 @@ class Decoder(nn.Module):
         cfg.check_within_window(sk)
         if attention_mask is None:
             attention_mask = torch.ones((b, sk), dtype=torch.int32, device=dev)
-        mask = (None if paged and s == 1 else causal_padding_mask(
-            attention_mask, q_len=s, q_offset=0 if paged else cache_offset))
+        # flash/splash (K4) take the [B, S] validity vector: the [B, 1, S, S]
+        # mask is built only where a path reads it (the JAX needs_dense_mask)
+        kernel_attn = attn_impl in ("flash", "splash")
+        needs_dense_mask = ((kv_cache is not None and not paged)
+                            or (paged and s > 1 and not kernel_attn)
+                            or (kv_cache is None and not kernel_attn))
+        mask = (causal_padding_mask(attention_mask, q_len=s,
+                                    q_offset=0 if paged else cache_offset)
+                if needs_dense_mask else None)
         paged_kw = {}
         if paged:
             paged_kw = {"page_indices": kv_cache["page_indices"], "page_size": page_size}
@@ -279,14 +332,21 @@ class Decoder(nn.Module):
                 paged_kw["attn_lengths"] = (lengths + 1).to(torch.int32)
 
         layer_loras = _split_lora(lora, cfg.num_layers)
+        dropping = lora_dropout > 0.0 and dropout_seed is not None
+        ckpt = remat and kv_cache is None and torch.is_grad_enabled()
         for i, layer in enumerate(self.layers):
-            x = layer(
-                x, layer_loras[i],
-                kv_cache["k"][i] if kv_cache is not None else None,
-                kv_cache["v"][i] if kv_cache is not None else None,
-                cos=cos, sin=sin, mask=mask, cache_offset=cache_offset,
-                lora_scale=lora_scale, attn_impl=attn_impl, **paged_kw,
-            )
+            kw = dict(cos=cos, sin=sin, mask=mask, cache_offset=cache_offset,
+                      lora_scale=lora_scale, attn_impl=attn_impl,
+                      key_valid=attention_mask,
+                      lora_dropout=lora_dropout if dropping else 0.0,
+                      layer_seed=dropout_stream(dropout_seed, i) if dropping else None,
+                      **paged_kw)
+            ck = kv_cache["k"][i] if kv_cache is not None else None
+            cv = kv_cache["v"][i] if kv_cache is not None else None
+            if ckpt:
+                x = checkpoint(layer, x, layer_loras[i], ck, cv, use_reentrant=False, **kw)
+            else:
+                x = layer(x, layer_loras[i], ck, cv, **kw)
 
         x = rms_norm(x, self.final_norm, cfg.rms_norm_eps, offset=cfg.rmsnorm_offset)
         if logits_slice is not None:
@@ -295,19 +355,25 @@ class Decoder(nn.Module):
         elif logits_positions is not None:
             # per-row gather: packed prompts end at different columns
             x = x[torch.arange(b, device=dev), logits_positions.long()][:, None]
-        lm_head = self.embed.T if cfg.tie_word_embeddings else self.lm_head
-        logits = linear(x, lm_head).float()
-        return logits, kv_cache
+        if skip_lm_head:
+            return x, kv_cache
+        return linear(x, self.lm_head_weight()).float(), kv_cache
+
+    def lm_head_weight(self) -> torch.Tensor:
+        """The ``[D, V]`` output projection (the embedding's transpose when
+        tied)."""
+        return self.embed.T if self.cfg.tie_word_embeddings else self.lm_head
 
 
 def _split_lora(lora: Params | None, num_layers: int) -> list[Params | None]:
-    """Stacked adapter dict → per-layer ``{target: {"a", "b"}}`` views."""
+    """Stacked adapter dict → per-layer ``{target: {"a", "b"}}`` views.
+    ``unbind`` makes all L views in one op, and its backward stacks the L
+    per-layer grads into the stacked leaf's grad once."""
     if lora is None:
         return [None] * num_layers
-    return [
-        {t: {"a": ab["a"][i], "b": ab["b"][i]} for t, ab in lora["layers"].items()}
-        for i in range(num_layers)
-    ]
+    split = {t: (ab["a"].unbind(0), ab["b"].unbind(0)) for t, ab in lora["layers"].items()}
+    return [{t: {"a": a[i], "b": b_[i]} for t, (a, b_) in split.items()}
+            for i in range(num_layers)]
 
 
 @torch.no_grad()

@@ -5,8 +5,11 @@ against their kv head directly (``[B, K, G·Sq, D] @ [B, K, D, Sk]``), never
 materializing a repeated K/V. The decode cache is ``[B, K, S, D]`` — PyTorch's
 natural layout for a batched matmul over keys.
 
-Only ``impl="reference"`` is ported. The flash/splash learner kernels are
-ROADMAP: learner with kernel K4.
+``attention(..., impl=...)`` dispatches: "reference" is the plain path
+below; "flash" and "splash" both go to kernel K4
+(``ops/flash_attention.py``), which computes their one function with GQA
+native; "ring" and "ulysses" raise ``NotImplementedError`` naming ROADMAP's
+multi-GPU item.
 """
 
 from __future__ import annotations
@@ -62,11 +65,22 @@ def attention_cached(q, k, v, mask, scale: float | None = None):
 
 
 def attention(q, k, v, mask, scale: float | None = None,
-              impl: str = "reference"):
-    """Dispatching front door. Only ``"reference"`` is ported."""
-    if impl != "reference":
+              impl: str = "reference", key_valid: torch.Tensor | None = None):
+    """Dispatching front door. ``key_valid`` [B, Sk] is the validity vector
+    flash/splash consume (they read no [B, 1, Sq, Sk] mask); "reference"
+    reads ``mask``. Unlike the JAX package there is no probe and no fallback
+    chain: on a CUDA tensor K4 launches or raises."""
+    if impl in ("flash", "splash"):
+        # imported here: ops/flash_attention.py imports this module
+        from distrl_llm_tpu_torch.ops.flash_attention import flash_attention
+
+        if key_valid is None:
+            key_valid = torch.ones(q.shape[:2], dtype=torch.int32, device=q.device)
+        return flash_attention(q, k, v, key_valid, scale=scale)
+    if impl in ("ring", "ulysses"):
         raise NotImplementedError(
-            f"attn_impl={impl!r} is not ported yet (ROADMAP: learner "
-            "with kernel K4, a hand-written flash attention)"
-        )
+            f"attn_impl={impl!r} is not ported yet (ROADMAP: queue 1, "
+            "multi-GPU: ring/ulysses sequence parallelism)")
+    if impl != "reference":
+        raise ValueError(f"unknown attn_impl {impl!r}")
     return attention_reference(q, k, v, mask, scale=scale)

@@ -6,7 +6,7 @@
   nothing is computed on the CPU.
 * ``chip_smoke.py`` exits non-zero, printing no result, without a GPU and
   when it stands alone in a directory.
-* The kernel wrapper's ctypes signature matches the C launcher's.
+* Each kernel wrapper's ctypes signature matches its C launcher's.
 """
 
 import ast
@@ -115,25 +115,45 @@ def test_chip_smoke_alone_in_a_directory_fails(tmp_path):
     assert '"ok"' not in proc.stdout
 
 
-def test_kernel_wrapper_signature_matches_the_c_launcher(monkeypatch):
-    """Every pointer crosses ctypes as c_void_p (a default int would cut it
-    to 32 bits) and the argument count matches the C declaration."""
-    from distrl_llm_tpu_torch.ops import _build, sampling
+# (csrc source, wrapper module, C functions declared by its _kernel_lib)
+LAUNCHERS = (
+    ("fused_sample", "sampling", ("fused_sample_launch",)),
+    ("paged_attention", "paged_native", ("paged_attention_launch",)),
+    ("flash_attention", "flash_attention", ("flash_attention_fwd", "flash_attention_bwd")),
+)
 
-    src = (PORT / "csrc" / "fused_sample.cu").read_text()
-    decl = re.search(r"int fused_sample_launch\(([^)]*)\)", src).group(1)
-    params = [p.strip() for p in decl.split(",")]
+
+@pytest.mark.parametrize("source,module,functions", LAUNCHERS, ids=[x[0] for x in LAUNCHERS])
+def test_kernel_wrapper_signature_matches_the_c_launcher(monkeypatch, source, module, functions):
+    """Every pointer crosses ctypes as c_void_p (a default int would cut it
+    to 32 bits), a float as c_float, and the argument count matches the C
+    declaration."""
+    import importlib
+
+    from distrl_llm_tpu_torch.ops import _build
+
+    src = (PORT / "csrc" / f"{source}.cu").read_text()
 
     class Fn:
         argtypes = None
         restype = None
 
-    lib = type("Lib", (), {"fused_sample_launch": Fn(),
-                           "fused_sample_error_string": Fn()})()
+    names = list(functions) + [f"{source}_error_string"]
+    lib = type("Lib", (), {n: Fn() for n in names})()
     monkeypatch.setattr(_build, "load", lambda name: type("B", (), {"lib": lib}))
-    got = sampling._kernel_lib().fused_sample_launch.argtypes
-    assert len(got) == len(params)
-    for c_param, ct in zip(params, got):
-        want = (ctypes.c_void_p if "*" in c_param
-                else ctypes.c_float if c_param.startswith("float") else ctypes.c_int)
-        assert ct is want, c_param
+    wrapper = importlib.import_module(f"distrl_llm_tpu_torch.ops.{module}")
+    clear = getattr(wrapper._kernel_lib, "cache_clear", lambda: None)  # lru-cached ones
+    clear()
+    try:
+        declared = wrapper._kernel_lib()
+    finally:
+        clear()
+    for fn in functions:
+        decl = re.search(rf"int {fn}\(([^)]*)\)", src).group(1)
+        params = [p.strip() for p in decl.split(",")]
+        got = getattr(declared, fn).argtypes
+        assert len(got) == len(params), fn
+        for c_param, ct in zip(params, got):
+            want = (ctypes.c_void_p if "*" in c_param
+                    else ctypes.c_float if c_param.startswith("float") else ctypes.c_int)
+            assert ct is want, (fn, c_param)

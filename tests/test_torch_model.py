@@ -144,12 +144,26 @@ def test_sliding_window_refusal():
 
 
 def test_unported_branches_raise_naming_roadmap():
+    """ring/ulysses raise naming ROADMAP; flash and splash run (on the CPU
+    through K4's plain version) and equal "reference" on every position
+    with a valid key (a left-pad position has none: K4 gives it 0, the
+    reference a uniform average, and no real position reads it)."""
     cfg = _port_cfg(TINY)
     model = params_from_numpy(_params(TINY), cfg, device="cpu")
     ids = torch.zeros((1, 4), dtype=torch.int32)
-    for impl in ("flash", "splash", "ring", "ulysses"):
+    for impl in ("ring", "ulysses"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             model(ids, attn_impl=impl)
+    with pytest.raises(ValueError, match="attn_impl"):
+        model(ids, attn_impl="nope")
+    ids, mask = _inputs(3, 9, cfg.vocab_size)
+    tl = lora_from_numpy(_lora(TINY), cfg, device="cpu")
+    kw = dict(attention_mask=torch.from_numpy(mask), lora=tl, lora_scale=0.5)
+    want, _ = model(torch.from_numpy(ids), **kw)
+    real = torch.from_numpy(mask).bool()
+    for impl in ("flash", "splash"):
+        got, _ = model(torch.from_numpy(ids), attn_impl=impl, **kw)
+        np.testing.assert_allclose(got[real].numpy(), want[real].numpy(), atol=1e-5, rtol=0)
     cache = ttf.init_kv_cache(cfg, 1, 8, dtype=torch.float32, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         model(ids, kv_cache={**cache, "k_scale": None})
