@@ -36,10 +36,23 @@ printing its own lines:
    round; then, at 2 layers in f32, the learner's loss and LoRA grads with
    K4 against its plain version and its logprobs of the engine's greedy
    tokens against the logprobs the engine captured.
+6. QLoRA: the same weights with the seven projections quantized on the card
+   to int4 in groups of 64 (the reference's 4-bit base), every projection
+   through K3 with the adapter in its epilogue: the dense and the paged
+   engine (bf16 pages) as in phase 4, K3 launched 7 times per layer per
+   model forward; one dense-engine run over an int8 base (per-column
+   scales); the dense engine's f32 logits, teacher-forced, with K3 against
+   K3's plain version (``k3_plain_version()``), beside their distance from
+   the bf16 base's; two Adam8bit learner steps on phase 5's batch (K3 2 x 7
+   x 28 x 8 times a step); and a 2-layer f32 learner parity run, K3 against
+   its plain version.
 
 Phase 3 holds K4 (forward and backward) against its plain version at the
 learner's [8, 1550, 28 / 4, 128], f32 and bf16, with its time, bound and
-``scaled_dot_product_attention`` as the library yardstick.
+``scaled_dot_product_attention`` as the library yardstick; and K3 at every
+projection shape of a layer, M = 64 and 12,400, int4 g64 and int8, with
+its edge cases, one-hot rows that must reproduce ``dequantize()`` exactly,
+and ``quantize`` on the card against the CPU bit for bit.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Any failed check raises and the script
@@ -130,6 +143,10 @@ KERNELS = (
      "replaces": "distrl_llm_tpu/ops/splash.py:58",
      "module": "distrl_llm_tpu_torch.ops.flash_attention",
      "counter": "flash_attention_bwd_launches"},
+    {"name": "quant_matmul", "route": "cuda",
+     "source": "distrl_llm_tpu_torch/csrc/quant_matmul.cu",
+     "replaces": "distrl_llm_tpu/ops/quant_matmul.py:150",
+     "module": "distrl_llm_tpu_torch.ops.quant_matmul", "counter": "quant_matmul_launches"},
 )
 
 # K2 at the main path's full configuration: Qwen2.5-7B heads (28 / 4, hd
@@ -178,6 +195,19 @@ FA_F32_ATOL = 1e-4
 # paged and dense engines do (LOGIT_F32_ATOL)
 LEARNER_REL = 1e-4
 LEARNER_LOGP_ATOL = 1e-3
+
+# K3 at the main path's shapes: Qwen2.5-7B's projections as (K, N) — wq and
+# wo, wk and wv, w_gate and w_up, w_down — at decode's M = 64 and the
+# learner's M = 8 x 1550; int4 in groups of 64 (the QLoRA base) and int8
+# with per-column scales; a rank-32 adapter. f32: sums of up to 18,944
+# products in another order, so QMM_F32_REL times the largest |y|. bf16:
+# twice the plain version's own bf16-vs-f32 distance on the same inputs,
+# plus 1e-3 (as K4's stanza)
+QMM_SHAPES = ((3584, 3584), (3584, 512), (3584, 18944), (18944, 3584))
+QMM_ROWS = (64, 12400)
+QMM_GROUP = 64
+QMM_RANK = 32
+QMM_F32_REL = 1e-4
 
 
 def reset_counts() -> None:
@@ -647,6 +677,194 @@ def time_flash_attention(seed: int) -> dict:
     return out
 
 
+def _qmm():
+    from distrl_llm_tpu_torch.ops import quant_matmul
+
+    return quant_matmul
+
+
+def qmm_case(device, seed: int, *, k: int, n: int, m: int, bits: int, group, dtype,
+             bias: bool = True, rank: int = QMM_RANK):
+    """K3's inputs: x [m, k] in ``dtype``, a weight N(0, 0.02) quantized to
+    ``bits`` (``group``; None = per column), a bias in ``dtype`` (or None)
+    and an f32 rank-``rank`` adapter (A ~ N(0, 1/k), B ~ N(0, 0.01^2)),
+    from ``seed``. Returns (x, w, bias, A, B)."""
+    import torch
+
+    from distrl_llm_tpu_torch.ops.quant import quantize
+
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    w = quantize(torch.randn((k, n), generator=gen, device=dev).mul_(0.02).bfloat16(),
+                 bits, group)
+    x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
+    b = (0.1 * torch.randn(n, generator=gen, device=dev)).to(dtype) if bias else None
+    la = torch.randn((k, rank), generator=gen, device=dev) * k**-0.5 if rank else None
+    lb = torch.randn((rank, n), generator=gen, device=dev) * 0.01 if rank else None
+    return x, w, b, la, lb
+
+
+def compare_quant_matmul(device, seed: int, *, shapes=QMM_SHAPES, rows=QMM_ROWS,
+                         group: int = QMM_GROUP, scale: float = 0.5) -> dict:
+    """K3 against its plain version on ``device`` at the main path's shapes:
+    every (K, N) of ``shapes`` at every M of ``rows``, int4 in groups of
+    ``group`` and int8 per column, bf16 x with a rank-32 adapter (a bias on
+    the first two shapes, the q/k/v projections); f32 x at the first M; the
+    edges M = 1 and 7, N = 200 and one group of the whole K. Then one-hot
+    rows of x, which must reproduce ``dequantize()``'s rows exactly (a wrong
+    nibble order or group index shows there), and ``quantize`` of one
+    full-width layer's seven weights on ``device`` against the CPU, bit for
+    bit. Returns the largest f32 difference (relative and absolute), the
+    bf16 differences and their tolerances, and the two exact checks."""
+    import torch
+
+    from distrl_llm_tpu_torch.ops.quant import dequantize, quantize
+
+    qm = _qmm()
+    res = {"f32_rel": 0.0, "f32_abs": 0.0, "bf16": []}
+    k0 = shapes[0][0]
+    cases = [(k, n, m, bits, torch.bfloat16, i < 2)
+             for i, (k, n) in enumerate(shapes) for m in rows for bits in (4, 8)]
+    cases += [(k, n, rows[0], bits, torch.float32, i < 2)
+              for i, (k, n) in enumerate(shapes) for bits in (4, 8)]
+    cases += [(k0, n, m, bits, dt, True) for m in (1, 7) for n in (200,) for bits in (4, 8)
+              for dt in (torch.bfloat16, torch.float32)]
+    for case_i, (k, n, m, bits, dt, bias) in enumerate(cases):
+        g = group if bits == 4 else None
+        x, w, b, la, lb = qmm_case(device, seed + case_i, k=k, n=n, m=m, bits=bits, group=g,
+                                   dtype=dt, bias=bias)
+        got = qm.quant_matmul(x, w, b, la, lb, scale)
+        want = qm.quant_matmul_reference(x, w, b, la, lb, scale)
+        check(bool(torch.isfinite(got.float()).all()), f"K3 [{m},{k}]x[{k},{n}]: non-finite")
+        err = float((got.float() - want.float()).abs().max())
+        label = f"K3 int{bits} {str(dt).split('.')[-1]} [{m},{k}] x [{k},{n}]"
+        if dt == torch.float32:
+            ymax = float(want.abs().max())
+            check(err <= QMM_F32_REL * ymax, f"{label}: |d| {err:.3g} > {QMM_F32_REL} x {ymax:.3g}")
+            res["f32_rel"] = max(res["f32_rel"], err / ymax)
+            res["f32_abs"] = max(res["f32_abs"], err)
+            print(f"kernel quant_matmul {label}{', bias' if bias else ''}, rank {QMM_RANK}: "
+                  f"max |d| {err:.3g} ({err / ymax:.3g} of max |y| {ymax:.3g})")
+        else:
+            wide = qm.quant_matmul_reference(x.float(), w, None if b is None else b.float(),
+                                             la, lb, scale)
+            noise = float((want.float() - wide).abs().max())
+            tol = 2 * noise + 1e-3
+            check(err <= tol, f"{label}: |d| {err:.3g} > {tol:.3g} (twice the plain version's "
+                  f"own bf16-vs-f32 distance {noise:.3g}, + 1e-3)")
+            res["bf16"].append((label, err, tol))
+            print(f"kernel quant_matmul {label}{', bias' if bias else ''}, rank {QMM_RANK}: "
+                  f"max |d| {err:.3g}; plain version's own bf16-vs-f32 distance {noise:.3g}")
+        del x, w, got, want
+    # one group of the whole K (int4 g = K) and no adapter
+    x, w, _, _, _ = qmm_case(device, seed, k=k0, n=200, m=7, bits=4, group=k0,
+                             dtype=torch.float32, bias=False, rank=0)
+    err = float((qm.quant_matmul(x, w) - qm.quant_matmul_reference(x, w)).abs().max())
+    check(err <= QMM_F32_REL * float(qm.quant_matmul_reference(x, w).abs().max()),
+          f"K3 int4 g=K: |d| {err:.3g}")
+    # one-hot rows: y = dequantize(w)[ks], exactly
+    exact = True
+    for bits in (4, 8):
+        g = group if bits == 4 else None
+        for dt in (torch.float32, torch.bfloat16):
+            _, w, _, _, _ = qmm_case(device, seed + bits, k=k0, n=shapes[0][1], m=1, bits=bits,
+                                     group=g, dtype=dt, bias=False, rank=0)
+            ks = sorted({0, 1, 2, 3, group - 1, group, group + 1, k0 - 2, k0 - 1}
+                        | set(range(5, k0, max(1, k0 // 40))))[:64]
+            x = torch.zeros((len(ks), k0), dtype=dt, device=w["scale"].device)
+            x[torch.arange(len(ks)), torch.tensor(ks)] = 1
+            same = torch.equal(qm.quant_matmul(x, w), dequantize(w, dt)[ks])
+            exact &= same
+            check(same, f"K3 int{bits} {dt}: one-hot rows differ from dequantize()'s rows")
+    # quantize on the device against the CPU, at the (K, N) of every weight
+    # of one layer
+    bits_equal = True
+    gen = torch.Generator(device=torch.device(device)).manual_seed(seed)
+    for kk, nn in shapes:
+        w = (torch.randn((kk, nn), generator=gen, device=device) * 0.02).bfloat16()
+        for bits, g in ((4, group), (8, None)):
+            on_dev, on_cpu = quantize(w, bits, g), quantize(w.cpu(), bits, g)
+            same = all(torch.equal(on_dev[key].cpu(), on_cpu[key]) for key in on_cpu)
+            bits_equal &= same
+            check(same, f"quantize int{bits} [{kk},{nn}]: {device} and the CPU differ")
+    res.update(onehot_exact=exact, quantize_bits_equal=bits_equal)
+    print(f"kernel quant_matmul: {len(cases) + 1} cases within tolerance (f32 {QMM_F32_REL} x "
+          f"max |y|, bf16 twice the plain version's own distance + 1e-3); max f32 |d| "
+          f"{res['f32_abs']:.3g} ({res['f32_rel']:.3g} relative); one-hot rows equal "
+          f"dequantize() exactly (int4 g{group} and int8, f32 and bf16); quantize at every "
+          f"weight shape of a layer bit-equal on {device} and the CPU (int4 and int8)")
+    return res
+
+
+def quant_matmul_bound_ms(m: int, k: int, n: int, *, bits: int, group, rank: int,
+                          bias: bool, itemsize: int = 2) -> tuple[float, str]:
+    """Least time on the card for one K3 call: each input read and the output
+    written once (x, the payload at its width, the f32 scales, the bias if
+    the call has one, A and B in f32, y) over HBM bandwidth, against 2 M K N
+    (+ 2 M r (K + N) for the adapter) operations at the bf16 tensor cores'
+    peak."""
+    groups = k // (group or k)
+    nbytes = (m * k * itemsize + k * n * bits // 8 + groups * n * 4
+              + (n * itemsize if bias else 0) + 4 * rank * (k + n) + m * n * itemsize)
+    ops = 2 * m * k * n + 2 * m * rank * (k + n)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / BF16_PEAK_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def time_quant_matmul(seed: int, *, shape=(3584, 18944), rows=QMM_ROWS, copies: int = 4,
+                      scale: float = 0.5) -> dict:
+    """K3's, the plain version's and the library yardstick's times at the
+    w_gate shape (bf16 x, a bias-free rank-32 adapter as the main path's
+    w_gate), M = 64 and 12,400, int4 g64 and int8 per column, beside the
+    bound. At M = 64 the calls cycle through ``copies`` weights (136 MB of
+    int4 payload, past the 50 MB L2), as a decode step meets each layer's
+    weight cold. The library yardstick is ``torch.matmul`` on the weight
+    dequantized beforehand (dequantization not timed) plus the adapter's
+    delta as torch ops; the port never calls it."""
+    import torch
+
+    from distrl_llm_tpu_torch.ops.quant import dequantize
+
+    qm = _qmm()
+    k, n = shape
+    out = {}
+    for m in rows:
+        for bits in (4, 8):
+            g = QMM_GROUP if bits == 4 else None
+            cs = [qmm_case("cuda", seed + i, k=k, n=n, m=m, bits=bits, group=g,
+                           dtype=torch.bfloat16, bias=False)
+                  for i in range(copies if m <= 64 else 1)]
+            it = [0]
+
+            def nxt():
+                it[0] = (it[0] + 1) % len(cs)
+                return cs[it[0]]
+
+            calls = 30 if m <= 64 else 10
+            ms = _time_ms(lambda: qm.quant_matmul(*nxt(), scale), calls=calls)
+            plain_ms = _time_ms(lambda: qm.quant_matmul_reference(*nxt(), scale), calls=5,
+                                warmup=1)
+            dense = [(c[0], dequantize(c[1], torch.bfloat16), c[3].bfloat16(), c[4].bfloat16())
+                     for c in cs]
+            s_t = torch.tensor(scale, dtype=torch.bfloat16, device="cuda")
+            itd = [0]
+
+            def lib():
+                itd[0] = (itd[0] + 1) % len(dense)
+                x, wd, la, lb = dense[itd[0]]
+                return torch.matmul(x, wd) + (x @ la) @ lb * s_t
+
+            library_ms = _time_ms(lib, calls=calls)
+            bound_ms, bound_by = quant_matmul_bound_ms(m, k, n, bits=bits, group=g,
+                                                       rank=QMM_RANK, bias=False)
+            out[(m, bits)] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                              "bound_by": bound_by, "library_ms": library_ms}
+            del cs, dense
+            torch.cuda.empty_cache()
+    return out
+
+
 def _check_round(res, *, rows: int, n: int, steps: int, vocab: int,
                  eos: int, pad: int, what: str) -> None:
     import numpy as np
@@ -768,7 +986,7 @@ def rollout(cfg, device, *, seed: int, max_prompt_tokens: int = 350,
             max_new_tokens: int = 128, n: int = 16, rank: int = 32,
             alpha: float = 16.0, card: str = "", profile: bool = False,
             engine: str = "dense", kv_quant: str = "none", page_size: int = 128,
-            weights=None) -> dict:
+            weights=None, tag: str = "") -> dict:
     """The port's main path through one engine ("dense", or "paged" with
     ``kv_quant`` "none"/"int8" pages): ``weights`` (or new ones from
     ``seed``), the math prompts through the tokenizer, a short warm-up round,
@@ -776,7 +994,10 @@ def rollout(cfg, device, *, seed: int, max_prompt_tokens: int = 350,
     the reward function and two greedy rounds that must agree. Returns the
     counts, the decode steps dispatched, the decode forwards, the timings and
     the first greedy round's tokens; with ``profile``, also the device time
-    per decode step by kernel (after the counts are read)."""
+    per decode step by kernel (after the counts are read). ``tag`` prefixes
+    the printed label. ``model_forwards`` counts the model's forward calls
+    (prefill and decode) in the counted rounds, ``plain_calls`` the calls of
+    K3's plain version there (0 on the card)."""
     import numpy as np
     import torch
 
@@ -793,11 +1014,14 @@ def rollout(cfg, device, *, seed: int, max_prompt_tokens: int = 350,
                              cache_dtype=dtype, max_prompt_tokens=max_prompt_tokens,
                              max_new_tokens=max_new_tokens, page_size=page_size,
                              scale=lora_scale(rank, alpha))
+    label = tag + label
     train = SamplingConfig(max_tokens=max_new_tokens, temperature=1.2, top_p=0.95, n=n)
     greedy = train.replace(temperature=0.0)
     eng.generate(model, lora, ids, mask, train.replace(max_tokens=4), seed)  # warm-up
+    live = 0.0
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
+        live = torch.cuda.memory_allocated(device) / 2**30
     forwards = [0]
 
     def run(sampling, round_seed, what):
@@ -823,11 +1047,19 @@ def rollout(cfg, device, *, seed: int, max_prompt_tokens: int = 350,
               f"{timing['ms_per_step']:.2f} ms/step; {card}")
         return res, timing
 
-    reset_counts()
-    sampled, t_sampled = run(train, seed + 1, "sampled t=1.2 top_p=0.95")
-    g1, t_g1 = run(greedy, seed + 2, "greedy #1")
-    g2, t_g2 = run(greedy, seed + 3, "greedy #2")
-    counts = read_counts()
+    model_forwards, plain = [0], [0]
+
+    def count_forward(*_):
+        model_forwards[0] += 1
+
+    hook = model.register_forward_hook(count_forward)
+    with counting_plain_calls(_qmm(), "quant_matmul_reference", plain):
+        reset_counts()
+        sampled, t_sampled = run(train, seed + 1, "sampled t=1.2 top_p=0.95")
+        g1, t_g1 = run(greedy, seed + 2, "greedy #1")
+        g2, t_g2 = run(greedy, seed + 3, "greedy #2")
+        counts = read_counts()
+    hook.remove()
 
     check(np.array_equal(g1.tokens, g2.tokens) and np.array_equal(g1.lengths, g2.lengths),
           f"{label}: two greedy rounds differ")
@@ -850,7 +1082,8 @@ def rollout(cfg, device, *, seed: int, max_prompt_tokens: int = 350,
     peak = (torch.cuda.max_memory_allocated(device) / 2**30
             if device.type == "cuda" else float("nan"))
     out = {"label": label, "counts": counts, "steps": steps, "forwards": forwards[0],
-           "sampled": t_sampled, "greedy": [t_g1, t_g2], "peak_gib": peak,
+           "model_forwards": model_forwards[0], "plain_calls": plain[0],
+           "sampled": t_sampled, "greedy": [t_g1, t_g2], "peak_gib": peak, "live_gib": live,
            "greedy_tokens": g1.tokens, "greedy_lengths": g1.lengths,
            "round": sampled, "rewards": rewards, "answers": flat}
     if profile:
@@ -868,13 +1101,15 @@ def rollout(cfg, device, *, seed: int, max_prompt_tokens: int = 350,
 
 
 def widen(weights):
-    """The same weight values in f32 (on the weights' device)."""
+    """The same weight values in f32 (on the weights' device); a quantized
+    model keeps its int8 payloads and f32 scales as they are, and only its
+    dense tensors are cast."""
     import torch
 
     from distrl_llm_tpu_torch.models.transformer import Decoder
 
     model, lora = weights
-    wide = Decoder(model.cfg, dtype=torch.float32, device=model.embed.device)
+    wide = Decoder(model.cfg, dtype=torch.float32, device=model.embed.device, quant=model.quant)
     wide.load_state_dict(model.state_dict())
     return wide, lora
 
@@ -1055,22 +1290,35 @@ def k4_plain_version():
 
 
 @contextlib.contextmanager
-def counting_k4_plain_calls(calls: list):
-    """Counts, in ``calls[0]``, the calls of K4's plain version within the
-    block (the main path on the card must make none)."""
-    from distrl_llm_tpu_torch.ops import flash_attention as fa
-
-    plain = fa.flash_attention_reference
+def counting_plain_calls(module, name: str, calls: list):
+    """Counts, in ``calls[0]``, the calls of ``module.name`` (a kernel's
+    plain version, looked up at every call) within the block: the main path
+    on the card must make none."""
+    plain = getattr(module, name)
 
     def counted(*a, **kw):
         calls[0] += 1
         return plain(*a, **kw)
 
-    fa.flash_attention_reference = counted
+    setattr(module, name, counted)
     try:
         yield
     finally:
-        fa.flash_attention_reference = plain
+        setattr(module, name, plain)
+
+
+@contextlib.contextmanager
+def k3_plain_version():
+    """Within the block every quantized projection runs K3's plain version
+    on the card instead of launching K3 (``linear`` and ``_proj`` look the
+    wrapper up at every call): a yardstick, never the main path."""
+    qm = _qmm()
+    kernel = qm.quant_matmul
+    qm.quant_matmul = qm.quant_matmul_reference
+    try:
+        yield
+    finally:
+        qm.quant_matmul = kernel
 
 
 def splash_prefill(cfg, device, weights, wide, *, seed: int, max_prompt_tokens: int = 350,
@@ -1178,7 +1426,8 @@ def learner_run(weights, batch, *, steps: int = 2, lr: float = 2e-5, scale: floa
     remat, ``attn_impl="splash"``) over a trainable copy of the adapter in
     ``weights``, ``steps`` optimizer steps. The kernels' launch counts are
     reset just before each step and read just after; the plain version of
-    K4 is counted. Returns per-step loss, seconds, counts and adapter
+    K4 (``plain_calls``) and of K3 (``k3_plain_calls``) are counted.
+    Returns per-step loss, seconds, counts and adapter
     movement, the trained adapter, token counts and peak memory; with
     ``profile``, one more step under ``torch.profiler``: device time by
     kernel against the last unprofiled step's wall time."""
@@ -1202,9 +1451,12 @@ def learner_run(weights, batch, *, steps: int = 2, lr: float = 2e-5, scale: floa
     if cuda:
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
-    plain = [0]
+    from distrl_llm_tpu_torch.ops import flash_attention as fa
+
+    plain, k3_plain = [0], [0]
     per_step = []
-    with counting_k4_plain_calls(plain):
+    with (counting_plain_calls(fa, "flash_attention_reference", plain),
+          counting_plain_calls(_qmm(), "quant_matmul_reference", k3_plain)):
         for i in range(steps):
             before = [x.detach().clone() for x in leaves]
             reset_counts()
@@ -1228,7 +1480,8 @@ def learner_run(weights, batch, *, steps: int = 2, lr: float = 2e-5, scale: floa
                   f"{per_step[-1]['max_delta']:.3g} (clip 5 lr = {5 * lr:.3g}), "
                   f"{100 * moved:.2f}% of elements moved; launches {counts}; {card}")
     peak = torch.cuda.max_memory_allocated(dev) / 2**30 if cuda else float("nan")
-    out = {"steps": per_step, "lora": lora, "plain_calls": plain[0], "real_tokens": real_tokens,
+    out = {"steps": per_step, "lora": lora, "plain_calls": plain[0],
+           "k3_plain_calls": k3_plain[0], "real_tokens": real_tokens,
            "padded_tokens": n * s, "peak_gib": peak, "num_micro": n // micro}
     if profile:
         _, by_name = device_us_by_kernel(lambda: float(step(lora, model, batch)))
@@ -1273,14 +1526,16 @@ def push_and_round(cfg, device, weights, lora, *, seed: int, version: int, n: in
 
 def learner_parity(cfg, device, *, seed: int, n: int = 2, max_prompt_tokens: int = 350,
                    max_new_tokens: int = 1200, gen_tokens: int = 128, rank: int = 32,
-                   alpha: float = 16.0, logit_chunk: int = 128) -> dict:
-    """The learner in f32 (``cfg``'s widths, f32 weights from ``seed``), two
-    ways: (1) the dense engine's greedy round (4 prompts x ``n``, K1 and
-    the cached forward) against the learner's ``answer_logprobs`` of the
-    same tokens (K4, no cache) on the generated positions; (2) the PG loss
-    and LoRA grads of one microbatch of those rows (``max_prompt_tokens`` +
-    ``max_new_tokens`` tokens each) with K4 against the same with K4's
-    plain version in its place (``k4_plain_version``). Returns the
+                   alpha: float = 16.0, logit_chunk: int = 128, weights=None,
+                   plain_version=None) -> dict:
+    """The learner in f32 (``cfg``'s widths, f32 ``weights`` or new ones
+    from ``seed``), two ways: (1) the dense engine's greedy round (4 prompts
+    x ``n``, K1 and the cached forward) against the learner's
+    ``answer_logprobs`` of the same tokens (K4, no cache) on the generated
+    positions; (2) the PG loss and LoRA grads of one microbatch of those
+    rows (``max_prompt_tokens`` + ``max_new_tokens`` tokens each) with the
+    kernels against the same with one kernel's plain version in its place
+    (``plain_version``, by default ``k4_plain_version``). Returns the
     differences and the launch counts of both runs."""
     import numpy as np
     import torch
@@ -1290,7 +1545,7 @@ def learner_parity(cfg, device, *, seed: int, n: int = 2, max_prompt_tokens: int
     from distrl_llm_tpu_torch.learner.train_step import prepare_update_batch
     from distrl_llm_tpu_torch.models.lora import lora_scale
 
-    model, lora = make_weights(cfg, device, seed=seed, rank=rank, dtype=torch.float32)
+    model, lora = weights or make_weights(cfg, device, seed=seed, rank=rank, dtype=torch.float32)
     scale = lora_scale(rank, alpha)
     tok, ids, mask, _ = prompt_batch(max_prompt_tokens)
     eng, _ = make_engine(cfg, device, engine="dense", kv_quant="none", cache_dtype=torch.float32,
@@ -1324,19 +1579,207 @@ def learner_parity(cfg, device, *, seed: int, n: int = 2, max_prompt_tokens: int
         return float(loss.detach()), torch.cat([x.grad.reshape(-1) for x in _lora_leaves(tl)])
 
     reset_counts()
-    loss_k4, grads_k4 = loss_and_grads()
-    counts_k4 = read_counts()
-    with k4_plain_version():
+    loss_kernel, grads_kernel = loss_and_grads()
+    counts_kernel = read_counts()
+    with (plain_version or k4_plain_version)():
         reset_counts()
         loss_plain, grads_plain = loss_and_grads()
         counts_plain = read_counts()
     return {"logp_err": logp_err, "gen_positions": int(gen.sum()),
-            "loss_k4": loss_k4, "loss_plain": loss_plain,
-            "loss_rel": abs(loss_k4 - loss_plain) / max(abs(loss_plain), 1e-30),
-            "grad_rel": float((grads_k4 - grads_plain).abs().max() / grads_plain.abs().max()),
+            "loss_kernel": loss_kernel, "loss_plain": loss_plain,
+            "loss_rel": abs(loss_kernel - loss_plain) / max(abs(loss_plain), 1e-30),
+            "grad_rel": float((grads_kernel - grads_plain).abs().max()
+                              / grads_plain.abs().max()),
             "grad_max": float(grads_plain.abs().max()),
-            "counts_k4": counts_k4, "counts_plain": counts_plain,
+            "counts_kernel": counts_kernel, "counts_plain": counts_plain,
             "shape": [int(batch.prompt_ids.shape[0]), int(args[0].shape[1] + args[2].shape[1])]}
+
+
+def make_qlora_weights(cfg, device, *, seed: int, bits: int, group, rank: int = 32,
+                       dtype=None):
+    """``make_weights`` (the same values from the same seed) with the seven
+    projections then quantized in place to ``bits`` (``group``; None = per
+    column), one layer at a time, each dense weight freed as it goes."""
+    import torch
+
+    from distrl_llm_tpu_torch.ops.quant import quantize_params
+
+    model, lora = make_weights(cfg, device, seed=seed, rank=rank, dtype=dtype)
+    t0 = time.perf_counter()
+    quantize_params(model, bits, group)
+    if model.embed.device.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    nbytes = sum(b.numel() * b.element_size() for b in model.buffers())
+    print(f"qlora: the base quantized to int{bits}, "
+          f"{'groups of ' + str(group) if group else 'per-column scales'}, in "
+          f"{time.perf_counter() - t0:.1f} s: {nbytes / 1e9:.3f} GB of payload and scales")
+    return model, lora
+
+
+def qlora_rollouts(cfg, device, weights, *, seed: int, card: str = "", profile: bool = False,
+                   engines=(("dense", "none"), ("paged", "none")), tag: str = "QLoRA int4, ",
+                   **kw) -> list:
+    """``rollout`` of each engine of ``engines`` over the quantized
+    ``weights``; on the card, each run's launches are checked: K3 7 times per
+    layer per model forward (prefill and decode), K1 once per decode step,
+    K2 once per layer per paged decode forward, K4 never, K3's plain version
+    never."""
+    runs = []
+    for engine, kv_quant in engines:
+        out = rollout(cfg, device, seed=seed, card=card, profile=profile, engine=engine,
+                      kv_quant=kv_quant, weights=weights, tag=tag, **kw)
+        label, c = out["label"], out["counts"]
+        check(out["steps"] > 0 and out["model_forwards"] > 0, f"{label}: nothing ran")
+        if str(device).startswith("cuda"):
+            want = 7 * cfg.num_layers * out["model_forwards"]
+            check(c["quant_matmul"] == want, f"{label}: quant_matmul launches "
+                  f"{c['quant_matmul']} != {want} (7 x layers x {out['model_forwards']} forwards)")
+            check(c["fused_sample"] == out["steps"], f"{label}: fused_sample launches "
+                  f"{c['fused_sample']} != decode steps {out['steps']}")
+            want_pa = cfg.num_layers * out["forwards"] if engine == "paged" else 0
+            check(c["paged_attention"] == want_pa, f"{label}: paged_attention launches "
+                  f"{c['paged_attention']} != {want_pa}")
+            check(c["flash_attention_fwd"] == c["flash_attention_bwd"] == 0,
+                  f"{label}: K4 launched with attn_impl='reference'")
+            check(out["plain_calls"] == 0, f"{label}: K3's plain version ran "
+                  f"{out['plain_calls']} times")
+        print(f"rollout {label}: {out['model_forwards']} model forwards; peak device memory "
+              f"{out['peak_gib']:.2f} GiB ({out['live_gib']:.2f} GiB allocated before its "
+              f"rounds, the quantized model included); launches {c}; {card}")
+        runs.append(out)
+    return runs
+
+
+def qlora_logits(qweights, dense_weights, *, seed: int, steps: int = LOGIT_STEPS,
+                 n: int = PA_N, max_prompt_tokens: int = 350, max_new_tokens: int = 128,
+                 page_size: int = 128, rank: int = 32, alpha: float = 16.0) -> dict:
+    """Teacher-forced f32 logits of the dense engine over the prefill's last
+    position and ``steps`` decode forwards: the quantized model widened to
+    f32 with K3, against the same with K3's plain version in its place
+    (``k3_vs_plain``, the check), and against the dense base in f32
+    (``vs_dense``, a yardstick of what quantizing moves). Returns both
+    distances, the dense logits' std and K3's launches in both runs."""
+    import numpy as np
+    import torch
+
+    from distrl_llm_tpu_torch.models.lora import lora_scale
+
+    dev = qweights[0].embed.device
+    _, ids, mask, _ = prompt_batch(max_prompt_tokens)
+    ids = torch.as_tensor(np.asarray(ids), dtype=torch.int32, device=dev)
+    mask = torch.as_tensor(np.asarray(mask), dtype=torch.int32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tokens = torch.randint(0, qweights[0].cfg.vocab_size, (ids.shape[0] * n, steps),
+                           generator=gen, device=dev, dtype=torch.int32)
+    kw = dict(engine="dense", max_prompt_tokens=max_prompt_tokens,
+              max_new_tokens=max_new_tokens, page_size=page_size, scale=lora_scale(rank, alpha))
+
+    def dist(a, b):
+        return max(float((x - y).abs().max()) for x, y in zip(a, b))
+
+    wide = widen(dense_weights)
+    dense32 = engine_logits(wide, ids, mask, tokens, **kw)
+    del wide
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    wide = widen(qweights)
+    qm = _qmm()
+    before = qm.quant_matmul_launches
+    k3 = engine_logits(wide, ids, mask, tokens, **kw)
+    k3_launches = qm.quant_matmul_launches - before
+    before = qm.quant_matmul_launches
+    with k3_plain_version():
+        plain = engine_logits(wide, ids, mask, tokens, **kw)
+    return {"k3_vs_plain": dist(k3, plain), "vs_dense": dist(k3, dense32),
+            "std": float(torch.cat(dense32).std()), "k3_launches": k3_launches,
+            "plain_launches": qm.quant_matmul_launches - before}
+
+
+def qlora_learner_parity(cfg, device, *, seed: int, group: int = QMM_GROUP, **kw) -> dict:
+    """``learner_parity`` over an f32 base quantized to int4 (``group``):
+    the loss and LoRA grads with K3 against K3's plain version."""
+    import torch
+
+    weights = make_qlora_weights(cfg, device, seed=seed, bits=4, group=group,
+                                 rank=kw.get("rank", 32), dtype=torch.float32)
+    return learner_parity(cfg, device, seed=seed, weights=weights,
+                          plain_version=k3_plain_version, **kw)
+
+
+def qlora_phase(cfg, args, batch, card: str, t_start: float) -> list:
+    """Phase 6 on the card (see the module's docstring), with phase 5's
+    learner ``batch``; the bf16 weights of the earlier phases are freed, so
+    the peaks measured here are the QLoRA runs'. Returns the launch counts
+    of every main-path run in it."""
+    import torch
+
+    counted = []
+    qw = make_qlora_weights(cfg, "cuda", seed=args.seed, bits=4, group=QMM_GROUP)
+    runs = qlora_rollouts(cfg, "cuda", qw, seed=args.seed, card=card, profile=args.profile)
+    counted += [out["counts"] for out in runs]
+    q8 = make_qlora_weights(cfg, "cuda", seed=args.seed, bits=8, group=None)
+    runs8 = qlora_rollouts(cfg, "cuda", q8, seed=args.seed, card=card, engines=(("dense", "none"),),
+                           tag="QLoRA int8, ")
+    counted += [out["counts"] for out in runs8]
+    del q8, runs8
+    torch.cuda.empty_cache()
+    dense = make_weights(cfg, "cuda", seed=args.seed)  # the values qw was quantized from
+    lg = qlora_logits(qw, dense, seed=args.seed)
+    del dense
+    print(f"qlora: f32 logits of the dense engine over the int4 base, teacher-forced over the "
+          f"prefill's last position and {LOGIT_STEPS} decode forwards of {PA_PROMPTS * PA_N} rows: "
+          f"K3 vs its plain version max |dlogit| {lg['k3_vs_plain']:.4g} (tolerance "
+          f"{LOGIT_F32_ATOL}); yardstick, the int4 base vs the bf16 base's values in f32: "
+          f"{lg['vs_dense']:.4g} (not asserted; dense f32 logit std {lg['std']:.4g}); K3 "
+          f"launched {lg['k3_launches']} times, {lg['plain_launches']} with its plain version")
+    check(lg["plain_launches"] == 0 and lg["k3_launches"] > 0,
+          "qlora logits: K3 ran where it should not, or not where it should")
+    check(lg["k3_vs_plain"] <= LOGIT_F32_ATOL, f"qlora f32 logits: K3 and its plain version "
+          f"differ by {lg['k3_vs_plain']:.4g} > {LOGIT_F32_ATOL}")
+    torch.cuda.empty_cache()
+    lr, scale = 2e-5, 16.0 / 32
+    lrn = learner_run(qw, batch, lr=lr, scale=scale, card=card, profile=args.profile)
+    want_k3 = 2 * 7 * cfg.num_layers * lrn["num_micro"]
+    want_fwd = 2 * cfg.num_layers * lrn["num_micro"]
+    want_bwd = cfg.num_layers * lrn["num_micro"]
+    for i, st in enumerate(lrn["steps"]):
+        c = st["counts"]
+        check(math.isfinite(st["loss"]), f"qlora learner step {i + 1}: loss {st['loss']}")
+        check(c["quant_matmul"] == want_k3, f"qlora learner step {i + 1}: K3 launched "
+              f"{c['quant_matmul']} times, want {want_k3} (2 x 7 x layers x microbatches)")
+        check(c["flash_attention_fwd"] == want_fwd and c["flash_attention_bwd"] == want_bwd,
+              f"qlora learner step {i + 1}: K4 launched {c['flash_attention_fwd']} / "
+              f"{c['flash_attention_bwd']}, want {want_fwd} / {want_bwd}")
+        check(c["fused_sample"] == c["paged_attention"] == 0,
+              f"qlora learner step {i + 1}: K1/K2 launched")
+        check(st["within_clip"], f"qlora learner step {i + 1}: an adapter element moved by "
+              f"{st['max_delta']:.3g}, beyond Adam8bit's clip 5 lr = {5 * lr:.3g}")
+        check(st["moved_share"] > 0, f"qlora learner step {i + 1}: the adapter did not move")
+        counted.append(c)
+    check(lrn["plain_calls"] == lrn["k3_plain_calls"] == 0, "qlora learner: a plain version "
+          "ran on the main path")
+    ms = [1e3 * st["s"] for st in lrn["steps"]]
+    print(f"qlora learner: {len(ms)} steps over the int4 base, {cfg.num_layers} layers: "
+          f"{', '.join(f'{m:.1f}' for m in ms)} ms/step; "
+          f"{lrn['real_tokens'] / (ms[-1] / 1e3):.1f} real and "
+          f"{lrn['padded_tokens'] / (ms[-1] / 1e3):.1f} padded learner tokens/s (last step); "
+          f"peak device memory {lrn['peak_gib']:.2f} GiB; total "
+          f"{time.perf_counter() - t_start:.1f} s; {card}")
+    del lrn, qw
+    torch.cuda.empty_cache()
+    lp = qlora_learner_parity(dataclasses.replace(cfg, num_layers=2), "cuda", seed=args.seed)
+    print(f"qlora learner parity (f32, int4 g{QMM_GROUP}, 2 layers, {lp['shape'][0]} rows x "
+          f"{lp['shape'][1]}): loss K3 {lp['loss_kernel']:.8g} vs plain {lp['loss_plain']:.8g} "
+          f"(relative {lp['loss_rel']:.3g}), LoRA grads max |d| / max |g| {lp['grad_rel']:.3g} "
+          f"(tolerance {LEARNER_REL} each); learner vs engine logprobs max |d| "
+          f"{lp['logp_err']:.3g}; launches with K3 {lp['counts_kernel']}, with its plain "
+          f"version {lp['counts_plain']}")
+    check(lp["counts_kernel"]["quant_matmul"] > 0 and lp["counts_plain"]["quant_matmul"] == 0,
+          "qlora learner parity: K3 ran where it should not, or not where it should")
+    check(lp["loss_rel"] <= LEARNER_REL and lp["grad_rel"] <= LEARNER_REL,
+          "qlora learner parity: K3 and its plain version disagree beyond the tolerance")
+    return counted
 
 
 def main(argv=None) -> int:
@@ -1426,6 +1869,20 @@ def main(argv=None) -> int:
     results["flash_attention_fwd"] = {"max_abs_err": fa_err["f32"]["out"], **fa_times["fwd"]}
     results["flash_attention_bwd"] = {
         "max_abs_err": max(fa_err["f32"][n] for n in ("dq", "dk", "dv")), **fa_times["bwd"]}
+    t = time.perf_counter()
+    qmm_err = compare_quant_matmul("cuda", args.seed)
+    qmm_times = time_quant_matmul(args.seed)
+    for (m, bits), r in qmm_times.items():
+        print(f"kernel quant_matmul at x [{m},3584] bf16 x int{bits} "
+              f"{'g' + str(QMM_GROUP) if bits == 4 else 'per-column'} [3584,18944] (w_gate), "
+              f"rank-{QMM_RANK} LoRA: {r['ms']:.4f} ms, plain version {r['plain_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), library (torch.matmul on the "
+              f"weight dequantized beforehand, dequant not timed, + the LoRA delta) "
+              f"{r['library_ms']:.4f} ms; {card}")
+    print(f"kernel quant_matmul: stanza {time.perf_counter() - t:.1f} s")
+    # the line's headline is the decode step's int4 w_gate (M = 64)
+    results["quant_matmul"] = {"max_abs_err": qmm_err["f32_abs"],
+                               **qmm_times[(QMM_ROWS[0], 4)]}
 
     # 4. the main path at full width: the dense engine, then the paged engine
     # with bf16 and with int8 pages, each with the counts reset around it
@@ -1544,7 +2001,7 @@ def main(argv=None) -> int:
     print(f"learner: the trained adapter pushed into the dense engine's mailbox: swapped in "
           f"at decode step {pushed['swap_steps']}, version {pushed['versions']}; its greedy "
           f"round equals the pre-update round on {100 * same.mean():.2f}% of positions")
-    del lrn, batch, pushed
+    del lrn, pushed
     torch.cuda.empty_cache()
 
     # the learner in f32 at full width, 2 layers: K4 against its plain
@@ -1552,19 +2009,27 @@ def main(argv=None) -> int:
     # engine's greedy tokens against the logprobs that engine captured
     lp = learner_parity(dataclasses.replace(cfg, num_layers=2), "cuda", seed=args.seed)
     print(f"learner parity (f32, 2 layers, {lp['shape'][0]} rows x {lp['shape'][1]}): loss "
-          f"K4 {lp['loss_k4']:.8g} vs plain {lp['loss_plain']:.8g} (relative "
+          f"K4 {lp['loss_kernel']:.8g} vs plain {lp['loss_plain']:.8g} (relative "
           f"{lp['loss_rel']:.3g}), LoRA grads max |d| / max |g| {lp['grad_rel']:.3g} "
           f"(tolerance {LEARNER_REL} each; max |g| {lp['grad_max']:.3g}); learner vs engine "
           f"logprobs on {lp['gen_positions']} generated positions: max |d| "
           f"{lp['logp_err']:.3g} (tolerance {LEARNER_LOGP_ATOL}); launches with K4 "
-          f"{lp['counts_k4']}, with its plain version {lp['counts_plain']}")
-    check(lp["counts_k4"]["flash_attention_bwd"] > 0 and
+          f"{lp['counts_kernel']}, with its plain version {lp['counts_plain']}")
+    check(lp["counts_kernel"]["flash_attention_bwd"] > 0 and
           lp["counts_plain"]["flash_attention_fwd"] == lp["counts_plain"]["flash_attention_bwd"]
           == 0, "learner parity: K4 ran where it should not, or not where it should")
     check(lp["loss_rel"] <= LEARNER_REL and lp["grad_rel"] <= LEARNER_REL,
           "learner parity: K4 and its plain version disagree beyond the tolerance")
     check(lp["logp_err"] <= LEARNER_LOGP_ATOL, f"learner vs engine logprobs differ by "
           f"{lp['logp_err']:.3g} > {LEARNER_LOGP_ATOL}")
+
+    # 6. QLoRA: the same model with its projections quantized (int4 in groups
+    # of 64, the reference's 4-bit base), every projection through K3: the
+    # dense and the paged engine, one dense round over an int8 base, f32
+    # logits against K3's plain version, two learner steps, f32 parity
+    del weights
+    torch.cuda.empty_cache()
+    counted += qlora_phase(cfg, args, batch, card, t_start)
     print(f"chip_smoke: done in {time.perf_counter() - t_start:.1f} s; {card}")
 
     kernels = []

@@ -3,10 +3,13 @@
 ``params_from_numpy`` takes a param tree with the JAX package's
 ``init_params`` keys (``embed``, ``final_norm``, optional ``lm_head``, and
 ``layers`` of stacked ``[L, ...]`` arrays) as nested dicts of numpy arrays and
-returns the port's ``Decoder``. ``lora_from_numpy`` does the same for an
-adapter tree (``{"layers": {target: {"a", "b"}}}``), and ``lora_to_numpy``
-carries an adapter back (to compare adapters after a learner step). The
-caller converts on the JAX side (``jax.tree_util.tree_map(np.asarray,
+returns the port's ``Decoder``. A projection may be a quantized container
+(the QLoRA base): ``{"q": int8 [L, G, g, N], "scale": f32 [L, G, 1, N]}``
+for int8, ``{"q4": int8 [L, G, g/2, N], "scale"}`` for int4 (the JAX
+package's ``pack_params_int4`` transport form). ``lora_from_numpy`` does the
+same for an adapter tree (``{"layers": {target: {"a", "b"}}}``), and
+``lora_to_numpy`` carries an adapter back (to compare adapters after a
+learner step). The caller converts on the JAX side (``jax.tree_util.tree_map(np.asarray,
 tree)``), so the port never sees a JAX array.
 """
 
@@ -18,8 +21,9 @@ import numpy as np
 import torch
 
 from distrl_llm_tpu_torch.models.configs import ModelConfig
-from distrl_llm_tpu_torch.models.lora import TARGET_DIMS
+from distrl_llm_tpu_torch.models.lora import TARGET_DIMS, target_shapes
 from distrl_llm_tpu_torch.models.transformer import Decoder
+from distrl_llm_tpu_torch.ops.quant import QUANT_TARGETS, is_quantized
 from distrl_llm_tpu_torch.utils.device import resolve_device
 
 Tree = Mapping[str, Any]
@@ -34,13 +38,37 @@ def _copy(dst: torch.Tensor, src: np.ndarray, name: str) -> None:
     dst.copy_(torch.from_numpy(src))
 
 
+def _tree_quant(layers: Tree, cfg: ModelConfig) -> tuple[int, int | None] | None:
+    """(bits, group size) of a tree's quantized projections, None when they
+    are dense; group None means per-column scales (one group per input
+    dim). Raises on a mix of forms."""
+    found = {name: w for name, w in layers.items() if is_quantized(w)}
+    if not found:
+        return None
+    if set(found) != set(QUANT_TARGETS):
+        raise ValueError(f"quantized layer keys {sorted(found)} != {sorted(QUANT_TARGETS)}")
+    bits = {4 if "q4" in w else 8 for w in found.values()}
+    if len(bits) != 1:
+        raise ValueError("the tree mixes int8 and int4 containers")
+    groups = {name: np.shape(w["q4"])[-2] * 2 if "q4" in w else np.shape(w["q"])[-2]
+              for name, w in found.items()}
+    shapes = target_shapes(cfg)
+    if all(g == shapes[name][0] for name, g in groups.items()):
+        return bits.pop(), None
+    if len(set(groups.values())) != 1:
+        raise ValueError(f"the tree's containers have different group sizes {groups}")
+    return bits.pop(), groups.popitem()[1]
+
+
 @torch.no_grad()
 def params_from_numpy(tree: Tree, cfg: ModelConfig,
                       dtype: torch.dtype = torch.float32,
                       device: str | torch.device | None = None) -> Decoder:
     """JAX-layout numpy param tree → ``Decoder`` on ``device`` (default the
-    GPU). Raises on a missing or unexpected key and on any shape mismatch."""
-    model = Decoder(cfg, dtype=dtype, device=resolve_device(device))
+    GPU), quantized when the tree's projections are. Raises on a missing or
+    unexpected key and on any shape or payload-type mismatch."""
+    quant = _tree_quant(tree["layers"], cfg) if "layers" in tree else None
+    model = Decoder(cfg, dtype=dtype, device=resolve_device(device), quant=quant)
     top = {"embed", "final_norm", "layers"} | (
         set() if cfg.tie_word_embeddings else {"lm_head"})
     if set(tree) != top:
@@ -51,17 +79,30 @@ def params_from_numpy(tree: Tree, cfg: ModelConfig,
         _copy(model.lm_head, tree["lm_head"], "lm_head")
     layers = tree["layers"]
     names = [n for n, _ in model.layers[0].named_parameters()]
+    if quant is not None:
+        names += list(QUANT_TARGETS)
     if set(layers) != set(names):
         raise ValueError(
             f"layer keys {sorted(layers)} != {sorted(names)} for this config")
     for name in names:
-        stacked = np.asarray(layers[name])
-        if stacked.shape[0] != cfg.num_layers:
-            raise ValueError(
-                f"layers.{name}: leading axis {stacked.shape[0]} != "
-                f"num_layers {cfg.num_layers}")
-        for i, layer in enumerate(model.layers):
-            _copy(getattr(layer, name), stacked[i], f"layers.{name}[{i}]")
+        if quant is None or name not in QUANT_TARGETS:
+            leaves = {name: layers[name]}
+        else:
+            leaves = {f"{name}_{key}": arr for key, arr in layers[name].items()}
+            if set(leaves) - {f"{name}_q", f"{name}_q4", f"{name}_scale"}:
+                raise ValueError(f"layers.{name}: container keys {sorted(layers[name])}")
+        for attr, arr in leaves.items():
+            stacked = np.asarray(arr)
+            if stacked.shape[0] != cfg.num_layers:
+                raise ValueError(
+                    f"layers.{attr}: leading axis {stacked.shape[0]} != "
+                    f"num_layers {cfg.num_layers}")
+            for i, layer in enumerate(model.layers):
+                dst = getattr(layer, attr)
+                if dst.dtype == torch.int8 and stacked.dtype != np.int8:
+                    raise ValueError(f"layers.{attr}: payload {stacked.dtype}, want int8 "
+                                     "(int4 goes as the nibble-packed q4)")
+                _copy(dst, stacked[i], f"layers.{attr}[{i}]")
     return model
 
 

@@ -30,6 +30,11 @@ TARGET_DIMS = {
 DEFAULT_TARGETS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 
 
+def target_shapes(cfg: ModelConfig) -> dict[str, tuple[int, int]]:
+    """Each projection's ``[in, out]`` shape under ``cfg``."""
+    return {t: (getattr(cfg, i), getattr(cfg, o)) for t, (i, o) in TARGET_DIMS.items()}
+
+
 def lora_scale(rank: int, alpha: float) -> float:
     return alpha / rank
 

@@ -31,7 +31,12 @@ stacked leaf); the base stays frozen. ``remat`` wraps each layer in
 ``jax.checkpoint(..., nothing_saveable)``; LoRA dropout draws its masks from
 seeds derived per (layer, target), so the recompute draws the same masks.
 
-The int8 dense cache, quantized bases, ring and ulysses raise
+A quantized base (QLoRA, ``ops/quant.py``) keeps the seven projections as
+int8 or int4 containers: each runs kernel K3 (``ops/quant_matmul.py``), with
+the adapter's delta fused into its epilogue unless LoRA dropout is on (then
+K3 without the adapter, plus ``lora_delta``), as the JAX ``_proj`` does.
+
+The int8 dense cache, ring and ulysses raise
 ``NotImplementedError`` naming their ROADMAP item; the paged
 chunked/prefix/verify branches are not ported (ROADMAP queue 1 items 4 and
 7).
@@ -47,6 +52,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from distrl_llm_tpu_torch.models.configs import ModelConfig
+from distrl_llm_tpu_torch.models.lora import target_shapes
+from distrl_llm_tpu_torch.ops import quant_matmul as _qmm
 from distrl_llm_tpu_torch.ops.attention import (
     attention, attention_cached, causal_padding_mask,
 )
@@ -103,13 +110,20 @@ def _check_cache(kv_cache: Params) -> None:
 
 class DecoderLayer(nn.Module):
     """One pre-norm decoder layer: GQA attention + gated MLP, each with a
-    residual; every projection may carry a LoRA delta."""
+    residual; every projection may carry a LoRA delta.
+
+    With ``quant`` = (bits, group size) the seven projections are quantized
+    containers (``ops/quant.py``), held as buffers ``{name}_q`` (int8) or
+    ``{name}_q4`` (int4 nibble form) and ``{name}_scale`` that get no grad,
+    and the dense parameter of that name is None; ``weight(name)`` returns
+    either form."""
 
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype,
-                 device: torch.device | str | None = None):
+                 device: torch.device | str | None = None,
+                 quant: tuple[int, int | None] | None = None):
         super().__init__()
         self.cfg = cfg
-        D, F_ = cfg.hidden_size, cfg.intermediate_size
+        D = cfg.hidden_size
 
         def param(*shape):
             return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
@@ -117,13 +131,17 @@ class DecoderLayer(nn.Module):
 
         self.attn_norm = param(D)
         self.mlp_norm = param(D)
-        self.wq = param(D, cfg.q_dim)
-        self.wk = param(D, cfg.kv_dim)
-        self.wv = param(D, cfg.kv_dim)
-        self.wo = param(cfg.q_dim, D)
-        self.w_gate = param(D, F_)
-        self.w_up = param(D, F_)
-        self.w_down = param(F_, D)
+        for name, (d_in, d_out) in target_shapes(cfg).items():
+            if quant is None:
+                setattr(self, name, param(d_in, d_out))
+                continue
+            bits, group = quant
+            g = group or d_in
+            key, rows = ("q4", g // 2) if bits == 4 else ("q", g)
+            self.set_quantized(name, {
+                key: torch.empty((d_in // g, rows, d_out), dtype=torch.int8, device=device),
+                "scale": torch.empty((d_in // g, 1, d_out), dtype=torch.float32,
+                                     device=device)})
         if cfg.attention_bias:
             self.bq = param(cfg.q_dim)
             self.bk = param(cfg.kv_dim)
@@ -131,10 +149,35 @@ class DecoderLayer(nn.Module):
         else:
             self.bq = self.bk = self.bv = None
 
+    def set_quantized(self, name: str, container: Params) -> None:
+        """Replace projection ``name`` by a quantized container (its dense
+        parameter is dropped)."""
+        self.register_parameter(name, None)
+        for key in ("q", "q4", "scale"):
+            if key in container:
+                self.register_buffer(f"{name}_{key}", container[key])
+
+    def weight(self, name: str):
+        """Projection ``name``: the dense ``[in, out]`` parameter or the
+        quantized container dict."""
+        w = getattr(self, name)
+        if w is not None:
+            return w
+        key = "q4" if hasattr(self, f"{name}_q4") else "q"
+        return {key: getattr(self, f"{name}_{key}"), "scale": getattr(self, f"{name}_scale")}
+
     def _proj(self, h, name: str, bias, lora: Params | None, lora_scale: float,
               lora_dropout: float = 0.0, layer_seed: int | None = None):
-        y = linear(h, getattr(self, name), bias)
-        if lora is not None and name in lora:
+        w = self.weight(name)
+        has_lora = lora is not None and name in lora
+        if has_lora and isinstance(w, dict) and (lora_dropout <= 0.0 or layer_seed is None):
+            # a quantized base with an adapter and no dropout: one K3 launch
+            # with the LoRA delta in its epilogue (dropout perturbs the
+            # adapter INPUT, which the epilogue cannot express)
+            return _qmm.quant_matmul(h, w, bias, lora[name]["a"], lora[name]["b"],
+                                     lora_scale)
+        y = linear(h, w, bias)
+        if has_lora:
             seed = (dropout_stream(layer_seed, _TARGET_STREAM[name])
                     if layer_seed is not None else None)
             y = y + lora_delta(h, lora[name]["a"], lora[name]["b"], lora_scale,
@@ -215,12 +258,17 @@ class DecoderLayer(nn.Module):
 class Decoder(nn.Module):
     """Embedding, ``num_layers`` decoder layers, final norm, LM head (or the
     tied embedding). Parameters are created uninitialized; fill them with
-    ``init_params`` or ``models.convert.params_from_numpy``."""
+    ``init_params`` or ``models.convert.params_from_numpy``. ``quant`` =
+    (bits, group size) builds the layers with quantized projections
+    (``DecoderLayer``); ``ops/quant.py::quantize_params`` converts a dense
+    model in place. ``self.quant`` records which form the model has."""
 
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype = torch.float32,
-                 device: torch.device | str | None = None):
+                 device: torch.device | str | None = None,
+                 quant: tuple[int, int | None] | None = None):
         super().__init__()
         self.cfg = cfg
+        self.quant = quant
         D = cfg.hidden_size
         self.embed = nn.Parameter(
             torch.empty(cfg.vocab_size, D, dtype=dtype, device=device),
@@ -233,7 +281,7 @@ class Decoder(nn.Module):
                                           device=device), requires_grad=False)
         )
         self.layers = nn.ModuleList(
-            DecoderLayer(cfg, dtype, device) for _ in range(cfg.num_layers))
+            DecoderLayer(cfg, dtype, device, quant) for _ in range(cfg.num_layers))
 
     def forward(
         self,

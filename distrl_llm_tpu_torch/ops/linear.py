@@ -1,8 +1,8 @@
 """Linear projection and the inference-time LoRA delta.
 
 Weights keep the JAX package's ``[in, out]`` layout, so ``y = x @ w`` and one
-numpy tree feeds both packages. Quantized weight containers (the QLoRA base)
-are not ported yet (ROADMAP: QLoRA with kernel K3).
+numpy tree feeds both packages. A quantized weight container (the QLoRA base,
+``ops/quant.py``) goes to kernel K3 (``ops/quant_matmul.py``).
 """
 
 from __future__ import annotations
@@ -10,14 +10,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from distrl_llm_tpu_torch.ops import quant_matmul as _qmm
+
 
 def linear(x: torch.Tensor, w, b: torch.Tensor | None = None) -> torch.Tensor:
-    """y = x @ w (+ b) for a plain ``[in, out]`` weight."""
+    """y = x @ w (+ b). ``w`` is a plain ``[in, out]`` weight or a quantized
+    container: then K3 without an adapter on CUDA tensors, its plain
+    version (the container math: ``q · scale`` in f32, one cast, ``x @ w``,
+    then ``+ b``) on CPU tensors."""
     if isinstance(w, dict):
-        raise NotImplementedError(
-            "quantized base weights are not ported yet (ROADMAP: QLoRA "
-            "with kernel K3)"
-        )
+        return _qmm.quant_matmul(x, w, b)
     y = x @ w
     if b is not None:
         y = y + b

@@ -120,6 +120,7 @@ LAUNCHERS = (
     ("fused_sample", "sampling", ("fused_sample_launch",)),
     ("paged_attention", "paged_native", ("paged_attention_launch",)),
     ("flash_attention", "flash_attention", ("flash_attention_fwd", "flash_attention_bwd")),
+    ("quant_matmul", "quant_matmul", ("quant_matmul_launch",)),
 )
 
 
