@@ -47,6 +47,23 @@ printing its own lines:
    x 28 x 8 times a step); and a 2-layer f32 learner parity run, K3 against
    its plain version.
 
+7. speculative decoding: K5 (``csrc/paged_verify.cu``, the draft-block
+   verify attention) against its plain version at 64 rows x S 5 x 28 / 4
+   heads x hd 128, lengths around 600 with page crossings, bf16, int8 and
+   f32, and timed against its bound and the unrolled 5 x K2; then the
+   engine of the README's BASELINE config 2 (refill scheduler, 64 slots,
+   ``spec_draft=4``, n-gram 2, 128-token pages) over 8 math prompts x 16
+   candidates x 256 new tokens: speculative and plain refill greedy rounds
+   with bf16 and int8 pages and one sampled speculative round, each with
+   the counts reset around it (K5 = 28 x verify forwards and no K2 in a
+   speculative round; K2 = 28 x decode forwards in a plain one), printing
+   ms/step, tokens/s, accept rate and tokens per verify step (random
+   weights give the n-gram drafter nothing to accept, so the same engine
+   and kernels also run the TINY preset in f32, whose greedy streams loop:
+   drafts accepted, speculative greedy tokens equal to plain refill's);
+   and the f32 logits of one verify forward over 5 positions against 5
+   single-token decode forwards.
+
 Phase 3 holds K4 (forward and backward) against its plain version at the
 learner's [8, 1550, 28 / 4, 128], f32 and bf16, with its time, bound and
 ``scaled_dot_product_attention`` as the library yardstick; and K3 at every
@@ -147,6 +164,10 @@ KERNELS = (
      "source": "distrl_llm_tpu_torch/csrc/quant_matmul.cu",
      "replaces": "distrl_llm_tpu/ops/quant_matmul.py:150",
      "module": "distrl_llm_tpu_torch.ops.quant_matmul", "counter": "quant_matmul_launches"},
+    {"name": "paged_verify", "route": "cuda",
+     "source": "distrl_llm_tpu_torch/csrc/paged_verify.cu",
+     "replaces": "distrl_llm_tpu/ops/paged_native.py:573",
+     "module": "distrl_llm_tpu_torch.ops.paged_native", "counter": "paged_verify_launches"},
 )
 
 # K2 at the main path's full configuration: Qwen2.5-7B heads (28 / 4, hd
@@ -1782,6 +1803,464 @@ def qlora_phase(cfg, args, batch, card: str, t_start: float) -> list:
     return counted
 
 
+# ---------------------------------------------------------------- phase 7
+
+# K5 at the speculative main path's geometry: Qwen2.5-7B heads, d = 4 drafts
+# (S = 5 queries per row), 64 slots, the paged page geometry above, resident
+# lengths around 600 (a 350-token prompt and ~250 generated tokens)
+VF_S = 5
+VF_CASES = PA_CASES
+# the speculative round: BASELINE config 2's engine (refill, 64 slots,
+# spec_draft 4, n-gram 2, 128-token pages) over 8 math prompts x 16
+# candidates x 256 new tokens, so that 128 candidates refill 64 slots
+SPEC_PROBLEMS = PROBLEMS + (
+    ("What is 12 squared?", "144"),
+    ("Compute 3 + 4 * 5.", "23"),
+    ("How many sides does a hexagon have?", "6"),
+    ("What is 100 divided by 4?", "25"),
+)
+SPEC_DRAFT, SPEC_NGRAM, SPEC_SLOTS, SPEC_NEW_TOKENS = 4, 2, 64, 256
+
+
+def verify_lengths(seed: int, prompt_lens=(350, 256, 128, 60)) -> list:
+    """Resident lengths of 64 rows for K5's stanza: page crossings of the
+    5-token block (a block starting at 124..128 spans two pages), length 1,
+    a block ending exactly at the table's capacity, and random lengths in
+    [550, 650], each clipped so the block fits its row's table."""
+    import torch
+
+    rng = torch.Generator().manual_seed(seed)
+    fixed = (0, 1, 124, 126, 127, 128, 251, 10**6)
+    out = []
+    for r in range(PA_PROMPTS * PA_N):
+        cap = (prompt_lens[r // PA_N] // PA_PAGE + PA_PRIVATE_PAGES) * PA_PAGE - VF_S
+        want = fixed[r % 8] if r % 16 < 8 else int(torch.randint(550, 651, (1,), generator=rng))
+        out.append(min(want, cap))
+    return out
+
+
+def verify_case(device, seed: int, *, q_dtype, kv: str, lengths, prompt_lens=(350, 256, 128, 60)):
+    """K5's inputs: K2's pages and fan-out table (``paged_case``) with an
+    S-token query block per row, q pre-scaled in its dtype."""
+    import torch
+
+    args, kw = paged_case(device, seed, q_dtype=q_dtype, kv=kv, prompt_lens=prompt_lens,
+                          lengths=lengths)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    q = (torch.randn((len(lengths), VF_S, PA_HEADS, PA_HEAD_DIM), generator=gen,
+                     device=device).to(q_dtype) * PA_HEAD_DIM**-0.5)
+    return (q,) + args[1:], kw
+
+
+def paged_verify_bound_ms(lengths, page_indices, *, q_dtype, kv_dtype, s: int = VF_S,
+                          page_size: int = PA_PAGE, heads: int = PA_HEADS,
+                          kv_heads: int = PA_KV_HEADS,
+                          head_dim: int = PA_HEAD_DIM) -> tuple[float, str]:
+    """Least time on the card for one K5 call: ``paged_attention_bound_ms``
+    over the positions the blocks reach (each row reads its first
+    ``length + S`` positions; a page several rows share counts once), with
+    an S-token q and output per row, against 4 · H · hd operations per
+    (query, attended position), query i of a row attending ``length + i +
+    1`` positions."""
+    import torch
+
+    reach: dict[int, int] = {}
+    entries = 0
+    for row, n in zip(page_indices.tolist(), lengths):
+        span = int(n) + s
+        for j in range(-(-span // page_size)):
+            reach[row[j]] = max(reach.get(row[j], 0), min(page_size, span - j * page_size))
+            entries += 1
+    per_position = head_dim * kv_dtype.itemsize + (4 if kv_dtype == torch.int8 else 0)
+    rows = len(lengths)
+    nbytes = (2 * kv_heads * sum(reach.values()) * per_position
+              + 2 * rows * s * heads * head_dim * q_dtype.itemsize + rows * 4 + entries * 4)
+    attended = sum(s * int(n) + s * (s + 1) // 2 for n in lengths)
+    ops = 4 * heads * head_dim * attended
+    peak = F32_OPS_PER_S if q_dtype == torch.float32 else BF16_PEAK_OPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def compare_paged_verify(device, seed: int, ppbs=(1, 2, 4), cases=VF_CASES) -> float:
+    """K5 against its plain version on ``device`` at the verify geometry
+    (3 row tiles of 12 query rows), for each of ``VF_CASES`` and several
+    pages_per_block; garbage table entries past every row's block must
+    change nothing.
+    Returns the largest |dout|."""
+    import torch
+
+    from distrl_llm_tpu_torch.ops.paged_native import (
+        paged_attention_native_verify, paged_attention_native_verify_reference,
+    )
+
+    dev = torch.device(device)
+    lengths = verify_lengths(seed)
+    worst = 0.0
+    for qn, kv in cases:
+        q_dtype = getattr(torch, qn)
+        args, kw = verify_case(dev, seed, q_dtype=q_dtype, kv=kv, lengths=lengths)
+        want = paged_attention_native_verify_reference(*args, **kw).float()
+        for ppb in ppbs:
+            got = paged_attention_native_verify(*args, **kw, pages_per_block=ppb)
+            gf = got.float()
+            err = (gf - want).abs()
+            if q_dtype == torch.float32:
+                tol = torch.full_like(err, F32_ATOL)
+            else:  # one bf16 ulp of the value, plus the f32 difference
+                mag = torch.maximum(gf.abs(), want.abs()).clamp_min(2.0**-126)
+                tol = torch.exp2(torch.floor(torch.log2(mag)) - 7) + F32_ATOL
+            bad = err > tol
+            what = f"K5 {qn}/{kv} ppb={ppb}"
+            check(bool(torch.isfinite(gf).all()), f"{what}: non-finite output")
+            check(not bool(bad.any()), f"{what}: |dout| {float(err.max()):.3g} above the "
+                  f"tolerance on {int(bad.sum())} elements")
+            worst = max(worst, float(err.max()))
+            print(f"kernel paged_verify q {qn}, pages {kv}, pages_per_block {ppb}: "
+                  f"max |dout| {float(err.max()):.3g} over {got.numel()} outputs")
+        q, kp, vp, lens, table = args
+        live = -(-(lens.long() + VF_S) // PA_PAGE)
+        cols = torch.arange(table.shape[1], device=dev)[None, :]
+        poisoned = torch.where(cols >= live[:, None], 10**6, table).to(torch.int32)
+        base = paged_attention_native_verify(q, kp, vp, lens, table, **kw)
+        again = paged_attention_native_verify(q, kp, vp, lens, poisoned.contiguous(), **kw)
+        check(torch.equal(base, again), f"K5 {qn}/{kv}: garbage table entries past "
+              "the block changed the output")
+    print(f"kernel paged_verify: all cases within tolerance (f32 {F32_ATOL}; bf16 one ulp "
+          f"+ {F32_ATOL}); max |dout| {worst:.3g}")
+    return worst
+
+
+def time_paged_verify(seed: int) -> dict:
+    """K5's, the plain version's and the unrolled S x K2's times at 64 rows of the verify
+    geometry (lengths around 600, prompts of 350 tokens: 4 prompts x 16
+    candidates), bf16 and int8 pages under bf16 q, beside the card's
+    bound."""
+    import torch
+
+    from distrl_llm_tpu_torch.ops.paged_native import (
+        paged_attention_native, paged_attention_native_verify,
+        paged_attention_native_verify_reference,
+    )
+
+    lengths = [550 + (37 * r) % 101 for r in range(PA_PROMPTS * PA_N)]
+    out = {}
+    for kv in ("bfloat16", "int8"):
+        args, kw = verify_case("cuda", seed, q_dtype=torch.bfloat16, kv=kv, lengths=lengths,
+                               prompt_lens=(350,) * PA_PROMPTS)
+        q, kp, vp, lens, table = args
+        qs = [q[:, i].contiguous() for i in range(VF_S)]
+        ls = [(lens + i + 1).to(torch.int32) for i in range(VF_S)]
+
+        def unrolled():
+            for i in range(VF_S):
+                paged_attention_native(qs[i], kp, vp, ls[i], table, **kw)
+
+        ms = _time_ms(lambda: paged_attention_native_verify(*args, **kw))
+        unrolled_ms = _time_ms(unrolled)
+        plain_ms = _time_ms(lambda: paged_attention_native_verify_reference(*args, **kw),
+                            calls=10)
+        bound_ms, bound_by = paged_verify_bound_ms(lengths, table.cpu(), q_dtype=torch.bfloat16,
+                                                   kv_dtype=kp.dtype)
+        # no single PyTorch call takes a page table: library_ms is null; the
+        # unrolled S launches of K2 are the yardstick
+        out[kv] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                   "library_ms": None, "unrolled_ms": unrolled_ms}
+    return out
+
+
+def spec_prompt_batch(max_prompt_tokens: int):
+    """Phase 7's 8 math prompts through the tokenizer, left-padded."""
+    from distrl_llm_tpu_torch.data import process_dataset
+    from distrl_llm_tpu_torch.tokenizer import CharTokenizer, encode_fixed
+
+    tok = CharTokenizer()
+    texts = process_dataset(tok, {"problem": [p for p, _ in SPEC_PROBLEMS]})["problem"]
+    ids, mask = encode_fixed(tok, texts, max_prompt_tokens, side="left")
+    return tok, ids, mask
+
+
+def spec_engine(cfg, device, *, spec_draft: int, kv_quant: str, cache_dtype,
+                max_prompt_tokens: int = 350, max_new_tokens: int = SPEC_NEW_TOKENS,
+                slots: int = SPEC_SLOTS, page_size: int = 128, scale: float = 0.5):
+    """BASELINE config 2's rollout engine: the refill scheduler over
+    ``slots`` slots with ``spec_draft`` n-gram drafts (0: plain refill)."""
+    from distrl_llm_tpu_torch.engine import PagedGenerationEngine
+    from distrl_llm_tpu_torch.tokenizer import CharTokenizer
+
+    tok = CharTokenizer()
+    return PagedGenerationEngine(
+        cfg, max_prompt_tokens=max_prompt_tokens, max_new_tokens=max_new_tokens,
+        eos_token_ids=[tok.eos_token_id], pad_token_id=tok.pad_token_id, lora_scale=scale,
+        cache_dtype=cache_dtype, capture_logprobs=True, page_size=page_size,
+        kv_quant=kv_quant, scheduler="refill", max_concurrent_rows=slots,
+        spec_draft=spec_draft, spec_ngram=SPEC_NGRAM, device=device)
+
+
+def _check_refill_round(res, *, rows: int, n: int, steps: int, vocab: int, eos: int,
+                        pad: int, what: str) -> None:
+    """``_check_round`` for a refill round, whose dispatched steps serve
+    several occupants per slot: every candidate generated 1..steps tokens,
+    ending at its first EOS or at the limit, pad after its end."""
+    import numpy as np
+
+    check(res.tokens.shape == (rows, n, steps), f"{what}: tokens {res.tokens.shape}")
+    check(((res.tokens >= 0) & (res.tokens < vocab)).all(), f"{what}: token out of range")
+    tok = res.tokens.reshape(-1, steps)
+    lengths = res.lengths.reshape(-1)
+    logp = res.logprobs.reshape(-1, steps)
+    check(((lengths >= 1) & (lengths <= steps)).all(), f"{what}: lengths out of range")
+    check(np.isfinite(logp).all() and (logp <= 1e-6).all(), f"{what}: bad logprobs")
+    col = np.arange(steps)[None, :]
+    after = col >= lengths[:, None]
+    check((tok[after] == pad).all(), f"{what}: a non-pad token after a row's end")
+    check((logp[after] == 0.0).all(), f"{what}: a logprob after a row's end")
+    eos_at = np.where((tok == eos) & ~after, col, steps).min(axis=1)
+    check(((eos_at == lengths - 1) | ((eos_at == steps) & (lengths == steps))).all(),
+          f"{what}: a row does not end at its first EOS")
+    check(res.steps_dispatched >= 1, f"{what}: no step dispatched")
+
+
+def spec_round(cfg, device, weights, *, seed: int, spec_draft: int, kv_quant: str,
+               temperature: float = 0.0, n: int = PA_N, max_new_tokens: int = SPEC_NEW_TOKENS,
+               slots: int = SPEC_SLOTS, page_size: int = 128, card: str = "",
+               max_prompt_tokens: int = 350, profile: bool = False) -> dict:
+    """One round of the refill engine (speculative with ``spec_draft`` > 0)
+    on phase 7's prompts, after a short warm-up, with the launch counts
+    reset just before and read just after. Checks the round's tokens;
+    ``check_spec_counts`` checks its launches. With ``profile``, also the
+    device time per step by kernel (after the counts are read)."""
+    import torch
+
+    from distrl_llm_tpu_torch.config import SamplingConfig
+
+    model, lora = weights
+    dtype = model.embed.dtype
+    tok, ids, mask = spec_prompt_batch(max_prompt_tokens)
+    eng = spec_engine(cfg, device, spec_draft=spec_draft, kv_quant=kv_quant, cache_dtype=dtype,
+                      max_prompt_tokens=max_prompt_tokens, max_new_tokens=max_new_tokens,
+                      slots=slots, page_size=page_size)
+    sc = SamplingConfig(max_tokens=max_new_tokens, temperature=temperature, top_p=0.95, n=n)
+    eng.generate(model, lora, ids, mask, sc.replace(max_tokens=4), seed)  # warm-up
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    reset_counts()
+    t = time.perf_counter()
+    res = eng.generate(model, lora, ids, mask, sc, seed + 1)
+    wall = time.perf_counter() - t
+    counts = read_counts()
+    st, spec = eng.last_round_stats, eng.last_spec_stats
+    label = (f"{'spec d=' + str(spec_draft) if spec_draft else 'plain refill'} "
+             f"{'int8' if kv_quant == 'int8' else str(dtype).split('.')[-1]} KV "
+             f"t={temperature}")
+    _check_refill_round(res, rows=ids.shape[0], n=n, steps=max_new_tokens,
+                        vocab=cfg.vocab_size, eos=tok.eos_token_id, pad=tok.pad_token_id,
+                        what=label)
+    fwd = st["decode_forwards"]
+    steps = res.steps_dispatched
+    out = {"label": label, "counts": counts, "res": res, "wall_s": wall,
+           "spec_draft": spec_draft,
+           "sampler_calls": st["sampler_calls"],
+           "ms_per_step": st["decode_s"] * 1e3 / steps, "decode_tok_s": st["gen_tokens"]
+           / st["decode_s"], "prefill_tok_s": st["prefill_tokens"] / st["prefill_s"],
+           "steps": steps, "forwards": fwd, "gen_tokens": st["gen_tokens"], "spec": spec,
+           "pool": eng.last_pool_stats, "alive_slot_steps": res.alive_slot_steps}
+    extra = ""
+    if spec:
+        extra = (f"; accept rate {spec['accept_rate']:.4f}, {spec['tokens_per_verify_step']:.4f} "
+                 f"tokens per verify step, emit histogram {spec['emit_hist']}")
+    print(f"spec {label}: {ids.shape[0]} prompts x {n} over {slots} slots, {steps} steps "
+          f"({res.alive_slot_steps} slot-steps), {st['gen_tokens']} tokens; decode "
+          f"{out['decode_tok_s']:.1f} tok/s, {out['ms_per_step']:.2f} ms/step; prefill "
+          f"{out['prefill_tok_s']:.1f} tok/s; wall {wall:.1f} s{extra}; launches {counts}; {card}")
+    if profile:
+        prof = profile_decode(lambda k: eng.generate(
+            model, lora, ids, mask, sc.replace(max_tokens=k), seed).steps_dispatched)
+        print(f"profile spec {label}: {prof['device_ms_per_step']:.3f} ms of device time per "
+              f"step in {prof['kernels_per_step']} kernel names, against "
+              f"{out['ms_per_step']:.3f} ms/step unprofiled: device idle "
+              f"{100 * (1 - prof['device_ms_per_step'] / out['ms_per_step']):.1f}%; {card}")
+        for name, ms in prof["top"]:
+            print(f"profile spec {label}: {ms:8.4f} ms/step  {name[:110]}")
+        out["profile"] = prof
+    return out
+
+
+def check_spec_counts(out: dict, layers: int) -> None:
+    """Every kernel of a refill round's path ran as often as the path
+    dispatches it: speculative, K5 once per layer per verify forward and K2
+    never, K1 once per admission;
+    plain, K2 once per layer per decode forward, K1 once per step, K5
+    never; K3 and K4 never."""
+    c, fwd, d, label = out["counts"], out["forwards"], out["spec_draft"], out["label"]
+    if d:
+        check(c["paged_verify"] == layers * fwd and c["paged_attention"] == 0,
+              f"{label}: K5 launched {c['paged_verify']} times, K2 {c['paged_attention']}; "
+              f"want {layers} x {fwd} verify forwards and 0")
+    else:
+        check(c["paged_attention"] == layers * fwd and c["paged_verify"] == 0,
+              f"{label}: K2 launched {c['paged_attention']} times, K5 {c['paged_verify']}; "
+              f"want {layers} x {fwd} decode forwards and 0")
+    check(c["fused_sample"] == out["sampler_calls"] > 0,
+          f"{label}: K1 launched {c['fused_sample']} times, want {out['sampler_calls']}")
+    check(c["flash_attention_fwd"] == c["flash_attention_bwd"] == c["quant_matmul"] == 0,
+          f"{label}: K3/K4 launched")
+
+
+def spec_exactness(device, seed: int, *, max_new_tokens: int = 32) -> dict:
+    """Greedy speculative decoding emits exactly the plain refill round's
+    tokens, checked where drafts do get accepted: random Qwen2.5-7B-wide
+    weights never repeat themselves, so this runs the TINY preset in f32
+    (8 prompts x 2 candidates through 4 slots, 8-token pages), whose
+    greedy streams loop, through the same engine and kernels on the
+    card. Returns the spec and plain rounds."""
+    import torch
+
+    from distrl_llm_tpu_torch.models.configs import TINY
+
+    weights = make_weights(TINY, device, seed=seed, rank=4, dtype=torch.float32)
+    kw = dict(seed=seed, n=2, max_new_tokens=max_new_tokens, slots=4, page_size=8,
+              max_prompt_tokens=96)
+    spec = spec_round(TINY, device, weights, spec_draft=SPEC_DRAFT, kv_quant="none", **kw)
+    plain = spec_round(TINY, device, weights, spec_draft=0, kv_quant="none", **kw)
+    return {"spec": spec, "plain": plain, "layers": TINY.num_layers}
+
+
+def verify_logits(wide, *, seed: int, n: int = PA_N, s: int = SPEC_DRAFT + 1,
+                  page_size: int = 128, scale: float = 0.5, max_prompt_tokens: int = 350,
+                  max_new_tokens: int = SPEC_NEW_TOKENS) -> dict:
+    """f32 teacher-forced logits of one verify forward over S positions
+    against S single-token decode forwards fed the same tokens, on the math
+    prompts' fanned-out pages (4 prompts x ``n``; ``wide`` is the f32
+    model): K5 at every layer of the verify, K2 at every layer of each
+    decode. Returns the largest |dlogit|, the logit std and the launches."""
+    import numpy as np
+    import torch
+
+    from distrl_llm_tpu_torch.engine.paged_engine import _paged_fanout, _paged_prefill
+    from distrl_llm_tpu_torch.ops import paged_native
+
+    model, lora = wide
+    dev = model.embed.device
+    _, ids, mask, _ = prompt_batch(max_prompt_tokens)
+    ids = torch.as_tensor(np.asarray(ids), dtype=torch.int32, device=dev)
+    mask = torch.as_tensor(np.asarray(mask), dtype=torch.int32, device=dev)
+    b = ids.shape[0]
+    pp = -(-max_prompt_tokens // page_size)
+    priv = 1 + -(-(max_new_tokens + s) // page_size)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tokens = torch.randint(0, model.cfg.vocab_size, (b * n, s), generator=gen, device=dev,
+                           dtype=torch.int32)
+
+    def fanned():
+        k, v, last, real_len = _paged_prefill(
+            model, lora, ids, mask, prompt_pages=pp, page_size=page_size, lora_scale=scale,
+            cache_dtype=torch.float32, attn_impl="reference",
+            total_pages=b * pp + b * n * priv)
+        return _paged_fanout(k, v, last, real_len, mask.sum(dim=-1) > 0, n=n, b=b,
+                             prompt_pages=pp, private_pages=priv, page_size=page_size,
+                             max_steps=max_new_tokens, pad_id=0)
+
+    with torch.inference_mode():
+        st, table = fanned()
+        lens = st.seq_lengths.clone()
+        cache = {"k": st.k_pages, "v": st.v_pages, "lengths": lens, "page_indices": table}
+        before = (paged_native.paged_verify_launches, paged_native.paged_attention_launches)
+        positions = lens[:, None] + torch.arange(s, dtype=torch.int32, device=dev)[None, :]
+        verify, _ = model(tokens, positions=positions, lora=lora, lora_scale=scale,
+                          kv_cache=cache, page_size=page_size, paged_verify=True)
+        k5 = paged_native.paged_verify_launches - before[0]
+        del st, cache
+        st, table = fanned()
+        steps = []
+        for i in range(s):
+            cache = {"k": st.k_pages, "v": st.v_pages, "lengths": lens + i,
+                     "page_indices": table}
+            lg, _ = model(tokens[:, i:i + 1], positions=(lens + i)[:, None], lora=lora,
+                          lora_scale=scale, kv_cache=cache, page_size=page_size)
+            steps.append(lg[:, 0])
+        k2 = paged_native.paged_attention_launches - before[1]
+        decode = torch.stack(steps, dim=1)
+    return {"err": float((verify - decode).abs().max()), "std": float(decode.std()),
+            "k5": k5, "k2": k2, "shape": tuple(verify.shape)}
+
+
+def spec_phase(cfg, args, card: str, t_start: float) -> tuple[list, dict]:
+    """Phase 7 on the card: speculative decoding at Qwen2.5-7B width (see
+    the module's docstring). Returns the launch counts of its main-path
+    runs and K5's stanza results."""
+    import numpy as np
+    import torch
+
+    err = compare_paged_verify("cuda", args.seed)
+    times = time_paged_verify(args.seed)
+    for kv, r in times.items():
+        print(f"kernel paged_verify at B={PA_PROMPTS * PA_N} x S={VF_S} x lengths 550-650, "
+              f"{kv} pages, bf16 q: {r['ms']:.4f} ms, plain version {r['plain_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), unrolled {VF_S} x K2 (the "
+              f"yardstick; no library call takes a page table) {r['unrolled_ms']:.4f} ms; "
+              f"{card}")
+    result = {"max_abs_err": err, **{k: v for k, v in times["bfloat16"].items()
+                                     if k != "unrolled_ms"}}
+    counted = []
+    weights = make_weights(cfg, "cuda", seed=args.seed)
+    runs = {}
+    for kv_quant in ("none", "int8"):
+        for d in (SPEC_DRAFT, 0):
+            out = spec_round(cfg, "cuda", weights, seed=args.seed, spec_draft=d,
+                             kv_quant=kv_quant, card=card, profile=args.profile)
+            check_spec_counts(out, cfg.num_layers)
+            runs[(kv_quant, d)] = out
+            counted.append(out["counts"])
+        spec, plain = runs[(kv_quant, SPEC_DRAFT)], runs[(kv_quant, 0)]
+        same = spec["res"].tokens == plain["res"].tokens
+        rows = same.reshape(-1, same.shape[-1]).all(axis=1)
+        print(f"spec {kv_quant} KV: speculative vs plain refill greedy tokens equal on "
+              f"{100 * same.mean():.2f}% of positions, {int(rows.sum())}/{rows.size} rows "
+              f"whole (not asserted: bf16 batches the verify's products over 5 positions, "
+              f"which rounds otherwise and flips near-ties); decode {spec['ms_per_step']:.2f} "
+              f"vs {plain['ms_per_step']:.2f} ms/step, {spec['decode_tok_s']:.1f} vs "
+              f"{plain['decode_tok_s']:.1f} tok/s, {spec['steps']} vs {plain['steps']} steps; "
+              f"total {time.perf_counter() - t_start:.1f} s; {card}")
+    ex = spec_exactness("cuda", args.seed)
+    for out in (ex["spec"], ex["plain"]):
+        check_spec_counts(out, ex["layers"])
+    same = ex["spec"]["res"].tokens == ex["plain"]["res"].tokens
+    acc = ex["spec"]["spec"]["accept_rate"]
+    print(f"spec exactness (TINY preset, f32, the same engine and kernels): speculative vs "
+          f"plain refill greedy tokens equal on {100 * same.mean():.2f}% of positions; accept "
+          f"rate {acc:.4f}, {ex['spec']['spec']['tokens_per_verify_step']:.4f} tokens per "
+          f"verify step, {ex['spec']['alive_slot_steps']} vs {ex['plain']['alive_slot_steps']} "
+          f"slot-steps")
+    check(acc > 0, "spec exactness: no draft was accepted, the multi-token path did not run")
+    check(bool(same.all()) and np.array_equal(ex["spec"]["res"].lengths,
+                                              ex["plain"]["res"].lengths),
+          "spec exactness: speculative greedy tokens differ from plain refill's")
+    sampled = spec_round(cfg, "cuda", weights, seed=args.seed, spec_draft=SPEC_DRAFT,
+                         kv_quant="none", temperature=1.2, card=card)
+    check_spec_counts(sampled, cfg.num_layers)
+    counted.append(sampled["counts"])
+    wide = widen(weights)
+    del weights
+    torch.cuda.empty_cache()
+    lg = verify_logits(wide, seed=args.seed)
+    del wide
+    torch.cuda.empty_cache()
+    print(f"spec: f32 logits of one verify forward over {VF_S} positions vs {VF_S} "
+          f"single-token decode forwards, {lg['shape'][0]} rows, teacher-forced: max |dlogit| "
+          f"{lg['err']:.4g} (tolerance {LOGIT_F32_ATOL}; logit std {lg['std']:.4g}); K5 "
+          f"launched {lg['k5']} times in the verify, K2 {lg['k2']} in the decodes")
+    check(lg["k5"] == cfg.num_layers and lg["k2"] == VF_S * cfg.num_layers,
+          f"spec logits: K5 {lg['k5']} / K2 {lg['k2']} launches, want {cfg.num_layers} / "
+          f"{VF_S * cfg.num_layers}")
+    check(lg["err"] <= LOGIT_F32_ATOL, f"verify vs decode f32 logits differ by "
+          f"{lg['err']:.4g} > {LOGIT_F32_ATOL}")
+    check(np.isfinite(lg["std"]), "spec logits: non-finite")
+    return counted, result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=28,
@@ -2030,6 +2509,14 @@ def main(argv=None) -> int:
     del weights
     torch.cuda.empty_cache()
     counted += qlora_phase(cfg, args, batch, card, t_start)
+    print(f"qlora: total {time.perf_counter() - t_start:.1f} s; {card}")
+    torch.cuda.empty_cache()
+
+    # 7. speculative decoding: K5 against its plain version and timed, then
+    # BASELINE config 2's refill engine at full width, speculative and
+    # plain, bf16 and int8 pages, and f32 verify-vs-decode logits
+    spec_counts, results["paged_verify"] = spec_phase(cfg, args, card, t_start)
+    counted += spec_counts
     print(f"chip_smoke: done in {time.perf_counter() - t_start:.1f} s; {card}")
 
     kernels = []

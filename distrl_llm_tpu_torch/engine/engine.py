@@ -45,6 +45,10 @@ class GenerationResult(NamedTuple):
     steps_dispatched: int | None = None
     # RAW-model log-probabilities of the sampled tokens [B, n, T] f32
     logprobs: np.ndarray | None = None
+    # sum over dispatched steps of the slots alive at that step (refill
+    # scheduler only): tokens / alive_slot_steps is the per-slot emission
+    # rate with the drain tail's idle slots left out
+    alive_slot_steps: int | None = None
 
 
 @dataclass

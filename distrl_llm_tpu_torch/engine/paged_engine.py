@@ -1,37 +1,53 @@
-"""Paged-KV rollout engine, wave scheduler: packed prompts, ragged decode.
+"""Paged-KV rollout engine: packed prompts, ragged decode; the wave and the
+refill schedulers, and speculative decoding on the refill one.
 
-Counterpart of the JAX package's ``engine/paged_engine.py`` on its wave
-path (``PagedGenerationEngine`` with ``scheduler="waves"``, the trainer's
-``engine_impl="paged"`` engine when continuous batching is off).
+Counterpart of the JAX package's ``engine/paged_engine.py``
+(``PagedGenerationEngine``, the trainer's ``engine_impl="paged"`` engine).
 
 * **Packed prefill.** Prompts lose their left padding; one forward runs
   over ``prompt_pages · page_size`` columns at positions ``0, 1, ...`` and
   writes every row's prompt K/V into its leading pages. Each row's sampling
   logits come from its last real position.
-* **One pool, allocated once.** The page pool of every layer holds
-  ``B · prompt_pages`` shared prompt pages and ``B · n · private_pages``
-  private ones. Candidates share their prompt's FULL pages through the page
-  table; the partial last prompt page is copied, in place, into each
-  candidate's private region, which decode then extends. The page table is
-  the JAX engine's, column for column.
-* **Decode.** Each step samples from the carried logits (one launch of the
-  fused sampler K1 on the GPU), then runs one forward that writes the token
-  at ``seq_lengths`` and attends over ``seq_lengths + 1`` through
-  ``paged_attention_op`` (one launch of K2 per layer on the GPU). Done rows
-  stop advancing ``seq_lengths``: they rewrite one slot of their own private
-  page and their output is discarded. The round's last step skips the
-  forward, whose logits nothing reads; ``last_round_stats["decode_forwards"]``
-  counts the forwards that ran.
+* **One pool, allocated once.** Every layer's page pool holds ``B ·
+  prompt_pages`` shared prompt pages and the decode pages. Candidates share
+  their prompt's FULL pages through the page table; the partial last
+  prompt page is copied, in place, into each candidate's first private
+  page, which decode then extends.
+* **Waves** (``scheduler="waves"``): B·n candidate rows at once (in waves
+  of whole prompt groups under ``max_concurrent_rows``), each with a
+  static private region. Each step samples from the carried logits (one
+  launch of the fused sampler K1 on the GPU) and runs one forward that
+  writes the token at ``seq_lengths`` and attends over ``seq_lengths + 1``
+  (one launch of K2 per layer). The round's last step skips the forward
+  nothing reads.
+* **Refill** (``scheduler="refill"``, continuous batching): R =
+  ``max_concurrent_rows`` decode slots; a slot whose occupant finished
+  takes the next pending candidate. Decode pages come from a host-side
+  ``PagePool`` (``engine/page_pool.py``) of ``max_kv_pages`` pages (0 =
+  the worst case), granted as slots advance; when the pool runs dry the
+  least-advanced occupant is preempted and later resumed by recompute (one
+  chunked forward over its generated prefix). The host reads ``done`` and
+  ``seq_lengths`` through asynchronous snapshots every ``check = min(
+  decode_chunk, 16, max_steps)`` steps, one boundary late, so no step waits
+  on the device.
+* **Speculative decoding** (refill with ``spec_draft = d > 0``): each step
+  proposes d n-gram drafts per slot (``engine/speculative.py``), runs one
+  verify forward over ``[last_tok, draft]`` that writes d+1 tokens' K/V per
+  row and attends through ``paged_verify_op`` (kernel K5, one launch per
+  layer; S = d+1 launches of K2 with ``spec_verify="unrolled"``), accepts
+  by rejection sampling and emits 1..d+1 tokens. Each admission draws the
+  slot's first token with K1.
 
-Not ported yet: the refill scheduler (continuous batching, prefix sharing,
-continuous admission, radix cache, host spill, speculative decoding, turn
-and gateway hooks) and scan chunks. Their knobs raise
+Not ported yet (ROADMAP queue 1 item 7): prefix sharing, continuous
+admission, radix cache, host spill, the self-drafter, the adaptive draft
+length, the turn and gateway hooks, and scan chunks. Their knobs raise
 ``NotImplementedError`` naming the ROADMAP item.
 """
 
 from __future__ import annotations
 
 import time
+from collections import deque
 from dataclasses import dataclass
 from typing import Any, Sequence
 
@@ -43,18 +59,25 @@ from distrl_llm_tpu_torch.engine.engine import (
     GenerationResult, LoraMailbox, accumulate_round_stats, generate_in_waves,
     run_decode_loop,
 )
+from distrl_llm_tpu_torch.engine.page_pool import PagePool
+from distrl_llm_tpu_torch.engine.speculative import (
+    SpecRefillState, draw_gumbel, draw_uniforms, propose_ngram_drafts,
+    sampling_probs, spec_accept,
+)
 from distrl_llm_tpu_torch.models.configs import ModelConfig
 from distrl_llm_tpu_torch.models.transformer import Decoder
 from distrl_llm_tpu_torch.ops.paged import (
     init_pages, is_quantized_pages, make_page_table, pages_per_seq,
 )
-from distrl_llm_tpu_torch.ops.sampling import sample_with_logprob
+from distrl_llm_tpu_torch.ops.sampling import sample_with_logprob, token_logprob
 from distrl_llm_tpu_torch.utils.device import resolve_device
 
 Params = dict[str, Any]
 
-_REFILL_ITEM = "ROADMAP queue 1 item 7: refill scheduler and continuous admission"
-_SPEC_ITEM = "ROADMAP queue 1 item 4: speculative decoding with kernel K5"
+_REFILL_ITEM = ("ROADMAP queue 1 item 7: prefix sharing, continuous admission, "
+                "radix cache and host spill on the refill scheduler")
+_SPEC_ITEM = ("ROADMAP queue 1 item 7: the self-drafter and the adaptive draft "
+              "length of speculative decoding")
 
 
 @dataclass
@@ -228,10 +251,361 @@ def _paged_decode_step(model: Decoder, lora, s: _PagedDecodeState,
     s.step += 1
 
 
+# ---------------------------------------------------------------- refill
+
+
+@dataclass
+class _RefillState:
+    """Decode state of the refill scheduler, updated in place. R slots each
+    hold one candidate, or the dead sentinel ``total``. Finished output
+    lives in the candidate-indexed ``out``/``logps_buf``/``lengths_buf``, so
+    a slot can be re-assigned without disturbing it; their extra row
+    ``total`` takes the writes of dead slots (the JAX package's
+    ``mode="drop"``) and is never read."""
+
+    out: torch.Tensor  # [total + 1, T] int32, pad-filled
+    logps_buf: torch.Tensor  # [total + 1, T] f32 behavior logprobs
+    lengths_buf: torch.Tensor  # [total + 1] int32 per-candidate generated counts
+    cand: torch.Tensor  # [R] int64 candidate per slot (== total: dead slot)
+    done: torch.Tensor  # [R] bool
+    logits: torch.Tensor  # [R, V] f32 logits for each slot's next token
+    seq_lengths: torch.Tensor  # [R] int32 tokens resident per slot
+    gen_lengths: torch.Tensor  # [R] int32 tokens generated by the occupant
+    page_indices: torch.Tensor  # [R, width] int32, authored by the PagePool
+    k_pages: list
+    v_pages: list
+    alive_steps: torch.Tensor  # [] int64 sum over steps of alive slots
+    step: int = 0
+    forwards: int = 0  # decode forwards run (each launches K2 once per layer)
+
+
+def _to_device(a, device: torch.device, dtype=None) -> torch.Tensor:
+    """A host array as a new device tensor. To the GPU it goes through
+    pinned memory without blocking, ordered on the stream like a kernel."""
+    t = torch.as_tensor(np.ascontiguousarray(a), dtype=dtype)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.clone()
+
+
+class _Snapshot:
+    """A copy of a small device tensor taken now and read later: on the GPU
+    an asynchronous copy into pinned memory behind an event, so taking it
+    does not wait for the device."""
+
+    def __init__(self, t: torch.Tensor):
+        if t.device.type == "cuda":
+            self.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self.host.copy_(t, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.host, self.event = t.clone(), None
+
+    def read(self) -> np.ndarray:
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host.numpy()
+
+
+def _refill_buffers(*, r_slots: int, total: int, max_steps: int, width: int,
+                    scratch: int, pad_id: int, device) -> dict:
+    """The tensors both refill states share: every slot born dead, its table
+    row pointed at the scratch page (dead slots' writes must land where no
+    live row reads; an all-zero row would alias shared prompt page 0)."""
+    return dict(
+        out=torch.full((total + 1, max_steps), pad_id, dtype=torch.int32, device=device),
+        logps_buf=torch.zeros((total + 1, max_steps), dtype=torch.float32, device=device),
+        lengths_buf=torch.zeros((total + 1,), dtype=torch.int32, device=device),
+        cand=torch.full((r_slots,), total, dtype=torch.int64, device=device),
+        done=torch.ones((r_slots,), dtype=torch.bool, device=device),
+        seq_lengths=torch.zeros((r_slots,), dtype=torch.int32, device=device),
+        gen_lengths=torch.zeros((r_slots,), dtype=torch.int32, device=device),
+        page_indices=torch.full((r_slots, width), scratch, dtype=torch.int32, device=device),
+        alive_steps=torch.zeros((), dtype=torch.int64, device=device),
+    )
+
+
+def _pool_device(pages) -> torch.device:
+    return pages.weight.device if is_quantized_pages(pages) else pages.device
+
+
+def _refill_init(k_pages, v_pages, *, r_slots: int, total: int, max_steps: int,
+                 vocab: int, width: int, scratch: int, pad_id: int) -> _RefillState:
+    """Empty R-slot decode state over the pools the prefill allocated
+    (shared prompt pages first, then the decode pool from ``scratch``)."""
+    dev = _pool_device(k_pages[0])
+    bufs = _refill_buffers(r_slots=r_slots, total=total, max_steps=max_steps, width=width,
+                           scratch=scratch, pad_id=pad_id, device=dev)
+    return _RefillState(
+        logits=torch.zeros((r_slots, vocab), dtype=torch.float32, device=dev),
+        k_pages=list(k_pages), v_pages=list(v_pages), **bufs)
+
+
+def _spec_init(k_pages, v_pages, *, r_slots: int, total: int, max_steps: int,
+               buf_width: int, hist_width: int, width: int, scratch: int,
+               pad_id: int) -> SpecRefillState:
+    """Empty R-slot speculative decode state (``engine/speculative.py``)."""
+    dev = _pool_device(k_pages[0])
+    bufs = _refill_buffers(r_slots=r_slots, total=total, max_steps=max_steps, width=width,
+                           scratch=scratch, pad_id=pad_id, device=dev)
+    return SpecRefillState(
+        last_tok=torch.zeros((r_slots,), dtype=torch.int32, device=dev),
+        seq_buf=torch.zeros((r_slots + 1, buf_width), dtype=torch.int32, device=dev),
+        emit_hist=torch.zeros((hist_width,), dtype=torch.int64, device=dev),
+        draft_total=torch.zeros((), dtype=torch.int64, device=dev),
+        accept_total=torch.zeros((), dtype=torch.int64, device=dev),
+        k_pages=list(k_pages), v_pages=list(v_pages), **bufs)
+
+
+def _admit_tables(s, new_cand: np.ndarray, admit_mask: np.ndarray,
+                  real_len_h: np.ndarray, dst_partial: np.ndarray, *, n: int,
+                  b: int, prompt_pages: int, page_size: int):
+    """The admit work both refill schedulers share, planned on the host:
+    which slots take which candidates, and the copy of each admitted live
+    slot's partial prompt page into its first owned page ``dst_partial``
+    (decode extends that page in place). Merges the assignments into
+    ``s.cand``. Returns (slots, live, prompt_of) as host arrays and the
+    device index tensors (slots_t, prompt_t)."""
+    total = b * n
+    slots = np.nonzero(admit_mask)[0]
+    cand = new_cand[slots].astype(np.int64)
+    live = cand < total
+    prompt_of = np.clip(cand // n, 0, b - 1)
+    dev = s.cand.device
+    slots_t = _to_device(slots, dev, torch.int64)
+    prompt_t = _to_device(prompt_of, dev, torch.int64)
+    if live.any():
+        full = real_len_h[prompt_of[live]] // page_size
+        src = prompt_of[live] * prompt_pages + np.minimum(full, prompt_pages - 1)
+        src_t = _to_device(src, dev, torch.int64)
+        dst_t = _to_device(dst_partial[slots[live]], dev, torch.int64)
+        for pages in list(s.k_pages) + list(s.v_pages):
+            _copy_pages(pages, src_t, dst_t)
+    s.cand[slots_t] = _to_device(cand, dev, torch.int64)
+    return slots, live, prompt_of, slots_t, prompt_t
+
+
+def _refill_admit(s: _RefillState, new_cand, admit_mask, last_logits, real_len,
+                  real_len_h, dst_partial, *, n: int, b: int, prompt_pages: int,
+                  page_size: int) -> None:
+    """Assign candidates to slots, in place (the plain scheduler): each
+    admitted slot takes its prompt's prefill logits and resident length and
+    restarts its count; a dead admission (``new_cand == total``) kills the
+    slot."""
+    _, live, _, slots_t, prompt_t = _admit_tables(
+        s, new_cand, admit_mask, real_len_h, dst_partial, n=n, b=b,
+        prompt_pages=prompt_pages, page_size=page_size)
+    s.done[slots_t] = _to_device(~live, s.done.device)
+    s.logits[slots_t] = last_logits[prompt_t]
+    s.seq_lengths[slots_t] = real_len[prompt_t]
+    s.gen_lengths[slots_t] = 0
+
+
+def _spec_admit(s: SpecRefillState, new_cand, admit_mask, last_logits, real_len,
+                real_len_h, packed_ids, seeds, dst_partial, *, n: int, b: int,
+                prompt_pages: int, page_size: int, eos_ids, temperature: float,
+                top_p: float, top_p_impl: str, capture_logprobs: bool) -> None:
+    """Assign candidates to slots, in place (speculative flavor): beyond the
+    shared table work, draw each admitted slot's FIRST token from its
+    prompt's prefill logits (one launch of K1; the step carries a pending
+    token, not logits), seed the n-gram buffer with the packed prompt and
+    that token, and record the token as generated output."""
+    slots, live, prompt_of, slots_t, prompt_t = _admit_tables(
+        s, new_cand, admit_mask, real_len_h, dst_partial, n=n, b=b,
+        prompt_pages=prompt_pages, page_size=page_size)
+    dev = s.done.device
+    tok0, logp0 = sample_with_logprob(
+        last_logits[prompt_t], temperature, top_p, seeds, top_p_impl=top_p_impl,
+        capture_logprob=capture_logprobs)
+    s.done[slots_t] = _to_device(~live, dev) | torch.isin(tok0, eos_ids)
+    # the n-gram buffer: packed prompt, then tok0 at position real_len
+    k, p = len(slots), packed_ids.shape[1]
+    rows = torch.zeros((k, s.seq_buf.shape[1]), dtype=torch.int32, device=dev)
+    rows[:, :p] = packed_ids[prompt_t]
+    rl_t = _to_device(real_len_h[prompt_of], dev, torch.int64)
+    rows[torch.arange(k, device=dev), rl_t] = tok0
+    s.seq_buf[slots_t] = rows
+    # tok0 is generated output: out[cand, 0] and a per-candidate length of 1
+    lv = np.nonzero(live)[0]
+    if lv.size:
+        lv_t = _to_device(lv, dev, torch.int64)
+        rows_c = _to_device(new_cand[slots[lv]], dev, torch.int64)
+        s.out[rows_c, 0] = tok0[lv_t]
+        if capture_logprobs:
+            s.logps_buf[rows_c, 0] = logp0[lv_t]
+        s.lengths_buf[rows_c] = 1
+    s.last_tok[slots_t] = tok0
+    s.seq_lengths[slots_t] = real_len[prompt_t]
+    s.gen_lengths[slots_t] = 1
+
+
+def _refill_decode_step(model: Decoder, lora, s: _RefillState, seeds: torch.Tensor, *,
+                        page_size: int, eos_ids, pad_id: int, temperature: float,
+                        top_p: float, lora_scale: float, top_p_impl: str,
+                        capture_logprobs: bool, max_steps: int) -> None:
+    """One decode step over R slots, in place: sample (K1), record by
+    candidate id (dead slots write the sentinel row), then one forward over
+    every slot (K2 per layer). A slot stops once its occupant has generated
+    ``max_steps`` tokens."""
+    total = s.out.shape[0] - 1
+    alive = ~s.done
+    tok, logp = sample_with_logprob(
+        s.logits, temperature, top_p, seeds, top_p_impl=top_p_impl,
+        capture_logprob=capture_logprobs)
+    tok = torch.where(s.done, pad_id, tok)
+    row = torch.where(alive, s.cand, total)
+    col = s.gen_lengths.long().clamp(max=max_steps - 1)
+    s.out[row, col] = tok
+    if capture_logprobs:
+        s.logps_buf[row, col] = logp
+    s.gen_lengths += alive.to(torch.int32)
+    s.lengths_buf[row] = s.gen_lengths
+    s.done |= (torch.isin(tok, eos_ids) & alive) | (s.gen_lengths >= max_steps)
+    cache = {"k": s.k_pages, "v": s.v_pages, "lengths": s.seq_lengths,
+             "page_indices": s.page_indices}
+    logits, _ = model(tok[:, None], positions=s.seq_lengths[:, None], lora=lora,
+                      lora_scale=lora_scale, kv_cache=cache, page_size=page_size)
+    s.logits = logits[:, 0]
+    s.seq_lengths += alive.to(torch.int32)
+    s.alive_steps += alive.sum()
+    s.step += 1
+    s.forwards += 1
+
+
+def _spec_step(model: Decoder, lora, s: SpecRefillState, gen: torch.Generator, *,
+               page_size: int, eos_ids, temperature: float, top_p: float,
+               lora_scale: float, top_p_impl: str, capture_logprobs: bool,
+               max_steps: int, draft_len: int, ngram_k: int,
+               spec_verify: str) -> None:
+    """One speculative step, in place: propose d n-gram drafts per slot,
+    verify ``[last_tok, draft]`` in one (d+1)-position forward (K5 per
+    layer), accept by rejection sampling and emit 1..d+1 tokens, cut at the
+    first EOS and at the occupant's budget."""
+    total = s.out.shape[0] - 1
+    r = s.done.shape[0]
+    d = draft_len
+    dev = s.done.device
+    alive = ~s.done
+    buf_len = s.seq_lengths + 1  # resident + the pending last_tok
+    draft = propose_ngram_drafts(s.seq_buf[:r], buf_len, k=ngram_k, d=d)
+    inputs = torch.cat([s.last_tok[:, None], draft], dim=1)  # [R, d+1]
+    steps = torch.arange(d + 1, device=dev)
+    positions = s.seq_lengths[:, None] + steps[None, :].to(torch.int32)
+    cache = {"k": s.k_pages, "v": s.v_pages, "lengths": s.seq_lengths,
+             "page_indices": s.page_indices}
+    logits, _ = model(inputs, positions=positions, lora=lora, lora_scale=lora_scale,
+                      kv_cache=cache, page_size=page_size, paged_verify=True,
+                      paged_verify_impl=spec_verify)  # [R, d+1, V]
+    probs = sampling_probs(logits, temperature, top_p, top_p_impl=top_p_impl)
+    u = draw_uniforms((r, d), gen, dev)
+    g = draw_gumbel((r, logits.shape[-1]), gen, dev)
+    emit, n_emit, n_accept = spec_accept(u, g, probs, draft)
+
+    # emission stops AT the first EOS among the emitted tokens, and at the
+    # occupant's token budget
+    pos = steps[None, :]
+    is_eos = torch.isin(emit, eos_ids) & (pos < n_emit[:, None])
+    any_eos = is_eos.any(dim=1)
+    first_eos = is_eos.to(torch.int8).argmax(dim=1).to(torch.int32)
+    n_emit = torch.where(any_eos, first_eos + 1, n_emit)
+    room = torch.clamp(max_steps - s.gen_lengths, min=0)
+    n_emit = torch.where(alive, torch.minimum(n_emit, room), 0)
+    gen_lengths = s.gen_lengths + n_emit
+    s.done |= alive & (any_eos | (gen_lengths >= max_steps))
+
+    # emitted tokens into out / seq_buf; the rest go to the sentinel rows
+    live = pos < n_emit[:, None]  # [R, d+1]
+    row = torch.where(alive, s.cand, total)
+    row_i = torch.where(live, row[:, None], total)
+    col_i = (s.gen_lengths[:, None].long() + pos).clamp(max=max_steps - 1)
+    s.out[row_i, col_i] = emit
+    if capture_logprobs:
+        # behavior logprob on the raw basis: slot i's logits judged emit[:, i]
+        s.logps_buf[row_i, col_i] = token_logprob(logits, emit)
+    slot_i = torch.where(live, torch.arange(r, device=dev)[:, None], r)
+    seq_col = (buf_len[:, None].long() + pos).clamp(max=s.seq_buf.shape[1] - 1)
+    s.seq_buf[slot_i, seq_col] = emit
+    s.lengths_buf[row] = gen_lengths
+    last = torch.gather(emit, 1, (n_emit - 1).clamp(0, d).long()[:, None])[:, 0]
+    s.last_tok = torch.where(alive, last, s.last_tok)
+    s.seq_lengths += n_emit
+    s.gen_lengths = gen_lengths
+    hw = s.emit_hist.shape[0]
+    s.emit_hist += ((n_emit[:, None] == torch.arange(hw, device=dev)[None, :])
+                    & alive[:, None]).sum(dim=0)
+    n_alive = alive.sum()
+    s.draft_total += d * n_alive
+    s.accept_total += torch.where(alive, n_accept, 0).sum()
+    s.alive_steps += n_alive
+    s.step += 1
+    s.forwards += 1
+
+
+def _resume_forward(model: Decoder, lora, s, slot: int, prefix: np.ndarray,
+                    resident: int, real_len: int, *, page_size: int,
+                    lora_scale: float, logits_position: int) -> torch.Tensor:
+    """Rebuild a preempted candidate's KV by recompute: one chunked forward
+    over its generated ``prefix`` (the first ``resident`` tokens real) at
+    positions ``real_len + i`` into the slot's freshly granted pages.
+    Returns the logits [V] at ``logits_position``."""
+    dev = s.done.device
+    t = prefix.shape[0]
+    valid = (np.arange(t) < resident).astype(np.int32)[None, :]
+    cache = {"k": s.k_pages, "v": s.v_pages,
+             "lengths": torch.full((1,), real_len, dtype=torch.int32, device=dev),
+             "page_indices": s.page_indices[slot:slot + 1]}
+    positions = (real_len + torch.arange(t, dtype=torch.int32, device=dev))[None, :]
+    logits, _ = model(
+        _to_device(prefix[None], dev, torch.int32), attention_mask=_to_device(valid, dev),
+        positions=positions, lora=lora, lora_scale=lora_scale, kv_cache=cache,
+        page_size=page_size, paged_chunked=True,
+        logits_positions=torch.full((1,), logits_position, dtype=torch.int64, device=dev))
+    return logits[0, 0]
+
+
+def _resume_fixup(model: Decoder, lora, s: _RefillState, slot: int, prefix: np.ndarray,
+                  plen: int, real_len: int, *, page_size: int, lora_scale: float) -> None:
+    """Resume a preempted candidate in ``slot`` (vLLM's preempt-by-recompute),
+    in place. The slot was just admitted normally (prompt logits, count 0);
+    its generated prefix goes through one chunked forward, and the slot's
+    logits and cursors fast-forward to the prefix's end. The prefix's
+    tokens and logprobs are still in ``out``/``logps_buf``."""
+    s.logits[slot] = _resume_forward(model, lora, s, slot, prefix, plen, real_len,
+                                     page_size=page_size, lora_scale=lora_scale,
+                                     logits_position=max(plen - 1, 0))
+    s.done[slot] = False
+    s.gen_lengths[slot] = plen
+    s.seq_lengths[slot] = real_len + plen
+
+
+def _spec_resume_fixup(model: Decoder, lora, s: SpecRefillState, slot: int, cand: int,
+                       prefix: np.ndarray, plen: int, real_len: int, seq_row: np.ndarray,
+                       first_logp: float, *, page_size: int, lora_scale: float) -> None:
+    """The speculative resume, in place: the prefix minus its pending last
+    token is made resident again by one chunked forward; the n-gram buffer
+    takes the host-built row; the cursors fast-forward. The re-admission
+    drew a fresh first token into out[c, 0] / logps_buf[c, 0] /
+    lengths_buf[c]; they are restored to the prefix the KV encodes."""
+    resident = max(plen - 1, 0)
+    if resident:
+        _resume_forward(model, lora, s, slot, prefix, resident, real_len,
+                        page_size=page_size, lora_scale=lora_scale, logits_position=0)
+    s.done[slot] = False
+    s.out[cand, 0] = int(prefix[0])
+    s.logps_buf[cand, 0] = float(first_logp)
+    s.lengths_buf[cand] = plen
+    s.last_tok[slot] = int(prefix[max(plen - 1, 0)])
+    s.seq_buf[slot] = _to_device(seq_row, s.seq_buf.device, torch.int32)
+    s.gen_lengths[slot] = plen
+    s.seq_lengths[slot] = real_len + resident
+
+
 class PagedGenerationEngine(LoraMailbox):
-    """Drop-in for ``GenerationEngine`` with a packed paged KV cache (wave
-    scheduler). ``generate`` takes left-padded prompts and returns
-    per-candidate tokens, lengths and behavior logprobs."""
+    """Drop-in for ``GenerationEngine`` with a packed paged KV cache (the
+    wave or the refill scheduler, speculative decoding on the refill one).
+    ``generate`` takes left-padded prompts and returns per-candidate
+    tokens, lengths and behavior logprobs."""
 
     def __init__(
         self,
@@ -250,7 +624,8 @@ class PagedGenerationEngine(LoraMailbox):
         kv_quant: str | None = None,  # None/"none" | "int8"
         prompt_buckets: Sequence[int] | None = None,  # interface parity only
         max_concurrent_rows: int = 0,  # 0 = unlimited (vLLM max_num_seqs)
-        scheduler: str = "waves",
+        max_kv_pages: int = 0,  # refill decode-page pool size; 0 = worst case
+        scheduler: str = "waves",  # "waves" | "refill" (continuous batching)
         prefix_sharing: bool = False,
         continuous_admission: bool | None = None,
         prefix_cache: bool | None = None,
@@ -266,15 +641,30 @@ class PagedGenerationEngine(LoraMailbox):
         device: str | torch.device | None = None,  # None = the GPU
     ):
         super().__init__()
-        if scheduler == "refill" or prefix_sharing or continuous_admission \
-                or prefix_cache or kv_spill:
+        if prefix_sharing or continuous_admission or prefix_cache or kv_spill:
             raise NotImplementedError(
-                f"only the wave scheduler is ported ({_REFILL_ITEM})")
-        if scheduler != "waves":
+                f"the refill scheduler is ported without them ({_REFILL_ITEM})")
+        if scheduler not in ("waves", "refill"):
             raise ValueError(f"scheduler must be waves/refill, got {scheduler!r}")
-        if spec_draft or spec_adapt or any(
-                x is not None for x in (spec_ngram, spec_drafter, spec_verify)):
-            raise NotImplementedError(f"speculative decoding is not ported ({_SPEC_ITEM})")
+        if scheduler == "refill" and not max_concurrent_rows:
+            raise ValueError("scheduler='refill' requires max_concurrent_rows (the "
+                             "decode slot count)")
+        if spec_drafter == "self" or spec_adapt:
+            raise NotImplementedError(f"not ported ({_SPEC_ITEM})")
+        spec_draft = spec_draft or 0
+        if spec_draft < 0 or spec_draft > 16:
+            raise ValueError(f"spec_draft must be in [0, 16], got {spec_draft}")
+        if spec_draft and scheduler != "refill":
+            raise ValueError("spec_draft (speculative decoding) runs on the refill "
+                             "scheduler: set scheduler='refill' and max_concurrent_rows")
+        spec_ngram = 2 if spec_ngram is None else spec_ngram
+        if spec_ngram < 1:
+            raise ValueError(f"spec_ngram must be >= 1, got {spec_ngram}")
+        if spec_drafter not in (None, "ngram"):
+            raise ValueError(f"spec_drafter must be ngram/self, got {spec_drafter!r}")
+        spec_verify = spec_verify or "fused"
+        if spec_verify not in ("fused", "unrolled"):
+            raise ValueError(f"spec_verify must be fused/unrolled, got {spec_verify!r}")
         if scan_chunk is not None and scan_chunk > 1:
             raise NotImplementedError(
                 "scan chunks have no counterpart yet (ROADMAP: CUDA graphs over "
@@ -306,12 +696,27 @@ class PagedGenerationEngine(LoraMailbox):
         self.max_concurrent_rows = max_concurrent_rows
         self.capture_logprobs = capture_logprobs
         self.scheduler = scheduler
+        self.spec_draft = spec_draft
+        self.spec_ngram = spec_ngram
+        self.spec_drafter = "ngram"
+        self.spec_verify = spec_verify
         self.prompt_buckets = [max_prompt_tokens]
         self.prompt_pages = pages_per_seq(max_prompt_tokens, page_size)
         # per-candidate private region: the partial prompt page (extended in
-        # place by decode) and the decode pages; full prompt pages are shared
-        self.private_pages = 1 + pages_per_seq(max_new_tokens, page_size)
+        # place by decode) and the decode pages; full prompt pages are
+        # shared. A verify writes up to spec_draft tokens PAST a row's last
+        # position (the rejected tail of its last block): they land in the
+        # region, never clamped onto resident KV
+        self.private_pages = 1 + pages_per_seq(max_new_tokens + spec_draft, page_size)
+        pool_floor = 1 + self.private_pages
+        if max_kv_pages and max_kv_pages < pool_floor:
+            raise ValueError(f"max_kv_pages={max_kv_pages} cannot fit one sequence "
+                             f"(need >= {pool_floor}: scratch + {self.private_pages} "
+                             "private pages)")
+        self.max_kv_pages = max_kv_pages
         self.last_round_stats: dict | None = None
+        self.last_pool_stats: dict | None = None
+        self.last_spec_stats: dict | None = None
 
     def bucket_for(self, prompt_mask) -> int:
         """Single-bucket engine (interface parity with GenerationEngine)."""
@@ -325,7 +730,15 @@ class PagedGenerationEngine(LoraMailbox):
             raise ValueError("model config does not match the engine's")
         self._reset_lora_mailbox_round()
         self.last_round_stats = None
+        self.last_pool_stats = None
+        self.last_spec_stats = None
+        total = prompt_ids.shape[0] * max(sampling.n, 1)
         with torch.inference_mode():
+            # a speculative engine never falls back to waves on a small batch
+            if self.scheduler == "refill" and (
+                    total > self.max_concurrent_rows or self.spec_draft):
+                return self._generate_refill(model, lora, prompt_ids, prompt_mask,
+                                             sampling, seed)
             return generate_in_waves(
                 self._generate_wave, self.max_concurrent_rows, model, lora,
                 prompt_ids, prompt_mask, sampling, seed, self.pad_id,
@@ -404,3 +817,315 @@ class PagedGenerationEngine(LoraMailbox):
         self.last_round_stats = stats
         return GenerationResult(tokens=out, lengths=lengths,
                                 steps_dispatched=state.step, logprobs=logps)
+
+    def _generate_refill(self, model, lora, prompt_ids, prompt_mask,
+                         sampling: SamplingConfig, seed: int) -> GenerationResult:
+        """Continuous batching: R decode slots, refilled per candidate (the
+        JAX package's ``_generate_refill`` on its unshared, non-continuous
+        path). The host mirrors slot occupancy; per-slot epochs make it
+        ignore snapshots taken before a slot was refilled."""
+        b, p = prompt_ids.shape
+        if p != self.max_prompt_tokens:
+            raise ValueError(
+                f"prompts must be padded to {self.max_prompt_tokens}, got {p}")
+        max_steps = min(sampling.max_tokens, self.max_new_tokens)
+        n = max(sampling.n, 1)
+        total = b * n
+        r_slots = min(self.max_concurrent_rows, total)
+        dev = self.device
+        ps = self.page_size
+        spec = self.spec_draft > 0
+        real_len_h = np.asarray(prompt_mask).sum(axis=-1).astype(np.int64)
+        row_alive = real_len_h > 0
+        prefill_tokens = int(real_len_h.sum())
+        top_p_impl = sampling.resolved_top_p_impl()
+        temperature, top_p = sampling.temperature, sampling.top_p
+        gen = torch.Generator(device=dev).manual_seed(seed)
+
+        # the decode page pool (vLLM's budgeted block pool), host-authored
+        total_shared = b * self.prompt_pages
+        width = self.prompt_pages + self.private_pages
+        worst_pool = 1 + r_slots * self.private_pages
+        pool_pages = min(self.max_kv_pages, worst_pool) if self.max_kv_pages else worst_pool
+        budgeted = pool_pages < worst_pool
+        pool = PagePool(first_page=total_shared, n_pages=pool_pages, r_slots=r_slots,
+                        width=width, page_size=ps, prompt_pages=self.prompt_pages)
+
+        ids = torch.as_tensor(np.asarray(prompt_ids), dtype=torch.int32).to(dev)
+        mask = torch.as_tensor(np.asarray(prompt_mask), dtype=torch.int32).to(dev)
+        lora_cell = [lora]
+        t0 = time.perf_counter()
+        k_pages, v_pages, last_logits, real_len = _paged_prefill(
+            model, lora, ids, mask, prompt_pages=self.prompt_pages, page_size=ps,
+            lora_scale=self.lora_scale, cache_dtype=self.cache_dtype,
+            attn_impl=self.attn_impl, kv_quant=self.kv_quant,
+            total_pages=total_shared + pool_pages)
+        self._sync()
+        t_prefill = time.perf_counter() - t0
+        t_decode0 = time.perf_counter()
+
+        # snapshot cadence, never longer than a short decode's whole run
+        check = max(1, min(self.decode_chunk, 16, max_steps))
+        # grant horizon: a slot's write frontier advances for up to 2·check
+        # steps of snapshot lag plus check steps to the next grant pass
+        lag_tokens = 3 * check
+        write_ceiling_extra = 0
+        sampler_calls = [0]
+
+        def seeds(rows: int) -> torch.Tensor:
+            return torch.randint(-2**31, 2**31, (rows,), generator=gen,
+                                 dtype=torch.int32, device=dev)
+
+        admit_kw = dict(n=n, b=b, prompt_pages=self.prompt_pages, page_size=ps)
+        if spec:
+            d = self.spec_draft
+            # emission is up to d+1 tokens a step and the verify writes d
+            # past the frontier: the grant horizon scales by (d+1) and
+            # covers the overhang
+            lag_tokens = 3 * check * (d + 1) + d
+            write_ceiling_extra = d
+            packed_ids, _, _ = _pack_rows(ids, mask)
+            buf_width = self.max_prompt_tokens + max_steps + d + 2
+            state = _spec_init(k_pages, v_pages, r_slots=r_slots, total=total,
+                               max_steps=max_steps, buf_width=buf_width, hist_width=d + 2,
+                               width=width, scratch=pool.scratch, pad_id=self.pad_id)
+
+            def step(s):
+                _spec_step(model, lora_cell[0], s, gen, page_size=ps, eos_ids=self.eos_ids,
+                           temperature=temperature, top_p=top_p,
+                           lora_scale=self.lora_scale, top_p_impl=top_p_impl,
+                           capture_logprobs=self.capture_logprobs, max_steps=max_steps,
+                           draft_len=d, ngram_k=self.spec_ngram,
+                           spec_verify=self.spec_verify)
+
+            def admit(s, new_cand, admit_mask, dst_partial):
+                sampler_calls[0] += 1
+                _spec_admit(s, new_cand, admit_mask, last_logits, real_len, real_len_h,
+                            packed_ids, seeds(int(admit_mask.sum())), dst_partial,
+                            eos_ids=self.eos_ids, temperature=temperature, top_p=top_p,
+                            top_p_impl=top_p_impl, capture_logprobs=self.capture_logprobs,
+                            **admit_kw)
+
+            def admit_last_pos(rl: int, plen: int) -> int:
+                if not budgeted:
+                    return rl + max_steps + d  # worst case: no grant passes
+                return min(rl + max(plen, 1) + lag_tokens, rl + max_steps + d)
+        else:
+            state = _refill_init(k_pages, v_pages, r_slots=r_slots, total=total,
+                                 max_steps=max_steps, vocab=self.cfg.vocab_size,
+                                 width=width, scratch=pool.scratch, pad_id=self.pad_id)
+
+            def step(s):
+                sampler_calls[0] += 1
+                _refill_decode_step(model, lora_cell[0], s, seeds(r_slots), page_size=ps,
+                                    eos_ids=self.eos_ids, pad_id=self.pad_id,
+                                    temperature=temperature, top_p=top_p,
+                                    lora_scale=self.lora_scale, top_p_impl=top_p_impl,
+                                    capture_logprobs=self.capture_logprobs,
+                                    max_steps=max_steps)
+
+            def admit(s, new_cand, admit_mask, dst_partial):
+                _refill_admit(s, new_cand, admit_mask, last_logits, real_len, real_len_h,
+                              dst_partial, **admit_kw)
+
+            def admit_last_pos(rl: int, plen: int) -> int:
+                if not budgeted:
+                    return rl + max_steps  # the full region: no grant passes run
+                return min(rl + plen + lag_tokens, rl + max_steps)
+        del k_pages, v_pages
+
+        # dead prompts (batch padding) are never queued. Entries are
+        # candidate ids, or (cand, prefix, prefix_len, first_logp) for a
+        # preempted candidate awaiting recompute
+        pending: deque = deque(c for c in range(total) if row_alive[c // n])
+        finished = np.array([not row_alive[c // n] for c in range(total)])
+        host_cand = np.full(r_slots, total, np.int64)  # the device's `cand`
+        epoch = np.zeros(r_slots, np.int64)
+        resumes = [0]
+
+        def ship_table(s) -> None:
+            # admitted slots' rows reach the device before their first step
+            s.page_indices.copy_(_to_device(pool.table, dev))
+
+        def fill_idle(s, idle_slots) -> None:
+            new_cand = np.full(r_slots, total, np.int64)
+            admit_mask = np.zeros(r_slots, bool)
+            dst_partial = np.full(r_slots, pool.scratch, np.int64)
+            resume = []
+            for s_i in idle_slots:
+                if not pending:
+                    break
+                entry = pending[0]
+                c, prefix, plen, logp0 = (
+                    entry if isinstance(entry, tuple) else (entry, None, 0, 0.0))
+                pr = c // n
+                rl = int(real_len_h[pr])
+                # admission is gated on free pages; the queue is FIFO, so a
+                # head that does not fit blocks the rest
+                if not pool.admit(int(s_i), pr, rl, admit_last_pos(rl, plen)):
+                    break
+                pending.popleft()
+                new_cand[s_i] = c
+                admit_mask[s_i] = True
+                dst_partial[s_i] = pool.owned[int(s_i)][0]
+                if plen:
+                    resume.append((int(s_i), c, prefix, plen, rl, logp0))
+            if not admit_mask.any():
+                return
+            admit(s, new_cand, admit_mask, dst_partial)
+            host_cand[admit_mask] = new_cand[admit_mask]
+            epoch[admit_mask] += 1
+            ship_table(s)
+            for s_i, c, prefix, plen, rl, logp0 in resume:
+                resumes[0] += 1
+                if spec:
+                    # host-built n-gram row: packed prompt, then the prefix
+                    pr = c // n
+                    row = np.zeros(s.seq_buf.shape[1], np.int32)
+                    row[:rl] = np.asarray(prompt_ids[pr])[np.asarray(prompt_mask[pr]) > 0]
+                    row[rl:rl + plen] = prefix[:plen]
+                    _spec_resume_fixup(model, lora_cell[0], s, s_i, c, prefix, plen, rl,
+                                       row, logp0, page_size=ps, lora_scale=self.lora_scale)
+                else:
+                    _resume_fixup(model, lora_cell[0], s, s_i, prefix, plen, rl,
+                                  page_size=ps, lora_scale=self.lora_scale)
+
+        def preempt(s_i: int) -> None:
+            """Evict slot ``s_i``'s occupant: requeue it at the FRONT with its
+            generated prefix (for recompute), free its pages, and kill the
+            slot on the device with a dead admission."""
+            c = int(host_cand[s_i])
+            # a blocking read of the slot's current truth (the snapshot
+            # lags): preemption is rare, the sync is the cost of exactness
+            if bool(state.done[s_i]):
+                finished[c] = True
+            else:
+                plen = int(state.lengths_buf[c])
+                if plen:
+                    prefix = state.out[c].cpu().numpy().astype(np.int32)
+                    # a speculative re-admission draws a new first token:
+                    # keep the original behavior logprob for the resume
+                    logp0 = float(state.logps_buf[c, 0]) if self.capture_logprobs else 0.0
+                    pending.appendleft((c, prefix, plen, logp0))
+                else:
+                    pending.appendleft(c)
+                pool.preemptions += 1
+            pool.release(s_i)
+            kill = np.zeros(r_slots, bool)
+            kill[s_i] = True
+            admit(state, np.full(r_slots, total, np.int64), kill,
+                  np.full(r_slots, pool.scratch, np.int64))
+            host_cand[s_i] = total
+            epoch[s_i] += 1
+
+        fill_idle(state, range(r_slots))
+        snapshots: deque = deque()
+        # each slot serves <= ceil(total / R) occupants x max_steps, plus up
+        # to 2·check of admission lag per handoff; a budgeted pool may
+        # serialize candidates and recompute preempted prefixes: the fully
+        # serial bound
+        occupancies = -(-total // r_slots)
+        budget = (max_steps + 2 * check) * (2 * (total + 2) if budgeted else occupancies + 2)
+        dispatched = since_host = 0
+        while dispatched < budget and not finished.all():
+            self._take_pending_lora(lora_cell, dispatched)
+            step(state)
+            dispatched += 1
+            since_host += 1
+            if since_host < check:
+                continue
+            since_host = 0
+            snapshots.append((_Snapshot(state.done), _Snapshot(state.seq_lengths),
+                              epoch.copy(), host_cand.copy()))
+            if len(snapshots) <= 1:
+                continue
+            # the snapshot taken one boundary ago: its copy finished while
+            # the last `check` steps ran
+            done_snap, seq_snap, snap_epoch, snap_cand = snapshots.popleft()
+            done_h, seq_h = done_snap.read(), seq_snap.read()
+            # a done flag is believed only if the slot was not refilled
+            # since the snapshot (done is monotone per epoch)
+            idle = [int(s_i) for s_i in np.nonzero(done_h)[0] if snap_epoch[s_i] == epoch[s_i]]
+            for s_i in idle:
+                c = snap_cand[s_i]
+                if pool.owned[s_i]:
+                    pool.release(s_i)  # frees its pages, points it at scratch
+                if c < total:
+                    finished[c] = True
+                host_cand[s_i] = total
+            table_dirty = bool(idle)
+            if budgeted:
+                # grant pass: extend every occupied slot to cover its write
+                # frontier through the next grant window; preempt the
+                # least-advanced occupant when the pool runs dry
+                idle_set = set(idle)
+                for s_i in range(r_slots):
+                    if host_cand[s_i] >= total or s_i in idle_set:
+                        continue
+                    if snap_epoch[s_i] != epoch[s_i]:
+                        continue  # admitted after the snapshot: its admit grant covers
+                    rl = int(real_len_h[int(host_cand[s_i]) // n])
+                    target = min(int(seq_h[s_i]) + lag_tokens,
+                                 rl + max_steps + write_ceiling_extra)
+                    while pool.ensure(s_i, target):
+                        occupied = [v for v in range(r_slots)
+                                    if host_cand[v] < total and v != s_i
+                                    and snap_epoch[v] == epoch[v]]
+                        victim = min(occupied, key=lambda v: int(seq_h[v]) - int(
+                            real_len_h[int(host_cand[v]) // n])) if occupied else s_i
+                        preempt(victim)
+                        if victim == s_i:
+                            break
+                    table_dirty = True
+            idle_free = [v for v in idle if host_cand[v] >= total]
+            if pending:
+                fill_idle(state, idle_free)
+                table_dirty = True
+            if table_dirty:
+                ship_table(state)
+
+        # a final blocking read closes the snapshot lag on the last occupants
+        done_h = state.done.cpu().numpy()
+        for s_i in np.nonzero(done_h)[0]:
+            if host_cand[s_i] < total:
+                finished[int(host_cand[s_i])] = True
+        alive_h = int(state.alive_steps)
+        self.last_pool_stats = {
+            "pool_pages": pool_pages, "worst_case_pages": worst_pool,
+            "peak_pages_used": pool.peak_pages_used, "preemptions": pool.preemptions,
+            "resumes": resumes[0], "budgeted": budgeted,
+            "slot_idle_frac": (round(1.0 - alive_h / (r_slots * dispatched), 4)
+                               if dispatched else None),
+        }
+        if not finished.all():
+            raise RuntimeError(
+                f"refill scheduler exhausted its step budget ({budget}) with "
+                f"{int((~finished).sum())}/{total} candidates unfinished")
+        out = state.out[:total].cpu().numpy().reshape(b, n, max_steps)
+        lengths = state.lengths_buf[:total].cpu().numpy().reshape(b, n)
+        logps = (state.logps_buf[:total].cpu().numpy().reshape(b, n, max_steps)
+                 if self.capture_logprobs else None)
+        gen_tokens = int(lengths.sum())
+        if spec:
+            # acceptance accounting off the device-carried histogram, read
+            # once at round end
+            hist_h = state.emit_hist.cpu().numpy()
+            drafted = int(state.draft_total)
+            steps_alive = int(hist_h.sum())
+            emitted = int((hist_h * np.arange(hist_h.size)).sum())
+            self.last_spec_stats = {
+                "drafter": self.spec_drafter, "spec_draft": self.spec_draft,
+                "accept_rate": int(state.accept_total) / drafted if drafted else 0.0,
+                "tokens_per_verify_step": emitted / steps_alive if steps_alive else 0.0,
+                "emit_hist": hist_h.tolist(), "drafted": drafted,
+                "verify_impl": self.spec_verify, "verify_forwards": state.forwards,
+            }
+        stats = accumulate_round_stats(
+            self.last_round_stats, prefill_s=t_prefill, prefill_tokens=prefill_tokens,
+            prompt_rows=b, decode_s=time.perf_counter() - t_decode0,
+            gen_tokens=gen_tokens, gen_rows=total)
+        stats["decode_forwards"] = state.forwards
+        stats["sampler_calls"] = sampler_calls[0]
+        self.last_round_stats = stats
+        return GenerationResult(tokens=out, lengths=lengths, steps_dispatched=dispatched,
+                                logprobs=logps, alive_slot_steps=alive_h)

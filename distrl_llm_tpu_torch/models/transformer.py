@@ -14,8 +14,16 @@ A PAGED cache (``ops/paged.py``: per-layer page pools, bf16/f32 or int8
 ``QuantizedPages``, plus ``"lengths"`` [B] and ``"page_indices"`` [B, pps])
 switches to the packed path: prefill (S > 1) writes the prompt pages and
 attends over the input; decode (S = 1) writes the token at ``lengths`` and
-runs ``paged_attention_op`` (kernel K2 on the GPU) over ``lengths + 1``. The
-write slots and ``lengths + 1`` are computed once per forward, not per layer.
+runs ``paged_attention_op`` (kernel K2 on the GPU) over ``lengths + 1``.
+``paged_verify`` (the speculative verify forward) writes S tokens' K/V at
+``lengths + i`` and runs ``paged_verify_op`` (kernel K5, one launch per
+layer, or S launches of K2 with ``paged_verify_impl="unrolled"``); the
+projections, the MLP and the LM head batch over the ``[B, S]`` block.
+``paged_chunked`` (the continuation prefill that resumes a preempted
+sequence) writes the valid tokens of the block the same way and attends
+over each row's dense-gathered context (``chunked_context_attention``).
+The write slots and the attended lengths are computed once per forward,
+not per layer.
 
 Ported: the no-cache (prefill/self-attention, training), dense-cache and
 paged (prefill, decode) branches. ``attn_impl`` "flash" and "splash" run
@@ -37,9 +45,8 @@ the adapter's delta fused into its epilogue unless LoRA dropout is on (then
 K3 without the adapter, plus ``lora_delta``), as the JAX ``_proj`` does.
 
 The int8 dense cache, ring and ulysses raise
-``NotImplementedError`` naming their ROADMAP item; the paged
-chunked/prefix/verify branches are not ported (ROADMAP queue 1 items 4 and
-7).
+``NotImplementedError`` naming their ROADMAP item; the paged warm-prefix
+(radix-hit) branch is not ported (ROADMAP queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -59,7 +66,9 @@ from distrl_llm_tpu_torch.ops.attention import (
 )
 from distrl_llm_tpu_torch.ops.linear import dropout_stream, linear, lora_delta
 from distrl_llm_tpu_torch.ops.paged import (
-    paged_attention_op, token_slots, write_prompt_to_pages, write_token_at,
+    chunked_context_attention, gather_pages_dense, paged_attention_op,
+    paged_verify_op, token_slots, tokens_slots, write_prompt_to_pages,
+    write_token_at,
 )
 
 Params = dict[str, Any]
@@ -199,8 +208,13 @@ class DecoderLayer(nn.Module):
         attn_impl: str,
         page_indices: torch.Tensor | None = None,  # [B, pps] — paged-cache mode
         page_size: int = 0,
-        attn_lengths: torch.Tensor | None = None,  # [B] decode: lengths + 1
-        write_at: tuple[torch.Tensor, torch.Tensor] | None = None,  # decode: (page, slot)
+        paged_mode: str = "prefill",  # "prefill" | "decode" | "verify" | "chunked"
+        verify_impl: str = "fused",  # paged_verify_op's sweep
+        # decode: lengths + 1; verify, chunked: lengths (resident before the block)
+        attn_lengths: torch.Tensor | None = None,
+        # decode, verify, chunked: (page, slot) of each written token, and
+        # the [B·S] token indices written (None: all of them)
+        write_at: tuple | None = None,
         key_valid: torch.Tensor | None = None,  # [B, Sk] for flash/splash
         lora_dropout: float = 0.0,
         layer_seed: int | None = None,  # this layer's dropout seed (training)
@@ -218,13 +232,29 @@ class DecoderLayer(nn.Module):
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         if cache_k is not None and page_indices is not None:
-            if s == 1:
-                # decode: write the token at each row's length, then attend
-                # over the row's [0, length + 1) prefix
-                write_token_at(cache_k, k[:, 0], *write_at)
-                write_token_at(cache_v, v[:, 0], *write_at)
+            if paged_mode != "prefill":
+                # the block's tokens go to each row's pages at lengths + i
+                # first (the verify and the resume read them back)
+                page, slot, sel = write_at
+                kf = k.reshape(b * s, cfg.num_kv_heads, cfg.head_dim)
+                vf = v.reshape(b * s, cfg.num_kv_heads, cfg.head_dim)
+                if sel is not None:
+                    kf, vf = kf[sel], vf[sel]
+                write_token_at(cache_k, kf, page, slot)
+                write_token_at(cache_v, vf, page, slot)
+            if paged_mode == "decode":
+                # attend over the row's [0, length + 1) prefix
                 att = paged_attention_op(
                     q[:, 0], cache_k, cache_v, attn_lengths, page_indices)[:, None]
+            elif paged_mode == "verify":
+                # draft position i attends [0, lengths + i + 1)
+                att = paged_verify_op(q, cache_k, cache_v, attn_lengths, page_indices,
+                                      verify_impl=verify_impl)
+            elif paged_mode == "chunked":
+                att = chunked_context_attention(
+                    q, gather_pages_dense(cache_k, page_indices),
+                    gather_pages_dense(cache_v, page_indices), attn_lengths,
+                    key_valid[:, :s])
             else:
                 # packed prefill: write the prompt pages, attend over the input
                 write_prompt_to_pages(cache_k, k, page_indices, page_size)
@@ -297,6 +327,10 @@ class Decoder(nn.Module):
         positions: torch.Tensor | None = None,  # [B, S] absolute positions
         logits_positions: torch.Tensor | None = None,  # [B] per-row gather
         page_size: int = 0,  # paged-cache mode (ops/paged.py)
+        paged_verify: bool = False,  # speculative draft-block verify
+        paged_verify_impl: str = "fused",  # verify sweep: "fused" (K5) | "unrolled"
+        paged_chunked: bool = False,  # continuation (chunked) prefill over pages
+        paged_prefix: bool = False,  # warm (radix-hit) suffix prefill: not ported
         remat: bool = False,  # checkpoint each layer (training, no cache)
         lora_dropout: float = 0.0,  # adapter-input dropout (training)
         dropout_seed: int | None = None,  # this forward's dropout seed
@@ -318,7 +352,11 @@ class Decoder(nn.Module):
         prompt pages; decode (S = 1) attends over each row's ``[0, lengths +
         1)``. The paged engine passes packed ``positions``.
         ``logits_positions`` projects only one position per row (the packed
-        prefill's last real token).
+        prefill's last real token). ``paged_verify``: the S-token block at
+        each row's ``lengths`` (positions ``lengths + i``), query i attending
+        ``[0, lengths + i + 1)``. ``paged_chunked``: the same block with
+        ``attention_mask`` [B, S] marking its real tokens; padding tokens
+        write nothing.
 
         Training: ``remat`` checkpoints each layer of the uncached forward
         while grad is enabled; ``lora_dropout`` with a ``dropout_seed``
@@ -336,6 +374,14 @@ class Decoder(nn.Module):
         paged = kv_cache is not None and "page_indices" in kv_cache
         if kv_cache is not None:
             _check_cache(kv_cache)
+        if paged_prefix:
+            raise NotImplementedError(
+                "the warm (radix-hit) suffix prefill is not ported yet (ROADMAP "
+                "queue 1 item 7: radix cache on the refill scheduler)")
+        if (paged_verify or paged_chunked) and not paged:
+            raise ValueError("paged_verify and paged_chunked need a paged cache")
+        if paged_verify and paged_chunked:
+            raise ValueError("paged_verify and paged_chunked exclude each other")
         if paged:
             if page_size <= 0:
                 raise ValueError("a paged cache needs page_size > 0")
@@ -364,20 +410,32 @@ class Decoder(nn.Module):
         # mask is built only where a path reads it (the JAX needs_dense_mask)
         kernel_attn = attn_impl in ("flash", "splash")
         needs_dense_mask = ((kv_cache is not None and not paged)
-                            or (paged and s > 1 and not kernel_attn)
+                            or (paged and s > 1 and not kernel_attn
+                                and not paged_verify and not paged_chunked)
                             or (kv_cache is None and not kernel_attn))
         mask = (causal_padding_mask(attention_mask, q_len=s,
                                     q_offset=0 if paged else cache_offset)
                 if needs_dense_mask else None)
         paged_kw = {}
         if paged:
-            paged_kw = {"page_indices": kv_cache["page_indices"], "page_size": page_size}
-            if s == 1:  # decode: one write slot per row and the attended
-                # lengths, shared by every layer
-                lengths = kv_cache["lengths"]
-                paged_kw["write_at"] = token_slots(lengths, paged_kw["page_indices"],
-                                                   page_size)
-                paged_kw["attn_lengths"] = (lengths + 1).to(torch.int32)
+            # the write slots and the attended lengths, shared by every layer
+            table = kv_cache["page_indices"]
+            paged_kw = {"page_indices": table, "page_size": page_size}
+            lengths = kv_cache.get("lengths")
+            if paged_verify or paged_chunked:
+                sel = (None if paged_verify else
+                       torch.nonzero(attention_mask[:, :s].reshape(-1) > 0)[:, 0])
+                page, slot = tokens_slots(lengths, table, page_size, s)
+                if sel is not None:
+                    page, slot = page[sel], slot[sel]
+                paged_kw.update(paged_mode="verify" if paged_verify else "chunked",
+                                verify_impl=paged_verify_impl,
+                                write_at=(page, slot, sel),
+                                attn_lengths=lengths.to(torch.int32))
+            elif s == 1:  # decode: one write slot per row
+                paged_kw.update(paged_mode="decode",
+                                write_at=(*token_slots(lengths, table, page_size), None),
+                                attn_lengths=(lengths + 1).to(torch.int32))
 
         layer_loras = _split_lora(lora, cfg.num_layers)
         dropping = lora_dropout > 0.0 and dropout_seed is not None

@@ -23,9 +23,20 @@ Counterpart of the JAX package's ``ops/paged.py``.
   tensor runs its plain version. The TPU package's choice among its paged
   launches (``impl``, ``pages_per_block``) has no counterpart: K2 is the one
   kernel. ``paged_attention_reference`` is the independent gather reference.
+* ``paged_verify_op`` is the speculative draft-block verify: S queries per
+  row, query i attending ``[0, lengths + i + 1)``. ``verify_impl="fused"``
+  runs kernel K5 (one launch per call on a CUDA tensor, its plain version on
+  a CPU one), ``"unrolled"`` S calls of ``paged_attention_op`` (K2), as the
+  JAX package dispatches them. ``paged_verify_reference`` is the gather
+  reference.
+* ``write_tokens_to_pages`` writes S tokens per row in one scatter (the
+  verify forward's block, the preemption resume's prefix), and
+  ``chunked_context_attention`` is the resume's attention over the row's
+  dense-gathered context (plain PyTorch, as the JAX package leaves it to
+  XLA).
 
-Not ported yet (ROADMAP queue 1 items 4 and 7): multi-token writes, chunked
-and warm-prefix context attention, the draft-block verify.
+Not ported yet (ROADMAP queue 1 item 7): the warm-prefix (radix-hit)
+context attention.
 """
 
 from __future__ import annotations
@@ -195,11 +206,35 @@ def write_token_to_pages(pages, new_kv: torch.Tensor, lengths: torch.Tensor,
     return write_token_at(pages, new_kv, page, slot)
 
 
-def write_tokens_to_pages(*args, **kwargs):
-    raise NotImplementedError(
-        "write_tokens_to_pages (multi-token page writes) is not ported yet "
-        "(ROADMAP queue 1 item 4: speculative decoding; item 7: continuous "
-        "admission)")
+def tokens_slots(lengths: torch.Tensor, page_indices: torch.Tensor, page_size: int,
+                 d: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The (page, slot) of positions ``lengths[row] + i``, i < d, flattened
+    row-major to [B · d]; page columns clamp to the table's width as in
+    ``token_slots``. A multi-token forward computes this once for all
+    layers."""
+    pos = lengths.long()[:, None] + torch.arange(d, device=lengths.device)[None, :]
+    col = (pos // page_size).clamp(max=page_indices.shape[1] - 1)
+    page = page_indices.long().gather(1, col).reshape(-1)
+    return page, (pos % page_size).reshape(-1)
+
+
+def write_tokens_to_pages(pages, new_kv: torch.Tensor, lengths: torch.Tensor,
+                          page_indices: torch.Tensor, page_size: int,
+                          valid: torch.Tensor | None = None):
+    """Write D consecutive tokens' KV [B, D, K, hd] per row at positions
+    ``lengths[row] + i``, in place, in one scatter (int8 pools quantize each
+    token with its own scale). Tokens where ``valid`` [B, D] is False write
+    nothing (the JAX package drops them with an out-of-range page). The
+    positions of one row are distinct and rows own disjoint pages, so no two
+    live writes meet; the one exception is a position past the table,
+    clamped onto the row's last column, which no read window reaches."""
+    b, d = new_kv.shape[:2]
+    page, slot = tokens_slots(lengths, page_indices, page_size, d)
+    flat = new_kv.reshape(b * d, *new_kv.shape[2:])
+    if valid is not None:
+        keep = valid.reshape(-1).bool()
+        page, slot, flat = page[keep], slot[keep], flat[keep]
+    return write_token_at(pages, flat, page, slot)
 
 
 def gather_pages_dense(pages, page_indices: torch.Tensor,
@@ -215,10 +250,29 @@ def gather_pages_dense(pages, page_indices: torch.Tensor,
     return dense.permute(1, 2, 3, 0, 4).reshape(b, width * ps, kh, hd)
 
 
-def chunked_context_attention(*args, **kwargs):
-    raise NotImplementedError(
-        "chunked_context_attention (continuation prefill over pages) is not "
-        "ported yet (ROADMAP queue 1 item 7: continuous admission)")
+def chunked_context_attention(q: torch.Tensor, ctx_k: torch.Tensor,
+                              ctx_v: torch.Tensor, lengths: torch.Tensor,
+                              q_valid: torch.Tensor) -> torch.Tensor:
+    """Attention for a continuation (chunked) prefill over a paged cache:
+    query i of row b (q [B, S, H, hd]) sits at position ``lengths[b] + i``
+    and attends the context [B, Sk, K, hd] (f32, dense-gathered, already
+    holding the block's own KV) at positions ``j <= lengths[b] + i``. Rows
+    of invalid (padding) queries are zeroed. Returns [B, S, H, hd] in q's
+    dtype."""
+    b, s, h, hd = q.shape
+    kh = ctx_k.shape[2]
+    g = h // kh
+    sk = ctx_k.shape[1]
+    qg = q.reshape(b, s, kh, g, hd).float()
+    logits = torch.einsum("bskgd,bjkd->bkgsj", qg, ctx_k) * (hd**-0.5)
+    jpos = torch.arange(sk, device=q.device)[None, None, :]
+    qpos = lengths.long()[:, None, None] + torch.arange(s, device=q.device)[None, :, None]
+    causal = jpos <= qpos  # [B, S, Sk]
+    logits = logits.masked_fill(~causal[:, None, None], NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgsj,bjkd->bskgd", probs, ctx_v)
+    out = torch.where(q_valid[:, :, None, None, None] > 0, out, 0.0)
+    return out.reshape(b, s, h, hd).to(q.dtype)
 
 
 def paged_attention_reference(q: torch.Tensor, k_pages, v_pages,
@@ -266,10 +320,46 @@ def paged_attention_op(q: torch.Tensor, k_pages, v_pages, lengths: torch.Tensor,
     return out.to(q.dtype)
 
 
-def paged_verify_reference(*args, **kwargs):
-    raise NotImplementedError(
-        "the draft-block verify is not ported yet (ROADMAP queue 1 item 4: "
-        "speculative decoding with kernel K5)")
+def paged_verify_reference(q: torch.Tensor, k_pages, v_pages, lengths: torch.Tensor,
+                           page_indices: torch.Tensor) -> torch.Tensor:
+    """Gather reference for the draft-block verify: query i of q [B, S, H,
+    hd] (unscaled) attends each row's ``[0, lengths + i + 1)``, ``lengths``
+    counting the tokens resident before the block. [B, S, H, hd]."""
+    return torch.stack([
+        paged_attention_reference(q[:, i], k_pages, v_pages, lengths + i + 1,
+                                  page_indices)
+        for i in range(q.shape[1])], dim=1)
 
 
-paged_verify_op = paged_verify_reference
+VERIFY_IMPLS = ("fused", "unrolled")
+
+
+def paged_verify_op(q: torch.Tensor, k_pages, v_pages, lengths: torch.Tensor,
+                    page_indices: torch.Tensor, *,
+                    verify_impl: str = "fused") -> torch.Tensor:
+    """The verify forward's attention: q [B, S, H, hd] (unscaled) over each
+    row's pages, which already hold the block's own KV; query i attends
+    ``[0, lengths + i + 1)``. ``"fused"``: q scaled by ``hd**-0.5`` in its
+    dtype, then ``paged_attention_native_verify`` (one launch of K5 on a
+    CUDA tensor, its plain version on a CPU one). ``"unrolled"``: S calls of
+    ``paged_attention_op`` (S launches of K2). [B, S, H, hd] in q's dtype."""
+    if verify_impl not in VERIFY_IMPLS:
+        raise ValueError(f"verify_impl must be fused/unrolled, got {verify_impl!r}")
+    lens = lengths.to(torch.int32)
+    if verify_impl == "unrolled":
+        return torch.stack([
+            paged_attention_op(q[:, i], k_pages, v_pages, lens + (i + 1), page_indices)
+            for i in range(q.shape[1])], dim=1)
+    from distrl_llm_tpu_torch.ops.paged_native import paged_attention_native_verify
+
+    scaled_q = q * (q.shape[-1] ** -0.5)
+    quantized = is_quantized_pages(k_pages)
+    out = paged_attention_native_verify(
+        scaled_q.contiguous(),
+        k_pages.weight if quantized else k_pages,
+        v_pages.weight if quantized else v_pages,
+        lens.contiguous(), page_indices.to(torch.int32).contiguous(),
+        k_scales=k_pages.scales if quantized else None,
+        v_scales=v_pages.scales if quantized else None,
+    )
+    return out.to(q.dtype)

@@ -121,6 +121,7 @@ LAUNCHERS = (
     ("paged_attention", "paged_native", ("paged_attention_launch",)),
     ("flash_attention", "flash_attention", ("flash_attention_fwd", "flash_attention_bwd")),
     ("quant_matmul", "quant_matmul", ("quant_matmul_launch",)),
+    ("paged_verify", "paged_native", ("paged_verify_launch",)),
 )
 
 
@@ -143,10 +144,12 @@ def test_kernel_wrapper_signature_matches_the_c_launcher(monkeypatch, source, mo
     lib = type("Lib", (), {n: Fn() for n in names})()
     monkeypatch.setattr(_build, "load", lambda name: type("B", (), {"lib": lib}))
     wrapper = importlib.import_module(f"distrl_llm_tpu_torch.ops.{module}")
-    clear = getattr(wrapper._kernel_lib, "cache_clear", lambda: None)  # lru-cached ones
+    # the module's loader of this source (paged_native holds K2's and K5's)
+    loader = wrapper._verify_lib if source == "paged_verify" else wrapper._kernel_lib
+    clear = getattr(loader, "cache_clear", lambda: None)  # lru-cached ones
     clear()
     try:
-        declared = wrapper._kernel_lib()
+        declared = loader()
     finally:
         clear()
     for fn in functions:

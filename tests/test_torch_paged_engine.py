@@ -303,9 +303,11 @@ def test_push_lora_mid_round_matches_jax(weights):
 
 
 @pytest.mark.parametrize("knob", [
-    {"scheduler": "refill", "max_concurrent_rows": 4}, {"prefix_sharing": True},
+    {"scheduler": "refill", "max_concurrent_rows": 4, "prefix_sharing": True},
+    {"prefix_sharing": True},
     {"continuous_admission": True}, {"prefix_cache": True}, {"kv_spill": True},
-    {"spec_draft": 2}, {"spec_drafter": "self"}, {"spec_adapt": True},
+    {"scheduler": "refill", "max_concurrent_rows": 4, "spec_draft": 2, "spec_drafter": "self"},
+    {"spec_drafter": "self"}, {"spec_adapt": True},
     {"scan_chunk": 8},
 ])
 def test_unported_knobs_raise_naming_roadmap(weights, knob):
