@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (``distrl_llm_tpu_torch``).
 
-    python3 chip_smoke.py [--layers N] [--seed S] [--profile]
+    python3 chip_smoke.py [--layers N] [--seed S] [--profile] [--until 6]
 
 Needs one NVIDIA GPU (Hopper: the kernels build for ``sm_90a``) and ``nvcc``.
 Without a GPU it exits non-zero before computing anything. Phases, each
@@ -61,15 +61,20 @@ printing its own lines:
    weights give the n-gram drafter nothing to accept, so the same engine
    and kernels also run the TINY preset in f32, whose greedy streams loop:
    drafts accepted, speculative greedy tokens equal to plain refill's);
-   and the f32 logits of one verify forward over 5 positions against 5
-   single-token decode forwards.
+   the f32 logits of one verify forward over 5 positions against 5
+   single-token decode forwards; and one greedy speculative round over the
+   weights quantized to int4 g64, K3 at M = 64 x 5 (7 launches per layer
+   per model forward).
 
 Phase 3 holds K4 (forward and backward) against its plain version at the
 learner's [8, 1550, 28 / 4, 128], f32 and bf16, with its time, bound and
 ``scaled_dot_product_attention`` as the library yardstick; and K3 at every
-projection shape of a layer, M = 64 and 12,400, int4 g64 and int8, with
-its edge cases, one-hot rows that must reproduce ``dequantize()`` exactly,
-and ``quantize`` on the card against the CPU bit for bit.
+projection shape of a layer, M = 64, 320 and 12,400, int4 g64 and int8,
+with its edge cases, one-hot rows that must reproduce ``dequantize()``
+exactly, and ``quantize`` on the card against the CPU bit for bit; K3's
+time at every projection shape at M = 64 (a CUDA graph over weight copies
+past the L2) and their sum per QLoRA decode step ("K3 per QLoRA decode
+step"), and w_gate at M = 12,400.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Any failed check raises and the script
@@ -226,6 +231,7 @@ LEARNER_LOGP_ATOL = 1e-3
 # plus 1e-3 (as K4's stanza)
 QMM_SHAPES = ((3584, 3584), (3584, 512), (3584, 18944), (18944, 3584))
 QMM_ROWS = (64, 12400)
+QMM_VERIFY_ROWS = 320  # the speculative verify step over a quantized base: 64 slots x 5
 QMM_GROUP = 64
 QMM_RANK = 32
 QMM_F32_REL = 1e-4
@@ -725,7 +731,8 @@ def qmm_case(device, seed: int, *, k: int, n: int, m: int, bits: int, group, dty
     return x, w, b, la, lb
 
 
-def compare_quant_matmul(device, seed: int, *, shapes=QMM_SHAPES, rows=QMM_ROWS,
+def compare_quant_matmul(device, seed: int, *, shapes=QMM_SHAPES,
+                         rows=(QMM_ROWS[0], QMM_VERIFY_ROWS, QMM_ROWS[1]),
                          group: int = QMM_GROUP, scale: float = 0.5) -> dict:
     """K3 against its plain version on ``device`` at the main path's shapes:
     every (K, N) of ``shapes`` at every M of ``rows``, int4 in groups of
@@ -833,57 +840,102 @@ def quant_matmul_bound_ms(m: int, k: int, n: int, *, bits: int, group, rank: int
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def time_quant_matmul(seed: int, *, shape=(3584, 18944), rows=QMM_ROWS, copies: int = 4,
-                      scale: float = 0.5) -> dict:
-    """K3's, the plain version's and the library yardstick's times at the
-    w_gate shape (bf16 x, a bias-free rank-32 adapter as the main path's
-    w_gate), M = 64 and 12,400, int4 g64 and int8 per column, beside the
-    bound. At M = 64 the calls cycle through ``copies`` weights (136 MB of
-    int4 payload, past the 50 MB L2), as a decode step meets each layer's
-    weight cold. The library yardstick is ``torch.matmul`` on the weight
-    dequantized beforehand (dequantization not timed) plus the adapter's
-    delta as torch ops; the port never calls it."""
+def _graph_ms(calls, replays: int = 5) -> float:
+    """Device time per call of ``calls`` (thunks launching work on the
+    card), captured once into a CUDA graph and replayed ``replays`` times
+    after a warm-up replay: the calls run back to back, without the host's
+    per-call enqueue time, which at decode sizes exceeds the kernels' own."""
+    import torch
+
+    for fn in calls[:2]:  # lazy initialisation outside the capture
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for fn in calls:
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / (replays * len(calls))
+    del graph
+    torch.cuda.empty_cache()
+    return ms
+
+
+L2_BYTES = 50e6  # the H100's L2 cache
+
+
+def time_quant_matmul(seed: int, *, shape=(3584, 18944), scale: float = 0.5) -> dict:
+    """K3's, the plain version's and the library yardstick's times beside
+    the bound, bf16 x and a rank-32 adapter, int4 g64 and int8 per column:
+    at decode's M = 64 for every projection shape of ``QMM_SHAPES`` (a bias
+    on the first two, the q/k/v projections), and at the learner's M =
+    12,400 for w_gate (``shape``). At M = 64 the calls cycle through enough
+    weight copies that one cycle moves more than twice the 50 MB L2, as a
+    decode step meets each layer's weight cold, and are timed as a CUDA
+    graph (``_graph_ms``); at M = 12,400 one call at a time. The library
+    yardstick is ``torch.matmul`` on the weight dequantized beforehand
+    (dequantization not timed) plus the adapter's delta as torch ops; the
+    port never calls it. Keys (m, k, n, bits)."""
     import torch
 
     from distrl_llm_tpu_torch.ops.quant import dequantize
 
     qm = _qmm()
-    k, n = shape
     out = {}
-    for m in rows:
+    runs = [(QMM_ROWS[0], k, n, i < 2) for i, (k, n) in enumerate(QMM_SHAPES)]
+    runs.append((QMM_ROWS[1], *shape, False))
+    for m, k, n, bias in runs:
         for bits in (4, 8):
             g = QMM_GROUP if bits == 4 else None
+            one = (k * n * bits // 8 + (k // (g or k)) * n * 4 + 2 * m * k
+                   + 4 * QMM_RANK * (k + n))
+            copies = max(2, math.ceil(2 * L2_BYTES / one)) if m <= 64 else 1
             cs = [qmm_case("cuda", seed + i, k=k, n=n, m=m, bits=bits, group=g,
-                           dtype=torch.bfloat16, bias=False)
-                  for i in range(copies if m <= 64 else 1)]
-            it = [0]
-
-            def nxt():
-                it[0] = (it[0] + 1) % len(cs)
-                return cs[it[0]]
-
-            calls = 30 if m <= 64 else 10
-            ms = _time_ms(lambda: qm.quant_matmul(*nxt(), scale), calls=calls)
-            plain_ms = _time_ms(lambda: qm.quant_matmul_reference(*nxt(), scale), calls=5,
-                                warmup=1)
-            dense = [(c[0], dequantize(c[1], torch.bfloat16), c[3].bfloat16(), c[4].bfloat16())
-                     for c in cs]
+                           dtype=torch.bfloat16, bias=bias) for i in range(copies)]
             s_t = torch.tensor(scale, dtype=torch.bfloat16, device="cuda")
-            itd = [0]
+            dense = [(c[0], dequantize(c[1], torch.bfloat16), c[2], c[3].bfloat16(),
+                      c[4].bfloat16()) for c in cs]
 
-            def lib():
-                itd[0] = (itd[0] + 1) % len(dense)
-                x, wd, la, lb = dense[itd[0]]
-                return torch.matmul(x, wd) + (x @ la) @ lb * s_t
+            def lib(x, wd, b, la, lb):
+                y = torch.matmul(x, wd) + (x @ la) @ lb * s_t
+                return y if b is None else y + b
 
-            library_ms = _time_ms(lib, calls=calls)
+            if m <= 64:
+                ms = _graph_ms([lambda c=c: qm.quant_matmul(*c, scale) for c in cs])
+                library_ms = _graph_ms([lambda d=d: lib(*d) for d in dense])
+            else:
+                ms = _time_ms(lambda: qm.quant_matmul(*cs[0], scale), calls=10)
+                library_ms = _time_ms(lambda: lib(*dense[0]), calls=10)
+            plain_ms = _time_ms(lambda: qm.quant_matmul_reference(*cs[0], scale), calls=5,
+                                warmup=1)
             bound_ms, bound_by = quant_matmul_bound_ms(m, k, n, bits=bits, group=g,
-                                                       rank=QMM_RANK, bias=False)
-            out[(m, bits)] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                              "bound_by": bound_by, "library_ms": library_ms}
+                                                       rank=QMM_RANK, bias=bias)
+            out[(m, k, n, bits)] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                    "bound_by": bound_by, "library_ms": library_ms,
+                                    "copies": copies}
             del cs, dense
             torch.cuda.empty_cache()
     return out
+
+
+def qlora_decode_step_ms(times: dict, bits: int = 4) -> dict:
+    """K3's time per decode step of the QLoRA model from the M = 64 rows of
+    ``time_quant_matmul``: 28 layers x (wq, wo, wk, wv, w_gate, w_up,
+    w_down), as 28 x (2 t(wq/wo) + 2 t(wk/wv) + 2 t(w_gate/w_up) +
+    t(w_down)), and the same sum of the bounds."""
+    m = QMM_ROWS[0]
+    per_layer = (2, 2, 2, 1)  # QMM_SHAPES: wq/wo, wk/wv, w_gate/w_up, w_down
+    rows = [times[(m, k, n, bits)] for k, n in QMM_SHAPES]
+    return {key: 28 * sum(c * r[key] for c, r in zip(per_layer, rows))
+            for key in ("ms", "bound_ms", "library_ms")}
 
 
 def _check_round(res, *, rows: int, n: int, steps: int, vocab: int,
@@ -2046,22 +2098,29 @@ def spec_round(cfg, device, weights, *, seed: int, spec_draft: int, kv_quant: st
     dev = torch.device(device)
     if dev.type == "cuda":
         torch.cuda.synchronize()
-    reset_counts()
-    t = time.perf_counter()
-    res = eng.generate(model, lora, ids, mask, sc, seed + 1)
-    wall = time.perf_counter() - t
-    counts = read_counts()
+    model_forwards, plain = [0], [0]
+    hook = model.register_forward_hook(lambda *_: model_forwards.__setitem__(
+        0, model_forwards[0] + 1))
+    with counting_plain_calls(_qmm(), "quant_matmul_reference", plain):
+        reset_counts()
+        t = time.perf_counter()
+        res = eng.generate(model, lora, ids, mask, sc, seed + 1)
+        wall = time.perf_counter() - t
+        counts = read_counts()
+    hook.remove()
     st, spec = eng.last_round_stats, eng.last_spec_stats
+    quantized = any(b.dtype == torch.int8 for b in model.buffers())
     label = (f"{'spec d=' + str(spec_draft) if spec_draft else 'plain refill'} "
              f"{'int8' if kv_quant == 'int8' else str(dtype).split('.')[-1]} KV "
-             f"t={temperature}")
+             f"t={temperature}{', int4 base' if quantized else ''}")
     _check_refill_round(res, rows=ids.shape[0], n=n, steps=max_new_tokens,
                         vocab=cfg.vocab_size, eos=tok.eos_token_id, pad=tok.pad_token_id,
                         what=label)
     fwd = st["decode_forwards"]
     steps = res.steps_dispatched
     out = {"label": label, "counts": counts, "res": res, "wall_s": wall,
-           "spec_draft": spec_draft,
+           "spec_draft": spec_draft, "quantized": quantized,
+           "model_forwards": model_forwards[0], "plain_calls": plain[0],
            "sampler_calls": st["sampler_calls"],
            "ms_per_step": st["decode_s"] * 1e3 / steps, "decode_tok_s": st["gen_tokens"]
            / st["decode_s"], "prefill_tok_s": st["prefill_tokens"] / st["prefill_s"],
@@ -2093,7 +2152,8 @@ def check_spec_counts(out: dict, layers: int) -> None:
     dispatches it: speculative, K5 once per layer per verify forward and K2
     never, K1 once per admission;
     plain, K2 once per layer per decode forward, K1 once per step, K5
-    never; K3 and K4 never."""
+    never; K4 never; K3 7 times per layer per model forward over a
+    quantized base (its plain version never), else never."""
     c, fwd, d, label = out["counts"], out["forwards"], out["spec_draft"], out["label"]
     if d:
         check(c["paged_verify"] == layers * fwd and c["paged_attention"] == 0,
@@ -2105,8 +2165,12 @@ def check_spec_counts(out: dict, layers: int) -> None:
               f"want {layers} x {fwd} decode forwards and 0")
     check(c["fused_sample"] == out["sampler_calls"] > 0,
           f"{label}: K1 launched {c['fused_sample']} times, want {out['sampler_calls']}")
-    check(c["flash_attention_fwd"] == c["flash_attention_bwd"] == c["quant_matmul"] == 0,
-          f"{label}: K3/K4 launched")
+    check(c["flash_attention_fwd"] == c["flash_attention_bwd"] == 0, f"{label}: K4 launched")
+    want_qmm = 7 * layers * out["model_forwards"] if out["quantized"] else 0
+    check(c["quant_matmul"] == want_qmm and out["plain_calls"] == 0,
+          f"{label}: K3 launched {c['quant_matmul']} times, want {want_qmm} (7 x layers x "
+          f"{out['model_forwards']} model forwards over a quantized base, else 0); its plain "
+          f"version {out['plain_calls']} times")
 
 
 def spec_exactness(device, seed: int, *, max_new_tokens: int = 32) -> dict:
@@ -2258,6 +2322,20 @@ def spec_phase(cfg, args, card: str, t_start: float) -> tuple[list, dict]:
     check(lg["err"] <= LOGIT_F32_ATOL, f"verify vs decode f32 logits differ by "
           f"{lg['err']:.4g} > {LOGIT_F32_ATOL}")
     check(np.isfinite(lg["std"]), "spec logits: non-finite")
+    # one greedy speculative round over the int4 base: K3 at M = 64 x 5
+    # verify positions (and at the prefills), K5 as over the bf16 base
+    qw = make_qlora_weights(cfg, "cuda", seed=args.seed, bits=4, group=QMM_GROUP)
+    q4 = spec_round(cfg, "cuda", qw, seed=args.seed, spec_draft=SPEC_DRAFT, kv_quant="none",
+                    card=card, profile=args.profile)
+    check_spec_counts(q4, cfg.num_layers)
+    counted.append(q4["counts"])
+    print(f"spec over the int4 g{QMM_GROUP} base: {q4['ms_per_step']:.2f} ms/step, "
+          f"{q4['decode_tok_s']:.1f} tok/s, accept rate {q4['spec']['accept_rate']:.4f}, "
+          f"{q4['steps']} steps; K3 {q4['counts']['quant_matmul']} launches (7 x "
+          f"{cfg.num_layers} x {q4['model_forwards']} model forwards); total "
+          f"{time.perf_counter() - t_start:.1f} s; {card}")
+    del qw
+    torch.cuda.empty_cache()
     return counted, result
 
 
@@ -2266,6 +2344,9 @@ def main(argv=None) -> int:
     ap.add_argument("--layers", type=int, default=28,
                     help="decoder depth of the Qwen2.5-7B-wide model (28 = full)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--until", type=int, default=7, choices=(6, 7),
+                    help="the last phase to run; 6 skips speculative decoding "
+                         "(with --profile, the long part) and prints no result line")
     ap.add_argument("--profile", action="store_true",
                     help="also print the device time per decode step and per "
                          "learner step by kernel (torch.profiler) and the "
@@ -2351,17 +2432,25 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     qmm_err = compare_quant_matmul("cuda", args.seed)
     qmm_times = time_quant_matmul(args.seed)
-    for (m, bits), r in qmm_times.items():
-        print(f"kernel quant_matmul at x [{m},3584] bf16 x int{bits} "
-              f"{'g' + str(QMM_GROUP) if bits == 4 else 'per-column'} [3584,18944] (w_gate), "
-              f"rank-{QMM_RANK} LoRA: {r['ms']:.4f} ms, plain version {r['plain_ms']:.4f} ms, "
-              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), library (torch.matmul on the "
-              f"weight dequantized beforehand, dequant not timed, + the LoRA delta) "
-              f"{r['library_ms']:.4f} ms; {card}")
+    for (m, k, n, bits), r in qmm_times.items():
+        timed = (f"a CUDA graph over {r['copies']} weight copies" if m <= 64
+                 else "one call at a time")
+        print(f"kernel quant_matmul at x [{m},{k}] bf16 x int{bits} "
+              f"{'g' + str(QMM_GROUP) if bits == 4 else 'per-column'} [{k},{n}], rank-"
+              f"{QMM_RANK} LoRA ({timed}): {r['ms']:.4f} ms, plain version "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+              f"library (torch.matmul on the weight dequantized beforehand, dequant not "
+              f"timed, + the LoRA delta) {r['library_ms']:.4f} ms; {card}")
+    step = qlora_decode_step_ms(qmm_times)
+    print(f"kernel quant_matmul: K3 per QLoRA decode step (28 x (2 wq/wo + 2 wk/wv + 2 "
+          f"w_gate/w_up + w_down), int4 g{QMM_GROUP}, M {QMM_ROWS[0]}): {step['ms']:.4f} ms, "
+          f"bound {step['bound_ms']:.4f} ms, library {step['library_ms']:.4f} ms; the "
+          f"profiled device time of PR 4's kernel was 37.81 ms; {card}")
     print(f"kernel quant_matmul: stanza {time.perf_counter() - t:.1f} s")
     # the line's headline is the decode step's int4 w_gate (M = 64)
     results["quant_matmul"] = {"max_abs_err": qmm_err["f32_abs"],
-                               **qmm_times[(QMM_ROWS[0], 4)]}
+                               **qmm_times[(QMM_ROWS[0], 3584, 18944, 4)]}
+    results["quant_matmul"].pop("copies")
 
     # 4. the main path at full width: the dense engine, then the paged engine
     # with bf16 and with int8 pages, each with the counts reset around it
@@ -2511,6 +2600,11 @@ def main(argv=None) -> int:
     counted += qlora_phase(cfg, args, batch, card, t_start)
     print(f"qlora: total {time.perf_counter() - t_start:.1f} s; {card}")
     torch.cuda.empty_cache()
+
+    if args.until < 7:
+        print(f"chip_smoke: phases 1-{args.until} done in {time.perf_counter() - t_start:.1f} s "
+              f"(a partial run prints no result line); {card}")
+        return 0
 
     # 7. speculative decoding: K5 against its plain version and timed, then
     # BASELINE config 2's refill engine at full width, speculative and

@@ -20,32 +20,59 @@
 // heads of their kv head. Every output element is written by exactly one
 // block (no atomics), so two runs give identical bits.
 //
-// Design (simple and right first). Tiles of 64 query rows by 64 keys, f32
-// in shared memory (rows padded to hd + 1 floats, so a warp reading one
-// column of 16 rows hits 16 banks), 256 threads as a 16 x 16 grid: thread
-// (ty, tx) owns rows ty + 16 i and columns tx + 16 j of every 64-wide tile,
-// so a row's statistics reduce over the 16 lanes of a half-warp.
-//   forward:   grid (S / 64, H, B), heaviest query tiles first; a loop over
-//              the key tiles up to the causal limit with an online softmax;
-//              writes out and the row log-sum-exp lse [B, H, S] f32.
-//   delta:     one warp per (b, i, h): delta = rowsum(dout * out), f32.
-//   dk / dv:   grid (S / 64, K, B): a block per key tile of one kv head
-//              loops over its G query heads and the query tiles from the
-//              causal start, recomputing p = exp(scale s - lse):
-//              dv += p^T dout, ds = p (dp - delta), dk += scale ds^T q.
-//   dq:        grid (S / 64, H, B): dq += scale ds k over the key tiles up
-//              to the causal limit.
-// Any S works: tails are masked, never padded in memory.
-//
 // What bounds it. The causal pairs whose key is valid need 4 hd flops each
 // forward (q.k and p.v) and 10 hd backward (s, dp, dv, dk, dq); at the
-// learner's [8, 1550, 28 / 4, 128] with every key valid that is 1.38e11 and
-// 3.45e11 flops, 0.14 ms and 0.35 ms at the bf16 tensor cores' 989 TFLOP/s;
-// the bytes (q, k, v, out once, ~100 MB in bf16) bound less. This version
-// runs every product on the CUDA cores in f32 (67 TFLOP/s peak, and the
-// shared-memory reads of the operands cap it below that), so it is far
-// from that bound; mma/wgmma on bf16, cp.async/TMA staging and a persistent
-// schedule are later work.
+// learner's [8, 1550, 28 / 4, 128] that is 1.38e11 and 3.45e11 flops,
+// 0.14 ms and 0.35 ms at the bf16 tensor cores' 989 TFLOP/s. The dq kernel
+// recomputes s and dp rather than add into dq from the dk/dv blocks with
+// atomics: 4 hd flops more per pair (14 hd in all, 4.83e11), the price of a
+// deterministic backward. The bytes (q, k, v, out once, ~100 MB in bf16)
+// bound less. So the products must run on the tensor cores.
+//
+// bf16 (the main path): FlashAttention-2 on mma.sync m16n8k16 (bf16
+// operands, f32 sums). Tiles of 64 keys x hd in shared memory, their
+// 16-byte chunks XOR-swizzled by row so that ldmatrix reads them without
+// bank conflicts, filled by cp.async (16 bytes a thread) in a ring.
+//   forward: a block of 8 warps per (128 query rows, head, batch), each warp
+//            16 rows with its Q fragments in registers; a 3-stage K/V ring;
+//            s = q k^T, the online softmax in f32 registers (exp2 domain,
+//            row statistics reduced over the 4 lanes of a row), p rounded
+//            to bf16 in registers as the A operand of o += p v (v through
+//            ldmatrix.trans); o divided by l once at the end.
+//   delta:   one warp per (b, i, h): rowsum(dout * out), f32.
+//   dk / dv: a block of 4 warps per (64 keys, kv head, batch), K and V
+//            resident in shared memory, dk and dv in registers; over its G
+//            heads and the query tiles from the causal start it streams Q,
+//            dO, lse and delta through a 2-stage ring and runs the
+//            transposed products: s^T = K Q^T, p^T = exp(scale s^T - lse),
+//            dv += p^T dO, dp^T = V dO^T, ds^T = p^T (dp^T - delta), dk +=
+//            ds^T Q (scaled once at the end); p and ds rounded to bf16 as
+//            operands.
+//   dq:      a block of 4 warps per (64 query rows, head, batch), Q and dO
+//            resident; over the key tiles it recomputes s and dp and adds
+//            dq += ds K.
+// Masking: a block first lists its causal key tiles that hold a valid key
+// (with each tile's 64 validity bits); tiles with none are skipped, as
+// jaxlib's splash skips masked blocks, and only tiles that cross the
+// diagonal or hold an invalid key are masked element by element. The
+// forward's and dq's query tiles, and dk/dv's key tiles, run in the order
+// longest first (the slowest grid axis, reversed for the query tiles).
+// GQA: the G = 7 heads of a kv head are neighbouring blocks of one launch,
+// so their K/V tiles come from L2 after the first read; nothing is packed.
+//
+// f32 (the learner's f32 parity runs): every product on the CUDA cores in
+// f32, never TF32 or bf16 operands. Tiles of 64 query rows by 64 keys, f32
+// in shared memory (rows padded to hd + 1 floats), 256 threads as a 16 x 16
+// grid, thread (ty, tx) owning rows ty + 16 i and columns tx + 16 j; the
+// same three backward kernels with grids (S / 64, K, B) and (S / 64, H, B).
+//
+// Any S works: tails are masked, never padded in memory.
+//
+// Measured (chip_smoke.py's K4 stanza at the learner's [8, 1550, 28 / 4,
+// 128] bf16, NVIDIA H100 80GB HBM3 at 700 W; the rest in PERF.md): forward
+// 0.70-0.74 ms, backward 1.83-1.91 ms, against scaled_dot_product_attention's
+// 0.99-1.03 and 3.29-3.53 and this file's earlier CUDA-core f32 tiles, 6.8
+// and 28.9 ms; the bf16 learner step fell from ~20.1 s to ~11.2 s.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -451,6 +478,589 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16: the tensor cores. mma.sync m16n8k16 (bf16 in, f32 sums), operands
+// through ldmatrix from XOR-swizzled tiles that cp.async fills.
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// 16 bytes global -> shared, bypassing L1; `pred` false writes 16 zero bytes
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(pred ? 16 : 0));
+}
+// 4 bytes global -> shared; `pred` false writes a zero
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(pred ? 4 : 0));
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+// d += a (16 x 16, row-major) . b (16 x 8, column-major)
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+// an m16n8 accumulator pair (columns 0-7 and 8-15 of a 16-wide k step) as
+// the A fragment of the next product, rounded to bf16 in registers
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&lo)[4],
+                                         const float (&hi)[4]) {
+  a[0] = pack_bf16(lo[0], lo[1]);
+  a[1] = pack_bf16(lo[2], lo[3]);
+  a[2] = pack_bf16(hi[0], hi[1]);
+  a[3] = pack_bf16(hi[2], hi[3]);
+}
+
+// element offset of (row, 16-byte chunk) in a [rows][HD] bf16 tile whose
+// chunks are XOR-swizzled by row & 7: the eight rows an ldmatrix reads at
+// one logical chunk land in eight different bank groups
+template <int HD>
+__device__ __forceinline__ int swz(int row, int chunk) {
+  return row * HD + ((chunk ^ (row & 7)) << 3);
+}
+// ldmatrix lane addresses. A: the 16 x 16 tile at (row0, k step kk) of a
+// row-major tile. B: keys n0..n0 + 15 of a [key][d] tile as the column-major
+// operand of . ^T (r[0..1] keys n0..+7, r[2..3] keys n0 + 8..+15). BT: k
+// step kk over the rows of a [k][n] tile, n chunks dn and dn + 1 (.trans).
+template <int HD>
+__device__ __forceinline__ int a_at(int row0, int kk, int lane) {
+  return swz<HD>(row0 + (lane & 15), 2 * kk + (lane >> 4));
+}
+template <int HD>
+__device__ __forceinline__ int b_at(int n0, int kk, int lane) {
+  return swz<HD>(n0 + (lane & 7) + ((lane >> 4) << 3), 2 * kk + ((lane >> 3) & 1));
+}
+template <int HD>
+__device__ __forceinline__ int bt_at(int kk, int dn, int lane) {
+  return swz<HD>(16 * kk + (lane & 7) + (((lane >> 3) & 1) << 3), dn + (lane >> 4));
+}
+
+// cp.async of rows [r0, r0 + ROWS) of head h of a [B, S, nh, HD] bf16
+// tensor into a swizzled tile, 16 bytes a copy; rows at or past S are zero
+template <int ROWS, int HD, int NT>
+__device__ __forceinline__ void tile_async(__nv_bfloat16* dst, const __nv_bfloat16* src, int b,
+                                           int r0, int seq, int nh, int h) {
+  constexpr int kChunks = HD / 8;
+  for (int i = threadIdx.x; i < ROWS * kChunks; i += NT) {
+    const int r = i / kChunks, c = i % kChunks;
+    const bool ok = r0 + r < seq;
+    const __nv_bfloat16* g = ok ? src + (((size_t)b * seq + r0 + r) * nh + h) * HD + c * 8 : src;
+    cp_async16(dst + swz<HD>(r, c), g, ok);
+  }
+}
+
+// Validity bits of the key tiles 0..last of row b (bit j of word 2t + j / 32:
+// key 64 t + j is below S and valid), one warp a tile; then, by thread 0,
+// the list of tiles with a valid key and its length. Ends with a barrier.
+__device__ __forceinline__ void key_tiles(uint32_t* vmask, int* list, int* count,
+                                          const int32_t* __restrict__ key_valid, int b, int seq,
+                                          int last, int warps) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int t = warp; t <= last; t += warps) {
+    const int j0 = t * 64 + lane, j1 = j0 + 32;
+    const bool v0 = j0 < seq && key_valid[(size_t)b * seq + j0] != 0;
+    const bool v1 = j1 < seq && key_valid[(size_t)b * seq + j1] != 0;
+    const uint32_t lo = __ballot_sync(kFull, v0), hi = __ballot_sync(kFull, v1);
+    if (lane == 0) {
+      vmask[2 * t] = lo;
+      vmask[2 * t + 1] = hi;
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int n = 0;
+    for (int t = 0; t <= last; ++t)
+      if (vmask[2 * t] | vmask[2 * t + 1]) list[n++] = t;
+    *count = n;
+  }
+  __syncthreads();
+}
+__device__ __forceinline__ bool key_bit(uint32_t lo, uint32_t hi, int j) {
+  return ((j < 32 ? lo >> j : hi >> (j - 32)) & 1u) != 0;
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr int kKeys = 64;       // keys per tile (every kernel)
+constexpr int kFwdRows = 128;   // forward: query rows per block, 16 a warp
+constexpr int kFwdWarps = 8;
+constexpr int kFwdStages = 3;   // K/V ring depth
+constexpr int kBwdRows = 64;    // backward: 16 keys (dk/dv) or rows (dq) a warp
+constexpr int kBwdWarps = 4;
+constexpr int kBwdStages = 2;
+
+template <int HD>
+constexpr size_t fwd_mma_smem(int seq) {
+  const int tiles = (seq + kKeys - 1) / kKeys;
+  return sizeof(__nv_bfloat16) * HD * (kFwdRows + 2 * kFwdStages * kKeys) + 12 * tiles + 16;
+}
+template <int HD>
+constexpr size_t dkv_mma_smem() {
+  return sizeof(__nv_bfloat16) * HD * (2 * kKeys + 2 * kBwdStages * kBwdRows) +
+         2 * sizeof(float) * kBwdStages * kBwdRows;
+}
+template <int HD>
+constexpr size_t dq_mma_smem(int seq) {
+  const int tiles = (seq + kKeys - 1) / kKeys;
+  return sizeof(__nv_bfloat16) * HD * (2 * kBwdRows + 2 * kBwdStages * kKeys) + 12 * tiles + 16;
+}
+
+// Forward, bf16. Block: 128 query rows of one head (8 warps x 16 rows);
+// grid (H, B, S / 128) with the query tiles in reverse, so the longest
+// causal rows start first. Online softmax in the exp2 domain.
+template <int HD>
+__global__ void __launch_bounds__(kFwdWarps * 32, 1)
+flash_fwd_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+              const __nv_bfloat16* __restrict__ v, const int32_t* __restrict__ key_valid,
+              __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int seq, int nh,
+              int nkv, float scale) {
+  constexpr int kNt = kFwdWarps * 32;
+  constexpr int kTile = kKeys * HD;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* kv_s = q_s + kFwdRows * HD;  // stage s: K at 2 s kTile, V after it
+  uint32_t* vmask = reinterpret_cast<uint32_t*>(kv_s + 2 * kFwdStages * kTile);
+  const int ntiles = (seq + kKeys - 1) / kKeys;
+  int* list = reinterpret_cast<int*>(vmask + 2 * ntiles);
+  int* count = list + ntiles;
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kFwdRows;
+  const int kvh = h / (nh / nkv);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, c = lane & 3;
+  const int w0 = warp * 16;  // the warp's first row in the tile
+
+  tile_async<kFwdRows, HD, kNt>(q_s, q, b, q0, seq, nh, h);
+  cp_commit();
+  key_tiles(vmask, list, count, key_valid, b, seq, min(seq - 1, q0 + kFwdRows - 1) / kKeys,
+            kFwdWarps);
+  const int n = *count;
+  auto load_kv = [&](int i) {
+    __nv_bfloat16* st = kv_s + (i % kFwdStages) * 2 * kTile;
+    tile_async<kKeys, HD, kNt>(st, k, b, list[i] * kKeys, seq, nkv, kvh);
+    tile_async<kKeys, HD, kNt>(st + kTile, v, b, list[i] * kKeys, seq, nkv, kvh);
+  };
+#pragma unroll
+  for (int s = 0; s < kFwdStages - 1; ++s) {
+    if (s < n) load_kv(s);
+    cp_commit();
+  }
+  cp_wait<kFwdStages - 1>();  // Q has landed
+  __syncthreads();
+  uint32_t qf[HD / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) ldsm_x4(qf[kk], q_s + a_at<HD>(w0, kk, lane));
+
+  float o[HD / 8][4] = {};
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+  const float sl2 = scale * kLog2e;
+  const int row0 = q0 + w0 + g;  // this lane's rows: row0 and row0 + 8
+  for (int i = 0; i < n; ++i) {
+    cp_wait<kFwdStages - 2>();
+    __syncthreads();  // tile i landed for all; tile i - 1's readers are done
+    if (i + kFwdStages - 1 < n) load_kv(i + kFwdStages - 1);
+    cp_commit();
+    const int t = list[i], k0 = t * kKeys;
+    if (k0 > q0 + w0 + 15) continue;  // every key after every row of this warp
+    const __nv_bfloat16* ks = kv_s + (i % kFwdStages) * 2 * kTile;
+    const __nv_bfloat16* vs = ks + kTile;
+
+    float s[8][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+#pragma unroll
+      for (int nj = 0; nj < 4; ++nj) {
+        uint32_t bf[4];
+        ldsm_x4(bf, ks + b_at<HD>(16 * nj, kk, lane));
+        mma16816(s[2 * nj], qf[kk], bf[0], bf[1]);
+        mma16816(s[2 * nj + 1], qf[kk], bf[2], bf[3]);
+      }
+    }
+    const uint32_t lo = vmask[2 * t], hi = vmask[2 * t + 1];
+    const bool masked = (lo & hi) != kFull || k0 + kKeys - 1 > q0 + w0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kj = 8 * j + 2 * c + (e & 1);
+        const bool ok = !masked || (k0 + kj <= row0 + 8 * (e >> 1) && key_bit(lo, hi, kj));
+        s[j][e] = ok ? s[j][e] * sl2 : -INFINITY;
+      }
+    }
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * hr], s[j][2 * hr + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
+      const float m_new = fmaxf(m[hr], mx);
+      float alpha = 1.0f, rs = 0.0f;
+      if (m_new != -INFINITY) {  // else no valid key yet: p = 0, nothing rescales
+        alpha = exp2f(m[hr] - m_new);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          s[j][2 * hr] = exp2f(s[j][2 * hr] - m_new);
+          s[j][2 * hr + 1] = exp2f(s[j][2 * hr + 1] - m_new);
+          rs += s[j][2 * hr] + s[j][2 * hr + 1];
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) s[j][2 * hr] = s[j][2 * hr + 1] = 0.0f;
+      }
+      rs += __shfl_xor_sync(kFull, rs, 1);
+      rs += __shfl_xor_sync(kFull, rs, 2);
+      l[hr] = l[hr] * alpha + rs;
+      m[hr] = m_new;
+#pragma unroll
+      for (int dn = 0; dn < HD / 8; ++dn) {
+        o[dn][2 * hr] *= alpha;
+        o[dn][2 * hr + 1] *= alpha;
+      }
+    }
+    // o += p . v, p rounded to bf16 in registers
+#pragma unroll
+    for (int kk = 0; kk < kKeys / 16; ++kk) {
+      uint32_t pa[4];
+      acc_to_a(pa, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int dn = 0; dn < HD / 8; dn += 2) {
+        uint32_t bf[4];
+        ldsm_x4_t(bf, vs + bt_at<HD>(kk, dn, lane));
+        mma16816(o[dn], pa, bf[0], bf[1]);
+        mma16816(o[dn + 1], pa, bf[2], bf[3]);
+      }
+    }
+  }
+  cp_wait<0>();
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int r = row0 + 8 * hr;
+    if (r >= seq) continue;
+    const bool any = l[hr] > 0.0f;
+    __nv_bfloat16* dst = out + (((size_t)b * seq + r) * nh + h) * HD + 2 * c;
+#pragma unroll
+    for (int dn = 0; dn < HD / 8; ++dn) {
+      const float x0 = any ? o[dn][2 * hr] / l[hr] : 0.0f;
+      const float x1 = any ? o[dn][2 * hr + 1] / l[hr] : 0.0f;
+      *reinterpret_cast<uint32_t*>(dst + 8 * dn) = pack_bf16(x0, x1);
+    }
+    if (c == 0) lse[((size_t)b * nh + h) * seq + r] = any ? (m[hr] + log2f(l[hr])) * kLn2 : 0.0f;
+  }
+}
+
+// dk/dv, bf16. Block: one key tile of 64 keys of one kv head (4 warps x 16
+// keys), K and V resident in shared memory, dk and dv in registers; it
+// loops over its G query heads and the query tiles from the causal start,
+// with Q, dO, lse and delta streamed through a cp.async ring. Each warp
+// computes the transposed products: s^T = K Q^T, p^T, dv += p^T dO,
+// dp^T = V dO^T, ds^T = p^T (dp^T - delta), dk += ds^T Q. Grid (K, B, S /
+// 64): the early key tiles, the longest, start first.
+template <int HD>
+__global__ void __launch_bounds__(kBwdWarps * 32, 2)
+flash_bwd_dkv_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                  const __nv_bfloat16* __restrict__ v, const int32_t* __restrict__ key_valid,
+                  const float* __restrict__ lse, const float* __restrict__ delta,
+                  const __nv_bfloat16* __restrict__ dout, __nv_bfloat16* __restrict__ dk,
+                  __nv_bfloat16* __restrict__ dv, int seq, int nh, int nkv, float scale) {
+  constexpr int kNt = kBwdWarps * 32;
+  constexpr int kTile = kBwdRows * HD;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* v_s = k_s + kKeys * HD;
+  __nv_bfloat16* ring = v_s + kKeys * HD;  // stage s: Q at 2 s kTile, dO after it
+  float* stats = reinterpret_cast<float*>(ring + 2 * kBwdStages * kTile);  // lse, delta
+
+  const int kvh = blockIdx.x, b = blockIdx.y, k0 = blockIdx.z * kKeys;
+  const int groups = nh / nkv;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, c = lane & 3;
+  const int w0 = warp * 16;
+
+  // this tile's key validity (every warp takes the same ballots)
+  const int j0 = k0 + lane, j1 = j0 + 32;
+  const uint32_t lo = __ballot_sync(kFull, j0 < seq && key_valid[(size_t)b * seq + j0] != 0);
+  const uint32_t hi = __ballot_sync(kFull, j1 < seq && key_valid[(size_t)b * seq + j1] != 0);
+  const int key0 = k0 + w0 + g;  // this lane's keys: key0 and key0 + 8
+  if ((lo | hi) == 0) {  // no valid key: dk = dv = 0
+    for (int e = threadIdx.x; e < kKeys * HD; e += kNt) {
+      const int r = k0 + e / HD;
+      if (r >= seq) break;
+      const size_t at = (((size_t)b * seq + r) * nkv + kvh) * HD + e % HD;
+      dk[at] = dv[at] = __float2bfloat16(0.0f);
+    }
+    return;
+  }
+  tile_async<kKeys, HD, kNt>(k_s, k, b, k0, seq, nkv, kvh);
+  tile_async<kKeys, HD, kNt>(v_s, v, b, k0, seq, nkv, kvh);
+  cp_commit();
+  const int qtiles = (seq - k0 + kBwdRows - 1) / kBwdRows;
+  const int n = groups * qtiles;
+  auto load_q = [&](int i) {
+    const int st = i % kBwdStages;
+    const int h = kvh * groups + i / qtiles, q0 = k0 + (i % qtiles) * kBwdRows;
+    tile_async<kBwdRows, HD, kNt>(ring + 2 * st * kTile, q, b, q0, seq, nh, h);
+    tile_async<kBwdRows, HD, kNt>(ring + (2 * st + 1) * kTile, dout, b, q0, seq, nh, h);
+    const int r = threadIdx.x & (kBwdRows - 1);
+    const bool ok = q0 + r < seq;
+    const size_t at = ((size_t)b * nh + h) * seq + (ok ? q0 + r : 0);
+    float* dst = stats + 2 * st * kBwdRows + (threadIdx.x < kBwdRows ? 0 : kBwdRows) + r;
+    cp_async4(dst, threadIdx.x < kBwdRows ? lse + at : delta + at, ok);
+  };
+#pragma unroll
+  for (int s = 0; s < kBwdStages - 1; ++s) {
+    if (s < n) load_q(s);
+    cp_commit();
+  }
+  const bool kv0 = key_bit(lo, hi, w0 + g), kv1 = key_bit(lo, hi, w0 + g + 8);
+  const bool all_valid = (lo & hi) == kFull;
+  const float sl2 = scale * kLog2e;
+  float dk_acc[HD / 8][4] = {}, dv_acc[HD / 8][4] = {};
+  for (int i = 0; i < n; ++i) {
+    cp_wait<kBwdStages - 2>();
+    __syncthreads();
+    if (i + kBwdStages - 1 < n) load_q(i + kBwdStages - 1);
+    cp_commit();
+    const int st = i % kBwdStages;
+    const __nv_bfloat16* qs = ring + 2 * st * kTile;
+    const __nv_bfloat16* dos = qs + kTile;
+    const float* lse_s = stats + 2 * st * kBwdRows;
+    const float* del_s = lse_s + kBwdRows;
+    const int q0 = k0 + (i % qtiles) * kBwdRows;
+    const bool masked = !all_valid || q0 == k0 || q0 + kBwdRows > seq;
+
+    float p[8][4] = {};  // s^T, then p^T
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      uint32_t ka[4];
+      ldsm_x4(ka, k_s + a_at<HD>(w0, kk, lane));
+#pragma unroll
+      for (int nj = 0; nj < 4; ++nj) {
+        uint32_t bf[4];
+        ldsm_x4(bf, qs + b_at<HD>(16 * nj, kk, lane));
+        mma16816(p[2 * nj], ka, bf[0], bf[1]);
+        mma16816(p[2 * nj + 1], ka, bf[2], bf[3]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qj = 8 * j + 2 * c + (e & 1);
+        const int key = key0 + 8 * (e >> 1);
+        const bool ok = !masked || ((e >> 1 ? kv1 : kv0) && key <= q0 + qj && q0 + qj < seq);
+        p[j][e] = ok ? exp2f(p[j][e] * sl2 - lse_s[qj] * kLog2e) : 0.0f;
+      }
+    }
+    // dv += p^T dO
+#pragma unroll
+    for (int kk = 0; kk < kBwdRows / 16; ++kk) {
+      uint32_t pa[4];
+      acc_to_a(pa, p[2 * kk], p[2 * kk + 1]);
+#pragma unroll
+      for (int dn = 0; dn < HD / 8; dn += 2) {
+        uint32_t bf[4];
+        ldsm_x4_t(bf, dos + bt_at<HD>(kk, dn, lane));
+        mma16816(dv_acc[dn], pa, bf[0], bf[1]);
+        mma16816(dv_acc[dn + 1], pa, bf[2], bf[3]);
+      }
+    }
+    // dp^T = V dO^T, then ds^T = p^T (dp^T - delta) in place of p
+    float dp[8][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      uint32_t va[4];
+      ldsm_x4(va, v_s + a_at<HD>(w0, kk, lane));
+#pragma unroll
+      for (int nj = 0; nj < 4; ++nj) {
+        uint32_t bf[4];
+        ldsm_x4(bf, dos + b_at<HD>(16 * nj, kk, lane));
+        mma16816(dp[2 * nj], va, bf[0], bf[1]);
+        mma16816(dp[2 * nj + 1], va, bf[2], bf[3]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p[j][e] *= dp[j][e] - del_s[8 * j + 2 * c + (e & 1)];
+    }
+    // dk += ds^T Q (scaled once at the end)
+#pragma unroll
+    for (int kk = 0; kk < kBwdRows / 16; ++kk) {
+      uint32_t da[4];
+      acc_to_a(da, p[2 * kk], p[2 * kk + 1]);
+#pragma unroll
+      for (int dn = 0; dn < HD / 8; dn += 2) {
+        uint32_t bf[4];
+        ldsm_x4_t(bf, qs + bt_at<HD>(kk, dn, lane));
+        mma16816(dk_acc[dn], da, bf[0], bf[1]);
+        mma16816(dk_acc[dn + 1], da, bf[2], bf[3]);
+      }
+    }
+  }
+  cp_wait<0>();
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int r = key0 + 8 * hr;
+    if (r >= seq) continue;
+    const size_t at = (((size_t)b * seq + r) * nkv + kvh) * HD + 2 * c;
+#pragma unroll
+    for (int dn = 0; dn < HD / 8; ++dn) {
+      *reinterpret_cast<uint32_t*>(dk + at + 8 * dn) =
+          pack_bf16(dk_acc[dn][2 * hr] * scale, dk_acc[dn][2 * hr + 1] * scale);
+      *reinterpret_cast<uint32_t*>(dv + at + 8 * dn) =
+          pack_bf16(dv_acc[dn][2 * hr], dv_acc[dn][2 * hr + 1]);
+    }
+  }
+}
+
+// dq, bf16. Block: 64 query rows of one head (4 warps x 16 rows), Q and dO
+// resident; over the key tiles with a valid key up to the causal limit it
+// recomputes s = Q K^T and dp = dO V^T (the price of writing dq without
+// atomics) and accumulates dq += scale ds K. Grid (H, B, S / 64), the
+// longest rows first.
+template <int HD>
+__global__ void __launch_bounds__(kBwdWarps * 32, 2)
+flash_bwd_dq_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                 const __nv_bfloat16* __restrict__ v, const int32_t* __restrict__ key_valid,
+                 const float* __restrict__ lse, const float* __restrict__ delta,
+                 const __nv_bfloat16* __restrict__ dout, __nv_bfloat16* __restrict__ dq,
+                 int seq, int nh, int nkv, float scale) {
+  constexpr int kNt = kBwdWarps * 32;
+  constexpr int kTile = kKeys * HD;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* do_s = q_s + kBwdRows * HD;
+  __nv_bfloat16* kv_s = do_s + kBwdRows * HD;  // stage s: K at 2 s kTile, V after it
+  uint32_t* vmask = reinterpret_cast<uint32_t*>(kv_s + 2 * kBwdStages * kTile);
+  const int ntiles = (seq + kKeys - 1) / kKeys;
+  int* list = reinterpret_cast<int*>(vmask + 2 * ntiles);
+  int* count = list + ntiles;
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kBwdRows;
+  const int kvh = h / (nh / nkv);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, c = lane & 3;
+  const int w0 = warp * 16;
+  const int row0 = q0 + w0 + g;  // this lane's rows: row0 and row0 + 8
+
+  tile_async<kBwdRows, HD, kNt>(q_s, q, b, q0, seq, nh, h);
+  tile_async<kBwdRows, HD, kNt>(do_s, dout, b, q0, seq, nh, h);
+  cp_commit();
+  key_tiles(vmask, list, count, key_valid, b, seq, min(seq - 1, q0 + kBwdRows - 1) / kKeys,
+            kBwdWarps);
+  const int n = *count;
+  auto load_kv = [&](int i) {
+    __nv_bfloat16* st = kv_s + (i % kBwdStages) * 2 * kTile;
+    tile_async<kKeys, HD, kNt>(st, k, b, list[i] * kKeys, seq, nkv, kvh);
+    tile_async<kKeys, HD, kNt>(st + kTile, v, b, list[i] * kKeys, seq, nkv, kvh);
+  };
+#pragma unroll
+  for (int s = 0; s < kBwdStages - 1; ++s) {
+    if (s < n) load_kv(s);
+    cp_commit();
+  }
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int r = row0 + 8 * hr;
+    const size_t at = ((size_t)b * nh + h) * seq + r;
+    lse2[hr] = r < seq ? lse[at] * kLog2e : 0.0f;
+    dl[hr] = r < seq ? delta[at] : 0.0f;
+  }
+  const float sl2 = scale * kLog2e;
+  float dq_acc[HD / 8][4] = {};
+  for (int i = 0; i < n; ++i) {
+    cp_wait<kBwdStages - 2>();
+    __syncthreads();
+    if (i + kBwdStages - 1 < n) load_kv(i + kBwdStages - 1);
+    cp_commit();
+    const int t = list[i], k0 = t * kKeys;
+    if (k0 > q0 + w0 + 15) continue;  // every key after every row of this warp
+    const __nv_bfloat16* ks = kv_s + (i % kBwdStages) * 2 * kTile;
+    const __nv_bfloat16* vs = ks + kTile;
+
+    float p[8][4] = {}, dp[8][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      uint32_t qa[4], da[4];
+      ldsm_x4(qa, q_s + a_at<HD>(w0, kk, lane));
+      ldsm_x4(da, do_s + a_at<HD>(w0, kk, lane));
+#pragma unroll
+      for (int nj = 0; nj < 4; ++nj) {
+        uint32_t bk[4], bv[4];
+        ldsm_x4(bk, ks + b_at<HD>(16 * nj, kk, lane));
+        ldsm_x4(bv, vs + b_at<HD>(16 * nj, kk, lane));
+        mma16816(p[2 * nj], qa, bk[0], bk[1]);
+        mma16816(p[2 * nj + 1], qa, bk[2], bk[3]);
+        mma16816(dp[2 * nj], da, bv[0], bv[1]);
+        mma16816(dp[2 * nj + 1], da, bv[2], bv[3]);
+      }
+    }
+    const uint32_t lo = vmask[2 * t], hi = vmask[2 * t + 1];
+    const bool masked = (lo & hi) != kFull || k0 + kKeys - 1 > q0 + w0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kj = 8 * j + 2 * c + (e & 1);
+        const int hr = e >> 1;
+        const bool ok = !masked || (k0 + kj <= row0 + 8 * hr && key_bit(lo, hi, kj));
+        const float pe = ok ? exp2f(p[j][e] * sl2 - lse2[hr]) : 0.0f;
+        p[j][e] = pe * (dp[j][e] - dl[hr]);  // ds
+      }
+    }
+    // dq += ds K
+#pragma unroll
+    for (int kk = 0; kk < kKeys / 16; ++kk) {
+      uint32_t sa[4];
+      acc_to_a(sa, p[2 * kk], p[2 * kk + 1]);
+#pragma unroll
+      for (int dn = 0; dn < HD / 8; dn += 2) {
+        uint32_t bf[4];
+        ldsm_x4_t(bf, ks + bt_at<HD>(kk, dn, lane));
+        mma16816(dq_acc[dn], sa, bf[0], bf[1]);
+        mma16816(dq_acc[dn + 1], sa, bf[2], bf[3]);
+      }
+    }
+  }
+  cp_wait<0>();
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int r = row0 + 8 * hr;
+    if (r >= seq) continue;
+    __nv_bfloat16* dst = dq + (((size_t)b * seq + r) * nh + h) * HD + 2 * c;
+#pragma unroll
+    for (int dn = 0; dn < HD / 8; ++dn)
+      *reinterpret_cast<uint32_t*>(dst + 8 * dn) =
+          pack_bf16(dq_acc[dn][2 * hr] * scale, dq_acc[dn][2 * hr + 1] * scale);
+  }
+}
+
 template <typename K>
 int set_smem(K kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return 0;
@@ -498,15 +1108,58 @@ int bwd(const void* q, const void* k, const void* v, const void* key_valid, cons
   return (int)cudaGetLastError();
 }
 
-// dispatch on (dtype: 0 = f32, 1 = bf16) and head_dim in {64, 128} (the
-// presets' head dims but Gemma's 256, whose four f32 tiles would not fit
-// shared memory in the backward)
-#define FA_DISPATCH(FN, ...)                                                  \
+template <int HD>
+int fwd_mma(const void* q, const void* k, const void* v, const void* key_valid, void* out,
+            void* lse, int batch, int seq, int nh, int nkv, float scale, cudaStream_t stream) {
+  using T = __nv_bfloat16;
+  auto kernel = flash_fwd_mma<HD>;
+  const size_t smem = fwd_mma_smem<HD>(seq);
+  if (int e = set_smem(kernel, smem)) return e;
+  const dim3 grid(nh, batch, (seq + kFwdRows - 1) / kFwdRows);
+  kernel<<<grid, kFwdWarps * 32, smem, stream>>>((const T*)q, (const T*)k, (const T*)v,
+                                                 (const int32_t*)key_valid, (T*)out,
+                                                 (float*)lse, seq, nh, nkv, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+int bwd_mma(const void* q, const void* k, const void* v, const void* key_valid,
+            const void* out, const void* lse, const void* dout, void* delta, void* dq, void* dk,
+            void* dv, int batch, int seq, int nh, int nkv, float scale, cudaStream_t stream) {
+  using T = __nv_bfloat16;
+  const size_t rows = (size_t)batch * seq * nh;
+  const int per_block = kThreads / 32;
+  flash_delta_kernel<T><<<(unsigned)((rows + per_block - 1) / per_block), kThreads, 0, stream>>>(
+      (const T*)out, (const T*)dout, (float*)delta, batch, seq, nh, HD);
+  if (int e = (int)cudaGetLastError()) return e;
+
+  auto dkv_kernel = flash_bwd_dkv_mma<HD>;
+  const size_t dkv_smem = dkv_mma_smem<HD>();
+  if (int e = set_smem(dkv_kernel, dkv_smem)) return e;
+  dkv_kernel<<<dim3(nkv, batch, (seq + kKeys - 1) / kKeys), kBwdWarps * 32, dkv_smem, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const int32_t*)key_valid, (const float*)lse,
+      (const float*)delta, (const T*)dout, (T*)dk, (T*)dv, seq, nh, nkv, scale);
+  if (int e = (int)cudaGetLastError()) return e;
+
+  auto dq_kernel = flash_bwd_dq_mma<HD>;
+  const size_t dq_smem = dq_mma_smem<HD>(seq);
+  if (int e = set_smem(dq_kernel, dq_smem)) return e;
+  dq_kernel<<<dim3(nh, batch, (seq + kBwdRows - 1) / kBwdRows), kBwdWarps * 32, dq_smem,
+              stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const int32_t*)key_valid, (const float*)lse,
+      (const float*)delta, (const T*)dout, (T*)dq, seq, nh, nkv, scale);
+  return (int)cudaGetLastError();
+}
+
+// dispatch on (dtype: 0 = f32 on the CUDA cores, 1 = bf16 on the tensor
+// cores) and head_dim in {64, 128} (the presets' head dims but Gemma's 256,
+// whose four f32 tiles would not fit shared memory in the backward)
+#define FA_DISPATCH(F32, BF16, ...)                                           \
   switch (dtype * 1000 + head_dim) {                                          \
-    case 64: return FN<float, 64>(__VA_ARGS__);                               \
-    case 128: return FN<float, 128>(__VA_ARGS__);                             \
-    case 1064: return FN<__nv_bfloat16, 64>(__VA_ARGS__);                     \
-    case 1128: return FN<__nv_bfloat16, 128>(__VA_ARGS__);                    \
+    case 64: return F32<float, 64>(__VA_ARGS__);                              \
+    case 128: return F32<float, 128>(__VA_ARGS__);                            \
+    case 1064: return BF16<64>(__VA_ARGS__);                                  \
+    case 1128: return BF16<128>(__VA_ARGS__);                                 \
     default: return (int)cudaErrorInvalidValue;                               \
   }
 
@@ -527,7 +1180,8 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, const void*
   if (set != cudaSuccess) return (int)set;
   if (batch <= 0 || seq <= 0) return (int)cudaGetLastError();
   const cudaStream_t s = (cudaStream_t)stream;
-  FA_DISPATCH(fwd, q, k, v, key_valid, out, lse, batch, seq, num_q_heads, num_kv_heads, scale, s)
+  FA_DISPATCH(fwd, fwd_mma, q, k, v, key_valid, out, lse, batch, seq, num_q_heads, num_kv_heads,
+              scale, s)
 }
 
 // The backward of flash_attention_fwd: dout like out; delta is f32 scratch
@@ -542,7 +1196,7 @@ int flash_attention_bwd(const void* q, const void* k, const void* v, const void*
   if (set != cudaSuccess) return (int)set;
   if (batch <= 0 || seq <= 0) return (int)cudaGetLastError();
   const cudaStream_t s = (cudaStream_t)stream;
-  FA_DISPATCH(bwd, q, k, v, key_valid, out, lse, dout, delta, dq, dk, dv, batch, seq,
+  FA_DISPATCH(bwd, bwd_mma, q, k, v, key_valid, out, lse, dout, delta, dq, dk, dv, batch, seq,
               num_q_heads, num_kv_heads, scale, s)
 }
 

@@ -23,6 +23,8 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
+from dataclasses import dataclass
 
 import torch
 
@@ -34,7 +36,64 @@ quant_matmul_launches = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_RANK = 64  # the adapter ranks the kernel takes
-K_STEP = 32  # the kernel's K step: the input dim must be a multiple of it
+K_STEP = 32  # the input dim must be a multiple of it
+
+# split-K planning for the bf16 kernel (``plan_split_k``)
+SMS = 132  # the H100 SXM's streaming multiprocessors
+STAGE_K = 64  # K rows per pipeline stage of the bf16 kernel
+DECODE_MAX_M = 512  # at or below: 64-token tiles, split over K; above: 256, no split
+TARGET_WAVES = 4  # split until the grid holds this many blocks per SM
+MIN_SPLIT_K = 384  # no split shorter than this many K rows (six stages)
+
+
+@dataclass(frozen=True)
+class SplitPlan:
+    """How one bf16 call of K3 is cut: tiles of ``block_m`` x ``block_n``
+    outputs, K in ``splits`` ranges of ``k_per_split`` rows (the last one
+    ends at K), ``blocks`` blocks in all."""
+
+    block_m: int
+    block_n: int
+    splits: int
+    k_per_split: int
+    blocks: int
+
+    def workspace_numel(self, m: int, n: int, rank: int) -> int:
+        """f32 elements of a bf16 call's scratch: with a split, each split's
+        partial y [M, N] and partial x·A [M, rank]; without, xa = T(x·A) in
+        bf16 [M, r] (r the rank padded to 32 or 64), which a first kernel of
+        the call writes for the main kernel's epilogue."""
+        if self.splits > 1:
+            return self.splits * m * (n + rank)
+        return 0 if rank == 0 else m * (32 if rank <= 32 else 64) // 2
+
+
+def plan_split_k(m: int, k: int, n: int, group: int, sms: int = SMS) -> SplitPlan:
+    """The bf16 kernel's tiling of an [m, k] x [k, n] call whose scales come
+    in groups of ``group`` rows (``k`` for per-column scales). Up to
+    ``DECODE_MAX_M`` rows (decode at 64, the verify step at 320) the tiles
+    are 64 tokens x 128 columns, and K is split in two or more, until the
+    grid holds ``TARGET_WAVES`` x ``sms`` blocks: each split a multiple of
+    the stage (64 rows) and of the group, at least ``MIN_SPLIT_K`` rows (the
+    last one takes what is left). Above it
+    (prefill, the learner's 12,400 rows) the tiles are 256 x 128 and K is
+    never split."""
+    if m > DECODE_MAX_M:
+        bm, bn = 256, 128
+        return SplitPlan(bm, bn, 1, k, math.ceil(m / bm) * math.ceil(n / bn))
+    bm, bn = 64, 128
+    tiles = math.ceil(m / bm) * math.ceil(n / bn)
+    unit = math.lcm(STAGE_K, group) if group < k else STAGE_K
+    units = math.ceil(k / unit)
+    # splits that would fill the card; at least two, so that x·A runs in the
+    # first column block's K loop and not in a kernel of its own (at 320
+    # rows the latter cost more than the split's reduce)
+    want = max(2, math.ceil(TARGET_WAVES * sms / tiles))
+    per = max(math.ceil(MIN_SPLIT_K / unit), math.ceil(units / want))  # units a split
+    splits = math.ceil(units / per)
+    if splits == 1:
+        return SplitPlan(bm, bn, 1, k, tiles)
+    return SplitPlan(bm, bn, splits, per * unit, tiles * splits)
 
 
 def _payload(w: dict) -> torch.Tensor:
@@ -77,8 +136,8 @@ def _kernel_lib() -> ctypes.CDLL:
     if lib.quant_matmul_launch.argtypes is None:
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.quant_matmul_launch.argtypes = [
-            ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, f32, i32, i32,
-            i32, i32, ptr]
+            ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, f32, i32,
+            i32, i32, i32, i32, i32, ptr]
         lib.quant_matmul_launch.restype = ctypes.c_int
         lib.quant_matmul_error_string.argtypes = [ctypes.c_int]
         lib.quant_matmul_error_string.restype = ctypes.c_char_p
@@ -90,19 +149,29 @@ def _rounded_scale(lora_scale: float, dtype: torch.dtype) -> float:
     return float(_lora_scale_t(lora_scale, dtype))
 
 
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
 def quant_matmul_launch(x2: torch.Tensor, w: dict, bias, lora_a, lora_b,
                         lora_scale: float) -> torch.Tensor:
-    """One launch of K3 on CUDA tensors: x2 [M, K] contiguous f32 or bf16 →
-    [M, N] in x2's dtype."""
+    """One call of K3 on CUDA tensors: x2 [M, K] contiguous f32 or bf16 →
+    [M, N] in x2's dtype. bf16 follows ``plan_split_k``: with a split, the
+    partial sums go to an f32 workspace allocated here, and a second kernel
+    of the same call sums them in a fixed order and applies the epilogue."""
     global quant_matmul_launches
     m, k = x2.shape
     q, scale = _payload(w), w["scale"]
     n = scale.shape[-1]
+    group = group_size_of(w)
     dt = x2.dtype
     if dt not in _DTYPE_CODES:
         raise TypeError(f"K3 takes f32 or bf16 activations, got {dt}")
     if k % K_STEP:
         raise ValueError(f"K3 needs an input dim divisible by {K_STEP}, got {k}")
+    if group % 2 and group != k:
+        raise ValueError(f"K3 needs an even group size (or one group of the whole input "
+                         f"dim), got {group}")
     if q.dtype != torch.int8 or scale.dtype != torch.float32:
         raise TypeError(f"K3 takes an int8 payload and f32 scales, got {q.dtype}, {scale.dtype}")
     tensors = [x2, q, scale]
@@ -128,16 +197,23 @@ def quant_matmul_launch(x2: torch.Tensor, w: dict, bias, lora_a, lora_b,
         raise ValueError("K3 takes 16-byte aligned x, payload and scales")
     lib = _kernel_lib()
     out = torch.empty((m, n), dtype=dt, device=x2.device)
-    block_m = 128 if dt == torch.bfloat16 and m > 64 else 64
-    stream = torch.cuda.current_stream(x2.device).cuda_stream
+    ws = None
+    if dt == torch.bfloat16:
+        plan = plan_split_k(m, k, n, group)
+        if plan.workspace_numel(m, n, rank):
+            ws = torch.empty(plan.workspace_numel(m, n, rank), dtype=torch.float32,
+                             device=x2.device)
+    else:  # f32: the CUDA cores, 64-row tiles, one split, no scratch
+        plan = SplitPlan(64, 128, 1, k, math.ceil(m / 64) * math.ceil(n / 128))
     err = lib.quant_matmul_launch(
         x2.data_ptr(), q.data_ptr(), scale.data_ptr(),
         None if bias is None else bias.data_ptr(),
         None if lora_a is None else lora_a.data_ptr(),
         None if lora_b is None else lora_b.data_ptr(),
-        out.data_ptr(), m, k, n, group_size_of(w), quant_bits(w), rank,
-        _rounded_scale(float(lora_scale), dt), _DTYPE_CODES[dt], lora_code, block_m,
-        x2.device.index or 0, stream)
+        out.data_ptr(), None if ws is None else ws.data_ptr(), m, k, n, group,
+        quant_bits(w), rank, _rounded_scale(float(lora_scale), dt), _DTYPE_CODES[dt],
+        lora_code, plan.block_m, plan.splits, plan.k_per_split, x2.device.index or 0,
+        _stream(x2.device))
     if err != 0:
         msg = lib.quant_matmul_error_string(err).decode()
         raise RuntimeError(f"quant_matmul kernel launch failed: {msg} ({err})")

@@ -24,6 +24,7 @@ from distrl_llm_tpu.engine import paged_engine as jpe
 from distrl_llm_tpu.models import lora as jlora
 from distrl_llm_tpu.models import transformer as jtf
 from distrl_llm_tpu.models.configs import TINY
+from distrl_llm_tpu.ops import quant as jq
 from distrl_llm_tpu_torch import PagedGenerationEngine
 from distrl_llm_tpu_torch.config import SamplingConfig
 from distrl_llm_tpu_torch.models.configs import ModelConfig
@@ -126,6 +127,29 @@ def _assert_same(jres, tres, logp_atol=LOGP_ATOL):
 
 def _run(weights, teng, ids, mask, t, n, seed=0):
     return teng.generate(weights["model"], weights["lora"], ids, mask, _greedy(t, n)[1], seed)
+
+
+@pytest.mark.parametrize("bits,d,kv_quant", [(4, 3, "none"), (8, 3, "int8"), (4, 0, "none")])
+def test_refill_over_a_quantized_base_matches_jax(monkeypatch, weights, bits, d, kv_quant):
+    """The refill scheduler, speculative (d = 3) and plain, over a TINY base
+    quantized in groups of 16 (int4 or int8): the JAX engine runs its K3
+    interpreted, the port K3's plain version; the file's prompts, 3
+    candidates through 4 slots."""
+    monkeypatch.setenv("DISTRL_QUANT_MATMUL", "interpret")
+    t, n = 10, 3
+    jparams = jq.quantize_params(weights["jparams"], bits=bits, group_size=16)
+    tree = _np_tree(jq.pack_params_int4(jparams) if bits == 4 else jparams)
+    qweights = dict(weights, jparams=jparams,
+                    model=params_from_numpy(tree, weights["cfg"], device="cpu"))
+    assert qweights["model"].quant == (bits, 16)
+    ids, mask = _prompts([5, 8, 16, 0, 11])
+    kw = _refill(spec_draft=d, kv_quant=kv_quant)
+    jeng, teng = _jengine(t, **kw), _tengine(qweights, t, **kw)
+    jres, tres = _run_both(qweights, jeng, teng, ids, mask, t, n)
+    _assert_same(jres, tres, LOGP_ATOL_INT8 if kv_quant == "int8" else LOGP_ATOL)
+    assert tres.steps_dispatched == jres.steps_dispatched
+    if d:
+        assert teng.last_spec_stats["emit_hist"] == jeng.last_spec_stats["emit_hist"]
 
 
 @pytest.mark.parametrize("kv_quant", ["none", "int8"])
