@@ -12,7 +12,10 @@ printing its own lines:
    ``nvcc`` per source, started together) into ``build/torch_kernels/``;
 3. kernels: each kernel's wrapper against its plain PyTorch version on the
    card, at the main path's shapes, with its time, the plain version's time
-   and the card's least time for the same work (the bound);
+   and the card's least time for the same work (the bound); K2's stanza
+   also holds lengths on its split's boundaries, reruns every case for
+   identical bits and times 64 and 16 rows as CUDA graphs over page copies
+   past twice the L2;
 4. rollout: the port's rollout engines at Qwen2.5-7B width (random bf16
    weights from a seed, a rank-32 LoRA with non-zero B), 4 math prompts x 16
    candidates x 128 new tokens: the dense engine, then the paged engine
@@ -49,8 +52,9 @@ printing its own lines:
 
 7. speculative decoding: K5 (``csrc/paged_verify.cu``, the draft-block
    verify attention) against its plain version at 64 rows x S 5 x 28 / 4
-   heads x hd 128, lengths around 600 with page crossings, bf16, int8 and
-   f32, and timed against its bound and the unrolled 5 x K2; then the
+   heads x hd 128, lengths around 600 with page crossings and on the
+   split's boundaries, bf16, int8 and f32 (each case run twice for identical
+   bits), and timed against its bound and the unrolled 5 x K2 as K2 is; then the
    engine of the README's BASELINE config 2 (refill scheduler, 64 slots,
    ``spec_draft=4``, n-gram 2, 128-token pages) over 8 math prompts x 16
    candidates x 256 new tokens: speculative and plain refill greedy rounds
@@ -247,6 +251,25 @@ def read_counts() -> dict[str, int]:
             for k in KERNELS}
 
 
+def ptxas_lines(log: str) -> list[tuple[str, str]]:
+    """ptxas -v's report, one (entry, "registers ...; spills ...") pair per
+    entry function (each template instance): its spills come before its
+    registers in the log."""
+    out, entry, spill = [], "", ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if "'" in line else line.strip()
+            # a kernel and its template instance by its mangled arguments,
+            # e.g. paged_mma_kernelIaLi128ELi1EE: int8 pages, hd 128, 1 m-tile
+            m = re.search(r"\d+([a-z_]+_kernel)(I\w*?EE)?", entry)
+            entry = m.group(1) + (m.group(2) or "") if m else "kernel"
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line or "error" in line:
+            out.append((entry, f"{line.split(':', 1)[-1].strip()}; {spill}"))
+    return out
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -372,6 +395,29 @@ def time_fused_sample(seed: int) -> dict:
             "bound_by": bound_by, "library_ms": None}
 
 
+def paged_bytes(reaches, page_indices, *, q_dtype, kv_dtype, s: int = 1,
+                page_size: int = PA_PAGE, heads: int = PA_HEADS, kv_heads: int = PA_KV_HEADS,
+                head_dim: int = PA_HEAD_DIM) -> int:
+    """The bytes one K2 (``s`` 1) or K5 call must move: every K/V position
+    some row reads (its first ``reaches[row]`` positions) once, a page that
+    several rows reach through the table (the n candidates of a prompt share
+    its full prompt pages) once up to the furthest position any of them
+    reads, with its f32 scales for int8 pages; then q and the output (``s``
+    tokens a row), the lengths and the table entries the rows use."""
+    import torch
+
+    reach: dict[int, int] = {}  # page -> positions of it that some row reads
+    entries = 0
+    for row, n in zip(page_indices.tolist(), reaches):
+        for j in range(-(-int(n) // page_size)):
+            reach[row[j]] = max(reach.get(row[j], 0), min(page_size, int(n) - j * page_size))
+            entries += 1
+    per_position = head_dim * kv_dtype.itemsize + (4 if kv_dtype == torch.int8 else 0)
+    rows = len(reaches)
+    return (2 * kv_heads * sum(reach.values()) * per_position
+            + 2 * rows * s * heads * head_dim * q_dtype.itemsize + rows * 4 + entries * 4)
+
+
 def paged_attention_bound_ms(lengths, page_indices, *, q_dtype, kv_dtype,
                              page_size: int = PA_PAGE, heads: int = PA_HEADS,
                              kv_heads: int = PA_KV_HEADS,
@@ -389,16 +435,9 @@ def paged_attention_bound_ms(lengths, page_indices, *, q_dtype, kv_dtype,
     import torch
 
     lens = [int(x) for x in lengths]
-    reach: dict[int, int] = {}  # page -> positions of it that some row reads
-    entries = 0
-    for row, n in zip(page_indices.tolist(), lens):
-        for j in range(-(-n // page_size)):
-            reach[row[j]] = max(reach.get(row[j], 0), min(page_size, n - j * page_size))
-            entries += 1
-    per_position = head_dim * kv_dtype.itemsize + (4 if kv_dtype == torch.int8 else 0)
-    rows = len(lens)
-    nbytes = (2 * kv_heads * sum(reach.values()) * per_position
-              + 2 * rows * heads * head_dim * q_dtype.itemsize + rows * 4 + entries * 4)
+    nbytes = paged_bytes(lens, page_indices, q_dtype=q_dtype, kv_dtype=kv_dtype,
+                         page_size=page_size, heads=heads, kv_heads=kv_heads,
+                         head_dim=head_dim)
     ops = 4 * heads * sum(lens) * head_dim
     peak = F32_OPS_PER_S if q_dtype == torch.float32 else BF16_PEAK_OPS_PER_S
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -408,11 +447,12 @@ def paged_attention_bound_ms(lengths, page_indices, *, q_dtype, kv_dtype,
 
 def paged_case(device, seed: int, *, q_dtype, kv: str, prompt_lens, lengths):
     """K2's inputs at the main path's geometry: random pages in a pool of
-    ``PA_PROMPTS · 3 + 64 · 11`` pages, bf16/f32 or int8 (quantized from
-    bf16), q pre-scaled by hd^-0.5 in its dtype, and the page table the
-    paged engine's fan-out builds for prompts of ``prompt_lens`` real tokens
-    (shared full prompt pages, private tails). Returns the wrapper's
-    positional and keyword arguments."""
+    ``P · 3 + P · 16 · 11`` pages for the P = ``len(prompt_lens)`` prompts
+    (4 on the main path; 1 for a wave's tail of 16 rows), bf16/f32 or int8
+    (quantized from bf16), q pre-scaled by hd^-0.5 in its dtype, and the
+    page table the paged engine's fan-out builds for prompts of
+    ``prompt_lens`` real tokens (shared full prompt pages, private tails).
+    Returns the wrapper's positional and keyword arguments."""
     import torch
 
     from distrl_llm_tpu_torch.engine.paged_engine import _page_table_rows
@@ -420,14 +460,15 @@ def paged_case(device, seed: int, *, q_dtype, kv: str, prompt_lens, lengths):
 
     dev = torch.device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    rows = PA_PROMPTS * PA_N
-    total = PA_PROMPTS * PA_PROMPT_PAGES + rows * PA_PRIVATE_PAGES
+    prompts = len(prompt_lens)
+    rows = prompts * PA_N
+    total = prompts * PA_PROMPT_PAGES + rows * PA_PRIVATE_PAGES
     shape = (PA_KV_HEADS, total, PA_PAGE, PA_HEAD_DIM)
     full = torch.tensor(prompt_lens, device=dev) // PA_PAGE
     table = _page_table_rows(
-        torch.arange(PA_PROMPTS, device=dev).repeat_interleave(PA_N),
+        torch.arange(prompts, device=dev).repeat_interleave(PA_N),
         full.repeat_interleave(PA_N),
-        PA_PROMPTS * PA_PROMPT_PAGES + torch.arange(rows, device=dev) * PA_PRIVATE_PAGES,
+        prompts * PA_PROMPT_PAGES + torch.arange(rows, device=dev) * PA_PRIVATE_PAGES,
         prompt_pages=PA_PROMPT_PAGES, private_pages=PA_PRIVATE_PAGES)
     pages = [torch.randn(shape, generator=gen, device=dev) for _ in range(2)]
     kw = {}
@@ -448,28 +489,72 @@ def paged_case(device, seed: int, *, q_dtype, kv: str, prompt_lens, lengths):
 PA_CASES = (("bfloat16", "bfloat16"), ("bfloat16", "int8"), ("float32", "float32"))
 
 
+def _paged_build_lines(name: str, instance: str) -> list[str]:
+    """ptxas's registers and spills of the kernels a stanza runs from
+    ``csrc/<name>.cu``'s library (this process's build log; empty if it was
+    cached): the tensor-core body's ``instance`` (its mangled template
+    arguments), the f32 CUDA-core body and the merge."""
+    from distrl_llm_tpu_torch.ops import _build
+
+    want = re.compile(rf"{instance}|cc_kernelIffEE|merge_kernel")
+    return [f"{entry}: {line}" for entry, line in ptxas_lines(_build.load(name).log)
+            if want.search(entry)]
+
+
+def _split_lengths(span: int, caps, fixed, draw, rng):
+    """Lengths of 64 rows for the K2/K5 stanzas: ``fixed`` on the first
+    rows of every 16, then lengths on the split's boundaries (a split's last
+    position, one past it, the second split's last position and one past
+    it; ``span`` positions a split), a row reaching exactly its table's end,
+    and random lengths from ``draw``; each clipped to its row's ``caps``."""
+    import torch
+
+    edges = (span, span + 1, 2 * span, 2 * span + 1, 10**6)
+    out = []
+    for r, cap in enumerate(caps):
+        k = r % 16
+        if k < len(fixed):
+            want = fixed[k]
+        elif k < len(fixed) + len(edges):
+            want = edges[k - len(fixed)]
+        else:
+            want = int(torch.randint(*draw, (1,), generator=rng))
+        out.append(min(want, cap))
+    return out
+
+
 def compare_paged_attention(device, seed: int) -> float:
     """K2 against its plain version on ``device`` at the main path's
     geometry, for each of ``PA_CASES`` and pages_per_block 1, 3 and 8: 64
     rows whose lengths cover 0, 1, 127, 128, 129, a page-aligned 256, 1550
-    (clipped to the row's table) and random lengths. Rows of length 0 must
-    be exactly 0, and garbage table entries past every row's length must
-    change nothing. Returns the largest |dout| over all cases."""
+    (clipped to the row's table), the boundaries of the planned split (its
+    last position, one past it), a row reaching its table's end, and random
+    lengths. Rows of length 0 must be exactly 0, a second run must give the
+    same bits, and garbage table entries past every row's length must change
+    nothing. Prints the plan and the kernels' registers. Returns the largest
+    |dout| over all cases."""
     import torch
 
     from distrl_llm_tpu_torch.ops.paged_native import (
-        paged_attention_native, paged_attention_native_reference,
+        paged_attention_native, paged_attention_native_reference, plan_paged_split,
     )
 
     dev = torch.device(device)
     prompt_lens = (350, 256, 128, 60)  # two full pages, two aligned, one, none
-    rng = torch.Generator().manual_seed(seed)
-    fixed = (0, 1, 127, 128, 129, 256, 1550)
-    lengths = []
-    for r in range(PA_PROMPTS * PA_N):
-        cap = (prompt_lens[r // PA_N] // PA_PAGE + PA_PRIVATE_PAGES) * PA_PAGE
-        want = fixed[r % 8] if r % 8 < len(fixed) else int(torch.randint(2, 1700, (1,), generator=rng))
-        lengths.append(min(want, cap))
+    rows = PA_PROMPTS * PA_N
+    plan = plan_paged_split(rows, PA_KV_HEADS, PA_PROMPT_PAGES + PA_PRIVATE_PAGES, PA_PAGE)
+    caps = [(prompt_lens[r // PA_N] // PA_PAGE + PA_PRIVATE_PAGES) * PA_PAGE
+            for r in range(rows)]
+    lengths = _split_lengths(plan.pages_per_split * PA_PAGE, caps,
+                             (0, 1, 127, 128, 129, 256, 1550), (2, 1700),
+                             torch.Generator().manual_seed(seed))
+    print(f"kernel paged_attention: plan at {rows} rows x {PA_KV_HEADS} kv heads, "
+          f"{PA_PROMPT_PAGES + PA_PRIVATE_PAGES} pages of {PA_PAGE}: {plan.splits} splits of "
+          f"{plan.pages_per_split} pages, {plan.blocks} blocks; lengths {lengths[:16]}")
+    if device != "cpu":
+        # hd 128, one m-tile of 8-row heads (G = 7): <KVT, 128, 1, 1>
+        for line in _paged_build_lines("paged_attention", "Li128ELi1ELi1EE"):
+            print(f"kernel paged_attention build: {line}")
     worst = 0.0
     for qn, kv in PA_CASES:
         q_dtype = getattr(torch, qn)
@@ -478,6 +563,7 @@ def compare_paged_attention(device, seed: int) -> float:
         want = paged_attention_native_reference(*args, **kw).float()
         for ppb in (1, 3, 8):
             got = paged_attention_native(*args, **kw, pages_per_block=ppb)
+            again = paged_attention_native(*args, **kw, pages_per_block=ppb)
             gf = got.float()
             err = (gf - want).abs()
             if q_dtype == torch.float32:
@@ -490,12 +576,15 @@ def compare_paged_attention(device, seed: int) -> float:
             check(not bool(bad.any()),
                   f"K2 {qn}/{kv} ppb={ppb}: |dout| {float(err.max()):.3g} above the "
                   f"tolerance on {int(bad.sum())} elements")
+            check(torch.equal(got, again), f"K2 {qn}/{kv} ppb={ppb}: a second run gave "
+                  "other bits")
             zero_rows = args[3] == 0
             check(bool((got[zero_rows] == 0).all()), f"K2 {qn}/{kv} ppb={ppb}: a "
                   "length-0 row is not exactly 0")
             worst = max(worst, float(err.max()))
             print(f"kernel paged_attention q {qn}, pages {kv}, pages_per_block {ppb}: "
-                  f"max |dout| {float(err.max()):.3g} over {got.numel()} outputs")
+                  f"max |dout| {float(err.max()):.3g} over {got.numel()} outputs; second "
+                  f"run bit-identical")
         # the table past each row's length is never read: poison it
         q, kp, vp, lens, table = args
         live = -(-lens.long() // PA_PAGE)
@@ -506,34 +595,136 @@ def compare_paged_attention(device, seed: int) -> float:
         check(torch.equal(base, again), f"K2 {qn}/{kv}: garbage table entries past "
               "the length changed the output")
     print(f"kernel paged_attention: all cases within tolerance (f32 {F32_ATOL}; bf16 "
-          f"one ulp + {F32_ATOL}); length-0 rows exactly 0; max |dout| {worst:.3g}")
+          f"one ulp + {F32_ATOL}); length-0 rows exactly 0; second runs bit-identical; "
+          f"max |dout| {worst:.3g}")
     return worst
 
 
+# the other shapes of K2 and K5's bodies, as the presets and draft lengths
+# reach them: (query heads, kv heads, head_dim, page size, S or None for
+# K2). Rows S·G of 1 to 8, 9-16, 17-32, 33-48 and 49-64 take each of the
+# tensor-core body's block shapes (MMA_SHAPES); head_dim 256 and 16 the
+# CUDA-core body with bf16 q; page sizes below a 64-position stage
+PAGED_SHAPES = ((8, 1, 64, 16, None), (16, 1, 128, 32, None), (4, 4, 128, 64, None),
+                (14, 2, 64, 8, 2), (16, 4, 128, 128, 5), (56, 8, 64, 16, 5),
+                (28, 4, 128, 128, 9), (4, 2, 16, 8, 5), (8, 1, 256, 16, 3))
+
+
+def compare_paged_shapes(device, seed: int, rows: int = 6) -> float:
+    """K2 (S None) and K5 at every entry of ``PAGED_SHAPES`` against their
+    plain versions on ``device``, bf16 q over bf16 and int8 pages and f32
+    throughout, ``rows`` rows of random pages and lengths (a row of length
+    0 or 1, one reaching the table's end, the rest random) over a table
+    that the planner splits in three: the same tolerances as the stanzas,
+    and a second run giving the same bits. Returns the largest |dout|."""
+    import torch
+
+    from distrl_llm_tpu_torch.ops.paged import quantize_pages
+    from distrl_llm_tpu_torch.ops.paged_native import (
+        MIN_SPLIT_POSITIONS, paged_attention_native, paged_attention_native_reference,
+        paged_attention_native_verify, paged_attention_native_verify_reference,
+    )
+
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    worst = 0.0
+    for h, kh, hd, ps, s in PAGED_SHAPES:
+        pps = 2 * -(-MIN_SPLIT_POSITIONS * (s or 1) // ps) + 1  # the shortest splits, 3 of them
+        cap = pps * ps - (s or 0)
+        lens = torch.randint(0, cap + 1, (rows,), generator=gen, device=dev)
+        lens[0], lens[1] = (0 if s is None else 1), cap
+        lens = lens.to(torch.int32)
+        total = rows * pps
+        table = torch.randperm(total, generator=gen, device=dev).reshape(rows, pps).int()
+        pages = [torch.randn(kh, total, ps, hd, generator=gen, device=dev) for _ in range(2)]
+        shape = (rows, h, hd) if s is None else (rows, s, h, hd)
+        qf = torch.randn(shape, generator=gen, device=dev) * hd**-0.5
+        for qn, kv in PA_CASES:
+            q_dtype = getattr(torch, qn)
+            kw = {}
+            if kv == "int8":
+                qk, qv = (quantize_pages(x.bfloat16()) for x in pages)
+                kp, vp, kw = qk.weight, qv.weight, {"k_scales": qk.scales, "v_scales": qv.scales}
+            else:
+                kp, vp = (x.to(getattr(torch, kv)) for x in pages)
+            args = (qf.to(q_dtype), kp, vp, lens, table)
+            if s is None:
+                got = paged_attention_native(*args, **kw)
+                again = paged_attention_native(*args, **kw)
+                want = paged_attention_native_reference(*args, **kw).float()
+            else:
+                got = paged_attention_native_verify(*args, **kw)
+                again = paged_attention_native_verify(*args, **kw)
+                want = paged_attention_native_verify_reference(*args, **kw).float()
+            gf = got.float()
+            err = (gf - want).abs()
+            if q_dtype == torch.float32:
+                tol = torch.full_like(err, F32_ATOL)
+            else:  # one bf16 ulp of the value, plus the f32 difference
+                mag = torch.maximum(gf.abs(), want.abs()).clamp_min(2.0**-126)
+                tol = torch.exp2(torch.floor(torch.log2(mag)) - 7) + F32_ATOL
+            what = f"{'K2' if s is None else f'K5 S={s}'} {h}/{kh} hd {hd} ps {ps} {qn}/{kv}"
+            check(bool(torch.isfinite(gf).all()), f"{what}: non-finite output")
+            check(not bool((err > tol).any()), f"{what}: |dout| {float(err.max()):.3g} above "
+                  f"the tolerance on {int((err > tol).sum())} elements")
+            check(torch.equal(got, again), f"{what}: a second run gave other bits")
+            worst = max(worst, float(err.max()))
+    print(f"kernel paged_attention/paged_verify at {len(PAGED_SHAPES)} more shapes (query "
+          f"rows 1 to 63, head_dim 16 to 256, pages of 8 to 128; bf16/bf16, bf16/int8, "
+          f"f32/f32): all within tolerance, second runs bit-identical; max |dout| {worst:.3g}")
+    return worst
+
+
+def _rotating_graph_ms(fn, args, kw, nbytes: int) -> tuple[float, int]:
+    """Device ms per call of ``fn(*args, **kw)`` as a CUDA graph over enough
+    copies of the pages (and int8 scales) that one cycle of calls reads
+    more than twice the 50 MB L2 (``nbytes`` a call): each call finds its
+    pages cold, as a decode step's layer does. Returns (ms, copies)."""
+    import torch
+
+    copies = int(2 * L2_BYTES // nbytes) + 1
+    q, kp, vp, lens, table = args
+    sets = [(kp, vp, kw)] + [
+        (kp.clone(), vp.clone(), {k: v.clone() for k, v in kw.items()})
+        for _ in range(copies - 1)]
+    ms = _graph_ms([lambda c=c: fn(q, c[0], c[1], lens, table, **c[2]) for c in sets] * 2)
+    del sets
+    torch.cuda.empty_cache()
+    return ms, copies
+
+
 def time_paged_attention(seed: int) -> dict:
-    """K2's and the plain version's times at B = 64 with every row at length
-    1550 (prompts of 350 tokens), bf16 and int8 pages under bf16 q, beside
-    the card's bound. The K/V these rows read (172 MB in bf16, each shared
-    prompt page once) exceeds the 50 MB L2, as a decode step's layer finds
-    it."""
+    """K2's and the plain version's times with every row at length 1550
+    (prompts of 350 tokens), bf16 q: at B = 64 with bf16 and int8 pages, and
+    at B = 16 (one prompt's candidates, a wave's tail) with bf16 pages,
+    beside the card's bound. K2 runs as a CUDA graph over copies of the
+    pages past twice the L2 (``_rotating_graph_ms``); the plain version one
+    call at a time."""
     import torch
 
     from distrl_llm_tpu_torch.ops.paged_native import (
-        paged_attention_native, paged_attention_native_reference,
+        paged_attention_native, paged_attention_native_reference, plan_paged_split,
     )
 
     out = {}
-    lengths = [PA_TIMED_LENGTH] * (PA_PROMPTS * PA_N)
-    for kv in ("bfloat16", "int8"):
+    for label, prompts, kv in (("bfloat16", PA_PROMPTS, "bfloat16"),
+                               ("int8", PA_PROMPTS, "int8"), ("bfloat16_16rows", 1, "bfloat16")):
+        lengths = [PA_TIMED_LENGTH] * (prompts * PA_N)
         args, kw = paged_case("cuda", seed, q_dtype=torch.bfloat16, kv=kv,
-                              prompt_lens=(350,) * PA_PROMPTS, lengths=lengths)
-        ms = _time_ms(lambda: paged_attention_native(*args, **kw))
-        plain_ms = _time_ms(lambda: paged_attention_native_reference(*args, **kw), calls=20)
+                              prompt_lens=(350,) * prompts, lengths=lengths)
+        table = args[4].cpu()
+        nbytes = paged_bytes(lengths, table, q_dtype=torch.bfloat16, kv_dtype=args[1].dtype)
+        ms, copies = _rotating_graph_ms(paged_attention_native, args, kw, nbytes)
+        plain_ms = _time_ms(lambda: paged_attention_native_reference(*args, **kw), calls=10)
         bound_ms, bound_by = paged_attention_bound_ms(
-            lengths, args[4].cpu(), q_dtype=torch.bfloat16, kv_dtype=args[1].dtype)
+            lengths, table, q_dtype=torch.bfloat16, kv_dtype=args[1].dtype)
+        plan = plan_paged_split(len(lengths), PA_KV_HEADS, table.shape[1], PA_PAGE)
         # no single PyTorch call takes a page table: library_ms is null
-        out[kv] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                   "bound_by": bound_by, "library_ms": None}
+        out[label] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by, "library_ms": None, "rows": len(lengths),
+                      "copies": copies, "splits": plan.splits, "blocks": plan.blocks}
+        del args, kw
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1877,18 +2068,25 @@ SPEC_DRAFT, SPEC_NGRAM, SPEC_SLOTS, SPEC_NEW_TOKENS = 4, 2, 64, 256
 def verify_lengths(seed: int, prompt_lens=(350, 256, 128, 60)) -> list:
     """Resident lengths of 64 rows for K5's stanza: page crossings of the
     5-token block (a block starting at 124..128 spans two pages), length 1,
-    a block ending exactly at the table's capacity, and random lengths in
-    [550, 650], each clipped so the block fits its row's table."""
+    a block ending exactly at the table's capacity, the planned split's
+    boundaries (a block whose last position is a split's last, or one past
+    it; ``_split_lengths``), and random lengths in [550, 650], each clipped
+    so the block fits its row's table."""
     import torch
 
-    rng = torch.Generator().manual_seed(seed)
-    fixed = (0, 1, 124, 126, 127, 128, 251, 10**6)
-    out = []
-    for r in range(PA_PROMPTS * PA_N):
-        cap = (prompt_lens[r // PA_N] // PA_PAGE + PA_PRIVATE_PAGES) * PA_PAGE - VF_S
-        want = fixed[r % 8] if r % 16 < 8 else int(torch.randint(550, 651, (1,), generator=rng))
-        out.append(min(want, cap))
-    return out
+    from distrl_llm_tpu_torch.ops.paged_native import plan_paged_split
+
+    rows = PA_PROMPTS * PA_N
+    plan = plan_paged_split(rows, PA_KV_HEADS, PA_PROMPT_PAGES + PA_PRIVATE_PAGES, PA_PAGE,
+                            VF_S)
+    caps = [(prompt_lens[r // PA_N] // PA_PAGE + PA_PRIVATE_PAGES) * PA_PAGE - VF_S
+            for r in range(rows)]
+    # resident lengths: the block's reach is length + S
+    reach = _split_lengths(plan.pages_per_split * PA_PAGE, [c + VF_S for c in caps],
+                           (VF_S, 1 + VF_S, 124 + VF_S, 126 + VF_S, 127 + VF_S, 128 + VF_S,
+                            251 + VF_S, 10**6), (550 + VF_S, 651 + VF_S),
+                           torch.Generator().manual_seed(seed))
+    return [n - VF_S for n in reach]
 
 
 def verify_case(device, seed: int, *, q_dtype, kv: str, lengths, prompt_lens=(350, 256, 128, 60)):
@@ -1916,17 +2114,9 @@ def paged_verify_bound_ms(lengths, page_indices, *, q_dtype, kv_dtype, s: int = 
     1`` positions."""
     import torch
 
-    reach: dict[int, int] = {}
-    entries = 0
-    for row, n in zip(page_indices.tolist(), lengths):
-        span = int(n) + s
-        for j in range(-(-span // page_size)):
-            reach[row[j]] = max(reach.get(row[j], 0), min(page_size, span - j * page_size))
-            entries += 1
-    per_position = head_dim * kv_dtype.itemsize + (4 if kv_dtype == torch.int8 else 0)
-    rows = len(lengths)
-    nbytes = (2 * kv_heads * sum(reach.values()) * per_position
-              + 2 * rows * s * heads * head_dim * q_dtype.itemsize + rows * 4 + entries * 4)
+    nbytes = paged_bytes([int(n) + s for n in lengths], page_indices, q_dtype=q_dtype,
+                         kv_dtype=kv_dtype, s=s, page_size=page_size, heads=heads,
+                         kv_heads=kv_heads, head_dim=head_dim)
     attended = sum(s * int(n) + s * (s + 1) // 2 for n in lengths)
     ops = 4 * heads * head_dim * attended
     peak = F32_OPS_PER_S if q_dtype == torch.float32 else BF16_PEAK_OPS_PER_S
@@ -1937,18 +2127,30 @@ def paged_verify_bound_ms(lengths, page_indices, *, q_dtype, kv_dtype, s: int = 
 
 def compare_paged_verify(device, seed: int, ppbs=(1, 2, 4), cases=VF_CASES) -> float:
     """K5 against its plain version on ``device`` at the verify geometry
-    (3 row tiles of 12 query rows), for each of ``VF_CASES`` and several
-    pages_per_block; garbage table entries past every row's block must
-    change nothing.
-    Returns the largest |dout|."""
+    (all 35 query rows of a (row, kv head) in one block), for each of
+    ``VF_CASES`` and several pages_per_block; a second run must give the same
+    bits, and garbage table entries past every row's block must change
+    nothing. Prints the plan and the kernels' registers. Returns the largest
+    |dout|."""
     import torch
 
     from distrl_llm_tpu_torch.ops.paged_native import (
         paged_attention_native_verify, paged_attention_native_verify_reference,
+        plan_paged_split,
     )
 
     dev = torch.device(device)
     lengths = verify_lengths(seed)
+    plan = plan_paged_split(len(lengths), PA_KV_HEADS, PA_PROMPT_PAGES + PA_PRIVATE_PAGES,
+                            PA_PAGE, VF_S)
+    print(f"kernel paged_verify: plan at {len(lengths)} rows x S {VF_S} x {PA_KV_HEADS} kv "
+          f"heads, {PA_PROMPT_PAGES + PA_PRIVATE_PAGES} pages of {PA_PAGE}: {plan.splits} "
+          f"splits of {plan.pages_per_split} pages, {plan.blocks} blocks; resident lengths "
+          f"{lengths[:16]}")
+    if device != "cpu":
+        # hd 128, three m-tiles (35 rows): <KVT, 128, 3, 2>
+        for line in _paged_build_lines("paged_verify", "Li128ELi3ELi2EE"):
+            print(f"kernel paged_verify build: {line}")
     worst = 0.0
     for qn, kv in cases:
         q_dtype = getattr(torch, qn)
@@ -1956,6 +2158,7 @@ def compare_paged_verify(device, seed: int, ppbs=(1, 2, 4), cases=VF_CASES) -> f
         want = paged_attention_native_verify_reference(*args, **kw).float()
         for ppb in ppbs:
             got = paged_attention_native_verify(*args, **kw, pages_per_block=ppb)
+            again = paged_attention_native_verify(*args, **kw, pages_per_block=ppb)
             gf = got.float()
             err = (gf - want).abs()
             if q_dtype == torch.float32:
@@ -1968,9 +2171,11 @@ def compare_paged_verify(device, seed: int, ppbs=(1, 2, 4), cases=VF_CASES) -> f
             check(bool(torch.isfinite(gf).all()), f"{what}: non-finite output")
             check(not bool(bad.any()), f"{what}: |dout| {float(err.max()):.3g} above the "
                   f"tolerance on {int(bad.sum())} elements")
+            check(torch.equal(got, again), f"{what}: a second run gave other bits")
             worst = max(worst, float(err.max()))
             print(f"kernel paged_verify q {qn}, pages {kv}, pages_per_block {ppb}: "
-                  f"max |dout| {float(err.max()):.3g} over {got.numel()} outputs")
+                  f"max |dout| {float(err.max()):.3g} over {got.numel()} outputs; second "
+                  f"run bit-identical")
         q, kp, vp, lens, table = args
         live = -(-(lens.long() + VF_S) // PA_PAGE)
         cols = torch.arange(table.shape[1], device=dev)[None, :]
@@ -1980,7 +2185,7 @@ def compare_paged_verify(device, seed: int, ppbs=(1, 2, 4), cases=VF_CASES) -> f
         check(torch.equal(base, again), f"K5 {qn}/{kv}: garbage table entries past "
               "the block changed the output")
     print(f"kernel paged_verify: all cases within tolerance (f32 {F32_ATOL}; bf16 one ulp "
-          f"+ {F32_ATOL}); max |dout| {worst:.3g}")
+          f"+ {F32_ATOL}); second runs bit-identical; max |dout| {worst:.3g}")
     return worst
 
 
@@ -1988,7 +2193,10 @@ def time_paged_verify(seed: int) -> dict:
     """K5's, the plain version's and the unrolled S x K2's times at 64 rows of the verify
     geometry (lengths around 600, prompts of 350 tokens: 4 prompts x 16
     candidates), bf16 and int8 pages under bf16 q, beside the card's
-    bound."""
+    bound. K5 and the unrolled K2 run as CUDA graphs over copies of the
+    pages past twice the L2 (``_rotating_graph_ms``: the ~45 MB these rows
+    read would otherwise come from the L2); the plain version one call at a
+    time."""
     import torch
 
     from distrl_llm_tpu_torch.ops.paged_native import (
@@ -2005,12 +2213,14 @@ def time_paged_verify(seed: int) -> dict:
         qs = [q[:, i].contiguous() for i in range(VF_S)]
         ls = [(lens + i + 1).to(torch.int32) for i in range(VF_S)]
 
-        def unrolled():
+        def unrolled(q_, kp_, vp_, lens_, table_, **kw_):
             for i in range(VF_S):
-                paged_attention_native(qs[i], kp, vp, ls[i], table, **kw)
+                paged_attention_native(qs[i], kp_, vp_, ls[i], table_, **kw_)
 
-        ms = _time_ms(lambda: paged_attention_native_verify(*args, **kw))
-        unrolled_ms = _time_ms(unrolled)
+        nbytes = paged_bytes([n + VF_S for n in lengths], table.cpu(), q_dtype=torch.bfloat16,
+                             kv_dtype=kp.dtype, s=VF_S)
+        ms, copies = _rotating_graph_ms(paged_attention_native_verify, args, kw, nbytes)
+        unrolled_ms, _ = _rotating_graph_ms(unrolled, args, kw, nbytes)
         plain_ms = _time_ms(lambda: paged_attention_native_verify_reference(*args, **kw),
                             calls=10)
         bound_ms, bound_by = paged_verify_bound_ms(lengths, table.cpu(), q_dtype=torch.bfloat16,
@@ -2018,7 +2228,9 @@ def time_paged_verify(seed: int) -> dict:
         # no single PyTorch call takes a page table: library_ms is null; the
         # unrolled S launches of K2 are the yardstick
         out[kv] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                   "library_ms": None, "unrolled_ms": unrolled_ms}
+                   "library_ms": None, "unrolled_ms": unrolled_ms, "copies": copies}
+        del args, kw, qs
+        torch.cuda.empty_cache()
     return out
 
 
@@ -2262,12 +2474,13 @@ def spec_phase(cfg, args, card: str, t_start: float) -> tuple[list, dict]:
     times = time_paged_verify(args.seed)
     for kv, r in times.items():
         print(f"kernel paged_verify at B={PA_PROMPTS * PA_N} x S={VF_S} x lengths 550-650, "
-              f"{kv} pages, bf16 q: {r['ms']:.4f} ms, plain version {r['plain_ms']:.4f} ms, "
+              f"{kv} pages, bf16 q (a CUDA graph over {r['copies']} page copies past twice "
+              f"the L2): {r['ms']:.4f} ms, plain version {r['plain_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), unrolled {VF_S} x K2 (the "
               f"yardstick; no library call takes a page table) {r['unrolled_ms']:.4f} ms; "
               f"{card}")
     result = {"max_abs_err": err, **{k: v for k, v in times["bfloat16"].items()
-                                     if k != "unrolled_ms"}}
+                                     if k not in ("unrolled_ms", "copies")}}
     counted = []
     weights = make_weights(cfg, "cuda", seed=args.seed)
     runs = {}
@@ -2386,21 +2599,8 @@ def main(argv=None) -> int:
     print(f"build: {sorted(built)} in {time.perf_counter() - t:.1f} s "
           f"into {_build.BUILD_DIR}")
     for kname, b in built.items():
-        # ptxas -v: per entry function (each template instance), its spills
-        # and then its registers; print one line per entry
-        entry, spill = "", ""
-        for line in b.log.splitlines():
-            if "Compiling entry function" in line:
-                entry = line.split("'")[1] if "'" in line else line.strip()
-                # a kernel and its template instance by its mangled
-                # arguments, e.g. paged_attention_kernelI13__nv_bfloat16aLi4EE:
-                # bf16 q, int8 pages, 4 lanes
-                m = re.search(r"\d+([a-z_]+_kernel)(I\w*?EE)?", entry)
-                entry = m.group(1) + (m.group(2) or "") if m else "kernel"
-            elif "spill" in line:
-                spill = line.strip()
-            elif "registers" in line or "error" in line:
-                print(f"build {kname}: {entry}: {line.split(':', 1)[-1].strip()}; {spill}")
+        for entry, line in ptxas_lines(b.log):
+            print(f"build {kname}: {entry}: {line}")
 
     # 3. kernels against their plain versions
     err = compare_fused_sample("cuda", args.seed)
@@ -2409,14 +2609,19 @@ def main(argv=None) -> int:
           f"plain version {results['fused_sample']['plain_ms']:.4f} ms, bound "
           f"{results['fused_sample']['bound_ms']:.4f} ms "
           f"({results['fused_sample']['bound_by']}); {card}")
-    err = compare_paged_attention("cuda", args.seed)
+    err = max(compare_paged_attention("cuda", args.seed),
+              compare_paged_shapes("cuda", args.seed))
     pa_times = time_paged_attention(args.seed)
-    for kv, r in pa_times.items():
-        print(f"kernel paged_attention at B={PA_PROMPTS * PA_N} x length {PA_TIMED_LENGTH}, "
-              f"{kv} pages, bf16 q: {r['ms']:.4f} ms, plain version {r['plain_ms']:.4f} ms, "
-              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}); {card}")
+    for label, r in pa_times.items():
+        print(f"kernel paged_attention at B={r['rows']} x length {PA_TIMED_LENGTH}, "
+              f"{label.split('_')[0]} pages, bf16 q ({r['splits']} splits, {r['blocks']} "
+              f"blocks; a CUDA graph over {r['copies']} page copies past twice the L2): "
+              f"{r['ms']:.4f} ms, plain version {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}); {card}")
     # the line's headline is the main path's default format, bf16 pages
-    results["paged_attention"] = {"max_abs_err": err, **pa_times["bfloat16"]}
+    results["paged_attention"] = {
+        "max_abs_err": err, **{k: pa_times["bfloat16"][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
     fa_err = compare_flash_attention("cuda", args.seed)
     fa_times = time_flash_attention(args.seed)
     for part, r in fa_times.items():

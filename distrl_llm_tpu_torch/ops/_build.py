@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` into ``build/torch_kernels/<name>-<hash>.so`` at the repository root,
-named by a hash of its source and flags (a changed source builds anew, an
-unchanged one loads the cached library), then loaded with ``ctypes``. No
+named by a hash of its source, every ``csrc/*.cuh`` header and the flags (a
+changed source or header builds anew, an unchanged one loads the cached
+library), then loaded with ``ctypes``. No
 PyTorch headers are involved, so a build takes seconds. ``build_all`` starts
 one ``nvcc`` per source, all at once. Nothing here runs at import time: the
 CPU tests import every module on hosts without ``nvcc``.
@@ -56,6 +57,17 @@ def _nvcc() -> str:
     return found
 
 
+def source_digest(name: str) -> str:
+    """The cache key of ``csrc/<name>.cu``: a hash of the source, of every
+    header in ``csrc/`` (names and bytes; a source may include any of
+    them) and of the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def load(name: str) -> Built:
     """Build (if needed) and load ``csrc/<name>.cu``; cached per process."""
     with _locks_mu:
@@ -64,9 +76,7 @@ def load(name: str) -> Built:
         if name in _built:
             return _built[name]
         src = CSRC / f"{name}.cu"
-        digest = hashlib.sha256(
-            src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        out = BUILD_DIR / f"{name}-{digest}.so"
+        out = BUILD_DIR / f"{name}-{source_digest(name)}.so"
         log = ""
         if not out.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -19,14 +19,26 @@ For each row b and kv head k, with G = H / K query heads per kv head:
   gives 0, never NaN. Head ``h = k · G + g``.
 
 ``paged_attention_native`` launches the kernel on a CUDA tensor or raises;
-on a CPU tensor it runs ``paged_attention_native_reference``. Each launch
-adds one to ``paged_attention_launches``.
+on a CPU tensor it runs ``paged_attention_native_reference``. Each call on
+the card adds one to ``paged_attention_launches``, also when it runs the
+merge kernel of a split.
+
+K2 and K5 share one body (``csrc/paged_common.cuh``): the S·G query rows
+of a (row, kv head) in one block, the table split over pages into the
+ranges ``plan_paged_split`` gives (flash-decoding; the partials merged by a
+second kernel in split order), a cp.async ring of 64- or 128-position
+stages, and mma.sync for bf16 q over bf16 or int8 pages at head_dim 64 or
+128 (``MMA_SHAPES``); every
+other case (f32 q or f32 pages, other head sizes) runs the same split on
+the CUDA cores in f32.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
+from dataclasses import dataclass
 
 import torch
 
@@ -39,9 +51,114 @@ paged_attention_launches = 0
 
 # dtype codes of the C launcher
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-_THREADS = 256  # the kernel's block size (kThreads in the source)
-_MAX_ACC = 8  # accumulators per thread (kMaxAcc)
 _SMEM_LIMIT = 232448  # dynamic shared memory a block can use on Hopper
+
+# the kernels' geometry (csrc/paged_common.cuh)
+MAX_ROWS = 64  # query rows (S · G) a block serves (kMaxRows)
+MMA_HEAD_DIMS = (64, 128)  # head sizes of the tensor-core body
+# its block by (m16 tiles, 8-row halves holding query rows): positions a
+# ring stage, stages, warps per m-tile (MmaCfg in the source)
+MMA_SHAPES = {(1, 1): (64, 2, 4), (1, 2): (64, 3, 4), (2, 2): (64, 3, 2),
+              (3, 2): (128, 2, 4), (4, 2): (64, 3, 1)}
+CC_TILE, CC_STAGES = 32, 2  # the CUDA-core body's ring
+
+# the split over pages (``plan_paged_split``)
+SMS = 132  # the H100 SXM's streaming multiprocessors
+TARGET_BLOCKS_PER_SM = 4  # split until the grid holds this many blocks per SM
+# no split shorter than this many positions per query of a row: a split's
+# partials (m, l, acc of each of its S · G query rows) then stay a small,
+# fixed share of the K/V bytes it reads (~3% at G = 7, hd 128, bf16 pages),
+# and it runs four 64-position stages at least
+MIN_SPLIT_POSITIONS = 256
+
+
+@dataclass(frozen=True)
+class PagedSplitPlan:
+    """How one call of K2 or K5 cuts its page table: ``splits`` ranges of
+    ``pages_per_split`` whole pages (the last one ends at the table's
+    width), one block per (split, row, kv head), ``blocks`` in all. A block
+    whose range starts past its row's reach exits at once."""
+
+    splits: int
+    pages_per_split: int
+    blocks: int
+
+    def workspace_numel(self, batch: int, s: int, heads: int, head_dim: int) -> int:
+        """f32 elements of the partials a split call writes for the merge:
+        acc [splits, B, S·H, hd], then m and l [splits, B, S·H]; none for
+        one split, which writes the output directly."""
+        if self.splits == 1:
+            return 0
+        return self.splits * batch * s * heads * (head_dim + 2)
+
+
+def plan_paged_split(batch: int, kv_heads: int, pps: int, page_size: int, s: int = 1,
+                     sms: int = SMS) -> PagedSplitPlan:
+    """The split of a table of ``pps`` pages of ``page_size`` positions for
+    ``batch`` rows of ``kv_heads`` kv heads and ``s`` queries a row (K2: 1;
+    K5: the draft block). From the shapes alone: the rows' lengths live on
+    the card, and reading them would stop the host every step. The splits
+    multiply until the grid holds ``TARGET_BLOCKS_PER_SM`` x ``sms``
+    blocks: each split takes the table's pages over the splits that
+    target asks for, rounded down, but at least ``MIN_SPLIT_POSITIONS`` x
+    ``s`` positions (whole pages) and at most the table; the last split
+    takes what is left."""
+    if min(batch, kv_heads, pps, page_size, s, sms) < 1:
+        raise ValueError(f"plan_paged_split takes positive sizes, got batch={batch}, "
+                         f"kv_heads={kv_heads}, pps={pps}, page_size={page_size}, s={s}, "
+                         f"sms={sms}")
+    pairs = batch * kv_heads
+    want = math.ceil(TARGET_BLOCKS_PER_SM * sms / pairs)
+    least = math.ceil(MIN_SPLIT_POSITIONS * s / page_size)
+    per = min(pps, max(least, pps // want, 1))
+    splits = math.ceil(pps / per)
+    return PagedSplitPlan(splits, per, splits * pairs)
+
+
+def kernel_route(q_dtype: torch.dtype, kv_dtype: torch.dtype, head_dim: int) -> str:
+    """Which body a call takes: ``"mma"`` (the tensor cores) for bf16 q over
+    bf16 or int8 pages at head_dim 64 or 128, else ``"cuda_cores"``."""
+    if (q_dtype == torch.bfloat16 and kv_dtype in (torch.bfloat16, torch.int8)
+            and head_dim in MMA_HEAD_DIMS):
+        return "mma"
+    return "cuda_cores"
+
+
+def _mma_shape(rows: int) -> tuple[int, int, int, int, int]:
+    if not 1 <= rows <= MAX_ROWS:
+        raise ValueError(f"a block serves 1 to {MAX_ROWS} query rows, got {rows}")
+    mt, nh = -(-rows // 16), 1 if rows <= 8 else 2
+    return (mt, nh) + MMA_SHAPES[(mt, nh)]
+
+
+def mma_layout(rows: int) -> tuple[int, int]:
+    """(m16 tiles, warps) of a tensor-core block serving ``rows`` query
+    rows: the rows padded to 16-row tiles, each tile shared by the warps
+    that take its share of a stage's positions (``MMA_SHAPES``): 4 warps
+    for K2's 7 rows, 12 for K5's 35."""
+    mt, _, _, _, pw = _mma_shape(rows)
+    return mt, mt * pw
+
+
+def smem_bytes(rows: int, head_dim: int, q_dtype: torch.dtype,
+               kv_dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one block of the body ``kernel_route``
+    picks (the layouts in csrc/paged_common.cuh). Tensor cores: bf16 q
+    [16·MT, hd], the ring's stages (K and V tiles in their stored type, and
+    int8's scales; ``MMA_SHAPES``), int8's bf16 work tiles, and the m, l of
+    each warp and of the block. CUDA cores: the ring's two stages of 32
+    positions (rows padded by 16 bytes), then f32 q and acc [R, hd], p
+    [R, 32], m, l, alpha and the limits [R]."""
+    es = kv_dtype.itemsize
+    if kernel_route(q_dtype, kv_dtype, head_dim) == "mma":
+        mt, _, tile, stages, pw = _mma_shape(rows)
+        quant = kv_dtype == torch.int8
+        stage = 2 * tile * head_dim * es + (2 * tile * 4 if quant else 0)
+        work = 2 * tile * head_dim * 2 if quant else 0
+        return (mt * 16 * head_dim * 2 + stages * stage + work
+                + 2 * mt * pw * 16 * 4 + 2 * mt * 16 * 4)
+    stage = 2 * CC_TILE * (head_dim * es + 16) + (2 * CC_TILE * 4 if es == 1 else 0)
+    return CC_STAGES * stage + 4 * rows * (2 * head_dim + CC_TILE + 4)
 
 
 def paged_attention_native_reference(
@@ -136,53 +253,96 @@ def _check_args(q, k_pages, v_pages, lengths, page_indices, k_scales, v_scales,
         raise ValueError("all inputs must be contiguous")
 
 
-def smem_bytes(groups: int, head_dim: int, page_size: int, pages_per_block: int,
-               kv_dtype: torch.dtype) -> int:
-    """Dynamic shared memory of one block (the layout in the source): the
-    scores of ``pages_per_block`` pages, q and the running m/l/alpha in f32,
-    one staged K or V page in its stored type, and its int8 scales."""
-    floats = groups * head_dim + 3 * groups + groups * pages_per_block * page_size
-    page = -(-page_size * head_dim * kv_dtype.itemsize // 16) * 16
-    return -(-4 * floats // 16) * 16 + page + 4 * page_size
-
-
 @functools.lru_cache(maxsize=None)
-def _check_kernel_geometry(groups: int, hd: int, ps: int, ppb: int,
-                           kv_dtype: torch.dtype) -> None:
-    """What the kernel's thread layout and staging take (raises otherwise);
+def _check_kernel_geometry(rows: int, hd: int, q_dtype: torch.dtype,
+                           kv_dtype: torch.dtype) -> str:
+    """What the kernels take (raises ValueError otherwise): at most
+    ``MAX_ROWS`` query rows (S · G) a block, a head_dim of at least 8 whose
+    page rows are a multiple of 16 bytes (the ring copies 16-byte chunks),
+    and shared memory within the card. Any page size. Returns the route;
     checked once per geometry."""
-    if hd < 8 or hd > _THREADS or _THREADS % hd:
-        raise ValueError(f"head_dim must divide {_THREADS} and be >= 8, got {hd}")
-    if -(-groups // (_THREADS // hd)) > _MAX_ACC:
-        raise ValueError(f"{groups} query heads per kv head at head_dim {hd} exceed "
-                         f"the kernel's {_MAX_ACC} accumulators per thread")
-    if ps % 4:
-        raise ValueError(f"page_size must be a multiple of 4, got {ps}")
-    if (ps * hd * kv_dtype.itemsize) % 16:
-        raise ValueError(f"a page of {ps} x {hd} {kv_dtype} is not a multiple of "
-                         "16 bytes")
-    need = smem_bytes(groups, hd, ps, ppb, kv_dtype)
+    if not 1 <= rows <= MAX_ROWS:
+        raise ValueError(f"{rows} query rows (S x query heads per kv head) exceed the "
+                         f"kernel's {MAX_ROWS} a block")
+    if hd < 8 or (hd * kv_dtype.itemsize) % 16:
+        raise ValueError(f"head_dim must be >= 8 with rows of a multiple of 16 bytes, got "
+                         f"{hd} in {kv_dtype}")
+    need = smem_bytes(rows, hd, q_dtype, kv_dtype)
     if need > _SMEM_LIMIT:
-        raise ValueError(f"pages_per_block={ppb} needs {need} bytes of shared "
+        raise ValueError(f"{rows} query rows at head_dim {hd} need {need} bytes of shared "
                          f"memory, above the card's {_SMEM_LIMIT}")
+    return kernel_route(q_dtype, kv_dtype, hd)
+
+
+def _declare(lib: ctypes.CDLL, name: str, ints: int) -> ctypes.CDLL:
+    """Declare ``<name>_launch`` (9 pointers, ``ints`` ints, the stream)
+    and ``<name>_error_string`` on a built library, once."""
+    fn = getattr(lib, f"{name}_launch")
+    if fn.argtypes is None:
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [ptr] * 9 + [i32] * ints + [ptr]
+        fn.restype = ctypes.c_int
+        err = getattr(lib, f"{name}_error_string")
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+    return lib
 
 
 @functools.cache
 def _kernel_lib() -> ctypes.CDLL:
-    """The built kernel library with its C signatures declared (builds at
-    first use; see ops/_build.py)."""
+    """The built K2 library with its C signatures declared (builds at first
+    use; see ops/_build.py)."""
     from distrl_llm_tpu_torch.ops import _build
 
-    lib = _build.load("paged_attention").lib
-    if lib.paged_attention_launch.argtypes is None:
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.paged_attention_launch.argtypes = [
-            ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-            i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, ptr]
-        lib.paged_attention_launch.restype = ctypes.c_int
-        lib.paged_attention_error_string.argtypes = [ctypes.c_int]
-        lib.paged_attention_error_string.restype = ctypes.c_char_p
-    return lib
+    return _declare(_build.load("paged_attention").lib, "paged_attention", 12)
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def paged_launch(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+                 lengths: torch.Tensor, page_indices: torch.Tensor,
+                 k_scales: torch.Tensor | None, v_scales: torch.Tensor | None) -> torch.Tensor:
+    """One call of K2 (q [B, H, hd]) or K5 (q [B, S, H, hd]) on checked
+    CUDA tensors: the split from ``plan_paged_split``, its f32 workspace
+    allocated here when it has more than one split (the kernel of the call
+    writes the partials, a second one merges them), and the body
+    ``kernel_route`` picks. Adds one to the wrapper's launch count."""
+    global paged_attention_launches, paged_verify_launches
+    verify = q.dim() == 4
+    b, h, hd = q.shape[0], q.shape[-2], q.shape[-1]
+    s = q.shape[1] if verify else 1
+    kh, total_pages, ps, _ = k_pages.shape
+    pps = page_indices.shape[1]
+    _check_kernel_geometry(s * (h // kh), hd, q.dtype, k_pages.dtype)
+    for t in (q, k_pages, v_pages):
+        if t.data_ptr() % 16:
+            raise ValueError("q and the pages must be 16-byte aligned")
+    plan = plan_paged_split(b, kh, pps, ps, s)
+    lib = _verify_lib() if verify else _kernel_lib()
+    out = torch.empty_like(q)
+    numel = plan.workspace_numel(b, s, h, hd)
+    ws = torch.empty(numel, dtype=torch.float32, device=q.device) if numel else None
+    ptrs = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            k_scales.data_ptr() if k_scales is not None else None,
+            v_scales.data_ptr() if v_scales is not None else None,
+            lengths.data_ptr(), page_indices.data_ptr(), out.data_ptr(),
+            ws.data_ptr() if ws is not None else None)
+    dims = (h, kh, hd, total_pages, ps, pps, plan.splits, plan.pages_per_split,
+            _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_pages.dtype], q.device.index or 0,
+            _stream(q.device))
+    name = "paged_verify" if verify else "paged_attention"
+    launch = getattr(lib, f"{name}_launch")
+    err = launch(*ptrs, b, s, *dims) if verify else launch(*ptrs, b, *dims)
+    if err != 0:
+        msg = getattr(lib, f"{name}_error_string")(err).decode()
+        raise RuntimeError(f"{name} kernel launch failed: {msg} ({err})")
+    if verify:
+        paged_verify_launches += 1
+    else:
+        paged_attention_launches += 1
+    return out
 
 
 def paged_attention_native(
@@ -194,11 +354,12 @@ def paged_attention_native(
     """Decode attention over pages: q [B, H, hd] pre-scaled, bf16 or f32;
     pages [K, P, ps, hd] bf16/f32, or int8 with f32 ``k_scales``/``v_scales``
     [K, P, ps, 1]; lengths int32 [B]; page_indices int32 [B, pps] →
-    [B, H, hd] in q's dtype. On a CUDA tensor: one launch of K2 on the
-    current stream, or an exception, never a fallback. On a CPU tensor: the
-    plain version. ``pages_per_block`` (clamped to pps) is the number of
-    pages the kernel scores per softmax update."""
-    global paged_attention_launches
+    [B, H, hd] in q's dtype. On a CUDA tensor: one call of K2 on the current
+    stream (its kernel and, for a split table, the merge), or an exception,
+    never a fallback. On a CPU tensor: the plain version.
+    ``pages_per_block`` is the JAX package's interface: it must be >= 1,
+    and the kernel ignores it (its tiles are 64 or 32 positions, its split
+    is ``plan_paged_split``'s); the result never depended on it."""
     if q.dim() != 3:
         raise ValueError(f"q must be [B, H, hd], got {tuple(q.shape)}")
     _check_args(q, k_pages, v_pages, lengths, page_indices, k_scales, v_scales,
@@ -209,30 +370,7 @@ def paged_attention_native(
             pages_per_block=pages_per_block)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention_native runs on cuda or cpu, got {q.device}")
-    b, h, hd = q.shape
-    kh, total_pages, ps, _ = k_pages.shape
-    pps = page_indices.shape[1]
-    ppb = min(pages_per_block, pps)
-    _check_kernel_geometry(h // kh, hd, ps, ppb, k_pages.dtype)
-    for t in (q, k_pages, v_pages):
-        if t.data_ptr() % 16:
-            raise ValueError("q and the pages must be 16-byte aligned")
-    lib = _kernel_lib()
-    out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.paged_attention_launch(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        k_scales.data_ptr() if k_scales is not None else None,
-        v_scales.data_ptr() if v_scales is not None else None,
-        lengths.data_ptr(), page_indices.data_ptr(), out.data_ptr(),
-        b, h, kh, hd, total_pages, ps, pps, ppb,
-        _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_pages.dtype],
-        q.device.index or 0, stream)
-    if err != 0:
-        msg = lib.paged_attention_error_string(err).decode()
-        raise RuntimeError(f"paged_attention kernel launch failed: {msg} ({err})")
-    paged_attention_launches += 1
-    return out
+    return paged_launch(q, k_pages, v_pages, lengths, page_indices, k_scales, v_scales)
 
 
 # --------------------------------------------------------------------------
@@ -260,7 +398,6 @@ def paged_attention_native(
 #: launches of K5; CPU calls, which run the plain version, do not count
 paged_verify_launches = 0
 
-_VERIFY_ACC = 8  # row accumulators per thread in K5 (kAcc; see csrc/paged_verify.cu)
 _VERIFY_PPB = 2  # pages scored per softmax update by default
 
 
@@ -318,49 +455,13 @@ def paged_attention_native_verify_reference(
             .reshape(b, s, h, hd).to(q.dtype))
 
 
-def verify_row_tiles(rows: int, head_dim: int) -> tuple[int, int]:
-    """(row tiles, rows per tile) of K5's grid: one block serves up to
-    ``8 · (256 / hd)`` query rows of one (row, kv head); more rows split
-    into balanced tiles along the grid's fastest axis."""
-    cap = _VERIFY_ACC * (_THREADS // head_dim)
-    tiles = -(-rows // cap)
-    return tiles, -(-rows // tiles)
-
-
-@functools.lru_cache(maxsize=None)
-def _check_verify_geometry(rows: int, hd: int, ps: int, ppb: int,
-                           kv_dtype: torch.dtype) -> None:
-    if hd < 8 or hd > _THREADS or _THREADS % hd:
-        raise ValueError(f"head_dim must divide {_THREADS} and be >= 8, got {hd}")
-    if ps % 4:
-        raise ValueError(f"page_size must be a multiple of 4, got {ps}")
-    if (ps * hd * kv_dtype.itemsize) % 16:
-        raise ValueError(f"a page of {ps} x {hd} {kv_dtype} is not a multiple of "
-                         "16 bytes")
-    _, tile_rows = verify_row_tiles(rows, hd)
-    # K5's shared memory is K2's layout with the tile's rows for the heads
-    need = smem_bytes(tile_rows, hd, ps, ppb, kv_dtype)
-    if need > _SMEM_LIMIT:
-        raise ValueError(f"pages_per_block={ppb} with {tile_rows} query rows needs "
-                         f"{need} bytes of shared memory, above the card's {_SMEM_LIMIT}")
-
-
 @functools.cache
 def _verify_lib() -> ctypes.CDLL:
     """The built K5 library with its C signatures declared (builds at first
     use; see ops/_build.py)."""
     from distrl_llm_tpu_torch.ops import _build
 
-    lib = _build.load("paged_verify").lib
-    if lib.paged_verify_launch.argtypes is None:
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.paged_verify_launch.argtypes = [
-            ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-            i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, ptr]
-        lib.paged_verify_launch.restype = ctypes.c_int
-        lib.paged_verify_error_string.argtypes = [ctypes.c_int]
-        lib.paged_verify_error_string.restype = ctypes.c_char_p
-    return lib
+    return _declare(_build.load("paged_verify").lib, "paged_verify", 13)
 
 
 def paged_attention_native_verify(
@@ -374,13 +475,14 @@ def paged_attention_native_verify(
     ``k_scales``/``v_scales`` [K, P, ps, 1]; lengths int32 [B], the tokens
     resident before the block; page_indices int32 [B, pps] → [B, S, H, hd]
     in q's dtype, query i attending ``[0, lengths + i + 1)``. On a CUDA
-    tensor: one launch of K5 on the current stream, or an exception, never a
-    fallback. On a CPU tensor: the plain version."""
-    global paged_verify_launches
+    tensor: one call of K5 on the current stream (all S · G query rows of a
+    (row, kv head) in one block; for a split table, the merge too), or an
+    exception, never a fallback. On a CPU tensor: the plain version.
+    ``pages_per_block`` must be >= 1 and is ignored by the kernel, as
+    K2's."""
     if q.dim() != 4:
         raise ValueError(f"q must be [B, S, H, hd], got {tuple(q.shape)}")
-    b, s, h, hd = q.shape
-    if s < 1:
+    if q.shape[1] < 1:
         raise ValueError("the draft block needs S >= 1 queries")
     _check_args(q, k_pages, v_pages, lengths, page_indices, k_scales, v_scales,
                 pages_per_block)
@@ -390,28 +492,4 @@ def paged_attention_native_verify(
             pages_per_block=pages_per_block)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention_native_verify runs on cuda or cpu, got {q.device}")
-    kh, total_pages, ps, _ = k_pages.shape
-    pps = page_indices.shape[1]
-    ppb = min(pages_per_block, pps)
-    rows = s * (h // kh)
-    _check_verify_geometry(rows, hd, ps, ppb, k_pages.dtype)
-    for t in (q, k_pages, v_pages):
-        if t.data_ptr() % 16:
-            raise ValueError("q and the pages must be 16-byte aligned")
-    tiles, tile_rows = verify_row_tiles(rows, hd)
-    lib = _verify_lib()
-    out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.paged_verify_launch(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        k_scales.data_ptr() if k_scales is not None else None,
-        v_scales.data_ptr() if v_scales is not None else None,
-        lengths.data_ptr(), page_indices.data_ptr(), out.data_ptr(),
-        b, s, h, kh, hd, total_pages, ps, pps, ppb, tiles, tile_rows,
-        _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_pages.dtype],
-        q.device.index or 0, stream)
-    if err != 0:
-        msg = lib.paged_verify_error_string(err).decode()
-        raise RuntimeError(f"paged_verify kernel launch failed: {msg} ({err})")
-    paged_verify_launches += 1
-    return out
+    return paged_launch(q, k_pages, v_pages, lengths, page_indices, k_scales, v_scales)

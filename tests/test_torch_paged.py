@@ -395,24 +395,50 @@ def test_kernel_wrapper_checks_its_inputs():
 
 
 def test_kernel_geometry_limits():
-    """What the CUDA kernel's layout takes: head_dim dividing 256, up to 8
-    accumulators per thread, pages of a multiple of 4 tokens and 16 bytes,
-    shared memory within the card;
-    the main path's geometry fits at every pages_per_block up to 8."""
-    for ppb in (1, 3, 8):
-        tnative._check_kernel_geometry(7, 128, 128, ppb, torch.float32)
-    tnative._check_kernel_geometry(2, 16, 8, 3, torch.int8)
+    """What the kernels take (csrc/paged_common.cuh): up to 64 query rows a
+    block, a head_dim >= 8 whose page rows are a multiple of 16 bytes, any
+    page size, shared memory within the card. bf16 q over bf16 or int8
+    pages at head_dim 64 or 128 takes the tensor cores, the rest the CUDA
+    cores; the main path's geometry fits at every pages_per_block (which
+    the kernel ignores) and the exact shared memory of each ring."""
+    bf, i8, f32 = torch.bfloat16, torch.int8, torch.float32
+    assert tnative._check_kernel_geometry(7, 128, bf, bf) == "mma"  # K2, Qwen2.5-7B
+    assert tnative._check_kernel_geometry(7, 128, bf, i8) == "mma"
+    assert tnative._check_kernel_geometry(35, 128, bf, bf) == "mma"  # K5 at d = 4
+    assert tnative._check_kernel_geometry(7, 64, bf, i8) == "mma"  # Qwen2.5-0.5B
+    assert tnative._check_kernel_geometry(7, 128, f32, f32) == "cuda_cores"
+    assert tnative._check_kernel_geometry(7, 128, bf, f32) == "cuda_cores"
+    assert tnative._check_kernel_geometry(10, 16, f32, f32) == "cuda_cores"  # TINY, S 5
+    assert tnative._check_kernel_geometry(2, 16, bf, i8) == "cuda_cores"
+    assert tnative._check_kernel_geometry(8, 256, bf, bf) == "cuda_cores"  # gemma
+    with pytest.raises(ValueError, match="query rows"):
+        tnative._check_kernel_geometry(65, 128, bf, bf)
     with pytest.raises(ValueError, match="head_dim"):
-        tnative._check_kernel_geometry(7, 96, 128, 1, torch.bfloat16)
-    with pytest.raises(ValueError, match="accumulators"):
-        tnative._check_kernel_geometry(17, 128, 128, 1, torch.bfloat16)
-    with pytest.raises(ValueError, match="multiple of 4"):
-        tnative._check_kernel_geometry(7, 128, 6, 1, torch.bfloat16)
+        tnative._check_kernel_geometry(7, 4, f32, f32)
+    with pytest.raises(ValueError, match="head_dim"):
+        tnative._check_kernel_geometry(7, 24, bf, i8)  # 24-byte rows
     with pytest.raises(ValueError, match="shared memory"):
-        tnative._check_kernel_geometry(7, 128, 128, 64, torch.float32)
-    # f32 scores, q and m/l/alpha (8085 floats, rounded up to 16 bytes), one
-    # bf16 page, 128 scales
-    assert tnative.smem_bytes(7, 128, 128, 8, torch.bfloat16) == 32352 + 32768 + 512
+        tnative._check_kernel_geometry(64, 256, f32, f32)
+    # tensor cores: bf16 q [16, 128], 2 stages of bf16 K and V [64, 128], the
+    # m and l of 4 warps and of the block (three blocks an SM)
+    assert tnative.smem_bytes(7, 128, bf, bf) == 4096 + 2 * 32768 + 512 + 128
+    # int8: 2 stages of int8 K and V and their scales, the bf16 work tiles
+    assert tnative.smem_bytes(7, 128, bf, i8) == 4096 + 2 * (16384 + 512) + 32768 + 512 + 128
+    # 9-16 rows: 3 stages
+    assert tnative.smem_bytes(14, 128, bf, bf) == 4096 + 3 * 32768 + 512 + 128
+    # K5: 3 m-tiles of q, 2 stages of 128 positions, 12 warps
+    assert tnative.smem_bytes(35, 128, bf, bf) == 12288 + 2 * 65536 + 1536 + 384
+    # CUDA cores: 2 stages of 32 padded f32 rows of K and V, then f32 q, acc,
+    # p and m / l / alpha / limit of 7 rows
+    assert tnative.smem_bytes(7, 128, f32, f32) == 2 * 2 * 32 * 528 + 4 * 7 * (256 + 32 + 4)
+    rng = np.random.default_rng(11)
+    q, kp, vp, lengths, table = _attn_case(rng, b=2, h=4, kh=2, hd=16, pps=2,
+                                           lengths=[3, 9], quant="none")
+    want = tnative.paged_attention_native(_t(q), _t(kp), _t(vp), _t(lengths), _t(table))
+    for ppb in (1, 3, 8):
+        got = tnative.paged_attention_native(_t(q), _t(kp), _t(vp), _t(lengths), _t(table),
+                                             pages_per_block=ppb)
+        assert torch.equal(got, want)
 
 
 def test_paged_kernel_wrapper_signature_matches_the_c_launcher(monkeypatch):
@@ -433,7 +459,7 @@ def test_paged_kernel_wrapper_signature_matches_the_c_launcher(monkeypatch):
                            "paged_attention_error_string": Fn()})()
     monkeypatch.setattr(_build, "load", lambda name: type("B", (), {"lib": lib}))
     got = tnative._kernel_lib.__wrapped__().paged_attention_launch.argtypes
-    assert len(got) == len(params) == 20
+    assert len(got) == len(params) == 22
     for c_param, ct in zip(params, got):
         assert ct is (ctypes.c_void_p if "*" in c_param else ctypes.c_int), c_param
 

@@ -174,18 +174,24 @@ def test_wrapper_checks_its_inputs():
 
 
 def test_row_tiles_cover_every_query_row():
-    """K5's row tiling: 8 accumulators a thread, so a tile is at most
-    8 · (256 / hd) query rows; Qwen2.5-7B at d = 4 (35 rows) is 3 tiles of
-    12; rows split into balanced tiles, none empty."""
-    assert tnative.verify_row_tiles(35, 128) == (3, 12)
-    assert tnative.verify_row_tiles(16, 128) == (1, 16)
-    assert tnative.verify_row_tiles(17, 128) == (2, 9)
-    assert tnative.verify_row_tiles(35, 64) == (2, 18)
-    for rows in range(1, 200):
-        for hd in (16, 32, 64, 128):
-            tiles, per = tnative.verify_row_tiles(rows, hd)
-            assert tiles * per >= rows and per <= 8 * (256 // hd)
-            assert (tiles - 1) * per < rows  # no empty tile
+    """K5 serves all S · G query rows of a (row, kv head, split) in one
+    block, so each page is read once: on the tensor cores the rows pad to
+    m16 tiles (Qwen2.5-7B at d = 4: 35 rows, 3 tiles, 4 warps each), none
+    empty, up to 64 rows a block; more are refused."""
+    assert tnative.mma_layout(35) == (3, 12)
+    assert tnative.mma_layout(7) == (1, 4)  # K2's G = 7
+    assert tnative.mma_layout(16) == (1, 4)
+    assert tnative.mma_layout(17) == (2, 4)
+    assert tnative.mma_layout(64) == (4, 4)
+    for rows in range(1, tnative.MAX_ROWS + 1):
+        tiles, warps = tnative.mma_layout(rows)
+        assert 16 * (tiles - 1) < rows <= 16 * tiles  # every row, no empty tile
+        assert warps % tiles == 0 and warps // tiles in (1, 2, 4)
+    for rows in (0, 65):
+        with pytest.raises(ValueError, match="query rows"):
+            tnative.mma_layout(rows)
+    with pytest.raises(ValueError, match="query rows"):  # S 10 x G 7
+        tnative._check_kernel_geometry(70, 128, torch.bfloat16, torch.bfloat16)
 
 
 @pytest.mark.parametrize("quant", ["none", "int8"])
