@@ -12,10 +12,14 @@ printing its own lines:
    ``nvcc`` per source, started together) into ``build/torch_kernels/``;
 3. kernels: each kernel's wrapper against its plain PyTorch version on the
    card, at the main path's shapes, with its time, the plain version's time
-   and the card's least time for the same work (the bound); K2's stanza
-   also holds lengths on its split's boundaries, reruns every case for
-   identical bits and times 64 and 16 rows as CUDA graphs over page copies
-   past twice the L2;
+   and the card's least time for the same work (the bound); K1's stanza
+   covers rows 1 to 128 at V 152,064 and 64 rows at every preset's
+   vocabulary under the four sampler settings, each case run twice for
+   identical bits, prints each shape's cluster plan and how many such
+   clusters the card holds at once, and times [64, 152064] as a CUDA graph
+   over logits copies past twice the L2; K2's stanza also holds lengths on its split's boundaries,
+   reruns every case for identical bits and times 64 and 16 rows as CUDA
+   graphs over page copies past twice the L2;
 4. rollout: the port's rollout engines at Qwen2.5-7B width (random bf16
    weights from a seed, a rank-32 LoRA with non-zero B), 4 math prompts x 16
    candidates x 128 new tokens: the dense engine, then the paged engine
@@ -107,6 +111,11 @@ HERE = Path(__file__).resolve().parent
 # tensor cores, the rate the sampler's arithmetic runs at
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# the SFU's transcendentals (ex2, lg2 behind expf and logf): 16 results a
+# clock per SM (the CUDA C++ Programming Guide's arithmetic-instruction
+# throughput table, compute capability 9.0) x 132 SMs x 1.98 GHz, the clock
+# at which 132 x 128 f32 lanes x 2 give the data sheet's 67 TFLOP/s
+SFU_OPS_PER_S = 16 * 132 * 1.98e9
 
 # the main path's shapes: Qwen2.5-7B's vocabulary, 4 prompts x 16 candidates
 VOCAB = 152064
@@ -297,29 +306,71 @@ def _time_ms(fn, calls: int = 30, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def fused_sample_bound_ms(rows: int, vocab: int, sampling: bool) -> tuple[float, str]:
-    """Least time on the card for one fused_sample call: each input read and
-    each output written once (f32 logits, int32 seeds; int32 token and f32
-    logprob per row) over HBM bandwidth, against the per-element f32
-    operations the function needs over the f32 peak: 4 for greedy (argmax
-    compare; sub, exp, add of the logprob's log-sum-exp), 61 when sampling
-    (adds the temperature division, softmax's sub/exp/add/div, 16 bisection
-    compare+add pairs, the filter select, 13 for the uint32 hash and its
-    float conversion, 4 for -log(-log u), the noise add and the draw's
-    compare)."""
-    nbytes = rows * vocab * 4 + rows * 4 + rows * 8
-    ops = rows * vocab * (61 if sampling else 4)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def fused_sample_bound_ms(rows: int, vocab: int, sampling: bool,
+                          kept: int | None = None) -> tuple[float, str]:
+    """Least time on the card for one fused_sample call, the largest of three
+    times: each input read and each output written once (f32 logits, int32
+    seeds; int32 token and f32 logprob per row) over HBM bandwidth; the f32
+    operations over the f32 peak; the transcendentals over the SFU's rate.
+    Operations: 4 per element for greedy (argmax compare; sub, exp, add of
+    the logprob's log-sum-exp); sampling adds 38 per element (the
+    temperature division, softmax's sub/exp/add/div, 16 bisection
+    compare+add pairs, the filter compare) and 19 per kept column (13 for
+    the uint32 hash and its float conversion, 4 for -log(-log u), the noise
+    add and the draw's compare). Transcendentals: the exps of the two sums
+    (one when greedy), and the draw's two logs on each kept column.
+    ``kept``: the kept columns summed over the rows, as this run's data
+    gives them (``kept_columns``); None counts every column as kept."""
+    cells = rows * vocab
+    kept = cells if kept is None else kept
+    nbytes = cells * 4 + rows * 4 + rows * 8
+    ops = cells * 4 + ((cells * 38 + kept * 19) if sampling else 0)
+    sfu = cells * (2 if sampling else 1) + (2 * kept if sampling else 0)
+    times = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "operations": max(ops / F32_OPS_PER_S, sfu / SFU_OPS_PER_S) * 1e3}
+    by = max(times, key=times.get)
+    return times[by], by
 
 
-def compare_fused_sample(device, seed: int,
-                         shapes=((ROWS, VOCAB), (7, 1000))) -> float:
-    """The kernel against its plain version on ``device``: [64, 152064]
-    (bf16-rounded logits, as the engine's lm_head gives them, so exact ties
-    at the top occur) and a ragged [7, 1000], under every sampler setting,
-    then a row of NaN. Returns the largest |dlogp|."""
+def kept_columns(logits, temperature: float, top_p: float, iters: int = 16) -> int:
+    """The columns the nucleus keeps (probs >= the bisected threshold),
+    summed over the rows, by the plain version's arithmetic; every column
+    at temperature 0 (nothing is drawn)."""
+    import torch
+
+    smp = _sampling()
+    if temperature == 0.0:
+        return logits.numel()
+    scaled = logits.float() / max(temperature, 1e-6)
+    e = torch.exp(scaled - scaled.max(dim=-1, keepdim=True).values)
+    probs = e / e.sum(dim=-1, keepdim=True)
+    lo = smp._bisect_threshold(probs, top_p, iters)
+    return int((probs >= lo[:, None]).sum())
+
+
+# K1's stanza: rows 1 to 128 at Qwen2.5's vocabulary, then 64 rows at every
+# preset's (TINY 256, Mistral 32000, Llama-3 128256, Qwen2.5-0.5B 151936,
+# Gemma 256000), 64 x 1000 and a ragged 7 x 999 (unaligned rows: the
+# kernel's 4-byte copies)
+K1_SHAPES = ((1, VOCAB), (16, VOCAB), (ROWS, VOCAB), (128, VOCAB), (ROWS, 256),
+             (ROWS, 1000), (ROWS, 32000), (ROWS, 128256), (ROWS, 151936), (ROWS, 256000),
+             (7, 999))
+
+
+def _k1_logits(gen, b: int, v: int, dev):
+    """Logits of std 3; bf16-rounded at a model's vocabulary (>= 32000), as
+    the engine's lm_head gives them, so exact ties at the top occur."""
+    import torch
+
+    logits = torch.randn((b, v), generator=gen, device=dev) * 3.0
+    return logits.bfloat16().float() if v >= 32000 else logits
+
+
+def compare_fused_sample(device, seed: int, shapes=K1_SHAPES) -> float:
+    """The kernel against its plain version on ``device`` at ``shapes`` under
+    every sampler setting, each case run twice for identical bits, then a
+    row of NaN. Prints each shape's cluster plan (and on the card how many
+    such clusters it holds at once). Returns the largest |dlogp|."""
     import torch
 
     smp = _sampling()
@@ -327,18 +378,25 @@ def compare_fused_sample(device, seed: int,
     gen = torch.Generator(device=dev).manual_seed(seed)
     max_err, rows_total, near_ties, excused = 0.0, 0, 0, 0
     for b, v in shapes:
-        logits = torch.randn((b, v), generator=gen, device=dev) * 3.0
-        if v == VOCAB:
-            logits = logits.bfloat16().float()
+        plan = smp.plan_sample_cluster(b, v)
+        active = (f", {smp.max_active_clusters(plan)} clusters at once"
+                  if dev.type == "cuda" else "")
+        print(f"kernel fused_sample plan [{b},{v}]: C {plan.cluster}, {plan.blocks} blocks "
+              f"of {plan.threads} threads x {plan.cols} columns, {plan.smem_bytes} bytes of "
+              f"shared memory a block{active}")
+        logits = _k1_logits(gen, b, v, dev)
         for name, t, p in SAMPLER_SETTINGS:
             seeds = torch.randint(-2**31, 2**31, (b,), generator=gen, device=dev,
                                   dtype=torch.int32)
             tok, logp = smp.fused_sample(logits, t, p, seeds)
+            tok2, logp2 = smp.fused_sample(logits, t, p, seeds)
+            check(torch.equal(tok, tok2) and torch.equal(logp, logp2),
+                  f"fused_sample [{b},{v}] {name}: a second run gave other bits")
             rtok, rlogp = smp.fused_sample_reference(logits, t, p, seeds)
             scores = smp.fused_sample_scores(logits, t, p, seeds)
-            top2 = scores.topk(2, dim=-1).values
-            tie = ((top2[:, 0] - top2[:, 1]).abs()
-                   <= NEAR_TIE_REL * top2[:, 0].abs().clamp_min(1e-30))
+            top2 = scores.topk(min(2, v), dim=-1).values
+            tie = ((top2[:, 0] - top2[:, -1]).abs()
+                   <= NEAR_TIE_REL * top2[:, 0].abs().clamp_min(1e-30)) & (v > 1)
             same = tok == rtok
             check(bool(((tok >= 0) & (tok < v)).all()),
                   f"fused_sample [{b},{v}] {name}: token out of range")
@@ -356,7 +414,7 @@ def compare_fused_sample(device, seed: int,
             excused += int((~same).sum())
             print(f"kernel fused_sample [{b},{v}] {name} (t={t}, top_p={p}): "
                   f"tokens equal on {int(same.sum())}/{b} rows, near-tie rows "
-                  f"{int(tie.sum())}, max |dlogp| {err:.3g}")
+                  f"{int(tie.sum())}, max |dlogp| {err:.3g}, second run bit-identical")
     check(excused * 1000 <= rows_total,
           f"fused_sample: {excused} near-tie rows differ, above 1 in 1000 of "
           f"{rows_total}")
@@ -375,24 +433,44 @@ def compare_fused_sample(device, seed: int,
     return max_err
 
 
+def _k1_graph_ms(logits, seeds) -> tuple[float, int]:
+    """K1's device ms per call under the train setting as a CUDA graph over
+    copies of the logits whose cycle reads more than twice the 50 MB L2, so
+    each call finds its row cold, as a decode step does. Returns (ms,
+    copies)."""
+    smp = _sampling()
+    copies = int(2 * L2_BYTES // (logits.numel() * 4)) + 1
+    sets = [logits] + [logits.clone() for _ in range(copies - 1)]
+    ms = _graph_ms([lambda x=x: smp.fused_sample(x, 1.2, 0.95, seeds) for x in sets] * 2)
+    return ms, copies
+
+
 def time_fused_sample(seed: int) -> dict:
-    """The kernel's and the plain version's times at the main path's shape
-    under the train setting, beside the card's bound."""
+    """The kernel's time at the main path's shape under the train setting
+    (a CUDA graph over logits copies past the L2, and one call at a time,
+    host enqueue included, as earlier kernels were timed), the plain
+    version's and the card's bound for this run's kept columns."""
     import torch
 
     smp = _sampling()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
-    logits = (torch.randn((ROWS, VOCAB), generator=gen, device=dev) * 3.0).bfloat16().float()
+    logits = _k1_logits(gen, ROWS, VOCAB, dev)
     seeds = torch.randint(-2**31, 2**31, (ROWS,), generator=gen, device=dev,
                           dtype=torch.int32)
-    ms = _time_ms(lambda: smp.fused_sample(logits, 1.2, 0.95, seeds))
+    plan = smp.plan_sample_cluster(ROWS, VOCAB)
+    ms, copies = _k1_graph_ms(logits, seeds)
+    single_ms = _time_ms(lambda: smp.fused_sample(logits, 1.2, 0.95, seeds))
     plain_ms = _time_ms(lambda: smp.fused_sample_reference(logits, 1.2, 0.95, seeds),
                         calls=20)
-    bound_ms, bound_by = fused_sample_bound_ms(ROWS, VOCAB, sampling=True)
+    kept = kept_columns(logits, 1.2, 0.95)
+    bound_ms, bound_by = fused_sample_bound_ms(ROWS, VOCAB, sampling=True, kept=kept)
+    del logits
+    torch.cuda.empty_cache()
     # no single PyTorch call computes this function: library_ms is null
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}
+            "bound_by": bound_by, "library_ms": None, "single_ms": single_ms,
+            "copies": copies, "kept": kept, "plan": plan}
 
 
 def paged_bytes(reaches, page_indices, *, q_dtype, kv_dtype, s: int = 1,
@@ -1180,7 +1258,8 @@ def profile_decode(run_round, steps=(8, 40), top: int = 12) -> dict:
     per_step = {name: (k1[name] - k0.get(name, 0.0)) / (s1 - s0) / 1e3 for name in k1}
     ranked = sorted(per_step.items(), key=lambda kv: -kv[1])
     return {"device_ms_per_step": sum(per_step.values()), "top": ranked[:top],
-            "kernels_per_step": len(per_step)}
+            "kernels_per_step": len(per_step),
+            "k1_ms": sum(ms for name, ms in per_step.items() if "fused_sample" in name)}
 
 
 def make_weights(cfg, device, *, seed: int, rank: int = 32, dtype=None):
@@ -1360,6 +1439,7 @@ def rollout(cfg, device, *, seed: int, max_prompt_tokens: int = 350,
               f"{100 * (1 - prof['device_ms_per_step'] / wall):.1f}%; {card}")
         for name, ms in prof["top"]:
             print(f"profile {label}: {ms:8.4f} ms/step  {name[:110]}")
+        print(f"profile {label}: K1 (fused_sample) {prof['k1_ms']:.4f} ms/step")
         out["profile"] = prof
     return out
 
@@ -2603,12 +2683,18 @@ def main(argv=None) -> int:
             print(f"build {kname}: {entry}: {line}")
 
     # 3. kernels against their plain versions
+    t = time.perf_counter()
     err = compare_fused_sample("cuda", args.seed)
-    results = {"fused_sample": {"max_abs_err": err, **time_fused_sample(args.seed)}}
-    print(f"kernel fused_sample at [{ROWS},{VOCAB}]: {results['fused_sample']['ms']:.4f} ms, "
-          f"plain version {results['fused_sample']['plain_ms']:.4f} ms, bound "
-          f"{results['fused_sample']['bound_ms']:.4f} ms "
-          f"({results['fused_sample']['bound_by']}); {card}")
+    k1 = time_fused_sample(args.seed)
+    plan = k1.pop("plan")
+    print(f"kernel fused_sample at [{ROWS},{VOCAB}] (C {plan.cluster}, {plan.threads} "
+          f"threads; a CUDA graph over {k1.pop('copies')} logits "
+          f"copies past twice the L2): {k1['ms']:.4f} ms; one call at a time "
+          f"{k1.pop('single_ms'):.4f} ms; plain version {k1['plain_ms']:.4f} ms, bound "
+          f"{k1['bound_ms']:.4f} ms ({k1['bound_by']}; {k1.pop('kept')} kept columns); "
+          f"{card}")
+    print(f"kernel fused_sample: stanza {time.perf_counter() - t:.1f} s")
+    results = {"fused_sample": {"max_abs_err": err, **k1}}
     err = max(compare_paged_attention("cuda", args.seed),
               compare_paged_shapes("cuda", args.seed))
     pa_times = time_paged_attention(args.seed)

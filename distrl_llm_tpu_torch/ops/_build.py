@@ -39,8 +39,8 @@ class Built:
     log: str  # nvcc/ptxas output (registers, shared memory, spills); "" if cached
 
 
-_built: dict[str, Built] = {}
-_locks: dict[str, threading.Lock] = {}
+_built: dict[tuple[str, tuple[str, ...]], Built] = {}
+_locks: dict[tuple[str, tuple[str, ...]], threading.Lock] = {}
 _locks_mu = threading.Lock()
 
 
@@ -57,39 +57,46 @@ def _nvcc() -> str:
     return found
 
 
-def source_digest(name: str) -> str:
+def _flags(defines: tuple[str, ...]) -> tuple[str, ...]:
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def source_digest(name: str, defines: tuple[str, ...] = ()) -> str:
     """The cache key of ``csrc/<name>.cu``: a hash of the source, of every
     header in ``csrc/`` (names and bytes; a source may include any of
-    them) and of the flags."""
+    them) and of the flags, ``defines`` (``NAME=value``) among them."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.name.encode() + b"\0" + header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(_flags(defines)).encode())
     return h.hexdigest()[:16]
 
 
-def load(name: str) -> Built:
-    """Build (if needed) and load ``csrc/<name>.cu``; cached per process."""
+def load(name: str, defines: tuple[str, ...] = ()) -> Built:
+    """Build (if needed) and load ``csrc/<name>.cu``, with ``-D`` for each
+    of ``defines`` (a measurement's variant; the package's own calls pass
+    none); cached per process."""
+    key = (name, tuple(defines))
     with _locks_mu:
-        lock = _locks.setdefault(name, threading.Lock())
+        lock = _locks.setdefault(key, threading.Lock())
     with lock:
-        if name in _built:
-            return _built[name]
+        if key in _built:
+            return _built[key]
         src = CSRC / f"{name}.cu"
-        out = BUILD_DIR / f"{name}-{source_digest(name)}.so"
+        out = BUILD_DIR / f"{name}-{source_digest(name, key[1])}.so"
         log = ""
         if not out.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
             proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                [_nvcc(), *_flags(key[1]), "-o", str(tmp), str(src)],
                 capture_output=True, text=True)
             log = proc.stdout + proc.stderr
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed for {src}:\n{log}")
             os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
         built = Built(ctypes.CDLL(str(out)), log)
-        _built[name] = built
+        _built[key] = built
         return built
 
 

@@ -6,9 +6,10 @@ point is ``sample_with_logprob``:
 * ``top_p_impl="bisect"`` (the default) goes through ``fused_sample``, the
   hand-written Hopper kernel (``csrc/fused_sample.cu``) that replaces the TPU
   kernel ``_fused_sample_kernel``: temperature, bisect top-p, Gumbel-max
-  draw and the chosen token's raw-basis logprob in one launch. A CUDA tensor
-  launches the kernel or raises; a CPU tensor runs its plain PyTorch version
-  ``fused_sample_reference``.
+  draw and the chosen token's raw-basis logprob in one launch of one
+  thread-block cluster per row, shaped by ``plan_sample_cluster``. A CUDA
+  tensor launches the kernel or raises; a CPU tensor runs its plain PyTorch
+  version ``fused_sample_reference``.
 * ``top_p_impl="exact"`` runs the plain multi-pass ``sample`` with the
   rank-based sort filter, as the JAX package sends it to XLA.
 * ``"bisect_mw"`` is not ported yet (ROADMAP: leftovers of the dense slice).
@@ -21,16 +22,30 @@ JAX kernel in interpret mode draw the same token from the same seeds.
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
+from dataclasses import dataclass
 
 import torch
 
 from distrl_llm_tpu_torch.ops.attention import NEG_INF
 
-#: launches of the CUDA kernel (one per ``fused_sample`` call on the GPU);
-#: CPU calls, which run the plain version, do not count
+#: launches of the CUDA kernel (one per ``fused_sample`` call on the GPU with
+#: at least one row); CPU calls, which run the plain version, do not count
 fused_sample_launches = 0
 
 _U32 = 0xFFFFFFFF
+
+# the cluster plan (``plan_sample_cluster``; layouts in csrc/fused_sample.cu)
+SMS = 132  # the H100 SXM's streaming multiprocessors
+SAMPLE_SMEM_LIMIT = 232448  # shared memory a block may use (227 KB)
+SM_SMEM = 233472  # shared memory of an SM (228 KB), 1 KB of it reserved per block
+SAMPLE_RED_BYTES = 2688  # the kernel's reduction area (kRedBytes)
+SAMPLE_BANDS = 17  # the kernel's bisection bands (kBands): a float each a thread
+MAX_QUADS = 10  # 4-column quads a thread holds (kMaxQuads)
+CLUSTER_SIZES = (1, 2, 4, 8, 16)  # 16 is Hopper's largest (non-portable) cluster
+MIN_BLOCK_COLS = 2048  # no split that leaves a block fewer columns than this
+LOOKAHEAD = 2  # the kernel's kLookahead: bisection steps a cluster barrier once lo > 0
 
 
 def top_p_filter(logits: torch.Tensor, top_p: float) -> torch.Tensor:
@@ -161,49 +176,148 @@ def _check_fused_args(logits: torch.Tensor, seeds: torch.Tensor) -> None:
         raise ValueError("logits and seeds must be contiguous")
 
 
+@dataclass(frozen=True)
+class SamplePlan:
+    """One cluster of ``cluster`` blocks per row, each of ``threads`` threads
+    holding ``cols`` columns of the row and each thread's band sums in
+    ``smem_bytes`` of dynamic shared memory; ``blocks`` in all."""
+
+    cluster: int
+    threads: int
+    cols: int
+    smem_bytes: int
+    blocks: int
+
+
+def _block(vocab: int, cluster: int) -> tuple[int, int, int]:
+    """(columns, threads, shared-memory bytes) of one block of a cluster of
+    ``cluster`` over ``vocab`` columns: whole quads, the fewest threads (a
+    multiple of 32, at least 64) that hold them at ``MAX_QUADS`` quads a
+    thread (fewer threads, fewer band sums)."""
+    cols = 4 * math.ceil(vocab / (4 * cluster))
+    threads = max(64, 32 * math.ceil(cols / (4 * MAX_QUADS * 32)))
+    return cols, threads, SAMPLE_RED_BYTES + 4 * cols + 4 * SAMPLE_BANDS * threads
+
+
+def _fits(vocab: int, cluster: int) -> bool:
+    _, threads, smem = _block(vocab, cluster)
+    return threads <= 1024 and smem <= SAMPLE_SMEM_LIMIT
+
+
+#: the largest vocabulary one cluster of 16 blocks holds: the most columns a
+#: block of t threads holds (MAX_QUADS quads a thread, within the shared
+#: memory beside its band sums), at the best t
+MAX_SAMPLE_VOCAB = CLUSTER_SIZES[-1] * max(
+    min(4 * MAX_QUADS * t, (SAMPLE_SMEM_LIMIT - SAMPLE_RED_BYTES - 4 * SAMPLE_BANDS * t) // 16 * 4)
+    for t in range(64, 1025, 32))
+
+
+@functools.lru_cache(maxsize=256)
+def plan_sample_cluster(rows: int, vocab: int, sms: int = SMS) -> SamplePlan:
+    """The launch of K1 for ``rows`` rows of ``vocab`` logits, from the
+    shapes alone. The cluster is the smallest size whose blocks hold their
+    slice of the row on chip, doubled while the grid has fewer blocks than
+    ``sms`` or a block's shared memory keeps a second one off its SM (one
+    block's arithmetic then fills the other's cluster barriers), as long as
+    each block keeps ``MIN_BLOCK_COLS`` columns: C = 1 for a small
+    vocabulary, 8 at Qwen2.5's 152,064 and 64 rows. The blocks take
+    ``cols`` columns each (``_block``; the last block the rest). Raises
+    ``ValueError`` for a vocabulary beyond ``MAX_SAMPLE_VOCAB``."""
+    if rows < 0 or vocab < 1 or sms < 1:
+        raise ValueError(f"plan_sample_cluster takes rows >= 0, vocab >= 1 and sms >= 1, got "
+                         f"rows={rows}, vocab={vocab}, sms={sms}")
+    fits = [c for c in CLUSTER_SIZES if _fits(vocab, c)]
+    if not fits:
+        raise ValueError(f"a vocabulary of {vocab} does not fit one cluster of "
+                         f"{CLUSTER_SIZES[-1]} blocks of {SAMPLE_SMEM_LIMIT} bytes of shared "
+                         f"memory (at most {MAX_SAMPLE_VOCAB})")
+    cluster = fits[0]
+    while cluster < CLUSTER_SIZES[-1] and vocab / (2 * cluster) >= MIN_BLOCK_COLS and (
+            rows * cluster < sms or 2 * (_block(vocab, cluster)[2] + 1024) > SM_SMEM):
+        cluster *= 2
+    cols, threads, smem = _block(vocab, cluster)
+    return SamplePlan(cluster, threads, cols, smem, rows * cluster)
+
+
 def _kernel_lib() -> ctypes.CDLL:
     """The built kernel library with its C signatures declared (builds at
     first use; see ops/_build.py)."""
     from distrl_llm_tpu_torch.ops import _build
 
-    lib = _build.load("fused_sample").lib
+    return _declare(_build.load("fused_sample").lib)
+
+
+def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib``'s C signatures, declared once (a build of csrc/fused_sample.cu)."""
     if lib.fused_sample_launch.argtypes is None:
         lib.fused_sample_launch.argtypes = [
             ctypes.c_void_p, ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         lib.fused_sample_launch.restype = ctypes.c_int
+        lib.fused_sample_max_active_clusters.argtypes = [
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        lib.fused_sample_max_active_clusters.restype = ctypes.c_int
         lib.fused_sample_error_string.argtypes = [ctypes.c_int]
         lib.fused_sample_error_string.restype = ctypes.c_char_p
     return lib
 
 
+def _raise_on(lib: ctypes.CDLL, err: int, what: str) -> None:
+    if err != 0:
+        msg = lib.fused_sample_error_string(err).decode()
+        raise RuntimeError(f"fused_sample {what} failed: {msg} ({err})")
+
+
+def max_active_clusters(plan: SamplePlan, device: int = 0) -> int:
+    """How many clusters of ``plan``'s shape the card holds at once
+    (``cudaOccupancyMaxActiveClusters``)."""
+    lib = _kernel_lib()
+    out = ctypes.c_int(0)
+    _raise_on(lib, lib.fused_sample_max_active_clusters(
+        plan.cluster, plan.threads, plan.cols, device, ctypes.addressof(out)),
+        "occupancy query")
+    return out.value
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
 def fused_sample(logits: torch.Tensor, temperature: float, top_p: float,
-                 seeds: torch.Tensor, *,
-                 iters: int = 16) -> tuple[torch.Tensor, torch.Tensor]:
+                 seeds: torch.Tensor, *, iters: int = 16) -> tuple[torch.Tensor, torch.Tensor]:
     """(tokens [B] int32, raw-basis logprobs [B] f32) for f32 logits [B, V]
     and int32 seeds [B]. On a CUDA tensor: one launch of the Hopper kernel
-    on the current stream, or an exception — never a fallback. On a CPU
-    tensor: the plain version."""
-    global fused_sample_launches
+    on the current stream, shaped by ``plan_sample_cluster(B, V)`` (which
+    raises for a vocabulary it cannot hold), or an exception — never a
+    fallback. On a CPU tensor: the plain version."""
     _check_fused_args(logits, seeds)
+    if iters < 0:
+        raise ValueError(f"iters must be >= 0, got {iters}")
     if logits.device.type == "cpu":
         return fused_sample_reference(logits, temperature, top_p, seeds, iters)
     if logits.device.type != "cuda":
         raise ValueError(f"fused_sample runs on cuda or cpu, got {logits.device}")
-    lib = _kernel_lib()
+    return _launch(logits, temperature, top_p, seeds, iters)
+
+
+def _launch(logits: torch.Tensor, temperature: float, top_p: float, seeds: torch.Tensor,
+            iters: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """One launch of K1 (none for B == 0); outputs from ``torch.empty``, no
+    scratch."""
+    global fused_sample_launches
     b, v = logits.shape
+    plan = plan_sample_cluster(b, v)
     tok = torch.empty((b,), dtype=torch.int32, device=logits.device)
     logp = torch.empty((b,), dtype=torch.float32, device=logits.device)
-    scratch = torch.empty_like(logits)  # the kernel's probability rows
-    stream = torch.cuda.current_stream(logits.device).cuda_stream
-    err = lib.fused_sample_launch(
+    if b == 0:
+        return tok, logp
+    lib = _kernel_lib()
+    _raise_on(lib, lib.fused_sample_launch(
         logits.data_ptr(), float(temperature), float(top_p), seeds.data_ptr(),
-        tok.data_ptr(), logp.data_ptr(), scratch.data_ptr(), b, v, iters,
-        logits.device.index or 0, stream)
-    if err != 0:
-        msg = lib.fused_sample_error_string(err).decode()
-        raise RuntimeError(f"fused_sample kernel launch failed: {msg} ({err})")
+        tok.data_ptr(), logp.data_ptr(), b, v, iters, plan.cluster, plan.threads,
+        plan.cols, logits.device.index or 0, _stream(logits.device)),
+        "kernel launch")
     fused_sample_launches += 1
     return tok, logp
 

@@ -31,3 +31,16 @@ def test_every_kernel_source_has_a_digest():
     assert sorted(_build.CSRC.glob("*.cuh"))  # the shared paged body
     digests = {n: _build.source_digest(n) for n in names}
     assert len(set(digests.values())) == len(names)
+
+
+def test_digest_follows_the_defines(tmp_path, monkeypatch):
+    """A measurement's variant (``load(name, defines)``) is a library of its
+    own: no define keeps the package's key, each define makes another."""
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    (tmp_path / "k.cu").write_text("int f() { return K; }\n")
+    plain = _build.source_digest("k")
+    assert _build.source_digest("k", ()) == plain
+    one = _build.source_digest("k", ("K=1",))
+    four = _build.source_digest("k", ("K=4",))
+    assert len({plain, one, four}) == 3
+    assert _build._flags(("K=4",))[-1] == "-DK=4"

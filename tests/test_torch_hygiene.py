@@ -117,7 +117,7 @@ def test_chip_smoke_alone_in_a_directory_fails(tmp_path):
 
 # (csrc source, wrapper module, C functions declared by its _kernel_lib)
 LAUNCHERS = (
-    ("fused_sample", "sampling", ("fused_sample_launch",)),
+    ("fused_sample", "sampling", ("fused_sample_launch", "fused_sample_max_active_clusters")),
     ("paged_attention", "paged_native", ("paged_attention_launch",)),
     ("flash_attention", "flash_attention", ("flash_attention_fwd", "flash_attention_bwd")),
     ("quant_matmul", "quant_matmul", ("quant_matmul_launch",)),
