@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (``distrl_llm_tpu_torch``).
 
-    python3 chip_smoke.py [--layers N] [--seed S] [--profile] [--until 6]
+    python3 chip_smoke.py [--layers N] [--seed S] [--profile] [--until 6|7]
 
 Needs one NVIDIA GPU (Hopper: the kernels build for ``sm_90a``) and ``nvcc``.
 Without a GPU it exits non-zero before computing anything. Phases, each
@@ -73,6 +73,30 @@ printing its own lines:
    single-token decode forwards; and one greedy speculative round over the
    weights quantized to int4 g64, K3 at M = 64 x 5 (7 launches per layer
    per model forward).
+8. trainer: the synchronous PG trainer end to end. (a) ``Trainer.train()``
+   at Qwen2.5-7B width (random bf16 weights from the seed, quantized by
+   ``quantize_base`` to int4 g64, the reference's QLoRA base) with the
+   engine ``trainer.make_engine`` builds (paged refill scheduler, 32 slots,
+   its KV pool from ``kv_pool_pages``, ``attn_impl="splash"``), a byte-level
+   BPE ``tokenizer.json`` written by the script and read by the native
+   tokenizer, 8 math prompts through the R1 template: the initial eval (4
+   prompts x 8, wave scheduler), then 2 optimizer steps of 4 prompts x 16
+   candidates x 128 new tokens, learner 8 microbatches of 8 rows, PG, rank
+   32, Adam8bit lr 2e-5, a checkpoint and an adapter file at each step.
+   Random weights solve nothing, so the accuracy reward is a hash of the
+   completion (``smoke_reward``) and the learner trains on every
+   microbatch. The counts are reset around ``train()`` and held to what the
+   path dispatched: K1 per sampler call (decode steps and admissions), K2
+   28 per decode forward, K3 7 x 28 per engine forward and twice that per
+   learner forward, K4 28 per splash prefill and 2 x 28 per learner forward
+   (backward 28); each step's generation, reward and update times and
+   their sum, ms per training step, are printed; the loss finite, the
+   adapter within Adam8bit's clip at each step, weight version 2, the
+   reference's metric names, the adapter file and the resume state equal
+   to the adapter. (b) ``Trainer.from_pretrained`` on a full-width 2-layer
+   checkpoint written by ``save_hf_checkpoint`` with that tokenizer: the
+   weights read back bit for bit, the native tokenizer, one step with
+   K1-K4 launched.
 
 Phase 3 holds K4 (forward and backward) against its plain version at the
 learner's [8, 1550, 28 / 4, 128], f32 and bf16, with its time, bound and
@@ -95,6 +119,7 @@ import argparse
 import contextlib
 import dataclasses
 import importlib
+import itertools
 import json
 import math
 import re
@@ -2632,14 +2657,470 @@ def spec_phase(cfg, args, card: str, t_start: float) -> tuple[list, dict]:
     return counted, result
 
 
+# ---------------------------------------------------------------- phase 8
+
+# the trainer's cell (ROADMAP queue 1 item 6's main path, the reference's
+# loop): 8 math problems, batch 4 x 16 candidates (64 rows, topk 16), 128 new
+# tokens (cut from 1200), 8 learner microbatches of 8 rows, a refill engine of
+# 32 slots, so the refill scheduler runs (64 candidates > 32 slots) and the
+# eval round (4 prompts x eval_n 8 = 32 rows) takes the wave scheduler
+TRAIN_PROBLEMS = PROBLEMS + (
+    ("What is 15% of 80?", "12"),
+    ("Solve for x: 3x + 5 = 20.", "5"),
+    ("How many primes are less than 20?", "8"),
+    ("What is the greatest common divisor of 48 and 18?", "6"),
+)
+TRAIN_SLOTS = 32
+TRAIN_NEW_TOKENS = 128
+# a phase's time ends on finished device work: a synchronize right after
+# the phase returns waits for nothing but its own launch (tens of us); a
+# learner microbatch or a decode step left queued would take milliseconds
+PHASE_DRAIN_MS = 1.0
+# the reference's metric names (distributed_trainer.py:348-366, :412-415)
+TRAIN_METRICS = {
+    "loss", "mean_accuracy_reward", "min_accuracy_reward", "max_accuracy_reward",
+    "mean_format_reward", "mean_token_length", "episode", "total_batch_steps",
+    "total_samples_processed", "timing/update_duration", "timing/reward_duration",
+    "timing/generation_duration",
+}
+# Qwen2's pretokenizer pattern (the cl100k-style regex of its tokenizer.json)
+QWEN2_PATTERN = (r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+|\p{N}{1,3}"
+                 r"| ?[^\s\p{L}\p{N}]+[\r\n]*|\s*[\r\n]+|\s+(?!\S)|\s+")
+
+
+def smoke_reward(completions, solutions):
+    """The reference's (N, 2) reward with its format column, and an accuracy
+    column that a random-weight model can move: such a model solves nothing,
+    so every accuracy would be 0, every PG coefficient 0 and every learner
+    microbatch skipped. Here accuracy is a hash of the completion's text in
+    [0, 1): distinct completions score apart, groups have reward variance,
+    and the learner trains on every microbatch."""
+    import zlib
+
+    from distrl_llm_tpu_torch.rewards import reward_function
+
+    r = reward_function(completions, solutions)
+    r[:, 1] = [zlib.crc32(c.encode("utf-8")) % 1000 / 1000 for c in completions]
+    return r
+
+
+def write_bpe_tokenizer(path: Path, vocab_size: int) -> Path:
+    """A byte-level BPE ``tokenizer.json`` (and a ``tokenizer_config.json``
+    without a chat template) in ``path``, written by hand, since no
+    tokenizer package is assumed: Qwen2's pretokenizer and NFC normalizer,
+    the 256 byte tokens, merges of printable byte pairs, then merges of
+    those pairs and a further byte until the vocabulary is full, and the
+    three ChatML special tokens at the top: ``vocab_size`` ids in all (up to
+    the 256 + 95**3 that printable ASCII spells), so every id a model of that
+    vocabulary samples decodes to text."""
+    # GPT-2's bytes_to_unicode: printable bytes stand for themselves, the
+    # rest map past U+0100
+    printable = (list(range(ord("!"), ord("~") + 1)) + list(range(ord("¡"), ord("¬") + 1))
+                 + list(range(ord("®"), ord("ÿ") + 1)))
+    char = {b: chr(b) for b in printable}
+    extra = 0
+    for b in range(256):
+        if b not in char:
+            char[b] = chr(256 + extra)
+            extra += 1
+    vocab = {char[b]: b for b in range(256)}
+    merges = []
+    # lowercase first: the merges that fit a small vocabulary shorten words
+    ascii_bytes = sorted(range(0x20, 0x7f), key=lambda c: (not chr(c).islower(), c))
+    pairs = [char[a] + char[b] for a in ascii_bytes for b in ascii_bytes]
+    triples = ((p, char[c]) for p in pairs for c in ascii_bytes)
+    for left, right in itertools.chain(((p[0], p[1]) for p in pairs), triples):
+        if len(vocab) >= vocab_size - 3:
+            break
+        merges.append(f"{left} {right}")
+        vocab[left + right] = len(vocab)
+    specials = ["<|endoftext|>", "<|im_start|>", "<|im_end|>"]
+    added = [{"id": len(vocab) + i, "content": t, "single_word": False, "lstrip": False,
+              "rstrip": False, "normalized": False, "special": True}
+             for i, t in enumerate(specials)]
+    tj = {
+        "version": "1.0", "truncation": None, "padding": None, "added_tokens": added,
+        "normalizer": {"type": "NFC"},
+        "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+            {"type": "Split", "pattern": {"Regex": QWEN2_PATTERN}, "behavior": "Isolated",
+             "invert": False},
+            {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": False,
+             "use_regex": False}]},
+        "post_processor": None,
+        "decoder": {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": False,
+                    "use_regex": False},
+        "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                  "continuing_subword_prefix": None, "end_of_word_suffix": None,
+                  "fuse_unk": False, "byte_fallback": False, "vocab": vocab, "merges": merges},
+    }
+    path.mkdir(parents=True, exist_ok=True)
+    (path / "tokenizer.json").write_text(json.dumps(tj, ensure_ascii=False))
+    (path / "tokenizer_config.json").write_text(json.dumps({"chat_template": None}))
+    return path
+
+
+def trainer_datasets(tokenizer):
+    """The 8 problems (train) and the first 4 (eval) through the R1 chat
+    template, as ``data.py``'s preparers template MATH-500."""
+    from distrl_llm_tpu_torch.data import R1_PREPROMPT, process_dataset
+
+    data = {"problem": [p for p, _ in TRAIN_PROBLEMS], "solution": [s for _, s in TRAIN_PROBLEMS]}
+    train = process_dataset(tokenizer, data, R1_PREPROMPT, "")
+    return train, {k: v[:4] for k, v in train.items()}
+
+
+def trainer_config(workdir: Path, **kw):
+    """The trainer's configuration for phase 8: the reference's QLoRA
+    setting (int4 g64 base, PG, rank 32, alpha 16, Adam8bit, lr 2e-5), the
+    paged refill engine with splash attention, and the cuts of the cell."""
+    from distrl_llm_tpu_torch.config import TrainConfig
+
+    base = dict(
+        model="qwen2.5-7b-random", learner="pg", max_lora_rank=32, lora_alpha=16.0,
+        lr=2e-5, optimizer_8bit=True, base_quant="int4", engine_impl="paged",
+        continuous_batching=True, max_concurrent_sequences=TRAIN_SLOTS,
+        attn_impl="splash", batch_size=4, num_candidates=16, topk=16,
+        max_prompt_tokens=350, max_new_tokens=TRAIN_NEW_TOKENS, train_batch_size=8,
+        episodes=1, eval_every=0, eval_n=8, save_every=1,
+        number_of_actors=1, number_of_learners=1, learner_chunk_size=1,
+        checkpoint_dir=str(workdir / "ckpt"), write_adapter_file=True,
+        lora_save_path=str(workdir / "adapter"), metrics_backend="null",
+        print_samples=False)
+    base.update(kw)
+    return TrainConfig(**base)
+
+
+class _StepSink:
+    """The trainer's metrics sink: keeps every record and, at each train
+    record (after that step's update), a host copy of the adapter, for the
+    per-step clip check."""
+
+    def __init__(self, trainer_cell: list):
+        self.records, self.adapters, self.trainer_cell = [], [], trainer_cell
+
+    def log(self, metrics, step):
+        self.records.append((step, dict(metrics)))
+        if "loss" in metrics:
+            self.adapters.append(_lora_host(self.trainer_cell[0].lora))
+
+    def finish(self):
+        pass
+
+
+def _lora_host(lora) -> list:
+    return [x.detach().cpu().clone() for x in _lora_leaves(lora)]
+
+
+def trainer_run(build, *, label: str = "") -> dict:
+    """``build(sink)`` makes a ``Trainer``; this runs its ``train()`` with the
+    kernels' counts reset just before and read just after, recording each
+    engine round (decode steps, decode forwards, sampler calls, resumes) and
+    the model's forward calls inside and outside the engine, so the counts
+    can be held to what the path dispatched."""
+    import torch
+
+    from distrl_llm_tpu_torch.ops import flash_attention as fa
+
+    cell = []
+    sink = _StepSink(cell)
+    trainer = build(sink)
+    cell.append(trainer)
+    model, eng = trainer.model, trainer.engine
+    forwards = [0]
+    hook = model.register_forward_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1))
+    rounds = []
+    generate, push = eng.generate, trainer._push_weights
+    dev = model.embed.device
+    cuda = dev.type == "cuda"
+    # device work still queued when a phase ends: the time a synchronize
+    # takes right after a round returns (the generation phase's end) and
+    # right after the update phase (the weight push follows it at once)
+    pending = {"generation": [], "update": []}
+
+    def drained(phase: str) -> None:
+        if cuda:
+            t = time.perf_counter()
+            torch.cuda.synchronize(dev)
+            pending[phase].append(1e3 * (time.perf_counter() - t))
+
+    def pushed():
+        drained("update")
+        push()
+
+    def recorded(*a, **kw):
+        f0 = forwards[0]
+        res = generate(*a, **kw)
+        drained("generation")
+        st, pool = eng.last_round_stats, eng.last_pool_stats or {}
+        rounds.append({"steps": res.steps_dispatched, "forwards": st["decode_forwards"],
+                       "sampler_calls": st.get("sampler_calls", res.steps_dispatched),
+                       "resumes": pool.get("resumes", 0), "refill": bool(pool),
+                       "model_forwards": forwards[0] - f0})
+        return res
+
+    eng.generate, trainer._push_weights = recorded, pushed
+    initial = _lora_host(trainer.lora)
+    if cuda:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    k4_plain, k3_plain = [0], [0]
+    try:
+        with (counting_plain_calls(fa, "flash_attention_reference", k4_plain),
+              counting_plain_calls(_qmm(), "quant_matmul_reference", k3_plain)):
+            reset_counts()
+            t = time.perf_counter()
+            trainer.train()
+            wall = time.perf_counter() - t
+            counts = read_counts()
+    finally:
+        hook.remove()
+        eng.generate, trainer._push_weights = generate, push
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30 if cuda else float("nan")
+    engine_forwards = sum(r["model_forwards"] for r in rounds)
+    return {"trainer": trainer, "records": sink.records, "adapters": [initial] + sink.adapters,
+            "rounds": rounds, "counts": counts, "wall_s": wall, "peak_gib": peak,
+            "learner_forwards": forwards[0] - engine_forwards, "engine_forwards": engine_forwards,
+            "k4_plain": k4_plain[0], "k3_plain": k3_plain[0], "label": label,
+            "pending_ms": pending}
+
+
+def check_trainer_run(out: dict, layers: int, *, steps: int, lr: float, cuda: bool) -> None:
+    """The trainer's run did what phase 8's cell asks: ``steps`` finite
+    losses, weight version and rollout-resident version ``steps``, every
+    adapter element within Adam8bit's clip at every step (and moved), the
+    reference's metric names, and on the card every kernel launched as often
+    as the path dispatched it: K1 once per sampler call (decode steps and
+    refill admissions), K2 once per layer per decode forward, K3 7 times per
+    layer per engine forward and twice that per learner forward (forward and
+    remat recompute), K4 forward once per layer per prefill (splash) and
+    twice per layer per learner forward, backward once; no plain version."""
+    tr, label = out["trainer"], out["label"]
+    train = [m for _, m in out["records"] if "loss" in m]
+    evals = [m for _, m in out["records"] if any(k.startswith("eval/") for k in m)]
+    check(len(train) == steps, f"{label}: {len(train)} train records, want {steps}")
+    for m in train:
+        check(math.isfinite(m["loss"]), f"{label}: loss {m['loss']}")
+        check(TRAIN_METRICS <= set(m), f"{label}: train record lacks {TRAIN_METRICS - set(m)}")
+    n = tr.config.eval_n
+    want_eval = {f"eval/pass@1(mean{n})", f"eval/BoN({n})", "eval/mean_token_length",
+                 "timing/eval_duration"}
+    check(evals and all(set(m) == want_eval for m in evals),
+          f"{label}: eval records {[sorted(m) for m in evals]}, want {sorted(want_eval)}")
+    check(tr.weight_version == steps and tr._rollout_weight_version == steps,
+          f"{label}: weight version {tr.weight_version}, rollout-resident "
+          f"{tr._rollout_weight_version}, want {steps}")
+    for i in range(1, len(out["adapters"])):
+        before, after = out["adapters"][i - 1], out["adapters"][i]
+        d = [(a - b).abs() for a, b in zip(after, before)]
+        # Adam8bit's clip: |step| <= 5 lr, plus the rounding of p + step
+        within = all(bool((x <= 5 * lr * (1 + 1e-6) + b.abs() * 2.0**-23).all())
+                     for x, b in zip(d, before))
+        check(within, f"{label} step {i}: an adapter element moved beyond Adam8bit's "
+              f"clip 5 lr = {5 * lr:.3g}")
+        check(any(bool((x > 0).any()) for x in d), f"{label} step {i}: the adapter did not move")
+    if not cuda:
+        return
+    c, rounds = out["counts"], out["rounds"]
+    decode_fwd = sum(r["forwards"] for r in rounds)
+    prefills = sum(r["model_forwards"] - r["forwards"] - r["resumes"] for r in rounds)
+    learner = out["learner_forwards"]
+    want = {
+        "fused_sample": sum(r["sampler_calls"] for r in rounds),
+        "paged_attention": layers * decode_fwd,
+        "quant_matmul": 7 * layers * (out["engine_forwards"] + 2 * learner),
+        "flash_attention_fwd": layers * (prefills + 2 * learner),
+        "flash_attention_bwd": layers * learner,
+        "paged_verify": 0,
+    }
+    check(c == want, f"{label}: launches {c}, want {want} ({decode_fwd} decode forwards, "
+          f"{prefills} prefills, {out['engine_forwards']} engine and {learner} learner forwards)")
+    check(learner == steps * tr.config.batch_size * tr.config.num_candidates
+          // tr.config.train_batch_size,
+          f"{label}: {learner} learner forwards, want every microbatch of every step")
+    check(out["k4_plain"] == out["k3_plain"] == 0, f"{label}: a plain version ran on the "
+          f"trainer's path (K4 {out['k4_plain']}, K3 {out['k3_plain']} times)")
+    for phase, ms in out["pending_ms"].items():
+        check(ms and max(ms) <= PHASE_DRAIN_MS, f"{label}: {phase} left device work queued "
+              f"(a synchronize after it took {max(ms or [0]):.3f} ms > {PHASE_DRAIN_MS} ms)")
+
+
+def trainer_step_lines(out: dict, card: str) -> list:
+    """Per step: the phases' times and their sum, ms per training step."""
+    lines = []
+    for m in (m for _, m in out["records"] if "loss" in m):
+        g, r, u = (1e3 * m[f"timing/{k}_duration"] for k in ("generation", "reward", "update"))
+        lines.append(
+            f"trainer {out['label']} step {m['total_batch_steps']}: generation {g:.1f} ms, "
+            f"reward {r:.1f} ms, update {u:.1f} ms; {g + r + u:.1f} ms per training step; loss "
+            f"{m['loss']:.6g}, mean accuracy (hash) {m['mean_accuracy_reward']:.4f}, mean "
+            f"token length {m['mean_token_length']:.1f}, engine/decode_tok_s "
+            f"{m.get('engine/decode_tok_s', float('nan')):.1f}, pool/pages "
+            f"{m.get('pool/pages')}, pool/peak_pages_used {m.get('pool/peak_pages_used')}, "
+            f"pool/preemptions {m.get('pool/preemptions')}; {card}")
+    return lines
+
+
+def trainer_smoke(cfg, device, *, seed: int, workdir: Path, tokenizer_dir: Path,
+                  group=QMM_GROUP, hbm_bytes=None, config_kw=None) -> dict:
+    """Phase 8a: whole training steps through ``Trainer.train()``: random
+    weights from ``seed`` (bf16 on the card, f32 on the CPU) quantized to
+    int4 by ``quantize_base``, the native BPE tokenizer from
+    ``tokenizer_dir``, the engine ``trainer.make_engine`` builds (its KV
+    pool from ``kv_pool_pages``), 2 optimizer steps in 1 episode after the
+    initial eval, a checkpoint and an adapter file at every step."""
+    import torch
+
+    from distrl_llm_tpu_torch.checkpoint import CheckpointManager, load_adapter_file
+    from distrl_llm_tpu_torch.ops.quant import quantize_base
+    from distrl_llm_tpu_torch.tokenizer import load_tokenizer
+    from distrl_llm_tpu_torch.trainer import Trainer, make_engine
+
+    tok = load_tokenizer(str(tokenizer_dir))
+    config = trainer_config(workdir, seed=seed, quant_group_size=group, **(config_kw or {}))
+    model, _ = make_weights(cfg, device, seed=seed)
+    quantize_base(model, config.base_quant, config.quant_group_size)
+    if model.embed.device.type == "cuda":
+        torch.cuda.empty_cache()
+    engine = make_engine(config, model, tok, hbm_bytes=hbm_bytes)
+    train, test = trainer_datasets(tok)
+    out = trainer_run(lambda sink: Trainer(train, test, smoke_reward, config, tokenizer=tok,
+                                           engine=engine, model=model, sink=sink),
+                      label="qlora")
+    tr = out["trainer"]
+    saved = load_adapter_file(config.lora_save_path, tr.lora)
+    out["adapter_equal"] = all(torch.equal(saved["layers"][t][k], tr.lora["layers"][t][k])
+                               for t in tr.lora["layers"] for k in ("a", "b"))
+    restored = CheckpointManager(config.checkpoint_dir).restore()
+    out["resume_state"] = (restored["step"], all(
+        torch.equal(restored["lora"]["layers"][t][k], tr.lora["layers"][t][k].cpu())
+        for t in tr.lora["layers"] for k in ("a", "b")))
+    out["kv_pages"] = engine.max_kv_pages
+    out["pool_pages"] = engine.last_pool_stats["pool_pages"]
+    out["config"] = config
+    return out
+
+
+def from_pretrained_smoke(cfg, device, *, seed: int, workdir: Path, tokenizer_dir: Path,
+                          group=QMM_GROUP, hbm_bytes=None, config_kw=None) -> dict:
+    """Phase 8b: ``Trainer.from_pretrained`` on a checkpoint written by the
+    port's ``save_hf_checkpoint`` (random weights from ``seed``, a Qwen2
+    ``config.json``) with the tokenizer files of ``tokenizer_dir``: the
+    weights ``load_pretrained`` reads back must equal the written ones bit
+    for bit, the tokenizer must be the native one, and one training step
+    runs over the int4 base."""
+    import shutil
+
+    import torch
+
+    from distrl_llm_tpu_torch.models.loading import load_pretrained, save_hf_checkpoint
+    from distrl_llm_tpu_torch.tokenizer import load_tokenizer
+    from distrl_llm_tpu_torch.trainer import Trainer
+
+    ckpt = workdir / "hf"
+    model, _ = make_weights(cfg, device, seed=seed)
+    t = time.perf_counter()
+    save_hf_checkpoint(model, str(ckpt))
+    for name in ("tokenizer.json", "tokenizer_config.json"):
+        shutil.copy(tokenizer_dir / name, ckpt / name)
+    written = time.perf_counter() - t
+    nbytes = sum(f.stat().st_size for f in ckpt.iterdir())
+    t = time.perf_counter()
+    loaded, loaded_cfg = load_pretrained(str(ckpt), dtype=model.embed.dtype, device=device)
+    read = time.perf_counter() - t
+    want = dict(model.named_parameters())
+    got = dict(loaded.named_parameters())
+    equal = loaded_cfg == cfg and set(want) == set(got) and all(
+        torch.equal(want[k], got[k]) for k in want)
+    dtype = str(model.embed.dtype).removeprefix("torch.")
+    del model, loaded, want, got
+    if str(device).startswith("cuda"):
+        torch.cuda.empty_cache()
+    config = trainer_config(workdir / "fp", seed=seed, quant_group_size=group, dtype=dtype,
+                            **(config_kw or {}))
+
+    def build(sink):
+        # as the CLI does: the tokenizer first (the dataset's chat template)
+        tok = load_tokenizer(str(ckpt))
+        train, test = trainer_datasets(tok)
+        train = {k: v[:config.batch_size] for k, v in train.items()}  # one batch: one step
+        return Trainer.from_pretrained(train, test, smoke_reward, config,
+                                       checkpoint_path=str(ckpt), tokenizer=tok, sink=sink,
+                                       device=device, hbm_bytes=hbm_bytes)
+
+    out = trainer_run(build, label="from_pretrained")
+    out.update({"equal": equal, "bytes": nbytes, "write_s": written, "read_s": read,
+                "tokenizer": type(out["trainer"].tokenizer).__name__})
+    return out
+
+
+def trainer_phase(cfg, args, card: str, t_start: float) -> list:
+    """Phase 8 on the card (see the module's docstring). Returns the launch
+    counts of its two trainer runs."""
+    import tempfile
+
+    import torch
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trainer_") as tmp:
+        work = Path(tmp)
+        tok_dir = write_bpe_tokenizer(work / "tokenizer", cfg.vocab_size)
+        a = trainer_smoke(cfg, "cuda", seed=args.seed, workdir=work / "a", tokenizer_dir=tok_dir)
+        check_trainer_run(a, cfg.num_layers, steps=2, lr=a["config"].lr, cuda=True)
+        check(a["adapter_equal"], "trainer: the saved adapter file does not read back equal "
+              "to trainer.lora")
+        check(a["resume_state"] == (2, True), f"trainer: the latest resume state is step "
+              f"{a['resume_state'][0]} / adapter equal {a['resume_state'][1]}, want (2, True)")
+        rounds = a["rounds"]
+        print(f"trainer qlora: Trainer.train() at {cfg.num_layers} layers over the int4 "
+              f"g{QMM_GROUP} base, paged refill engine ({TRAIN_SLOTS} slots, KV pool "
+              f"budget of {a['kv_pages']} pages of 128 tokens from kv_pool_pages under "
+              f"learner_gpu_usage {a['config'].learner_gpu_usage}, of which the refill "
+              f"round built {a['pool_pages']}), 4 prompts x 16 x "
+              f"{TRAIN_NEW_TOKENS} new tokens, learner 8 microbatches of 8 x "
+              f"{a['config'].max_seq_length}: {len(rounds)} engine rounds "
+              f"({', '.join(('refill' if r['refill'] else 'waves') + ' ' + str(r['steps']) + ' steps' for r in rounds)}); "
+              f"{a['learner_forwards']} learner forwards; a synchronize after each phase "
+              f"waited at most {max(a['pending_ms']['generation']):.3f} ms (generation) and "
+              f"{max(a['pending_ms']['update']):.3f} ms (update); train() {a['wall_s']:.1f} s; peak "
+              f"device memory {a['peak_gib']:.2f} GiB; launches {a['counts']}; {card}")
+        for line in trainer_step_lines(a, card):
+            print(line)
+        ev = next(m for _, m in a["records"] if "timing/eval_duration" in m)
+        print(f"trainer qlora: initial eval (4 prompts x eval_n 8) "
+              f"{1e3 * ev['timing/eval_duration']:.1f} ms; {card}")
+        counted = [a["counts"]]
+        del a
+        torch.cuda.empty_cache()
+        b = from_pretrained_smoke(dataclasses.replace(cfg, num_layers=2), "cuda", seed=args.seed,
+                                  workdir=work / "b", tokenizer_dir=tok_dir)
+        check(b["equal"], "from_pretrained: the weights read back differ from the written ones")
+        check(b["tokenizer"] == "NativeBPETokenizer", f"from_pretrained: tokenizer "
+              f"{b['tokenizer']}, want the native BPE")
+        check_trainer_run(b, 2, steps=1, lr=b["trainer"].config.lr, cuda=True)
+        check(all(b["counts"][k] > 0 for k in ("fused_sample", "paged_attention", "quant_matmul",
+                                               "flash_attention_fwd", "flash_attention_bwd")),
+              f"from_pretrained: a kernel of K1-K4 was not launched: {b['counts']}")
+        print(f"trainer from_pretrained: a {b['bytes'] / 1e9:.3f} GB checkpoint at full width, "
+              f"2 layers, written by save_hf_checkpoint in {b['write_s']:.1f} s and read back "
+              f"bit for bit in {b['read_s']:.1f} s; {b['tokenizer']}; one step: train() "
+              f"{b['wall_s']:.1f} s, peak device memory {b['peak_gib']:.2f} GiB; launches "
+              f"{b['counts']}; total {time.perf_counter() - t_start:.1f} s; {card}")
+        for line in trainer_step_lines(b, card):
+            print(line)
+        counted.append(b["counts"])
+        del b
+        torch.cuda.empty_cache()
+    return counted
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=28,
                     help="decoder depth of the Qwen2.5-7B-wide model (28 = full)")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--until", type=int, default=7, choices=(6, 7),
+    ap.add_argument("--until", type=int, default=8, choices=(6, 7, 8),
                     help="the last phase to run; 6 skips speculative decoding "
-                         "(with --profile, the long part) and prints no result line")
+                         "(with --profile, the long part), 7 the trainer; a "
+                         "partial run prints no result line")
     ap.add_argument("--profile", action="store_true",
                     help="also print the device time per decode step and per "
                          "learner step by kernel (torch.profiler) and the "
@@ -2902,6 +3383,15 @@ def main(argv=None) -> int:
     # plain, bf16 and int8 pages, and f32 verify-vs-decode logits
     spec_counts, results["paged_verify"] = spec_phase(cfg, args, card, t_start)
     counted += spec_counts
+    if args.until < 8:
+        print(f"chip_smoke: phases 1-{args.until} done in {time.perf_counter() - t_start:.1f} s "
+              f"(a partial run prints no result line); {card}")
+        return 0
+
+    # 8. the trainer: whole training steps through Trainer.train() over the
+    # int4 base at full width, then Trainer.from_pretrained on a checkpoint
+    # written by save_hf_checkpoint, each with the counts reset around it
+    counted += trainer_phase(cfg, args, card, t_start)
     print(f"chip_smoke: done in {time.perf_counter() - t_start:.1f} s; {card}")
 
     kernels = []

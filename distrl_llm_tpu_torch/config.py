@@ -1,14 +1,30 @@
-"""Sampling configuration for a generation round (the part of the JAX
-package's ``config.py`` the rollout path reads)."""
+"""Typed configuration: sampling parameters and the trainer's config.
+
+The part of the JAX package's ``config.py`` the synchronous trainer reads:
+``SamplingConfig``, ``parse_buckets`` and ``TrainConfig`` with the fields
+of the reference CLI contract and the knobs of the ported paths (dtype and
+base quantization, the engines, the learner, checkpointing, metrics). Field
+names, defaults and validation rules are the JAX package's. A value that
+only an unported path accepts raises ``NotImplementedError`` naming its
+ROADMAP item. The flags of planes that are not ported (observability,
+control, lineage, gateway, remote workers, autotune, meshes) are not fields
+here.
+"""
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from typing import Any
 
 #: every top-p filter name the JAX package knows (ops/sampling.py TOP_P_IMPLS);
 #: the port implements "exact" and "bisect" — ops.sampling raises on the rest
 TOP_P_IMPL_NAMES = ("exact", "bisect", "bisect_mw")
+
+_ASYNC_ITEM = "ROADMAP queue 1 item 8: pipelined and async rollout, multi-turn envs"
+_MULTI_GPU_ITEM = "ROADMAP queue 1 item 10: multi-GPU"
+# the JAX package's env registry (env/__init__.py env_names)
+_ENV_NAMES = ("math", "code", "verifier")
 
 
 @dataclass
@@ -42,3 +58,283 @@ class SamplingConfig:
 
     def replace(self, **kw) -> "SamplingConfig":
         return dataclasses.replace(self, **kw)
+
+
+def parse_buckets(spec: str | None, field: str = "prompt_buckets") -> tuple[int, ...]:
+    """Parse a comma-separated bucket list ("128,256") into a tuple; ``field``
+    names the flag in the error message."""
+    if not spec:
+        return ()
+    try:
+        return tuple(int(x) for x in str(spec).split(",") if x.strip())
+    except ValueError as e:
+        raise ValueError(
+            f"{field} must be comma-separated integers, got {spec!r}"
+        ) from e
+
+
+@dataclass
+class TrainConfig:
+    """Training configuration. Field names and defaults follow the reference
+    CLI (train_distributed.py:10-35) and the JAX package."""
+
+    # --- reference CLI contract -------------------------------------------
+    model: str = "Qwen/Qwen2.5-7B-Instruct"
+    dataset: str = "HuggingFaceH4/MATH-500"
+    run_name: str | None = None
+    project_name: str = "math-reasoning"
+    lora_save_path: str = "lora_request_math"
+    lr: float = 2e-5
+    max_new_tokens: int = 1200
+    max_prompt_tokens: int = 350
+    temperature: float = 1.2
+    episodes: int = 15
+    num_candidates: int = 16
+    batch_size: int = 30
+    learner_chunk_size: int = 8
+    train_batch_size: int = 8
+    save_every: int = 100
+    eval_every: int = 10
+    number_of_actors: int = 2
+    number_of_learners: int = 1
+    learner: str = "pg"  # {"pg", "grpo"}
+    max_lora_rank: int = 32
+    lora_alpha: float = 16.0
+    lora_dropout: float = 0.0
+    topk: int = 16
+    # device-memory fraction for weights + KV (vLLM gpu_memory_utilization):
+    # sizes the paged engine's KV page pool (engine/budget.py); the learner
+    # fraction applies when the engine and the learner share the card
+    actor_gpu_usage: float = 0.91
+    learner_gpu_usage: float = 0.35
+
+    # --- the ported paths' knobs --------------------------------------------
+    seed: int = 3407  # the reference's random_state (helper.py:43)
+    dtype: str = "bfloat16"
+    # weight-only quantization of the frozen base: {"none","int8","int4"}
+    # (the reference's 4-bit base is LOAD_IN_4BIT)
+    base_quant: str = "none"
+    # group size along the input dim for base_quant; None = per-format
+    # default (int8 per column, int4 64)
+    quant_group_size: int | None = None
+    # 8-bit blockwise Adam state (the reference's bnb.optim.Adam8bit)
+    optimizer_8bit: bool = True
+    # skip microbatches whose coefficients are all zero (the reference's
+    # intent); False = skip when any is zero (its `.all() == 0` bug)
+    skip_all_zero_reward_batches: bool = True
+    eval_temperature: float = 0.6
+    eval_top_p: float = 0.95
+    eval_n: int = 8
+    # exact sort-based nucleus filter instead of the bisection filter
+    top_p_exact: bool = False
+    # learner logprobs: lm_head + logsumexp per chunk of this many answer
+    # positions (0 = dense)
+    logprob_chunk: int = 128
+    # full-rank fine-tuning (BASELINE config 3): not ported (item 10)
+    full_finetune: bool = False
+    # prompt length buckets for the rollout engine; empty = one bucket
+    prompt_buckets: tuple[int, ...] = ()
+    # answer / prompt length buckets for the learner's update batch
+    learner_len_buckets: tuple[int, ...] = ()
+    learner_prompt_buckets: tuple[int, ...] = ()
+    # rollout engine: "dense" or "paged" ("paged_sharded": item 10)
+    engine_impl: str = "dense"
+    # KV cache format: None or "none" (the cache dtype) or "int8"
+    kv_cache_quant: str | None = None
+    # decode steps per dispatch; the port's engines take 0 or 1 (more is
+    # CUDA graphs over the decode step, not ported)
+    decode_scan_chunk: int | None = None
+    # cap on concurrent candidate rows (vLLM max_num_seqs); 0 = unlimited
+    max_concurrent_sequences: int = 0
+    # the paged engine's refill scheduler (continuous batching)
+    continuous_batching: bool = False
+    # n-gram speculative decoding on the refill scheduler
+    spec_draft: int | None = None
+    spec_ngram: int | None = None
+    # PPO-clip epsilon (0 = the reference's objective); > 0 trains on the
+    # engine's tokens against its captured behavior logprobs
+    clip_ratio: float = 0.0
+    # KL(pi || pi_ref) coefficient, pi_ref the frozen base
+    kl_coeff: float = 0.0
+    # "sync" only ("pipelined", "async": item 8)
+    rollout_mode: str = "sync"
+    # per-update sample dump (distributed_trainer.py:297-299)
+    print_samples: bool = True
+    # HF-format merged-model snapshots at run_dir/model_{step}; needs
+    # run_name and an unquantized base
+    export_hf_snapshots: bool = False
+    checkpoint_dir: str | None = None
+    resume: bool = False
+    metrics_backend: str = "auto"  # {"auto","wandb","jsonl","null"}
+    # attention for the learner and the prefill: "reference", "flash",
+    # "splash" (kernel K4 on the GPU); "ring"/"ulysses": item 10
+    attn_impl: str = "reference"
+    write_adapter_file: bool = False  # the reference's per-step adapter file
+    # hang detector on generation rounds, seconds (0 = off; the reference's
+    # ray.get(timeout=240))
+    generation_timeout_s: float = 0.0
+    # rollout environment: "math" only ("code", "verifier": item 8)
+    env: str = "math"
+    # format-reward gate: "soft" (the reference's) or "strict"
+    format_reward: str = "soft"
+
+    def __post_init__(self):
+        if self.learner not in ("pg", "grpo"):
+            raise ValueError(f"learner must be 'pg' or 'grpo', got {self.learner!r}")
+        if self.rollout_mode not in ("sync", "pipelined", "async"):
+            raise ValueError(
+                f"rollout_mode must be sync/pipelined/async, got {self.rollout_mode!r}")
+        if self.rollout_mode != "sync":
+            raise NotImplementedError(
+                f"rollout_mode={self.rollout_mode!r} is not ported ({_ASYNC_ITEM})")
+        if self.base_quant not in ("none", "int8", "int4"):
+            raise ValueError(f"base_quant must be none/int8/int4, got {self.base_quant!r}")
+        if self.engine_impl not in ("dense", "paged", "paged_sharded"):
+            raise ValueError(
+                f"engine_impl must be dense/paged/paged_sharded, got {self.engine_impl!r}")
+        if self.engine_impl == "paged_sharded":
+            raise NotImplementedError(
+                f"engine_impl='paged_sharded' is not ported ({_MULTI_GPU_ITEM})")
+        if self.kv_cache_quant not in (None, "none", "int8"):
+            raise ValueError(
+                f"kv_cache_quant must be none/int8 (or unset), got {self.kv_cache_quant!r}")
+        if self.quant_group_size is not None and self.quant_group_size < 1:
+            raise ValueError(f"quant_group_size must be >= 1, got {self.quant_group_size}")
+        if self.quant_group_size is not None and self.base_quant == "none":
+            raise ValueError(
+                "quant_group_size configures base_quant's groupwise scales "
+                "— set base_quant int8/int4 (it would be silently ignored)")
+        if self.full_finetune and self.base_quant != "none":
+            raise ValueError(
+                "full_finetune trains the base weights — they cannot be "
+                "quantized (base_quant must be 'none')")
+        if self.full_finetune and self.write_adapter_file:
+            raise ValueError(
+                "full_finetune has no LoRA adapter to export; use "
+                "export_hf_snapshots for full-model artifacts")
+        if self.full_finetune and self.lora_dropout:
+            raise ValueError(
+                "full_finetune has no adapter for lora_dropout to act on — "
+                "set lora_dropout=0")
+        if self.full_finetune and self.kl_coeff:
+            raise ValueError(
+                "kl_coeff uses the frozen base as the reference policy — "
+                "full_finetune has no frozen base (keep a LoRA run, or 0)")
+        if self.full_finetune:
+            # f32 master weights (30.5 GB at 7B) + f32 grads (30.5) + 8-bit
+            # moments (~15) + the bf16 rollout copy (15) exceed one 80 GB card
+            raise NotImplementedError(
+                f"full_finetune is not ported ({_MULTI_GPU_ITEM}: at 7B its "
+                "master weights, grads, moments and rollout copy exceed one card)")
+        if self.decode_scan_chunk is not None and self.decode_scan_chunk < 0:
+            raise ValueError(f"decode_scan_chunk must be >= 0, got {self.decode_scan_chunk}")
+        if self.env not in _ENV_NAMES:
+            raise ValueError(f"env must be one of {', '.join(_ENV_NAMES)}, got {self.env!r}")
+        if self.format_reward not in ("soft", "strict"):
+            raise ValueError(
+                f"format_reward must be 'soft' or 'strict', got {self.format_reward!r}")
+        if self.env != "math":
+            raise NotImplementedError(f"env={self.env!r} is not ported ({_ASYNC_ITEM})")
+        if self.continuous_batching and (
+            self.engine_impl != "paged" or not self.max_concurrent_sequences
+        ):
+            raise ValueError(
+                "continuous_batching requires engine_impl='paged' and a "
+                "max_concurrent_sequences cap (the decode slot count)")
+        if self.spec_draft and not self.continuous_batching:
+            raise ValueError(
+                "spec_draft (speculative decoding) requires "
+                "continuous_batching (the refill scheduler hosts it)")
+        if self.spec_draft is not None and not 0 <= self.spec_draft <= 16:
+            raise ValueError(f"spec_draft must be in [0, 16], got {self.spec_draft}")
+        if self.spec_ngram is not None and self.spec_ngram < 1:
+            raise ValueError(f"spec_ngram must be >= 1, got {self.spec_ngram}")
+        if not self.continuous_batching and self.spec_ngram is not None:
+            raise ValueError(
+                "spec_ngram configures speculative decoding, which requires "
+                "continuous_batching (the refill scheduler hosts it) — it "
+                "would be silently ignored")
+        if self.spec_draft == 0 and self.spec_ngram is not None:
+            raise ValueError(
+                "spec_ngram with spec_draft=0: an explicit 0 pins speculation "
+                "off, so it would be silently ignored")
+        if self.batch_size <= 0:
+            raise ValueError("batch_size must be positive")
+        if any(b <= 0 or b > self.max_new_tokens for b in self.learner_len_buckets):
+            raise ValueError(
+                f"learner_len_buckets must be in (0, max_new_tokens="
+                f"{self.max_new_tokens}], got {self.learner_len_buckets}")
+        if any(b <= 0 or b > self.max_prompt_tokens for b in self.learner_prompt_buckets):
+            raise ValueError(
+                f"learner_prompt_buckets must be in (0, max_prompt_tokens="
+                f"{self.max_prompt_tokens}], got {self.learner_prompt_buckets}")
+        if self.number_of_learners <= 0:
+            raise ValueError("need at least one learner")
+        if self.number_of_actors < 0:
+            raise ValueError("number_of_actors must be >= 0")
+
+    @property
+    def max_seq_length(self) -> int:
+        # reference: max_seq_length = prompt + new tokens (distributed_actor.py:25)
+        return self.max_prompt_tokens + self.max_new_tokens
+
+    @property
+    def allowed_weight_lag(self) -> int:
+        """Optimizer steps the rollout-resident adapter may lag the learner:
+        0 under the synchronous loop, the one mode ported."""
+        return 0
+
+    @property
+    def run_directory(self) -> str:
+        return f"run_{self.run_name}"
+
+    def train_sampling(self) -> SamplingConfig:
+        return SamplingConfig(
+            max_tokens=self.max_new_tokens,
+            temperature=self.temperature,
+            top_p=0.95,  # the reference hardcodes top_p=0.95 (distributed_actor.py:47)
+            n=self.num_candidates,
+            top_p_exact=self.top_p_exact,
+        )
+
+    def eval_sampling(self) -> SamplingConfig:
+        # reference eval params at distributed_trainer.py:53-58
+        return SamplingConfig(
+            max_tokens=self.max_new_tokens,
+            temperature=self.eval_temperature,
+            top_p=self.eval_top_p,
+            n=self.eval_n,
+            top_p_exact=self.top_p_exact,
+        )
+
+    def to_flat_dict(self) -> dict[str, Any]:
+        """The reference-shaped flat config dict (train_distributed.py:54-81),
+        logged as the wandb config."""
+        return {
+            "run_name": self.run_name,
+            "project_name": self.project_name,
+            "lora_save_path": self.lora_save_path,
+            "lr": self.lr,
+            "max_prompt_tokens": self.max_prompt_tokens,
+            "max_new_tokens": self.max_new_tokens,
+            "episodes": self.episodes,
+            "num_candidates": self.num_candidates,
+            "batch_size": self.batch_size,
+            "train_batch_size": self.train_batch_size,
+            "temperature": self.temperature,
+            "save_every": self.save_every,
+            "eval_every": self.eval_every,
+            "model": self.model,
+            "dataset": self.dataset,
+            "number_of_actors": self.number_of_actors,
+            "number_of_learners": self.number_of_learners,
+            "learner": self.learner,
+            "use_vllm": False,
+            "max_lora_rank": self.max_lora_rank,
+            "topk": self.topk,
+            "learner_chunk_size": self.learner_chunk_size,
+            "actor_gpu_usage": self.actor_gpu_usage,
+            "learner_gpu_usage": self.learner_gpu_usage,
+            "lora_alpha": self.lora_alpha,
+            "lora_dropout": self.lora_dropout,
+        }

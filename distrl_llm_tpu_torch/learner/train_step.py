@@ -48,8 +48,10 @@ _RATIO_BOUNDS: tuple[float, ...] = (
 )
 _GRAD_DEPTH_BUCKETS = 4  # LoRA grad-norm depth groups (a0..a3 / b0..b3)
 
-_MULTI_GPU_ITEM = "ROADMAP: queue 1, multi-GPU"
-_FULL_ITEM = "ROADMAP: queue 1, sync trainer (full fine-tuning)"
+_MULTI_GPU_ITEM = "ROADMAP queue 1 item 10: multi-GPU"
+# at 7B, f32 master weights and grads (2 x 30.5 GB), 8-bit moments (~15 GB)
+# and the bf16 rollout copy (15 GB) exceed one 80 GB card
+_FULL_ITEM = "ROADMAP queue 1 item 10: multi-GPU (full fine-tuning does not fit one card)"
 
 
 class UpdateBatch(NamedTuple):

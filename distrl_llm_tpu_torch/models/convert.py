@@ -2,7 +2,8 @@
 
 ``params_from_numpy`` takes a param tree with the JAX package's
 ``init_params`` keys (``embed``, ``final_norm``, optional ``lm_head``, and
-``layers`` of stacked ``[L, ...]`` arrays) as nested dicts of numpy arrays and
+``layers`` of stacked ``[L, ...]`` arrays) as nested dicts of numpy arrays
+(or of CPU tensors, as ``models/loading.py`` reads a bf16 checkpoint) and
 returns the port's ``Decoder``. A projection may be a quantized container
 (the QLoRA base): ``{"q": int8 [L, G, g, N], "scale": f32 [L, G, 1, N]}``
 for int8, ``{"q4": int8 [L, G, g/2, N], "scale"}`` for int4 (the JAX
@@ -29,13 +30,18 @@ from distrl_llm_tpu_torch.utils.device import resolve_device
 Tree = Mapping[str, Any]
 
 
-def _copy(dst: torch.Tensor, src: np.ndarray, name: str) -> None:
-    src = np.require(src, requirements=["C", "W"])  # copies only if needed
+def _copy(dst: torch.Tensor, src, name: str) -> None:
     if tuple(src.shape) != tuple(dst.shape):
         raise ValueError(
             f"{name}: shape {tuple(src.shape)} does not match the config's "
             f"{tuple(dst.shape)}")
-    dst.copy_(torch.from_numpy(src))
+    if not torch.is_tensor(src):
+        src = torch.from_numpy(np.require(src, requirements=["C", "W"]))  # copies only if needed
+    dst.copy_(src)
+
+
+def _is_int8(x) -> bool:
+    return x.dtype == (torch.int8 if torch.is_tensor(x) else np.int8)
 
 
 def _tree_quant(layers: Tree, cfg: ModelConfig) -> tuple[int, int | None] | None:
@@ -91,15 +97,16 @@ def params_from_numpy(tree: Tree, cfg: ModelConfig,
             leaves = {f"{name}_{key}": arr for key, arr in layers[name].items()}
             if set(leaves) - {f"{name}_q", f"{name}_q4", f"{name}_scale"}:
                 raise ValueError(f"layers.{name}: container keys {sorted(layers[name])}")
-        for attr, arr in leaves.items():
-            stacked = np.asarray(arr)
+        for attr, stacked in leaves.items():
+            if not torch.is_tensor(stacked):
+                stacked = np.asarray(stacked)
             if stacked.shape[0] != cfg.num_layers:
                 raise ValueError(
                     f"layers.{attr}: leading axis {stacked.shape[0]} != "
                     f"num_layers {cfg.num_layers}")
             for i, layer in enumerate(model.layers):
                 dst = getattr(layer, attr)
-                if dst.dtype == torch.int8 and stacked.dtype != np.int8:
+                if dst.dtype == torch.int8 and not _is_int8(stacked):
                     raise ValueError(f"layers.{attr}: payload {stacked.dtype}, want int8 "
                                      "(int4 goes as the nibble-packed q4)")
                 _copy(dst, stacked[i], f"layers.{attr}[{i}]")
@@ -134,6 +141,9 @@ def lora_from_numpy(tree: Tree, cfg: ModelConfig,
 
 def lora_to_numpy(lora: dict) -> dict:
     """The port's adapter dict → a JAX-layout numpy tree (f32 copies on the
-    host), the inverse of ``lora_from_numpy``."""
-    return {"layers": {t: {k: x.detach().float().cpu().numpy() for k, x in ab.items()}
+    host), the inverse of ``lora_from_numpy``. Always a copy: an f32 CPU
+    tensor's ``.numpy()`` shares its memory, and the optimizer updates the
+    adapter in place."""
+    return {"layers": {t: {k: x.detach().to("cpu", torch.float32, copy=True).numpy()
+                           for k, x in ab.items()}
                        for t, ab in lora["layers"].items()}}

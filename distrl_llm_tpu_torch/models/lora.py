@@ -60,3 +60,27 @@ def init_lora_params(
                              device=dev),
         }
     return {"layers": layers}
+
+
+@torch.no_grad()
+def merge_lora(model, lora: Params, alpha: float):
+    """A copy of the dense ``Decoder`` ``model`` with the adapter folded into
+    its projections (W + A @ B · alpha / r) — the reference's save_pretrained
+    artifact (distributed_actor.py:263-264). The rank comes from the
+    adapter's shapes so the scale cannot silently mismatch. A quantized base
+    raises, as in the JAX package."""
+    import copy
+
+    from distrl_llm_tpu_torch.ops.quant import QUANT_TARGETS
+
+    if model.quant is not None and set(lora["layers"]) & set(QUANT_TARGETS):
+        raise NotImplementedError("cannot merge LoRA into quantized base weights")
+    rank = next(iter(lora["layers"].values()))["a"].shape[-1]
+    scale = lora_scale(rank, alpha)
+    merged = copy.deepcopy(model)
+    for target, ab in lora["layers"].items():
+        for i, layer in enumerate(merged.layers):
+            w = getattr(layer, target)
+            a, b = ab["a"][i].to(w.dtype), ab["b"][i].to(w.dtype)
+            w.add_((a @ b) * scale)
+    return merged

@@ -1,11 +1,11 @@
-"""Tokenizer adapter: fixed-shape encoding and batch decode.
+"""Tokenizer adapter: fixed-shape encoding, batch decode, checkpoint loading.
 
 Host code copied from the JAX package's ``tokenizer.py`` (the port imports
 nothing of that package): fixed-length encode with an explicit pad side (the
 learner contract) and id→text decode for rollouts, over any HF-style
-tokenizer or the download-free ``CharTokenizer``. Checkpoint tokenizer
-loading comes with checkpoint loading (ROADMAP: leftovers of the dense
-slice).
+tokenizer or the download-free ``CharTokenizer``; ``load_tokenizer`` reads a
+checkpoint directory's ``tokenizer.json`` into the C++ byte-level BPE core
+(``native/tokenizer.py``).
 """
 
 from __future__ import annotations
@@ -63,6 +63,45 @@ def decode_batch(tokenizer, ids: np.ndarray, lengths: np.ndarray) -> list[str]:
         else tokenizer.decode(row[:n].tolist())
         for row, n in zip(ids, lengths)
     ]
+
+
+_SPM_ITEM = "ROADMAP queue 1 item 5: the SPM (Unigram) tokenizer, native/spm.py"
+
+
+def load_tokenizer(model_name_or_path: str):
+    """Load a checkpoint's tokenizer (the reference's load_correct_tokenizer,
+    train_distributed.py:46).
+
+    A directory with a ``tokenizer.json`` of byte-level BPE type loads into
+    ``NativeBPETokenizer`` (with ``tokenizer_config.json``'s chat template,
+    when it has one); a Unigram one (Gemma's sentencepiece) raises, and so
+    does a native build that fails: nothing falls back quietly. Without a
+    local ``tokenizer.json`` (a hub model id), HF ``AutoTokenizer`` loads
+    it, imported only then."""
+    import json
+    import os
+
+    tj = os.path.join(model_name_or_path, "tokenizer.json")
+    if os.path.isfile(tj):
+        kw = {}
+        cfg_path = os.path.join(model_name_or_path, "tokenizer_config.json")
+        if os.path.isfile(cfg_path):
+            with open(cfg_path, encoding="utf-8") as f:
+                tok_cfg = json.load(f)
+            if tok_cfg.get("chat_template"):
+                kw["chat_template"] = tok_cfg["chat_template"]
+        with open(tj, encoding="utf-8") as f:
+            tj_dict = json.load(f)
+        if (tj_dict.get("model") or {}).get("type") == "Unigram":
+            raise NotImplementedError(
+                f"{tj} is a sentencepiece Unigram tokenizer; it is not ported "
+                f"({_SPM_ITEM})")
+        from distrl_llm_tpu_torch.native.tokenizer import NativeBPETokenizer
+
+        return NativeBPETokenizer.from_hf_dict(tj_dict, **kw)
+    from transformers import AutoTokenizer
+
+    return AutoTokenizer.from_pretrained(model_name_or_path)
 
 
 class CharTokenizer:

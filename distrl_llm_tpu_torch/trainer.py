@@ -1,0 +1,704 @@
+"""The training loop: the synchronous on-policy PG/GRPO loop on one card.
+
+Counterpart of the JAX package's ``trainer.py`` (the reference's Trainer,
+distributed_trainer.py:13-416) on its ``rollout_mode="sync"`` path, one card,
+one learner:
+
+* **Rollout**: one ``engine.generate`` call per round over ``batch_size``
+  prompts (padded rows discarded after), ``num_candidates`` completions
+  each, decoded and scored by the reward function.
+* **Shaping and update**: ``shape_rewards`` (PG baselines or GRPO
+  advantages), ``topk_filter``, ``flatten_for_update``,
+  ``prepare_update_batch``, then the grad-accumulated train step
+  (``learner/train_step.py``) with Adam8bit updating the adapter in place.
+* **Weight sync**: the engine and the learner share one ``Decoder`` (the
+  JAX package's timeshared roles); the learner's adapter is passed to the
+  engine each round, ``weight_version`` counts updates and each round
+  checks that it samples the version the learner last published.
+* **Metrics**: the reference's exact names (distributed_trainer.py:348-366,
+  :412-415) through a pluggable sink (``metrics.py``); each phase's
+  ``timing/*_duration`` ends on finished device work.
+* **Checkpointing**: the resume state (``checkpoint.py``) and the per-step
+  adapter artifact.
+
+Not ported (each raises where a config would reach it): the pipelined and
+async regimes and multi-turn envs (ROADMAP queue 1 item 8), remote workers
+(item 9), meshes, the hybrid actor/learner split and full fine-tuning (item
+10), and the observability, lineage, control and gateway planes (item 11).
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import threading
+from typing import Any, Callable, Mapping, Sequence
+
+import numpy as np
+import torch
+
+from distrl_llm_tpu_torch import telemetry
+from distrl_llm_tpu_torch.checkpoint import CheckpointManager, save_adapter_file
+from distrl_llm_tpu_torch.config import SamplingConfig, TrainConfig
+from distrl_llm_tpu_torch.data import DictDataset
+from distrl_llm_tpu_torch.learner.optim import check_state_format, make_optimizer
+from distrl_llm_tpu_torch.learner.train_step import make_train_step, prepare_update_batch
+from distrl_llm_tpu_torch.metrics import MetricsSink, make_sink
+from distrl_llm_tpu_torch.models.lora import init_lora_params, lora_scale
+from distrl_llm_tpu_torch.models.transformer import Decoder
+from distrl_llm_tpu_torch.rewards import (
+    RewardComputer,
+    make_reward_function,
+    reward_function as parity_reward_function,
+)
+from distrl_llm_tpu_torch.shaping import flatten_for_update, shape_rewards, topk_filter
+from distrl_llm_tpu_torch.tokenizer import decode_batch, encode_fixed
+from distrl_llm_tpu_torch.utils.chunking import chunk_sizes
+
+log = logging.getLogger(__name__)
+
+RewardFn = Callable[[Sequence[str], Sequence[str]], np.ndarray]
+
+_DENSE_INT8_ITEM = "ROADMAP queue 1 item 5: the int8 dense KV cache"
+
+
+def engine_kwargs_from_config(config: TrainConfig) -> dict[str, Any]:
+    """Engine-constructor kwargs derived from the config (the paged engine's
+    knobs: KV format, the refill scheduler, speculative decoding, the row
+    cap, behavior-logprob capture); module level so the config -> engine
+    wiring is testable without a checkpoint."""
+    kwargs: dict[str, Any] = {"kv_quant": config.kv_cache_quant}
+    if config.decode_scan_chunk is not None:
+        # an explicit value, 0 included, reaches the engine as a pin
+        kwargs["scan_chunk"] = config.decode_scan_chunk
+    if config.engine_impl == "paged" and config.continuous_batching:
+        kwargs["scheduler"] = "refill"
+        if config.spec_draft is not None:
+            kwargs["spec_draft"] = config.spec_draft
+        if config.spec_ngram is not None:
+            kwargs["spec_ngram"] = config.spec_ngram
+    if config.max_concurrent_sequences:
+        kwargs["max_concurrent_rows"] = config.max_concurrent_sequences
+    if config.clip_ratio > 0.0:
+        # behavior-logprob capture costs a vocab logsumexp a step: only when
+        # the clip objective needs it
+        kwargs["capture_logprobs"] = True
+    return kwargs
+
+
+def make_engine(config: TrainConfig, model: Decoder, tokenizer, *,
+                hbm_bytes: int | None = None):
+    """The rollout engine ``Trainer.from_pretrained`` builds for ``model``
+    (the JAX package's local-engine branch, trainer.py:711-782), on the
+    model's device. The paged engine's KV pool is budgeted by
+    ``engine/budget.py::kv_pool_pages`` under ``learner_gpu_usage``: the
+    engine and the learner share the card (``hbm_bytes`` defaults to the
+    card's memory)."""
+    from distrl_llm_tpu_torch.engine import GenerationEngine, PagedGenerationEngine
+
+    dev = model.embed.device
+    eos = [tokenizer.eos_token_id]
+    extra_eos = getattr(tokenizer, "eos_token_ids", None)
+    if extra_eos:
+        eos = sorted(set(eos) | set(extra_eos))
+    common = dict(
+        max_prompt_tokens=config.max_prompt_tokens,
+        max_new_tokens=config.max_new_tokens,
+        eos_token_ids=eos,
+        pad_token_id=(tokenizer.pad_token_id if tokenizer.pad_token_id is not None
+                      else tokenizer.eos_token_id),
+        lora_scale=lora_scale(config.max_lora_rank, config.lora_alpha),
+        attn_impl=config.attn_impl,
+        prompt_buckets=config.prompt_buckets or None,
+        device=dev,
+    )
+    kwargs = engine_kwargs_from_config(config)
+    if config.engine_impl == "paged":
+        from distrl_llm_tpu_torch.engine.budget import kv_pool_pages, tree_bytes
+        from distrl_llm_tpu_torch.ops.paged import DEFAULT_PAGE_SIZE
+
+        kwargs["max_kv_pages"] = kv_pool_pages(
+            model.cfg,
+            gpu_usage=config.learner_gpu_usage,
+            param_bytes=tree_bytes(model),
+            batch_prompts=config.batch_size,
+            max_prompt_tokens=config.max_prompt_tokens,
+            max_new_tokens=config.max_new_tokens,
+            page_size=DEFAULT_PAGE_SIZE,
+            kv_quant=config.kv_cache_quant or "none",
+            spec_draft=(config.spec_draft or 0) if config.continuous_batching else 0,
+            hbm_bytes=hbm_bytes,
+            device=dev,
+        )
+        log.info("paged engine: %d KV pages of %d tokens under learner_gpu_usage=%.2f",
+                 kwargs["max_kv_pages"], DEFAULT_PAGE_SIZE, config.learner_gpu_usage)
+        return PagedGenerationEngine(model.cfg, **common, **kwargs)
+    # the dense engine keeps the cache dtype and decodes one step a dispatch
+    if kwargs.pop("kv_quant") not in (None, "none"):
+        raise NotImplementedError(f"kv_cache_quant='int8' with engine_impl='dense' is "
+                                  f"not ported ({_DENSE_INT8_ITEM})")
+    if (kwargs.pop("scan_chunk", None) or 0) > 1:
+        raise NotImplementedError("decode_scan_chunk > 1 has no counterpart yet (CUDA "
+                                  "graphs over the decode step)")
+    return GenerationEngine(model.cfg, **common, **kwargs)
+
+
+class StaleWeightsError(RuntimeError):
+    """The rollout holds an adapter older than the learner's — the race the
+    reference prevents with its synchronous barrier, detected here with
+    asserted weight-version counters."""
+
+
+class EngineHangError(RuntimeError):
+    """A generation round exceeded ``generation_timeout_s`` — the hang
+    detector matching the reference's ``ray.get(timeout=240)``
+    (distributed_trainer.py:200). The trainer checkpoints before raising;
+    restart with ``resume=True`` to continue from the last completed step."""
+
+
+def _leaves(lora: dict) -> list[torch.Tensor]:
+    return [lora["layers"][t][k] for t in sorted(lora["layers"]) for k in ("a", "b")]
+
+
+class Trainer:
+    """Owns the episode/batch loop. The tokenizer, the model and the engine
+    are injected, so the loop runs on test doubles (``engine/fake.py``);
+    ``from_pretrained`` assembles the real thing from a checkpoint
+    directory. The learner runs on ``model``'s device."""
+
+    def __init__(
+        self,
+        train_dataset,
+        test_dataset,
+        reward_function: RewardFn,
+        config: TrainConfig,
+        *,
+        tokenizer,
+        engine,
+        model: Decoder,
+        sink: MetricsSink | None = None,
+        reward_computer: RewardComputer | None = None,
+    ):
+        self.config = config
+        self.train_dataset = DictDataset.wrap(train_dataset)
+        self.test_dataset = DictDataset.wrap(test_dataset)
+        self.tokenizer = tokenizer
+        self.engine = engine
+        # the frozen base, shared by the engine and the learner (one card:
+        # the JAX package's timeshared roles)
+        self.model = model
+        self.model_cfg = model.cfg
+        self.device = model.embed.device
+        self.sink = sink
+        # format-reward gate: "strict" swaps the scorer in the parity
+        # reward; with a custom reward_function it would be ambiguous
+        if config.format_reward != "soft":
+            if reward_function is not parity_reward_function:
+                raise ValueError(
+                    "format_reward != 'soft' with a custom reward_function "
+                    "is ambiguous — encode the gate inside the custom fn, "
+                    "or drop one of the two")
+            reward_function = make_reward_function(config.format_reward)
+        if reward_computer is None:
+            reward_computer = RewardComputer(reward_fn=reward_function)
+        elif reward_computer.fn_explicit and reward_computer.reward_fn is not reward_function:
+            raise ValueError(
+                "reward_computer was built with a different reward_fn than "
+                "the one passed to Trainer — pass the fn in exactly one place")
+        self.rewards = reward_computer
+        self._reward_fn = reward_function
+
+        # chunk-composition validation parity (distributed_trainer.py:34-36)
+        chunk_sizes(config.batch_size, config.number_of_actors,
+                    config.number_of_learners, config.learner_chunk_size)
+
+        self.scale = lora_scale(config.max_lora_rank, config.lora_alpha)
+        # every seed the trainer hands out (the adapter's init, each engine
+        # round, each LoRA-dropout update) is drawn from this generator
+        self._gen = torch.Generator().manual_seed(config.seed)
+        lora_gen = torch.Generator(device=self.device).manual_seed(self._next_rng())
+        # adapters train in f32; the base stays at its dtype
+        self.lora = init_lora_params(lora_gen, self.model_cfg, config.max_lora_rank,
+                                     dtype=torch.float32)
+        for leaf in _leaves(self.lora):
+            leaf.requires_grad_(True)
+        self.optimizer = make_optimizer(_leaves(self.lora), config.lr,
+                                        use_8bit=config.optimizer_8bit)
+        self.train_step = make_train_step(
+            self.model_cfg,
+            learner_type=config.learner,
+            optimizer=self.optimizer,
+            lora_scale=self.scale,
+            micro_size=config.train_batch_size,
+            skip_semantics="all_zero" if config.skip_all_zero_reward_batches else "any_zero",
+            attn_impl=config.attn_impl,
+            lora_dropout=config.lora_dropout,
+            logit_chunk=config.logprob_chunk,
+            clip_ratio=config.clip_ratio,
+            kl_coeff=config.kl_coeff,
+        )
+
+        self.total_batch_steps = 0
+        self.total_samples_processed = 0
+        self.episode = 0
+        self.batch_in_episode = 0  # mid-episode resume cursor
+        self.weight_version = 0  # incremented per optimizer step
+        self._rollout_weight_version = -1  # version the rollout samples with
+        # (bucket, rows, n) shapes seen — a first round is exempt from
+        # the hang detector (kernel builds and allocator warm-up are slow,
+        # not hung)
+        self._warm_engine_keys: set[tuple] = set()
+        self._last_hf_export_step = -1
+        if config.export_hf_snapshots and not config.run_name:
+            log.warning("export_hf_snapshots is set but run_name is not — no "
+                        "snapshots will be written (run_dir is derived from run_name)")
+
+        self.ckpt: CheckpointManager | None = None
+        if config.checkpoint_dir:
+            self.ckpt = CheckpointManager(config.checkpoint_dir)
+            if config.resume:
+                self._try_resume()
+        self._push_weights()
+
+    # ------------------------------------------------------------------ setup
+
+    @classmethod
+    def from_pretrained(
+        cls,
+        train_dataset,
+        test_dataset,
+        reward_function: RewardFn,
+        config: TrainConfig,
+        *,
+        checkpoint_path: str | None = None,
+        tokenizer=None,
+        sink: MetricsSink | None = None,
+        device: str | torch.device | None = None,  # None = the GPU
+        hbm_bytes: int | None = None,  # the KV budget's memory; default the card's
+    ) -> "Trainer":
+        """Assemble the real thing: tokenizer, HF weights (at
+        ``config.dtype``, quantized per ``base_quant``) and the engine, on
+        ``device``. ``checkpoint_path`` is a local HF checkpoint directory
+        (default ``config.model`` as a path: no hub download). Pass
+        ``tokenizer`` if the caller already loaded it."""
+        from distrl_llm_tpu_torch.models.loading import load_pretrained
+        from distrl_llm_tpu_torch.ops.quant import quantize_base
+        from distrl_llm_tpu_torch.tokenizer import load_tokenizer
+        from distrl_llm_tpu_torch.utils.device import resolve_device
+
+        path = checkpoint_path or config.model
+        if tokenizer is None:
+            tokenizer = load_tokenizer(path)
+        model, _ = load_pretrained(path, dtype=getattr(torch, config.dtype),
+                                   device=resolve_device(device))
+        # the reference's 4-bit base (LOAD_IN_4BIT): the seven projections
+        # quantized in place, layer by layer
+        quantize_base(model, config.base_quant, config.quant_group_size)
+        engine = make_engine(config, model, tokenizer, hbm_bytes=hbm_bytes)
+        return cls(train_dataset, test_dataset, reward_function, config,
+                   tokenizer=tokenizer, engine=engine, model=model, sink=sink)
+
+    # ------------------------------------------------------------- checkpoint
+
+    def _state_tree(self) -> dict:
+        return {
+            "lora": {"layers": {t: {k: x.detach() for k, x in ab.items()}
+                                for t, ab in self.lora["layers"].items()}},
+            "opt_state": self.optimizer.state_dict(),
+            "step": self.total_batch_steps,
+            "episode": self.episode,
+            "batch_in_episode": self.batch_in_episode,
+            "samples": self.total_samples_processed,
+            "rng": self._gen.get_state(),
+        }
+
+    def _try_resume(self) -> None:
+        assert self.ckpt is not None
+        restored = self.ckpt.restore()
+        if restored is None:
+            return
+        # in place: the optimizer holds these very tensors
+        with torch.no_grad():
+            for t, ab in self.lora["layers"].items():
+                for k, x in ab.items():
+                    x.copy_(restored["lora"]["layers"][t][k])
+        self.optimizer.load_state_dict(restored["opt_state"])
+        check_state_format(self.optimizer)
+        self.total_batch_steps = int(restored["step"])
+        self.episode = int(restored["episode"])
+        self.batch_in_episode = int(restored["batch_in_episode"])
+        self.total_samples_processed = int(restored["samples"])
+        self._gen.set_state(restored["rng"])
+        self.weight_version = self.total_batch_steps
+        log.info("resumed from step %d (episode %d, batch %d)",
+                 self.total_batch_steps, self.episode, self.batch_in_episode)
+
+    def save_checkpoint(self) -> None:
+        if self.ckpt is not None:
+            self.ckpt.save(self.total_batch_steps, self._state_tree())
+
+    def export_hf_snapshot(self) -> None:
+        """The reference's ``save_pretrained`` artifact: an HF-format
+        checkpoint of the MERGED model at run_dir/model_{step}
+        (distributed_trainer.py:372-380). A quantized base cannot be merged:
+        the snapshot is skipped with a warning."""
+        if self.total_batch_steps == self._last_hf_export_step:
+            return  # episode end landing on a save_every step: already written
+        from distrl_llm_tpu_torch.models.loading import save_hf_checkpoint
+
+        path = os.path.join(self.config.run_directory, f"model_{self.total_batch_steps}")
+        try:
+            save_hf_checkpoint(self.model, path, lora=self.lora,
+                               lora_alpha=self.config.lora_alpha)
+            self._last_hf_export_step = self.total_batch_steps
+        except NotImplementedError as e:
+            log.warning("HF snapshot skipped: %s", e)
+
+    def save_adapter(self) -> None:
+        """The reference's per-step adapter artifact (distributed_trainer.py:346
+        -> save_lora). Export only: weight sync is in memory."""
+        save_adapter_file(self.lora, self.config.lora_save_path,
+                          rank=self.config.max_lora_rank, alpha=self.config.lora_alpha,
+                          model_name=self.config.model)
+
+    # ------------------------------------------------------------ weight sync
+
+    def _push_weights(self) -> None:
+        """Learner -> rollout weight sync, replacing the reference's adapter
+        file bus (save_lora distributed_actor.py:85 / load_lora :150): the
+        adapter the next round passes to the engine, and the version it
+        carries, which ``_generate_round`` checks before sampling.
+
+        The pushed adapter IS ``self.lora``, not a copy: Adam8bit updates
+        those tensors in place, so the rollout reads the learner's latest
+        values. That is right only because the synchronous loop never
+        overlaps a generation round with an update; the pipelined regime,
+        which does (ROADMAP queue 1 item 8), would need a copy here."""
+        self._lora_rollout = self.lora
+        self._rollout_weight_version = self.weight_version
+
+    # ---------------------------------------------------------------- rollout
+
+    def _next_rng(self) -> int:
+        """The next seed from the trainer's generator (drawn on the loop's
+        thread only: the hang detector's thread gets its seed as an
+        argument)."""
+        return int(torch.randint(2**62, (), generator=self._gen))
+
+    def _dispatch_rollout(self, prompt_ids, prompt_mask, sampling: SamplingConfig):
+        """One generation round: one engine call over the whole batch (one
+        card has no disjoint learner devices for the JAX package's hybrid
+        actor/learner split)."""
+        return self._call_engine(*self._engine_params(), prompt_ids, prompt_mask, sampling,
+                                 self._next_rng())
+
+    def _engine_params(self) -> tuple:
+        """(model, adapter) for an engine call: the shared base with the
+        pushed adapter."""
+        return self.model, self._lora_rollout
+
+    def _call_engine(self, *args):
+        """Engine call with the configured hang detector: the generation runs
+        in a watchdog thread and exceeding ``generation_timeout_s`` raises
+        ``EngineHangError``. The hung device work itself cannot be
+        interrupted — the recovery unit is the process (checkpoint and
+        restart with resume=True). A shape's first round is exempt."""
+        timeout = self.config.generation_timeout_s
+        warm_key = None
+        if timeout > 0:
+            ids, mask, sampling = args[2], args[3], args[4]
+            bucket = self.engine.bucket_for(mask) if hasattr(self.engine, "bucket_for") else 0
+            warm_key = (bucket, ids.shape[0], sampling.n)
+            if warm_key not in self._warm_engine_keys:
+                timeout = 0.0
+        if timeout <= 0:
+            result = self.engine.generate(*args)
+            if warm_key is not None:
+                self._warm_engine_keys.add(warm_key)
+            return result
+
+        result: dict[str, Any] = {}
+
+        def run() -> None:
+            try:
+                result["value"] = self.engine.generate(*args)
+            except BaseException as e:  # noqa: BLE001 — re-raised on the caller
+                result["error"] = e
+
+        t = threading.Thread(target=run, daemon=True)
+        t.start()
+        t.join(timeout)
+        if t.is_alive():
+            raise EngineHangError(
+                f"generation round exceeded {timeout:.0f}s "
+                f"(step {self.total_batch_steps}, weights v{self.weight_version})")
+        if "error" in result:
+            raise result["error"]
+        return result["value"]
+
+    def _generate_round(self, batch: Mapping[str, Sequence[str]],
+                        sampling: SamplingConfig) -> list[dict[str, Any]]:
+        """One rollout round -> candidate dicts shaped like the reference's
+        ``vllm_generate`` output (distributed_actor.py:147-172): per task
+        group, n candidate strings, the prompt/solution tiled x n, token
+        lengths. Prompts are padded to ``batch_size`` rows (padding rows are
+        discarded after), so every round has one shape."""
+        problems = list(batch["problem"])
+        solutions = list(batch["solution"])
+        b_real = len(problems)
+        b_pad = self.config.batch_size
+        prompt_ids, prompt_mask = encode_fixed(
+            self.tokenizer, problems + [""] * (b_pad - b_real),
+            self.config.max_prompt_tokens, side="left")
+        # race detector: the engine samples only with the adapter version the
+        # learner last published (the synchronous loop allows no lag)
+        allowed_lag = self.config.allowed_weight_lag
+        rollout_version = self._rollout_weight_version
+        lag = self.weight_version - rollout_version
+        if not 0 <= lag <= allowed_lag:
+            raise StaleWeightsError(
+                f"rollout holds adapter v{rollout_version} but learner is at "
+                f"v{self.weight_version} — rollout_mode={self.config.rollout_mode!r} "
+                f"allows lag <= {allowed_lag}; _push_weights() was not called after "
+                "the last optimizer step")
+        result = self._dispatch_rollout(prompt_ids, prompt_mask, sampling)
+        n = sampling.n
+        cand: dict[str, Any] = {
+            "answers": [decode_batch(self.tokenizer, result.tokens[i], result.lengths[i])
+                        for i in range(b_real)],
+            "problem": [[p] * n for p in problems],
+            "solution": [[s] * n for s in solutions],
+            "token_lengths": [[int(x) for x in result.lengths[i]] for i in range(b_real)],
+        }
+        # the engine's own tokens and behavior logprobs (when it captures
+        # them): the clip objective trains on these ids, not on retokenized
+        # text, whose token boundaries can shift
+        if result.logprobs is not None:
+            cand["answer_tokens"] = [result.tokens[i] for i in range(b_real)]
+            cand["behavior_logps"] = [result.logprobs[i] for i in range(b_real)]
+            cand["gen_lengths"] = [result.lengths[i] for i in range(b_real)]
+        pool = getattr(self.engine, "last_pool_stats", None)
+        if pool:
+            cand["pool_stats"] = dict(pool)
+        rstats = getattr(self.engine, "last_round_stats", None)
+        if rstats:
+            cand["round_stats"] = dict(rstats)
+        return [cand]
+
+    def _compute_round_rewards(self, candidates: list[dict[str, Any]]) -> None:
+        """Per-task-group (n, 2) rewards (distributed_trainer.py:205-219)."""
+        for cand in candidates:
+            groups = [(cand["answers"][j], cand["solution"][j])
+                      for j in range(len(cand["answers"]))]
+            cand["rewards"] = self.rewards(groups, reward_fn=self._reward_fn)
+
+    def _generate_all_candidates(self, batch: Mapping[str, Sequence[str]],
+                                 sampling: SamplingConfig | None = None) -> list[dict[str, Any]]:
+        sampling = sampling or self.config.train_sampling()
+        candidates = self._generate_round(batch, sampling)
+        self._compute_round_rewards(candidates)
+        return candidates
+
+    # ------------------------------------------------------------------ train
+
+    def train(self) -> None:
+        cfg = self.config
+        if self.sink is None:
+            self.sink = make_sink(cfg.metrics_backend, run_name=cfg.run_name,
+                                  project=cfg.project_name, config=cfg.to_flat_dict(),
+                                  run_dir=cfg.run_directory if cfg.run_name else ".")
+        if cfg.run_name:
+            os.makedirs(cfg.run_directory, exist_ok=True)
+        try:
+            self.evaluate()  # initial eval (distributed_trainer.py:241-242)
+            # self.episode is the next episode to start (episode-end saves
+            # store episode + 1, so a finished run resumes as a no-op);
+            # batch_in_episode is the mid-episode cursor: the shuffle is
+            # seeded by (seed, episode), so a resumed run re-derives the
+            # batch order and skips the batches already trained
+            start_episode = self.episode
+            for episode in range(start_episode, cfg.episodes):
+                self.episode = episode
+                skip = self.batch_in_episode if episode == start_episode else 0
+                for bi, batch in self._episode_batch_stream(episode, skip):
+                    self._train_batch(batch, episode)
+                    self.batch_in_episode = bi + 1
+                    if cfg.eval_every and self.total_batch_steps % cfg.eval_every == 0:
+                        self.evaluate()
+                    if cfg.save_every and self.total_batch_steps % cfg.save_every == 0:
+                        self.save_checkpoint()
+                        if cfg.export_hf_snapshots and cfg.run_name:
+                            self.export_hf_snapshot()
+                self.episode = episode + 1
+                self.batch_in_episode = 0
+                self.save_checkpoint()
+                if cfg.export_hf_snapshots and cfg.run_name:
+                    self.export_hf_snapshot()
+        except EngineHangError:
+            # last-gasp state capture so the documented restart path
+            # (resume=True) continues from the last completed step
+            log.exception("generation round hung; checkpointing before exit")
+            self.save_checkpoint()
+            raise
+        finally:
+            self.sink.finish()
+            self.rewards.close()
+
+    def _episode_batch_stream(self, episode: int, skip: int):
+        """One episode's (batch_index, batch) stream: the single owner of
+        the per-episode shuffle seed and the resume skip."""
+        cfg = self.config
+        dataset = self.train_dataset.shuffle(seed=cfg.seed + 1000 * episode)
+        for bi, b in enumerate(dataset.iter(cfg.batch_size)):
+            if bi >= skip:
+                yield bi, b
+
+    def _train_batch(self, batch: Mapping[str, Sequence[str]], episode: int) -> None:
+        timer = telemetry.PhaseSpans()
+        with timer("generation"):
+            # ends on host tokens: the round's device work is done
+            candidates = self._generate_round(batch, self.config.train_sampling())
+        self._update_on_candidates(candidates, episode, timer,
+                                   n_samples=len(batch["problem"]))
+
+    def _update_on_candidates(self, candidates: list[dict[str, Any]], episode: int,
+                              timer: telemetry.PhaseSpans, n_samples: int) -> None:
+        """Everything after generation: rewards, shaping, the optimizer step,
+        the weight push and the metrics record."""
+        cfg = self.config
+        with timer("reward"):
+            self._compute_round_rewards(candidates)
+
+        if cfg.print_samples and candidates and candidates[0]["answers"]:
+            # sample dump parity (distributed_trainer.py:297-299)
+            c = candidates[0]
+            log.info("sample problem: %.200s", c["problem"][0][0])
+            log.info("sample completion: %.400s", c["answers"][0][0])
+            log.info("sample reward: %s", np.asarray(c["rewards"][0])[0])
+
+        # mean rollout-time logprob of the sampled tokens (when the engine
+        # captures them): a steadily rising value = the policy concentrating
+        extra_metrics: dict[str, float] = {}
+        if candidates and "behavior_logps" in candidates[0]:
+            tot, cnt = 0.0, 0
+            for cand in candidates:
+                for lp_g, len_g in zip(cand["behavior_logps"], cand["gen_lengths"]):
+                    lp, ln = np.asarray(lp_g), np.asarray(len_g)
+                    m = np.arange(lp.shape[1])[None, :] < ln[:, None]
+                    tot += float(lp[m].sum())
+                    cnt += int(m.sum())
+            if cnt:
+                extra_metrics["mean_behavior_logprob"] = tot / cnt
+
+        # baselines / GRPO advantages and the metric lists
+        # (distributed_trainer.py:262-279), then top-k (:281-294)
+        stats = shape_rewards(candidates, cfg.learner)
+        if cfg.topk < cfg.num_candidates:
+            topk_filter(candidates, cfg.topk)
+
+        with timer("update"):
+            problems, answers, coeffs, raw = flatten_for_update(candidates, cfg.learner)
+            if cfg.clip_ratio > 0.0 and raw is None:
+                raise RuntimeError(
+                    "clip_ratio requires engine-captured behavior logprobs; "
+                    "this engine returned none (GenerationResult.logprobs)")
+            update = prepare_update_batch(
+                self.tokenizer, problems, answers, coeffs,
+                max_prompt_tokens=cfg.max_prompt_tokens,
+                max_new_tokens=cfg.max_new_tokens,
+                micro_size=cfg.train_batch_size,
+                raw_rollout=raw if cfg.clip_ratio > 0.0 else None,
+                answer_buckets=cfg.learner_len_buckets or None,
+                prompt_buckets=cfg.learner_prompt_buckets or None,
+                device=self.device,
+            )
+            answer_width = int(update.answer_ids.shape[1])
+            prompt_width = int(update.prompt_ids.shape[1])
+            # LoRA dropout draws a fresh seed per update
+            dropout_seed = self._next_rng() if cfg.lora_dropout > 0.0 else None
+            # float() ends the phase on finished device work: the copy of
+            # the loss waits for every kernel before it on the stream, the
+            # optimizer's included
+            loss = float(self.train_step(self.lora, self.model, update, dropout_seed))
+        self.weight_version += 1
+        self._push_weights()
+        if cfg.write_adapter_file:
+            self.save_adapter()
+
+        self.total_batch_steps += 1
+        self.total_samples_processed += n_samples
+        metrics = {
+            "loss": loss,
+            "mean_accuracy_reward": float(np.mean(stats.mean_acc)),
+            "min_accuracy_reward": float(np.mean(stats.min_acc)),
+            "max_accuracy_reward": float(np.mean(stats.max_acc)),
+            "mean_format_reward": float(np.mean(stats.mean_format)),
+            "mean_token_length": float(np.mean(stats.mean_token_length)),
+            "episode": episode,
+            "total_batch_steps": self.total_batch_steps,
+            "total_samples_processed": self.total_samples_processed,
+            # rollout-regime provenance on every record: the mode, its
+            # staleness bound, cumulative stale drops (none when synchronous)
+            "rollout_mode": cfg.rollout_mode,
+            "max_staleness": cfg.allowed_weight_lag,
+            "rollout_dropped_stale": 0,
+        }
+        if cfg.learner_len_buckets:
+            metrics["learner/answer_width"] = answer_width
+        if cfg.learner_prompt_buckets:
+            metrics["learner/prompt_width"] = prompt_width
+        # page pressure and preemptions of the paged engine's round; a stat
+        # the engine did not produce is skipped, not logged as None
+        pool = next((c["pool_stats"] for c in candidates if "pool_stats" in c), None)
+        if pool:
+            for name, key in (("pool/pages", "pool_pages"),
+                              ("pool/peak_pages_used", "peak_pages_used"),
+                              ("pool/preemptions", "preemptions")):
+                if pool.get(key) is not None:
+                    metrics[name] = pool[key]
+        metrics.update(self._engine_metrics(candidates))
+        metrics.update(extra_metrics)
+        metrics.update(timer.metrics())
+        self.sink.log(metrics, step=self.total_batch_steps)
+
+    def _engine_metrics(self, candidates) -> dict[str, float]:
+        """engine/prefill_tok_s and engine/decode_tok_s from the round stats
+        the engines record (``accumulate_round_stats``). The JAX package's
+        engine/mfu needs a table of device peaks (ROADMAP queue 1 item 11)."""
+        stats = next((c["round_stats"] for c in candidates if "round_stats" in c), None)
+        if not stats:
+            return {}
+        out: dict[str, float] = {}
+        if stats["prefill_s"] > 0 and stats["prefill_tokens"]:
+            out["engine/prefill_tok_s"] = stats["prefill_tokens"] / stats["prefill_s"]
+        if stats["decode_s"] > 0 and stats["gen_tokens"]:
+            out["engine/decode_tok_s"] = stats["gen_tokens"] / stats["decode_s"]
+        return out
+
+    # ------------------------------------------------------------------- eval
+
+    def evaluate(self) -> dict[str, float]:
+        """Best-of-n eval (distributed_trainer.py:384-416): pass@1 = mean
+        accuracy over candidates, BoN = max; the rollout path with the eval
+        sampling parameters."""
+        cfg = self.config
+        timer = telemetry.PhaseSpans()
+        accs, bons, tok_lens = [], [], []
+        with timer("eval"):
+            for batch in self.test_dataset.iter(cfg.batch_size):
+                for cand in self._generate_all_candidates(batch, cfg.eval_sampling()):
+                    for rewards, lengths in zip(cand["rewards"], cand["token_lengths"]):
+                        acc = np.asarray(rewards)[:, 1]
+                        accs.append(float(np.mean(acc)))
+                        bons.append(float(np.max(acc)))
+                        tok_lens.append(float(np.mean(lengths)))
+        n = cfg.eval_n
+        metrics = {
+            f"eval/pass@1(mean{n})": float(np.mean(accs)),
+            f"eval/BoN({n})": float(np.mean(bons)),
+            "eval/mean_token_length": float(np.mean(tok_lens)),
+            **timer.metrics(),
+        }
+        if self.sink is not None:
+            self.sink.log(metrics, step=self.total_batch_steps)
+        return metrics
