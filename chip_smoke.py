@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (``distrl_llm_tpu_torch``).
 
-    python3 chip_smoke.py [--layers N] [--seed S] [--profile] [--until 6|7]
+    python3 chip_smoke.py [--layers N] [--seed S] [--profile] [--until 6|7|8]
 
 Needs one NVIDIA GPU (Hopper: the kernels build for ``sm_90a``) and ``nvcc``.
 Without a GPU it exits non-zero before computing anything. Phases, each
@@ -36,22 +36,27 @@ printing its own lines:
    The paged engine also runs one greedy round with ``attn_impl="splash"``:
    K4 in its prefill, 28 launches, logits held to "reference" in f32;
 5. learner: the dense engine's sampled round through shaping into 8
-   microbatches of 8 x 1550 tokens, two Adam8bit steps at Qwen2.5-7B width
-   with K4 (2 x 28 x 8 forward and 28 x 8 backward launches per step, its
+   microbatches of 8 x 1550 tokens, one Adam8bit step at Qwen2.5-7B width
+   (phase 8's trainer takes two) with K4 (2 x 28 x 8 forward and 28 x 8
+   backward launches, its
    plain version never called), every adapter element within Adam8bit's
    clip; the adapter pushed into the dense engine's mailbox for one greedy
    round; then, at 2 layers in f32, the learner's loss and LoRA grads with
    K4 against its plain version and its logprobs of the engine's greedy
    tokens against the logprobs the engine captured.
-6. QLoRA: the same weights with the seven projections quantized on the card
+6. QLoRA, at 14 of the 28 layers (SHALLOW_LAYERS: the depth cut that makes
+   room for phase 9; phase 8's trainer drives the int4 base at 28): the
+   same weights with the seven projections quantized on the card
    to int4 in groups of 64 (the reference's 4-bit base), every projection
    through K3 with the adapter in its epilogue: the dense and the paged
-   engine (bf16 pages) as in phase 4, K3 launched 7 times per layer per
-   model forward; one dense-engine run over an int8 base (per-column
+   engine (bf16 pages) as in phase 4 but with one greedy round each (phase
+   4 holds two identical), K3 launched 7 times per layer per model forward;
+   one dense-engine run over an int8 base (per-column
    scales); the dense engine's f32 logits, teacher-forced, with K3 against
    K3's plain version (``k3_plain_version()``), beside their distance from
-   the bf16 base's; two Adam8bit learner steps on phase 5's batch (K3 2 x 7
-   x 28 x 8 times a step); and a 2-layer f32 learner parity run, K3 against
+   the bf16 base's; one Adam8bit learner step on phase 5's batch (K3 2 x 7
+   x 14 x 8 times; phase 8 takes two over the int4 base at 28 layers); and
+   a 2-layer f32 learner parity run, K3 against
    its plain version.
 
 7. speculative decoding: K5 (``csrc/paged_verify.cu``, the draft-block
@@ -62,17 +67,18 @@ printing its own lines:
    engine of the README's BASELINE config 2 (refill scheduler, 64 slots,
    ``spec_draft=4``, n-gram 2, 128-token pages) over 8 math prompts x 16
    candidates x 256 new tokens: speculative and plain refill greedy rounds
-   with bf16 and int8 pages and one sampled speculative round, each with
-   the counts reset around it (K5 = 28 x verify forwards and no K2 in a
-   speculative round; K2 = 28 x decode forwards in a plain one), printing
+   with bf16 pages, then, at 14 layers (SHALLOW_LAYERS), with int8 pages
+   and one sampled speculative round, each with the counts reset around it
+   (K5 = layers x verify forwards and no K2 in a speculative round; K2 =
+   layers x decode forwards in a plain one), printing
    ms/step, tokens/s, accept rate and tokens per verify step (random
    weights give the n-gram drafter nothing to accept, so the same engine
    and kernels also run the TINY preset in f32, whose greedy streams loop:
    drafts accepted, speculative greedy tokens equal to plain refill's);
    the f32 logits of one verify forward over 5 positions against 5
    single-token decode forwards; and one greedy speculative round over the
-   weights quantized to int4 g64, K3 at M = 64 x 5 (7 launches per layer
-   per model forward).
+   weights quantized to int4 g64 at phase 6's depth, K3 at M = 64 x 5 (7
+   launches per layer per model forward).
 8. trainer: the synchronous PG trainer end to end. (a) ``Trainer.train()``
    at Qwen2.5-7B width (random bf16 weights from the seed, quantized by
    ``quantize_base`` to int4 g64, the reference's QLoRA base) with the
@@ -97,6 +103,35 @@ printing its own lines:
    checkpoint written by ``save_hf_checkpoint`` with that tokenizer: the
    weights read back bit for bit, the native tokenizer, one step with
    K1-K4 launched.
+9. the refill engine's riders and the dense slice's leftovers, at
+   Qwen2.5-7B width (28 layers, bf16, phase 7's weights and prompts), each
+   round with the counts reset around it and held to what it dispatched:
+   (a) prefix sharing, continuous admission and the radix cache (64 slots,
+   64-token pages so every prompt has a full page to cache, splash): two
+   greedy rounds of 8 prompts x 16 x 256 tokens over the same adapter, the
+   second admitting every group warm (its pages parked in host memory at
+   the first round's end and copied back; K4 only in cold prefills), with
+   peak pages, shared pages, radix hit pages and the prompt tokens not
+   re-prefilled; at 4 layers in f32, warm vs cold prefill logits within
+   LOGIT_F32_ATOL, and three rounds through the cache engine (cold, warm,
+   a new adapter object that misses the cache) with equal greedy tokens and
+   lengths; (b) host
+   spill under an 80-page budget (8 x 16 x 128), preempted slots' pages and
+   logits rows parked and copied back, greedy tokens equal to the
+   worst-case pool's at 28 layers bf16 and at 4 layers f32; (c) the
+   self-drafter with spec_adapt (d = 4; 4 x 16 x 128, 64 slots): adapter v1
+   drafts for v2 (v1 moved by one Adam8bit step at lr 2e-5), a greedy and a
+   sampled round beside plain decoding with the same push, accept rate,
+   tokens per verify step and the draft length at each boundary (K2 28 per
+   drafter forward, K5 28 per verify forward), and on TINY in f32 greedy
+   tokens equal to plain refill's; (d) the dense engine with the int8 cache at phase 4's shape
+   (ms/step, peak GiB, its quantization on the card equal to the CPU's bit
+   for bit, teacher-forced f32 logits within twice the int8 pages' own
+   distance; its sampled round filters with top_p_impl="bisect_mw", K1 each
+   step),
+   and ``Trainer.from_pretrained`` on a 2-layer Gemma-2B-wide checkpoint
+   with a Unigram tokenizer the script writes (the native SPM tokenizer,
+   the script's expected ids, one step over the int8 dense cache).
 
 Phase 3 holds K4 (forward and backward) against its plain version at the
 learner's [8, 1550, 28 / 4, 128], f32 and bf16, with its time, bound and
@@ -118,6 +153,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import importlib
 import itertools
 import json
@@ -273,6 +309,11 @@ QMM_VERIFY_ROWS = 320  # the speculative verify step over a quantized base: 64 s
 QMM_GROUP = 64
 QMM_RANK = 32
 QMM_F32_REL = 1e-4
+# phase 6, and phase 7's rounds besides its greedy bf16 pair, run at half
+# of Qwen2.5-7B's depth, which keeps the script with phase 9 inside its
+# time; phases 4 and 5, phase 7's bf16 pair, phase 8's trainer (the int4
+# base included) and phase 9 run all 28 layers
+SHALLOW_LAYERS = 14
 
 
 def reset_counts() -> None:
@@ -1345,7 +1386,8 @@ def make_engine(cfg, device, *, engine: str, kv_quant: str, cache_dtype,
                   lora_scale=scale, cache_dtype=cache_dtype, capture_logprobs=True,
                   attn_impl=attn_impl, device=device)
     if engine == "dense":
-        return GenerationEngine(cfg, **common), "dense"
+        label = "dense" + (" int8 KV" if kv_quant == "int8" else "")
+        return GenerationEngine(cfg, kv_quant=kv_quant, **common), label
     eng = PagedGenerationEngine(cfg, page_size=page_size, kv_quant=kv_quant, **common)
     return eng, f"paged {'int8' if kv_quant == 'int8' else str(cache_dtype).split('.')[-1]} KV"
 
@@ -1354,12 +1396,14 @@ def rollout(cfg, device, *, seed: int, max_prompt_tokens: int = 350,
             max_new_tokens: int = 128, n: int = 16, rank: int = 32,
             alpha: float = 16.0, card: str = "", profile: bool = False,
             engine: str = "dense", kv_quant: str = "none", page_size: int = 128,
-            weights=None, tag: str = "") -> dict:
+            weights=None, tag: str = "", greedy_rounds: int = 2,
+            top_p_impl: str | None = None) -> dict:
     """The port's main path through one engine ("dense", or "paged" with
     ``kv_quant`` "none"/"int8" pages): ``weights`` (or new ones from
     ``seed``), the math prompts through the tokenizer, a short warm-up round,
-    then (with the kernels' launch counts reset) one sampled round scored by
-    the reward function and two greedy rounds that must agree. Returns the
+    then (with the kernels' launch counts reset) one sampled round (its
+    nucleus filter ``top_p_impl``, None: the default) scored by the reward
+    function and ``greedy_rounds`` greedy rounds that must agree. Returns the
     counts, the decode steps dispatched, the decode forwards, the timings and
     the first greedy round's tokens; with ``profile``, also the device time
     per decode step by kernel (after the counts are read). ``tag`` prefixes
@@ -1383,8 +1427,9 @@ def rollout(cfg, device, *, seed: int, max_prompt_tokens: int = 350,
                              max_new_tokens=max_new_tokens, page_size=page_size,
                              scale=lora_scale(rank, alpha))
     label = tag + label
-    train = SamplingConfig(max_tokens=max_new_tokens, temperature=1.2, top_p=0.95, n=n)
-    greedy = train.replace(temperature=0.0)
+    train = SamplingConfig(max_tokens=max_new_tokens, temperature=1.2, top_p=0.95, n=n,
+                           top_p_impl=top_p_impl)
+    greedy = train.replace(temperature=0.0, top_p_impl=None)
     eng.generate(model, lora, ids, mask, train.replace(max_tokens=4), seed)  # warm-up
     live = 0.0
     if device.type == "cuda":
@@ -1423,20 +1468,25 @@ def rollout(cfg, device, *, seed: int, max_prompt_tokens: int = 350,
     hook = model.register_forward_hook(count_forward)
     with counting_plain_calls(_qmm(), "quant_matmul_reference", plain):
         reset_counts()
-        sampled, t_sampled = run(train, seed + 1, "sampled t=1.2 top_p=0.95")
-        g1, t_g1 = run(greedy, seed + 2, "greedy #1")
-        g2, t_g2 = run(greedy, seed + 3, "greedy #2")
+        sampled, t_sampled = run(train, seed + 1, "sampled t=1.2 top_p=0.95"
+                                 + (f" top_p_impl={top_p_impl}" if top_p_impl else ""))
+        greedy_runs = [run(greedy, seed + 2 + i, f"greedy #{i + 1}")
+                       for i in range(greedy_rounds)]
         counts = read_counts()
     hook.remove()
 
-    check(np.array_equal(g1.tokens, g2.tokens) and np.array_equal(g1.lengths, g2.lengths),
-          f"{label}: two greedy rounds differ")
-    dlogp = float(np.abs(g1.logprobs - g2.logprobs).max())
+    g1 = greedy_runs[0][0]
+    for g, _ in greedy_runs[1:]:
+        check(np.array_equal(g1.tokens, g.tokens) and np.array_equal(g1.lengths, g.lengths),
+              f"{label}: two greedy rounds differ")
+    dlogp = max((float(np.abs(g1.logprobs - g.logprobs).max()) for g, _ in greedy_runs[1:]),
+                default=0.0)
     check(not np.array_equal(sampled.tokens, g1.tokens), f"{label}: the sampled round equals greedy")
-    steps = sampled.steps_dispatched + g1.steps_dispatched + g2.steps_dispatched
-    print(f"rollout {label}: two greedy rounds identical (max |dlogp| {dlogp:.3g}); "
-          f"{steps} decode steps and {forwards[0]} decode forwards dispatched in all; "
-          f"launches {counts}")
+    steps = sampled.steps_dispatched + sum(g.steps_dispatched for g, _ in greedy_runs)
+    agree = (f"{greedy_rounds} greedy rounds identical (max |dlogp| {dlogp:.3g})"
+             if greedy_rounds > 1 else "one greedy round")
+    print(f"rollout {label}: {agree}; {steps} decode steps and {forwards[0]} decode forwards "
+          f"dispatched in all; launches {counts}")
 
     flat = decode_batch(tok, sampled.tokens.reshape(-1, max_new_tokens),
                         sampled.lengths.reshape(-1))
@@ -1451,13 +1501,14 @@ def rollout(cfg, device, *, seed: int, max_prompt_tokens: int = 350,
             if device.type == "cuda" else float("nan"))
     out = {"label": label, "counts": counts, "steps": steps, "forwards": forwards[0],
            "model_forwards": model_forwards[0], "plain_calls": plain[0],
-           "sampled": t_sampled, "greedy": [t_g1, t_g2], "peak_gib": peak, "live_gib": live,
+           "sampled": t_sampled, "greedy": [t for _, t in greedy_runs], "peak_gib": peak,
+           "live_gib": live,
            "greedy_tokens": g1.tokens, "greedy_lengths": g1.lengths,
            "round": sampled, "rewards": rewards, "answers": flat}
     if profile:
         prof = profile_decode(lambda k: eng.generate(
             model, lora, ids, mask, greedy.replace(max_tokens=k), seed).steps_dispatched)
-        wall = t_g2["ms_per_step"]
+        wall = out["greedy"][-1]["ms_per_step"]
         print(f"profile {label}: {prof['device_ms_per_step']:.3f} ms of device time per "
               f"decode step in {prof['kernels_per_step']} kernel names, against "
               f"{wall:.3f} ms/step unprofiled: device idle "
@@ -1525,7 +1576,8 @@ def engine_logits(weights, ids, mask, tokens, *, engine: str, kv_quant: str = "n
         if engine == "dense":
             cache, key_mask, last = _prefill(
                 model, lora, ids, mask, max_total=max_prompt_tokens + max_new_tokens,
-                lora_scale=scale, cache_dtype=dtype, attn_impl="reference")
+                lora_scale=scale, cache_dtype=dtype, attn_impl="reference",
+                kv_quant=kv_quant)
             st = _decode_init(cache, key_mask, last, alive, n=n, max_steps=max_new_tokens,
                               pad_id=eng.pad_id)
             out.append(last)
@@ -2084,12 +2136,14 @@ def qlora_phase(cfg, args, batch, card: str, t_start: float) -> list:
     import torch
 
     counted = []
+    # one greedy round a cell: phase 4 holds two greedy rounds identical
     qw = make_qlora_weights(cfg, "cuda", seed=args.seed, bits=4, group=QMM_GROUP)
-    runs = qlora_rollouts(cfg, "cuda", qw, seed=args.seed, card=card, profile=args.profile)
+    runs = qlora_rollouts(cfg, "cuda", qw, seed=args.seed, card=card, profile=args.profile,
+                          greedy_rounds=1)
     counted += [out["counts"] for out in runs]
     q8 = make_qlora_weights(cfg, "cuda", seed=args.seed, bits=8, group=None)
     runs8 = qlora_rollouts(cfg, "cuda", q8, seed=args.seed, card=card, engines=(("dense", "none"),),
-                           tag="QLoRA int8, ")
+                           tag="QLoRA int8, ", greedy_rounds=1)
     counted += [out["counts"] for out in runs8]
     del q8, runs8
     torch.cuda.empty_cache()
@@ -2108,7 +2162,8 @@ def qlora_phase(cfg, args, batch, card: str, t_start: float) -> list:
           f"differ by {lg['k3_vs_plain']:.4g} > {LOGIT_F32_ATOL}")
     torch.cuda.empty_cache()
     lr, scale = 2e-5, 16.0 / 32
-    lrn = learner_run(qw, batch, lr=lr, scale=scale, card=card, profile=args.profile)
+    lrn = learner_run(qw, batch, steps=1, lr=lr, scale=scale, card=card,
+                      profile=args.profile)
     want_k3 = 2 * 7 * cfg.num_layers * lrn["num_micro"]
     want_fwd = 2 * cfg.num_layers * lrn["num_micro"]
     want_bwd = cfg.num_layers * lrn["num_micro"]
@@ -2568,10 +2623,11 @@ def verify_logits(wide, *, seed: int, n: int = PA_N, s: int = SPEC_DRAFT + 1,
             "k5": k5, "k2": k2, "shape": tuple(verify.shape)}
 
 
-def spec_phase(cfg, args, card: str, t_start: float) -> tuple[list, dict]:
+def spec_phase(cfg, args, card: str, t_start: float) -> tuple[list, dict, dict]:
     """Phase 7 on the card: speculative decoding at Qwen2.5-7B width (see
     the module's docstring). Returns the launch counts of its main-path
-    runs and K5's stanza results."""
+    runs, K5's stanza results, and the plain refill round's peak pages and
+    ms/step (bf16 pages) for phase 9 to print beside its own."""
     import numpy as np
     import torch
 
@@ -2588,19 +2644,22 @@ def spec_phase(cfg, args, card: str, t_start: float) -> tuple[list, dict]:
                                      if k not in ("unrolled_ms", "copies")}}
     counted = []
     weights = make_weights(cfg, "cuda", seed=args.seed)
+    shallow = dataclasses.replace(cfg, num_layers=min(cfg.num_layers, SHALLOW_LAYERS))
+    shallow_weights = make_weights(shallow, "cuda", seed=args.seed)
     runs = {}
-    for kv_quant in ("none", "int8"):
+    for kv_quant, c, w in (("none", cfg, weights), ("int8", shallow, shallow_weights)):
         for d in (SPEC_DRAFT, 0):
-            out = spec_round(cfg, "cuda", weights, seed=args.seed, spec_draft=d,
+            out = spec_round(c, "cuda", w, seed=args.seed, spec_draft=d,
                              kv_quant=kv_quant, card=card, profile=args.profile)
-            check_spec_counts(out, cfg.num_layers)
+            check_spec_counts(out, c.num_layers)
             runs[(kv_quant, d)] = out
             counted.append(out["counts"])
         spec, plain = runs[(kv_quant, SPEC_DRAFT)], runs[(kv_quant, 0)]
         same = spec["res"].tokens == plain["res"].tokens
         rows = same.reshape(-1, same.shape[-1]).all(axis=1)
-        print(f"spec {kv_quant} KV: speculative vs plain refill greedy tokens equal on "
-              f"{100 * same.mean():.2f}% of positions, {int(rows.sum())}/{rows.size} rows "
+        print(f"spec {kv_quant} KV, {c.num_layers} layers: speculative vs plain refill "
+              f"greedy tokens equal on {100 * same.mean():.2f}% of positions, "
+              f"{int(rows.sum())}/{rows.size} rows "
               f"whole (not asserted: bf16 batches the verify's products over 5 positions, "
               f"which rounds otherwise and flips near-ties); decode {spec['ms_per_step']:.2f} "
               f"vs {plain['ms_per_step']:.2f} ms/step, {spec['decode_tok_s']:.1f} vs "
@@ -2620,10 +2679,11 @@ def spec_phase(cfg, args, card: str, t_start: float) -> tuple[list, dict]:
     check(bool(same.all()) and np.array_equal(ex["spec"]["res"].lengths,
                                               ex["plain"]["res"].lengths),
           "spec exactness: speculative greedy tokens differ from plain refill's")
-    sampled = spec_round(cfg, "cuda", weights, seed=args.seed, spec_draft=SPEC_DRAFT,
-                         kv_quant="none", temperature=1.2, card=card)
-    check_spec_counts(sampled, cfg.num_layers)
+    sampled = spec_round(shallow, "cuda", shallow_weights, seed=args.seed,
+                         spec_draft=SPEC_DRAFT, kv_quant="none", temperature=1.2, card=card)
+    check_spec_counts(sampled, shallow.num_layers)
     counted.append(sampled["counts"])
+    del shallow_weights, w
     wide = widen(weights)
     del weights
     torch.cuda.empty_cache()
@@ -2642,19 +2702,22 @@ def spec_phase(cfg, args, card: str, t_start: float) -> tuple[list, dict]:
     check(np.isfinite(lg["std"]), "spec logits: non-finite")
     # one greedy speculative round over the int4 base: K3 at M = 64 x 5
     # verify positions (and at the prefills), K5 as over the bf16 base
-    qw = make_qlora_weights(cfg, "cuda", seed=args.seed, bits=4, group=QMM_GROUP)
-    q4 = spec_round(cfg, "cuda", qw, seed=args.seed, spec_draft=SPEC_DRAFT, kv_quant="none",
+    qw = make_qlora_weights(shallow, "cuda", seed=args.seed, bits=4, group=QMM_GROUP)
+    q4 = spec_round(shallow, "cuda", qw, seed=args.seed, spec_draft=SPEC_DRAFT, kv_quant="none",
                     card=card, profile=args.profile)
-    check_spec_counts(q4, cfg.num_layers)
+    check_spec_counts(q4, shallow.num_layers)
     counted.append(q4["counts"])
     print(f"spec over the int4 g{QMM_GROUP} base: {q4['ms_per_step']:.2f} ms/step, "
           f"{q4['decode_tok_s']:.1f} tok/s, accept rate {q4['spec']['accept_rate']:.4f}, "
           f"{q4['steps']} steps; K3 {q4['counts']['quant_matmul']} launches (7 x "
-          f"{cfg.num_layers} x {q4['model_forwards']} model forwards); total "
+          f"{shallow.num_layers} x {q4['model_forwards']} model forwards); total "
           f"{time.perf_counter() - t_start:.1f} s; {card}")
     del qw
     torch.cuda.empty_cache()
-    return counted, result
+    plain = runs[("none", 0)]
+    plain_refill = {"peak_pages_used": plain["pool"]["peak_pages_used"],
+                    "ms_per_step": plain["ms_per_step"]}
+    return counted, result, plain_refill
 
 
 # ---------------------------------------------------------------- phase 8
@@ -2851,8 +2914,8 @@ def trainer_run(build, *, label: str = "") -> dict:
         f0 = forwards[0]
         res = generate(*a, **kw)
         drained("generation")
-        st, pool = eng.last_round_stats, eng.last_pool_stats or {}
-        rounds.append({"steps": res.steps_dispatched, "forwards": st["decode_forwards"],
+        st, pool = eng.last_round_stats, getattr(eng, "last_pool_stats", None) or {}
+        rounds.append({"steps": res.steps_dispatched, "forwards": st.get("decode_forwards", 0),
                        "sampler_calls": st.get("sampler_calls", res.steps_dispatched),
                        "resumes": pool.get("resumes", 0), "refill": bool(pool),
                        "model_forwards": forwards[0] - f0})
@@ -2890,10 +2953,11 @@ def check_trainer_run(out: dict, layers: int, *, steps: int, lr: float, cuda: bo
     adapter element within Adam8bit's clip at every step (and moved), the
     reference's metric names, and on the card every kernel launched as often
     as the path dispatched it: K1 once per sampler call (decode steps and
-    refill admissions), K2 once per layer per decode forward, K3 7 times per
-    layer per engine forward and twice that per learner forward (forward and
-    remat recompute), K4 forward once per layer per prefill (splash) and
-    twice per layer per learner forward, backward once; no plain version."""
+    refill admissions), K2 once per layer per paged decode forward, K3 (a
+    quantized base) 7 times per layer per engine forward and twice that per
+    learner forward (forward and remat recompute), K4 (flash or splash)
+    forward once per layer per prefill and twice per layer per learner
+    forward, backward once; no plain version."""
     tr, label = out["trainer"], out["label"]
     train = [m for _, m in out["records"] if "loss" in m]
     evals = [m for _, m in out["records"] if any(k.startswith("eval/") for k in m)]
@@ -2924,12 +2988,14 @@ def check_trainer_run(out: dict, layers: int, *, steps: int, lr: float, cuda: bo
     decode_fwd = sum(r["forwards"] for r in rounds)
     prefills = sum(r["model_forwards"] - r["forwards"] - r["resumes"] for r in rounds)
     learner = out["learner_forwards"]
+    quantized = tr.config.base_quant != "none"
+    k4 = tr.config.attn_impl in ("flash", "splash")
     want = {
         "fused_sample": sum(r["sampler_calls"] for r in rounds),
         "paged_attention": layers * decode_fwd,
-        "quant_matmul": 7 * layers * (out["engine_forwards"] + 2 * learner),
-        "flash_attention_fwd": layers * (prefills + 2 * learner),
-        "flash_attention_bwd": layers * learner,
+        "quant_matmul": 7 * layers * (out["engine_forwards"] + 2 * learner) if quantized else 0,
+        "flash_attention_fwd": layers * (prefills + 2 * learner) if k4 else 0,
+        "flash_attention_bwd": layers * learner if k4 else 0,
         "paged_verify": 0,
     }
     check(c == want, f"{label}: launches {c}, want {want} ({decode_fwd} decode forwards, "
@@ -3112,15 +3178,608 @@ def trainer_phase(cfg, args, card: str, t_start: float) -> list:
     return counted
 
 
+# ---------------------------------------------------------------- phase 9
+
+# the refill engine's riders (ROADMAP queue 1 item 7) and the dense slice's
+# leftovers (item 5): (a) prefix sharing, continuous admission and the radix
+# cache at phase 7's shape; (b) host spill under a small page budget; (c)
+# the self-drafter with the adaptive draft length; (d) the int8 dense cache,
+# bisect_mw and a Gemma checkpoint with its Unigram tokenizer
+RIDER_NEW_TOKENS = 128  # (b) and (c): phase 4's length, to keep the script's time
+# (a): 64-token pages, so that every one of phase 7's prompts (94-131 tokens)
+# has a full page below its last token for the radix cache to hold
+CACHE_PAGE = 64
+SPILL_PAGES = 80  # (b): the worst case of 64 slots is 153 pages; 80 preempts
+ADAM_STEP = 2e-5  # (c): one Adam8bit step at lr 2e-5 moves an element ~lr
+GEMMA_STRINGS = ("solve the equation", "what is the answer", "é", "<start_of_turn>user")
+
+
+def rider_engine(cfg, device, *, cache_dtype, slots: int = SPEC_SLOTS,
+                 max_new_tokens: int = SPEC_NEW_TOKENS, max_prompt_tokens: int = 350,
+                 page_size: int = 128, scale: float = 0.5, **kw):
+    """The refill engine (``slots`` slots) with the riders of ``kw``, the
+    CharTokenizer's EOS and pad ids, behavior logprobs captured."""
+    from distrl_llm_tpu_torch.engine import PagedGenerationEngine
+    from distrl_llm_tpu_torch.tokenizer import CharTokenizer
+
+    tok = CharTokenizer()
+    return PagedGenerationEngine(
+        cfg, max_prompt_tokens=max_prompt_tokens, max_new_tokens=max_new_tokens,
+        eos_token_ids=[tok.eos_token_id], pad_token_id=tok.pad_token_id, lora_scale=scale,
+        cache_dtype=cache_dtype, capture_logprobs=True, page_size=page_size,
+        scheduler="refill", max_concurrent_rows=slots, device=device, **kw)
+
+
+def rider_round(eng, model, lora, ids, mask, *, seed: int, label: str, n: int = PA_N,
+                temperature: float = 0.0, max_new_tokens: int = SPEC_NEW_TOKENS,
+                card: str = "") -> dict:
+    """One round with the kernels' counts reset just before and read just
+    after; the round checked as a refill round; its stats returned."""
+    from distrl_llm_tpu_torch.config import SamplingConfig
+    from distrl_llm_tpu_torch.tokenizer import CharTokenizer
+
+    tok = CharTokenizer()
+    sc = SamplingConfig(max_tokens=max_new_tokens, temperature=temperature, top_p=0.95, n=n)
+    reset_counts()
+    t = time.perf_counter()
+    res = eng.generate(model, lora, ids, mask, sc, seed)
+    wall = time.perf_counter() - t
+    counts = read_counts()
+    st = dict(eng.last_round_stats)
+    st.setdefault("sampler_calls", res.steps_dispatched)  # the wave scheduler's
+    for key in ("draft_forwards", "warm_prefills", "prefill_tokens_skipped"):
+        st.setdefault(key, 0)
+    _check_refill_round(res, rows=ids.shape[0], n=n, steps=max_new_tokens,
+                        vocab=model.cfg.vocab_size, eos=tok.eos_token_id,
+                        pad=tok.pad_token_id, what=label)
+    out = {"label": label, "res": res, "counts": counts, "stats": st, "wall_s": wall,
+           "pool": dict(eng.last_pool_stats or {}), "spec": eng.last_spec_stats,
+           "steps": res.steps_dispatched,
+           "ms_per_step": st["decode_s"] * 1e3 / res.steps_dispatched,
+           "decode_tok_s": st["gen_tokens"] / st["decode_s"]}
+    print(f"riders {label}: {ids.shape[0]} prompts x {n} over {eng.max_concurrent_rows} "
+          f"slots, {out['steps']} steps, {st['gen_tokens']} tokens; decode "
+          f"{out['decode_tok_s']:.1f} tok/s, {out['ms_per_step']:.2f} ms/step; prefill "
+          f"{st['prefill_s'] * 1e3:.1f} ms ({st['warm_prefills']} of "
+          f"{out['pool']['groups_prefilled']} group prefills warm, "
+          f"{st['prefill_tokens_skipped']} prompt tokens not re-prefilled)"
+          if out["pool"].get("groups_prefilled") is not None else
+          f"riders {label}: {ids.shape[0]} prompts x {n} over {eng.max_concurrent_rows} "
+          f"slots, {out['steps']} steps, {st['gen_tokens']} tokens; decode "
+          f"{out['decode_tok_s']:.1f} tok/s, {out['ms_per_step']:.2f} ms/step", end="")
+    print(f"; wall {wall:.1f} s; launches {counts}; {card}")
+    return out
+
+
+def check_rider_counts(out: dict, layers: int, *, splash: bool) -> None:
+    """The round's kernels ran as often as its path dispatched them: K1 once
+    per sampler call (a decode step, or a speculative admission), K2 once per
+    layer per decode forward (and per self-drafter forward), K5 once per
+    layer per verify forward, K4 once per layer per COLD group prefill with
+    splash (a warm prefill runs the plain attention the JAX package runs
+    there), K3 never (a bf16 base)."""
+    c, st, label = out["counts"], out["stats"], out["label"]
+    spec = out["spec"]
+    cold = (out["pool"].get("groups_prefilled") or 0) - st["warm_prefills"]
+    want = {
+        "fused_sample": st["sampler_calls"],
+        "paged_attention": layers * (st["draft_forwards"] if spec else st["decode_forwards"]),
+        "paged_verify": layers * st["decode_forwards"] if spec else 0,
+        "flash_attention_fwd": layers * cold if splash else 0,
+        "flash_attention_bwd": 0, "quant_matmul": 0,
+    }
+    check(c == want and c["fused_sample"] > 0,
+          f"{label}: launches {c}, want {want} ({cold} cold group prefills)")
+
+
+def warm_cold_logits(weights, *, max_prompt_tokens: int = 350, page_size: int = CACHE_PAGE,
+                     scale: float = 0.5) -> dict:
+    """Each math prompt's sampling logits from its cold prefill and from a
+    warm prefill that aliases the cold one's full pages (all but the last
+    token's page when the prompt ends on a page boundary, as a radix hit
+    does): the largest |dlogit|, the logit std and the tokens the warm path
+    did not re-prefill."""
+    import numpy as np
+    import torch
+
+    from distrl_llm_tpu_torch.engine.paged_engine import (
+        _empty_pools, _paged_prefill, _warm_prefill,
+    )
+
+    model, lora = weights
+    dev = model.embed.device
+    _, ids, mask, _ = prompt_batch(max_prompt_tokens)
+    pp = -(-max_prompt_tokens // page_size)
+    err, std, skipped = 0.0, 0.0, 0
+    with torch.inference_mode():
+        for g in range(ids.shape[0]):
+            real = np.asarray(ids[g])[np.asarray(mask[g]) > 0]
+            rl = real.size
+            hit = (rl - 1) // page_size * page_size
+            n_chain = -(-rl // page_size)
+            k, v = _empty_pools(model.cfg, 2 * pp + 1, page_size=page_size,
+                                cache_dtype=model.embed.dtype, kv_quant="none", device=dev)
+            scratch = 2 * pp
+            row = np.full((1, pp), scratch, np.int32)
+            row[0, :n_chain] = np.arange(n_chain)
+            _, _, cold, _ = _paged_prefill(
+                model, lora, torch.as_tensor(ids[g:g + 1], device=dev),
+                torch.as_tensor(mask[g:g + 1], device=dev), prompt_pages=pp,
+                page_size=page_size, lora_scale=scale, cache_dtype=model.embed.dtype,
+                attn_impl="reference", pools=(k, v), table=torch.as_tensor(row, device=dev))
+            # the warm chain: the cold chain's full pages, fresh pages after
+            ext = np.full(pp + 1, scratch, np.int32)
+            ext[:hit // page_size] = np.arange(hit // page_size)
+            ext[hit // page_size:n_chain] = pp + np.arange(n_chain - hit // page_size)
+            warm = _warm_prefill(model, lora, k, v, ext, real[hit:], hit,
+                                 page_size=page_size, lora_scale=scale, pad_id=0)
+            err = max(err, float((warm - cold[0]).abs().max()))
+            std = max(std, float(cold.std()))
+            skipped += hit
+    return {"err": err, "std": std, "skipped": skipped}
+
+
+def cache_miss_after_a_push(cfg, device, weights, *, max_new_tokens: int = 8,
+                            slots: int = 8, page_size: int = CACHE_PAGE, n: int = 2) -> dict:
+    """Two rounds of the cache engine with the same adapter (the second
+    warm), then a round with a new adapter object of the same values: the
+    cached KV belongs to the adapter that wrote it, so that round misses.
+    ``same``: the three rounds' greedy tokens and lengths are equal (each
+    prefill, cold or warm, attends with the plain attention here)."""
+    import numpy as np
+
+    model, lora = weights
+    _, ids, mask, _ = prompt_batch(350)
+    eng = rider_engine(cfg, device, cache_dtype=model.embed.dtype, slots=slots,
+                       max_new_tokens=max_new_tokens, page_size=page_size,
+                       continuous_admission=True, prefix_cache=True)
+    saved, tokens, lengths = [], [], []
+    pushed = {"layers": {t: dict(ab) for t, ab in lora["layers"].items()}}
+    for adapter in (lora, lora, pushed):
+        out = rider_round(eng, model, adapter, ids, mask, seed=0, n=n,
+                          label="cache miss check", max_new_tokens=max_new_tokens)
+        saved.append(eng.last_pool_stats["prefill_tok_saved"])
+        tokens.append(out["res"].tokens)
+        lengths.append(out["res"].lengths)
+    same = all(np.array_equal(t, tokens[0]) for t in tokens) and all(
+        np.array_equal(n_, lengths[0]) for n_ in lengths)
+    return {"saved": saved, "same": same}
+
+
+def prefix_cache_phase(cfg, device, weights, *, seed: int, card: str = "",
+                       splash: bool = True, n: int = PA_N, slots: int = SPEC_SLOTS,
+                       max_new_tokens: int = SPEC_NEW_TOKENS, page_size: int = CACHE_PAGE,
+                       max_prompt_tokens: int = 350) -> dict:
+    """(a) Two greedy rounds of the engine with prefix sharing, continuous
+    admission and the radix cache over phase 7's prompts and adapter: the
+    first prefills every group cold, the second admits every group with a
+    full page warm through the cache (its pages parked in host memory at
+    the first round's end and copied back)."""
+    model, lora = weights
+    _, ids, mask = spec_prompt_batch(max_prompt_tokens)
+    kw = dict(cache_dtype=model.embed.dtype, slots=slots, max_new_tokens=max_new_tokens,
+              page_size=page_size, max_prompt_tokens=max_prompt_tokens,
+              prefix_sharing=True, continuous_admission=True, prefix_cache=True,
+              attn_impl="splash" if splash else "reference")
+    # a short warm-up on an engine of its own (the cache belongs to the engine)
+    warm_up = rider_engine(model.cfg, device, **{**kw, "max_new_tokens": 4})
+    rider_round(warm_up, model, lora, ids, mask, seed=seed, n=2, max_new_tokens=4,
+                label="cache warm-up")
+    del warm_up
+    eng = rider_engine(model.cfg, device, **kw)
+    rounds = [rider_round(eng, model, lora, ids, mask, seed=seed + 1, n=n,
+                          max_new_tokens=max_new_tokens, card=card,
+                          label=f"prefix cache round {i + 1}") for i in range(2)]
+    return {"rounds": rounds}
+
+
+def spill_phase(cfg, device, weights, *, seed: int, card: str = "", n: int = PA_N,
+                slots: int = SPEC_SLOTS, max_new_tokens: int = RIDER_NEW_TOKENS,
+                max_kv_pages: int = SPILL_PAGES, page_size: int = 128,
+                max_prompt_tokens: int = 350) -> dict:
+    """(b) The cache engine with host spill under ``max_kv_pages`` pages, so
+    that slots are preempted, against the same engine with the worst-case
+    pool: greedy, phase 7's prompts."""
+    model, lora = weights
+    _, ids, mask = spec_prompt_batch(max_prompt_tokens)
+    kw = dict(cache_dtype=model.embed.dtype, slots=slots, max_new_tokens=max_new_tokens,
+              page_size=page_size, max_prompt_tokens=max_prompt_tokens,
+              continuous_admission=True, prefix_cache=True, kv_spill=True)
+    spill = rider_round(rider_engine(model.cfg, device, max_kv_pages=max_kv_pages, **kw),
+                        model, lora, ids, mask, seed=seed, n=n,
+                        max_new_tokens=max_new_tokens, card=card,
+                        label=f"host spill, {max_kv_pages} pages")
+    full = rider_round(rider_engine(model.cfg, device, **kw), model, lora, ids, mask,
+                       seed=seed, n=n, max_new_tokens=max_new_tokens, card=card,
+                       label="host spill engine, worst-case pool")
+    return {"spill": spill, "full": full}
+
+
+def adam_step_neighbour(lora, *, seed: int, step: float = ADAM_STEP):
+    """``lora`` with every element moved by ``step`` in a random direction:
+    the size of one Adam8bit step at lr ``step``."""
+    import torch
+
+    gen = torch.Generator(device=lora["layers"]["wq"]["a"].device).manual_seed(seed)
+    out = {"layers": {}}
+    for t, ab in lora["layers"].items():
+        out["layers"][t] = {k: x + step * torch.sign(torch.randn(
+            x.shape, generator=gen, device=x.device)) for k, x in ab.items()}
+    return out
+
+
+def self_draft_phase(cfg, device, weights, *, seed: int, card: str = "", n: int = PA_N,
+                     slots: int = SPEC_SLOTS, max_new_tokens: int = RIDER_NEW_TOKENS,
+                     page_size: int = 128, max_prompt_tokens: int = 350) -> dict:
+    """(c) Speculative decoding with the self-drafter and the adaptive draft
+    length: adapter v1 is the round's entry, v2 (v1 moved by one Adam8bit
+    step) is pushed, so v1 drafts for v2. One greedy round, then one sampled
+    round (entry v2, v1 still the previous version), and plain decoding with
+    the same push, over phase 4's 4 prompts: 64 candidates in 64 slots, so
+    plain decoding takes the wave scheduler (the same 64-row decode step;
+    a speculative engine always takes the refill one)."""
+    model, v1 = weights
+    v2 = adam_step_neighbour(v1, seed=seed)
+    _, ids, mask, _ = prompt_batch(max_prompt_tokens)
+    kw = dict(cache_dtype=model.embed.dtype, slots=slots, max_new_tokens=max_new_tokens,
+              page_size=page_size, max_prompt_tokens=max_prompt_tokens)
+    spec = rider_engine(model.cfg, device, spec_draft=SPEC_DRAFT, spec_drafter="self",
+                        spec_adapt=True, **kw)
+    plain = rider_engine(model.cfg, device, **kw)
+    rider_round(spec, model, v1, ids, mask, seed=seed, n=2, max_new_tokens=4,
+                label="self-drafter warm-up")
+    out = {}
+    for eng, key in ((spec, "greedy"), (plain, "plain")):
+        eng.push_lora(v2, 2)
+        out[key] = rider_round(eng, model, v1, ids, mask, seed=seed + 1, n=n,
+                               max_new_tokens=max_new_tokens, card=card,
+                               label=f"{'self-drafter' if key == 'greedy' else 'plain'} "
+                                     f"v1 -> v2, greedy")
+    out["sampled"] = rider_round(spec, model, v2, ids, mask, seed=seed + 2, n=n,
+                                 temperature=1.2, max_new_tokens=max_new_tokens, card=card,
+                                 label="self-drafter (v1 drafts) v2, t=1.2")
+    return out
+
+
+def self_draft_exactness(device, seed: int, *, max_new_tokens: int = 32) -> dict:
+    """On TINY in f32 (phase 7's exactness preset), the greedy self-drafted
+    tokens against plain refill's, both engines given the same push."""
+    import torch
+
+    from distrl_llm_tpu_torch.models.configs import TINY
+
+    model, v1 = make_weights(TINY, device, seed=seed, rank=4, dtype=torch.float32)
+    v2 = adam_step_neighbour(v1, seed=seed, step=0.01)
+    _, ids, mask = spec_prompt_batch(96)
+    kw = dict(cache_dtype=torch.float32, slots=4, max_new_tokens=max_new_tokens,
+              page_size=8, max_prompt_tokens=96)
+    out = {}
+    for key, extra in (("spec", dict(spec_draft=SPEC_DRAFT, spec_drafter="self",
+                                      spec_adapt=True)), ("plain", {})):
+        eng = rider_engine(TINY, device, **kw, **extra)
+        eng.push_lora(v2, 2)
+        out[key] = rider_round(eng, model, v1, ids, mask, seed=seed, n=2,
+                               max_new_tokens=max_new_tokens, label=f"TINY f32 {key}")
+    out["layers"] = TINY.num_layers
+    return out
+
+
+def dense_int8_quantize_check(device, seed: int, *, shape=(4, 4, 350, 128)) -> dict:
+    """``quantize_kv_position`` on the card against the CPU, bit for bit, on
+    one layer's k at Qwen2.5-7B width (bf16, as the engine quantizes it)."""
+    import torch
+
+    from distrl_llm_tpu_torch.ops.attention import quantize_kv_position
+
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    x = (torch.randn(shape, generator=gen) * torch.rand(shape[:-1] + (1,), generator=gen)
+         * 4).to(torch.bfloat16)
+    q_dev, s_dev = quantize_kv_position(x.to(device))
+    q_cpu, s_cpu = quantize_kv_position(x)
+    return {"q_equal": bool(torch.equal(q_dev.cpu(), q_cpu)),
+            "s_equal": bool(torch.equal(s_dev.cpu(), s_cpu)), "elements": x.numel()}
+
+
+def dense_int8_logits(wide, *, seed: int, steps: int = LOGIT_STEPS, n: int = PA_N,
+                      max_prompt_tokens: int = 350, max_new_tokens: int = 128,
+                      scale: float = 0.5) -> dict:
+    """The dense engine's teacher-forced f32 logits with the int8 cache
+    against the f32 cache (the prefill's last position and ``steps`` decode
+    forwards of phase 4's prompts): the largest |dlogit| and the std."""
+    import numpy as np
+    import torch
+
+    model = wide[0]
+    dev = model.embed.device
+    _, ids, mask, _ = prompt_batch(max_prompt_tokens)
+    ids = torch.as_tensor(np.asarray(ids), dtype=torch.int32, device=dev)
+    mask = torch.as_tensor(np.asarray(mask), dtype=torch.int32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tokens = torch.randint(0, model.cfg.vocab_size, (ids.shape[0] * n, steps),
+                           generator=gen, device=dev, dtype=torch.int32)
+    kw = dict(max_prompt_tokens=max_prompt_tokens, max_new_tokens=max_new_tokens,
+              page_size=128, scale=scale)
+    want = engine_logits(wide, ids, mask, tokens, engine="dense", **kw)
+    got = engine_logits(wide, ids, mask, tokens, engine="dense", kv_quant="int8", **kw)
+    return {"err": max(float((a - b).abs().max()) for a, b in zip(got, want)),
+            "std": float(torch.cat(want).std())}
+
+
+def write_unigram_tokenizer(path: Path, vocab_size: int) -> tuple[Path, dict]:
+    """A Gemma-shaped sentencepiece Unigram ``tokenizer.json`` (and a
+    ``tokenizer_config.json`` with a Gemma chat template) written by hand, no
+    tokenizer package assumed: <pad> <eos> <bos> <unk> at ids 0-3, the 256
+    byte pieces, words with and without the ▁ prefix at score -1, single
+    characters at -10, then ▁-prefixed filler pieces at -20 up to
+    ``vocab_size`` (every id decodes to text), <start_of_turn> and
+    <end_of_turn> at the top, the Replace(" " -> ▁) normalizer. Returns the
+    directory and the ids the script expects for ``GEMMA_STRINGS``."""
+    words = ["solve", "the", "equation", "what", "is", "answer", "user", "model",
+             "reasoning", "process", "here", "think", "a", "and", "question", "assistant"]
+    vocab = [["<pad>", 0.0], ["<eos>", 0.0], ["<bos>", 0.0], ["<unk>", 0.0]]
+    vocab += [[f"<0x{b:02X}>", 0.0] for b in range(256)]
+    ids = {}
+    for w in words:
+        for piece in (w, "▁" + w):
+            ids[piece] = len(vocab)
+            vocab.append([piece, -1.0])
+    for c in ("▁" + "".join(chr(x) for x in range(0x21, 0x7f))):
+        if c not in ids:
+            ids[c] = len(vocab)
+            vocab.append([c, -10.0])
+    specials = ["<start_of_turn>", "<end_of_turn>"]
+    i = 0
+    while len(vocab) < vocab_size - len(specials):
+        vocab.append([f"▁qz{i:x}", -20.0])
+        i += 1
+    added = [{"id": k, "content": vocab[k][0], "special": True} for k in range(4)]
+    for s in specials:
+        ids[s] = len(vocab)
+        added.append({"id": len(vocab), "content": s, "special": True})
+        vocab.append([s, 0.0])
+    tj = {"version": "1.0", "added_tokens": added,
+          "normalizer": {"type": "Replace", "pattern": {"String": " "}, "content": "▁"},
+          "pre_tokenizer": None, "decoder": None,
+          "model": {"type": "Unigram", "unk_id": 3, "vocab": vocab, "byte_fallback": True}}
+    template = ("{% for m in messages %}<start_of_turn>{{ m['role'] }}\n{{ m['content'] }}"
+                "<end_of_turn>\n{% endfor %}{% if add_generation_prompt %}<start_of_turn>model\n"
+                "{% endif %}")
+    path.mkdir(parents=True, exist_ok=True)
+    (path / "tokenizer.json").write_text(json.dumps(tj, ensure_ascii=False))
+    (path / "tokenizer_config.json").write_text(json.dumps({"chat_template": template}))
+    expected = {
+        GEMMA_STRINGS[0]: [ids["solve"], ids["▁the"], ids["▁equation"]],
+        GEMMA_STRINGS[1]: [ids["what"], ids["▁is"], ids["▁the"], ids["▁answer"]],
+        GEMMA_STRINGS[2]: [4 + 0xC3, 4 + 0xA9],  # byte fallback: é is C3 A9
+        GEMMA_STRINGS[3]: [ids["<start_of_turn>"], ids["user"]],
+    }
+    return path, expected
+
+
+def gemma_phase(cfg, device, *, seed: int, workdir: Path, hbm_bytes=None,
+                config_kw=None) -> dict:
+    """(d) ``Trainer.from_pretrained`` on a checkpoint of ``cfg`` (Gemma)
+    written by ``save_hf_checkpoint`` with the script's Unigram tokenizer:
+    the native SPM tokenizer, the script's expected ids, and one training
+    step with the dense engine over the int8 cache (``attn_impl``
+    "reference")."""
+    import shutil
+
+    from distrl_llm_tpu_torch.models.loading import save_hf_checkpoint
+    from distrl_llm_tpu_torch.tokenizer import load_tokenizer
+    from distrl_llm_tpu_torch.trainer import Trainer
+
+    tok_dir, expected = write_unigram_tokenizer(workdir / "tokenizer", cfg.vocab_size)
+    ckpt = workdir / "hf"
+    model, _ = make_weights(cfg, device, seed=seed)
+    dtype = str(model.embed.dtype).removeprefix("torch.")
+    save_hf_checkpoint(model, str(ckpt))
+    for name in ("tokenizer.json", "tokenizer_config.json"):
+        shutil.copy(tok_dir / name, ckpt / name)
+    del model
+    tok = load_tokenizer(str(ckpt))
+    got = {s: tok.encode(s) for s in GEMMA_STRINGS}
+    config = trainer_config(workdir / "run", seed=seed, model="gemma-2b-random", dtype=dtype,
+                            base_quant="none", engine_impl="dense", continuous_batching=False,
+                            max_concurrent_sequences=0, attn_impl="reference",
+                            kv_cache_quant="int8", **(config_kw or {}))
+
+    def build(sink):
+        train, test = trainer_datasets(tok)
+        train = {k: v[:config.batch_size] for k, v in train.items()}  # one batch: one step
+        return Trainer.from_pretrained(train, test, smoke_reward, config,
+                                       checkpoint_path=str(ckpt), tokenizer=tok, sink=sink,
+                                       device=device, hbm_bytes=hbm_bytes)
+
+    out = trainer_run(build, label="gemma from_pretrained")
+    out.update(tokenizer=type(tok).__name__, ids=got, expected=expected,
+               kv_quant=out["trainer"].engine.kv_quant)
+    return out
+
+
+def riders_phase(cfg, args, card: str, t_start: float, *, dense_peak_gib: float,
+                 int8_page_err: float, plain_refill_pool: dict) -> list:
+    """Phase 9 on the card (see the module's docstring). Returns the launch
+    counts of its main-path runs."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from distrl_llm_tpu_torch.models.configs import GEMMA_2B
+
+    counted = []
+    # the trainers of phase 8 sit in reference cycles (trainer <-> sink):
+    # collect them, so their models do not count in this phase's peaks
+    gc.collect()
+    torch.cuda.empty_cache()
+    weights = make_weights(cfg, "cuda", seed=args.seed)
+    # (a) prefix sharing, continuous admission and the radix cache
+    a = prefix_cache_phase(cfg, "cuda", weights, seed=args.seed, card=card)
+    r1, r2 = a["rounds"]
+    for r in (r1, r2):
+        check_rider_counts(r, cfg.num_layers, splash=True)
+        counted.append(r["counts"])
+    groups = len(SPEC_PROBLEMS)
+    # round 1 prefills a group warm only where an earlier group of the round
+    # finished with the same leading page; round 2 finds every group cached
+    check(r2["stats"]["warm_prefills"] == groups,
+          f"prefix cache: {r2['stats']['warm_prefills']} of round 2's {groups} group "
+          f"prefills ran warm, want all")
+    check(r2["pool"]["prefill_tok_saved"] > 0 and r2["pool"]["restored_pages"] > 0,
+          f"prefix cache round 2 hit nothing: {r2['pool']}")
+    same = r1["res"].tokens == r2["res"].tokens
+    print(f"riders (a): {CACHE_PAGE}-token pages; peak KV tokens resident in the pool "
+          f"{r1['pool']['peak_pages_used'] * CACHE_PAGE} / "
+          f"{r2['pool']['peak_pages_used'] * CACHE_PAGE} (rounds 1 / 2, prompt chains "
+          f"included) against phase 7's plain refill "
+          f"{plain_refill_pool['peak_pages_used'] * 128} in its pool plus "
+          f"{groups * 3 * 128} in its static prompt region; peak shared pages "
+          f"{r1['pool']['peak_shared_pages']} / {r2['pool']['peak_shared_pages']}, copy-on-write "
+          f"splits {r1['pool']['cow_splits']}; round 2: radix hit pages "
+          f"{r2['pool']['prefill_tok_saved'] // CACHE_PAGE} ({r2['pool']['prefill_tok_saved']} prompt "
+          f"tokens not re-prefilled, {r2['pool']['restored_pages']} pages copied back from "
+          f"host memory in {r2['pool']['spill_restore_ms_p50']} ms p50), hit rate "
+          f"{r2['pool']['radix_hit_rate']}; greedy tokens of the warm round equal the cold "
+          f"round's on {100 * same.mean():.2f}% of positions (printed, not asserted: a cold "
+          f"prefill attends with K4, a warm one with the plain attention, and bf16 at "
+          f"{cfg.num_layers} layers of random weights flips near-ties; in f32 below, with "
+          f"the plain attention in both, the two give the same logits and tokens); decode "
+          f"{r1['ms_per_step']:.2f} / {r2['ms_per_step']:.2f} ms/step against phase 7's "
+          f"plain refill {plain_refill_pool['ms_per_step']:.2f}; total "
+          f"{time.perf_counter() - t_start:.1f} s; {card}")
+    del a, r1, r2
+    # (b) host spill under a small budget, against the worst-case pool
+    b = spill_phase(cfg, "cuda", weights, seed=args.seed, card=card)
+    check_rider_counts(b["spill"], cfg.num_layers, splash=False)
+    check_rider_counts(b["full"], cfg.num_layers, splash=False)
+    counted += [b["spill"]["counts"], b["full"]["counts"]]
+    sp = b["spill"]["pool"]
+    check(sp["preemptions"] > 0 and sp["spilled_pages"] > 0 and sp["restored_pages"] > 0,
+          f"host spill: preemptions {sp['preemptions']}, spilled pages "
+          f"{sp['spilled_pages']}, restored {sp['restored_pages']}: want each > 0")
+    check(np.array_equal(b["spill"]["res"].tokens, b["full"]["res"].tokens),
+          "host spill: the preempted round's greedy tokens differ from the worst-case pool's")
+    print(f"riders (b): host spill at {cfg.num_layers} layers bf16, {SPILL_PAGES} pages: "
+          f"{sp['preemptions']} preemptions, {sp['spilled_pages']} pages parked, "
+          f"{sp['restored_pages']} copied back, restore {sp['spill_restore_ms_p50']} ms p50; "
+          f"greedy tokens equal to the worst-case pool's ({b['full']['pool']['pool_pages']} "
+          f"pages, {b['full']['pool']['preemptions']} preemptions); {card}")
+    del b
+    # (c) the self-drafter and the adaptive draft length
+    c = self_draft_phase(cfg, "cuda", weights, seed=args.seed, card=card)
+    for key in ("greedy", "sampled", "plain"):
+        check_rider_counts(c[key], cfg.num_layers, splash=False)
+        counted.append(c[key]["counts"])
+    g, pl = c["greedy"], c["plain"]
+    same = g["res"].tokens == pl["res"].tokens
+    for key in ("greedy", "sampled"):
+        s = c[key]["spec"]
+        print(f"riders (c) self-drafter {key}: accept rate {s['accept_rate']:.4f}, "
+              f"{s['tokens_per_verify_step']:.4f} tokens per verify step, drafter version "
+              f"{s['drafter_version']} for target {s['target_version']}, the draft length at "
+              f"each boundary {s['draft_len_trace']}, {s['draft_forwards']} drafter and "
+              f"{s['verify_forwards']} verify forwards; {c[key]['ms_per_step']:.2f} ms/step, "
+              f"{c[key]['decode_tok_s']:.1f} tok/s against plain decoding under v2 "
+              f"{pl['ms_per_step']:.2f} ms/step, {pl['decode_tok_s']:.1f} tok/s; {card}")
+    print(f"riders (c): self-drafted vs plain greedy tokens equal on "
+          f"{100 * same.mean():.2f}% of positions (printed: the verify forward and the "
+          f"single-token decodes round otherwise in bf16)")
+    check(g["spec"]["accepted"] > 0, "self-drafter: no draft was accepted")
+    del c
+    ex = self_draft_exactness("cuda", args.seed)
+    for key in ("spec", "plain"):
+        check_rider_counts(ex[key], ex["layers"], splash=False)
+    s = ex["spec"]["spec"]
+    print(f"riders (c) TINY f32 self-drafter: accept rate {s['accept_rate']:.4f}, "
+          f"{s['tokens_per_verify_step']:.4f} tokens per verify step, draft lengths "
+          f"{s['draft_len_trace']}")
+    check(np.array_equal(ex["spec"]["res"].tokens, ex["plain"]["res"].tokens)
+          and np.array_equal(ex["spec"]["res"].lengths, ex["plain"]["res"].lengths),
+          "self-drafter exactness: greedy tokens differ from plain refill's")
+    check(s["accepted"] > 0, "self-drafter exactness: no draft was accepted")
+    # (a) at 4 layers in f32: warm vs cold logits, and a push misses the cache
+    small = make_weights(dataclasses.replace(cfg, num_layers=4), "cuda", seed=args.seed,
+                         dtype=torch.float32)
+    wc = warm_cold_logits(small)
+    miss = cache_miss_after_a_push(dataclasses.replace(cfg, num_layers=4), "cuda", small)
+    print(f"riders (a) 4 layers f32: warm vs cold prefill logits max |dlogit| "
+          f"{wc['err']:.4g} (tolerance {LOGIT_F32_ATOL}; logit std {wc['std']:.4g}; "
+          f"{wc['skipped']} prompt tokens aliased); prompt tokens not re-prefilled by three "
+          f"rounds (adapter, same adapter, a new adapter object) {miss['saved']}, their greedy "
+          f"tokens and lengths {'equal' if miss['same'] else 'NOT equal'}")
+    check(wc["err"] <= LOGIT_F32_ATOL, f"warm prefill logits differ from cold by "
+          f"{wc['err']:.4g} > {LOGIT_F32_ATOL}")
+    check(miss["saved"][0] == 0 and miss["saved"][1] > 0 and miss["saved"][2] == 0,
+          f"prefix cache: rounds saved {miss['saved']}, want 0, > 0, 0")
+    check(miss["same"], "prefix cache at 4 layers f32: the warm or the missed round's greedy "
+          "tokens or lengths differ from the cold round's")
+    # (b) at 4 layers in f32
+    bs = spill_phase(dataclasses.replace(cfg, num_layers=4), "cuda", small, seed=args.seed)
+    check(bs["spill"]["pool"]["preemptions"] > 0 and bs["spill"]["pool"]["restored_pages"] > 0,
+          f"host spill at 4 layers f32: {bs['spill']['pool']['preemptions']} preemptions, "
+          f"{bs['spill']['pool']['restored_pages']} pages restored: want each > 0")
+    check(np.array_equal(bs["spill"]["res"].tokens, bs["full"]["res"].tokens),
+          "host spill at 4 layers f32: tokens differ from the worst-case pool's")
+    print(f"riders (b) 4 layers f32: {bs['spill']['pool']['preemptions']} preemptions, "
+          f"{bs['spill']['pool']['restored_pages']} pages copied back, greedy tokens equal to "
+          f"the worst-case pool's")
+    del small, bs
+    torch.cuda.empty_cache()
+    # (d) the int8 dense cache, bisect_mw, and a Gemma checkpoint
+    qc = dense_int8_quantize_check("cuda", args.seed)
+    check(qc["q_equal"] and qc["s_equal"], "quantize_kv_position: the card's int8 values or "
+          "scales differ from the CPU's")
+    # its sampled round filters with bisect_mw: K1 once a step there too
+    d = rollout(cfg, "cuda", seed=args.seed, card=card, engine="dense", kv_quant="int8",
+                weights=weights, top_p_impl="bisect_mw")
+    check(d["counts"]["fused_sample"] == d["steps"] and sum(d["counts"].values())
+          == d["steps"], f"{d['label']}: launches {d['counts']}, want K1 {d['steps']} only")
+    counted.append(d["counts"])
+    wide = widen(weights)
+    del weights
+    torch.cuda.empty_cache()
+    lg = dense_int8_logits(wide, seed=args.seed)
+    del wide
+    torch.cuda.empty_cache()
+    int8_tol = 2 * int8_page_err + LOGIT_F32_ATOL
+    print(f"riders (d): dense engine, int8 cache: {d['greedy'][1]['ms_per_step']:.2f} ms/step "
+          f"greedy, peak {d['peak_gib']:.2f} GiB against phase 4's bf16 dense cell "
+          f"{dense_peak_gib:.2f} GiB; quantize_kv_position on the card equals the CPU's on "
+          f"{qc['elements']} elements, values and scales; teacher-forced f32 logits, int8 vs "
+          f"f32 cache: max |dlogit| {lg['err']:.4g} (tolerance {int8_tol:.4g}: twice the "
+          f"int8 pages' own distance {int8_page_err:.4g} measured in phase 4, the same "
+          f"per-token absmax over head_dim, plus {LOGIT_F32_ATOL}; logit std "
+          f"{lg['std']:.4g}); {card}")
+    check(lg["err"] <= int8_tol, f"dense int8 cache logits differ from f32 by "
+          f"{lg['err']:.4g} > {int8_tol:.4g}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gemma_") as tmp:
+        gm = gemma_phase(dataclasses.replace(GEMMA_2B, num_layers=2), "cuda", seed=args.seed,
+                         workdir=Path(tmp))
+    check(gm["tokenizer"] == "NativeSPMTokenizer" and gm["ids"] == gm["expected"],
+          f"gemma: tokenizer {gm['tokenizer']}, ids {gm['ids']}, want {gm['expected']}")
+    check_trainer_run(gm, 2, steps=1, lr=gm["trainer"].config.lr, cuda=True)
+    check(gm["kv_quant"] == "int8", "gemma: the engine does not hold an int8 cache")
+    counted.append(gm["counts"])
+    print(f"riders (d) Gemma 2B width, 2 layers: {gm['tokenizer']}, ids {gm['ids']} as "
+          f"expected; one training step with the dense engine over the int8 cache: train() "
+          f"{gm['wall_s']:.1f} s, peak {gm['peak_gib']:.2f} GiB; launches {gm['counts']}; "
+          f"total {time.perf_counter() - t_start:.1f} s; {card}")
+    for line in trainer_step_lines(gm, card):
+        print(line)
+    return counted
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=28,
                     help="decoder depth of the Qwen2.5-7B-wide model (28 = full)")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--until", type=int, default=8, choices=(6, 7, 8),
+    ap.add_argument("--until", type=int, default=9, choices=(6, 7, 8, 9),
                     help="the last phase to run; 6 skips speculative decoding "
-                         "(with --profile, the long part), 7 the trainer; a "
-                         "partial run prints no result line")
+                         "(with --profile, the long part), 7 the trainer, 8 the "
+                         "refill engine's riders; a partial run prints no "
+                         "result line")
     ap.add_argument("--profile", action="store_true",
                     help="also print the device time per decode step and per "
                          "learner step by kernel (torch.profiler) and the "
@@ -3289,6 +3948,7 @@ def main(argv=None) -> int:
           f"by {sp['logit_err']:.4g} > {LOGIT_F32_ATOL}")
     counted = [out["counts"] for out in runs] + [sc]  # every main-path run's launches
     dense = runs[0]
+    dense_peak = dense["peak_gib"]
     ga = greedy_agreement(cfg, "cuda", wide, dense["greedy_tokens"], seed=args.seed)
     del wide
     torch.cuda.empty_cache()
@@ -3303,13 +3963,15 @@ def main(argv=None) -> int:
               f"dense engine, both f32, {100 * ga['paged_vs_dense_f32']:.2f}%")
 
     # 5. the learner at full width: the dense engine's sampled round through
-    # shaping into 8 microbatches of 8 x 1550 tokens, two optimizer steps
+    # shaping into 8 microbatches of 8 x 1550 tokens, one optimizer step
+    # (phase 8's trainer takes two)
     batch, source = learner_batch(dense, n=PA_N, seed=args.seed, device="cuda")
     print(f"learner: {batch.prompt_ids.shape[0]} rows x ({batch.prompt_ids.shape[1]} + "
           f"{batch.answer_ids.shape[1]}) tokens, micro 8; coefficients from {source}; "
           f"total {time.perf_counter() - t_start:.1f} s")
     lr, scale = 2e-5, 16.0 / 32
-    lrn = learner_run(weights, batch, lr=lr, scale=scale, card=card, profile=args.profile)
+    lrn = learner_run(weights, batch, steps=1, lr=lr, scale=scale, card=card,
+                      profile=args.profile)
     want_fwd = 2 * cfg.num_layers * lrn["num_micro"]
     want_bwd = cfg.num_layers * lrn["num_micro"]
     for i, st in enumerate(lrn["steps"]):
@@ -3363,13 +4025,15 @@ def main(argv=None) -> int:
     check(lp["logp_err"] <= LEARNER_LOGP_ATOL, f"learner vs engine logprobs differ by "
           f"{lp['logp_err']:.3g} > {LEARNER_LOGP_ATOL}")
 
-    # 6. QLoRA: the same model with its projections quantized (int4 in groups
-    # of 64, the reference's 4-bit base), every projection through K3: the
-    # dense and the paged engine, one dense round over an int8 base, f32
-    # logits against K3's plain version, two learner steps, f32 parity
+    # 6. QLoRA, at SHALLOW_LAYERS: the same model with its projections
+    # quantized (int4 in groups of 64, the reference's 4-bit base), every
+    # projection through K3: the dense and the paged engine, one dense round
+    # over an int8 base, f32 logits against K3's plain version, one learner
+    # step, f32 parity
     del weights
     torch.cuda.empty_cache()
-    counted += qlora_phase(cfg, args, batch, card, t_start)
+    shallow = dataclasses.replace(cfg, num_layers=min(cfg.num_layers, SHALLOW_LAYERS))
+    counted += qlora_phase(shallow, args, batch, card, t_start)
     print(f"qlora: total {time.perf_counter() - t_start:.1f} s; {card}")
     torch.cuda.empty_cache()
 
@@ -3380,8 +4044,9 @@ def main(argv=None) -> int:
 
     # 7. speculative decoding: K5 against its plain version and timed, then
     # BASELINE config 2's refill engine at full width, speculative and
-    # plain, bf16 and int8 pages, and f32 verify-vs-decode logits
-    spec_counts, results["paged_verify"] = spec_phase(cfg, args, card, t_start)
+    # plain, bf16 pages at 28 layers and int8 pages at SHALLOW_LAYERS, and
+    # f32 verify-vs-decode logits
+    spec_counts, results["paged_verify"], plain_refill = spec_phase(cfg, args, card, t_start)
     counted += spec_counts
     if args.until < 8:
         print(f"chip_smoke: phases 1-{args.until} done in {time.perf_counter() - t_start:.1f} s "
@@ -3392,6 +4057,17 @@ def main(argv=None) -> int:
     # int4 base at full width, then Trainer.from_pretrained on a checkpoint
     # written by save_hf_checkpoint, each with the counts reset around it
     counted += trainer_phase(cfg, args, card, t_start)
+    if args.until < 9:
+        print(f"chip_smoke: phases 1-{args.until} done in {time.perf_counter() - t_start:.1f} s "
+              f"(a partial run prints no result line); {card}")
+        return 0
+
+    # 9. the refill engine's riders and the dense slice's leftovers at full
+    # width: prefix sharing, continuous admission and the radix cache; host
+    # spill; the self-drafter with the adaptive draft length; the int8 dense
+    # cache, bisect_mw and a Gemma checkpoint with its Unigram tokenizer
+    counted += riders_phase(cfg, args, card, t_start, dense_peak_gib=dense_peak,
+                            int8_page_err=lc["int8_plain"], plain_refill_pool=plain_refill)
     print(f"chip_smoke: done in {time.perf_counter() - t_start:.1f} s; {card}")
 
     kernels = []

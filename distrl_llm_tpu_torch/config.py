@@ -18,7 +18,7 @@ from dataclasses import dataclass
 from typing import Any
 
 #: every top-p filter name the JAX package knows (ops/sampling.py TOP_P_IMPLS);
-#: the port implements "exact" and "bisect" — ops.sampling raises on the rest
+#: the port implements all three (ops/sampling.py)
 TOP_P_IMPL_NAMES = ("exact", "bisect", "bisect_mw")
 
 _ASYNC_ITEM = "ROADMAP queue 1 item 8: pipelined and async rollout, multi-turn envs"
@@ -148,9 +148,28 @@ class TrainConfig:
     max_concurrent_sequences: int = 0
     # the paged engine's refill scheduler (continuous batching)
     continuous_batching: bool = False
-    # n-gram speculative decoding on the refill scheduler
+    # copy-on-write prompt-prefix sharing on the refill scheduler: a
+    # group's candidates alias one refcounted prompt page chain
+    prefix_sharing: bool = False
+    # a group request queue with lazy per-group prefill into pool pages
+    # (implies prefix_sharing)
+    continuous_admission: bool = False
+    # the radix prefix cache across rounds (needs continuous_admission and
+    # an unquantized pool); None = unset, an explicit bool pins
+    prefix_cache: bool | None = None
+    # park preempted and evicted KV pages in host memory (needs
+    # prefix_cache, excludes spec_draft); the store's cap in MiB (0 = none)
+    kv_spill: bool = False
+    kv_spill_host_mb: int = 0
+    # speculative decoding on the refill scheduler: the draft length, the
+    # n-gram size, the drafter ("ngram" or "self", the previous adapter),
+    # the verify sweep ("fused" K5 or "unrolled" K2) and the adaptive draft
+    # length
     spec_draft: int | None = None
     spec_ngram: int | None = None
+    spec_drafter: str | None = None
+    spec_verify: str | None = None
+    spec_adapt: bool = False
     # PPO-clip epsilon (0 = the reference's objective); > 0 trains on the
     # engine's tokens against its captured behavior logprobs
     clip_ratio: float = 0.0
@@ -245,19 +264,55 @@ class TrainConfig:
             raise ValueError(
                 "spec_draft (speculative decoding) requires "
                 "continuous_batching (the refill scheduler hosts it)")
+        if (self.prefix_sharing or self.continuous_admission) and not self.continuous_batching:
+            raise ValueError(
+                "prefix_sharing/continuous_admission run on the refill scheduler: "
+                "set continuous_batching (and a max_concurrent_sequences cap)")
+        if self.prefix_cache and not self.continuous_admission:
+            raise ValueError(
+                "prefix_cache (the radix KV cache) aliases cached prompt chains out "
+                "of the continuous-admission pool: set continuous_admission")
+        if self.prefix_cache and self.kv_cache_quant == "int8":
+            raise ValueError(
+                "prefix_cache requires a lossless KV pool: int8 pages cannot "
+                "reproduce the cold prefill's attention inputs bit-exactly")
+        if self.kv_spill and not self.prefix_cache:
+            raise ValueError(
+                "kv_spill parks KV pages through the tiered cache's host store: "
+                "it requires prefix_cache")
+        if self.kv_spill and self.spec_draft:
+            raise ValueError(
+                "kv_spill restores raw decode cursors the speculative scheduler "
+                "does not expose; drop kv_spill or spec_draft")
+        if self.kv_spill_host_mb and not self.kv_spill:
+            raise ValueError("kv_spill_host_mb caps the kv_spill host store: set kv_spill")
         if self.spec_draft is not None and not 0 <= self.spec_draft <= 16:
             raise ValueError(f"spec_draft must be in [0, 16], got {self.spec_draft}")
         if self.spec_ngram is not None and self.spec_ngram < 1:
             raise ValueError(f"spec_ngram must be >= 1, got {self.spec_ngram}")
-        if not self.continuous_batching and self.spec_ngram is not None:
+        if self.spec_drafter not in (None, "ngram", "self"):
+            raise ValueError(f"spec_drafter must be 'ngram' or 'self', got {self.spec_drafter!r}")
+        if self.spec_verify not in (None, "fused", "unrolled"):
             raise ValueError(
-                "spec_ngram configures speculative decoding, which requires "
-                "continuous_batching (the refill scheduler hosts it) — it "
-                "would be silently ignored")
-        if self.spec_draft == 0 and self.spec_ngram is not None:
+                f"spec_verify must be 'fused' or 'unrolled', got {self.spec_verify!r}")
+        spec_knobs = (self.spec_ngram is not None or self.spec_drafter is not None
+                      or self.spec_verify is not None)
+        if not self.continuous_batching and (spec_knobs or self.spec_adapt):
             raise ValueError(
-                "spec_ngram with spec_draft=0: an explicit 0 pins speculation "
-                "off, so it would be silently ignored")
+                "spec_ngram/spec_drafter/spec_verify/spec_adapt configure "
+                "speculative decoding, which requires continuous_batching (the "
+                "refill scheduler hosts it): they would be silently ignored")
+        if self.spec_draft == 0 and spec_knobs:
+            raise ValueError(
+                "spec_ngram/spec_drafter/spec_verify with spec_draft=0: an explicit "
+                "0 pins speculation off, so they would be silently ignored")
+        if self.spec_drafter == "self" and self.spec_draft != 0 and self.full_finetune:
+            raise ValueError(
+                "spec_drafter='self' drafts with the policy's previous LoRA adapter: "
+                "full_finetune has no adapter stream")
+        if self.spec_adapt and self.spec_draft == 0:
+            raise ValueError("spec_adapt adapts the speculative draft length: set "
+                             "spec_draft > 0")
         if self.batch_size <= 0:
             raise ValueError("batch_size must be positive")
         if any(b <= 0 or b > self.max_new_tokens for b in self.learner_len_buckets):

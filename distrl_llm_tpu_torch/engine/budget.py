@@ -66,23 +66,30 @@ def kv_pool_pages(
     spec_draft: int = 0,
     hbm_bytes: int | None = None,
     device: str | torch.device | None = None,
+    continuous: bool = False,
+    prefix_cache: bool = False,
 ) -> int:
     """Pages available to the refill decode pool under ``gpu_usage``.
 
     Subtracts, in order: the (1 - usage) exclusion the knob demands, the
     activation reserve, resident weights, and the shared prompt page region
     (batch_prompts x prompt_pages, which prefill owns regardless of the
-    pool). Clamped below at one sequence's pages, so a too-small budget
-    degrades to serial decoding instead of refusing to run (with a warning
-    naming the shortfall). ``hbm_bytes`` defaults to ``device``'s memory."""
+    pool). With ``continuous`` (continuous admission) prompt chains are
+    allocated from the pool, so no static region is subtracted and the
+    single-sequence floor carries one prompt chain; ``prefix_cache`` keeps
+    one more chain resident in the same pool, so it raises the floor by
+    another. Clamped below at that floor, so a too-small budget degrades to
+    serial decoding instead of refusing to run (with a warning naming the
+    shortfall). ``hbm_bytes`` defaults to ``device``'s memory."""
     hbm = hbm_bytes if hbm_bytes is not None else device_hbm_bytes(device)
     pb = page_bytes(model_cfg, page_size, kv_quant)
     prompt_pages = pages_per_seq(max_prompt_tokens, page_size)
-    shared_bytes = batch_prompts * prompt_pages * pb
+    shared_bytes = 0 if continuous else batch_prompts * prompt_pages * pb
     budget = int(hbm * (gpu_usage - ACTIVATION_RESERVE) - param_bytes - shared_bytes)
     pool = budget // pb if budget > 0 else 0
     private_pages = 1 + pages_per_seq(max_new_tokens + max(spec_draft, 0), page_size)
-    floor = 1 + private_pages
+    floor = (1 + private_pages + (prompt_pages if continuous else 0)
+             + (prompt_pages if prefix_cache else 0))
     if pool < floor:
         log.warning(
             "gpu_usage=%.2f leaves %d KV pages (< single-sequence minimum %d) "

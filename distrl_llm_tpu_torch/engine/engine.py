@@ -13,6 +13,10 @@ PyTorch counterpart and is left out).
   ever copied after the candidate fan-out.
 * **Early exit.** The host reads ``done.all()`` every ``min(decode_chunk,
   16)`` steps and stops once every row has hit EOS.
+* **int8 KV cache** (``kv_quant="int8"``): the cache holds int8 values
+  with one f32 scale per (row, kv head, position)
+  (``models/transformer.py::init_kv_cache_int8``), 1 + 4/head_dim bytes
+  an element against bf16's 2.
 * **Sampling** goes through ``ops.sampling.sample_with_logprob``: one launch
   of the fused Hopper sampler per decode step on the GPU. Per-step, per-row
   int32 seeds are drawn on the engine's device from a per-wave generator
@@ -31,7 +35,9 @@ import torch
 
 from distrl_llm_tpu_torch.config import SamplingConfig
 from distrl_llm_tpu_torch.models.configs import ModelConfig
-from distrl_llm_tpu_torch.models.transformer import Decoder, init_kv_cache
+from distrl_llm_tpu_torch.models.transformer import (
+    Decoder, init_kv_cache, init_kv_cache_int8,
+)
 from distrl_llm_tpu_torch.ops.sampling import sample_with_logprob
 from distrl_llm_tpu_torch.utils.device import resolve_device
 
@@ -66,10 +72,14 @@ class _DecodeState:
 
 
 def _prefill(model: Decoder, lora, prompt_ids, prompt_mask, *,
-             max_total: int, lora_scale: float, cache_dtype, attn_impl: str):
+             max_total: int, lora_scale: float, cache_dtype, attn_impl: str,
+             kv_quant: str = "none"):
     b, p = prompt_ids.shape
-    cache = init_kv_cache(model.cfg, b, max_total, dtype=cache_dtype,
-                          device=prompt_ids.device)
+    if kv_quant == "int8":
+        cache = init_kv_cache_int8(model.cfg, b, max_total, device=prompt_ids.device)
+    else:
+        cache = init_kv_cache(model.cfg, b, max_total, dtype=cache_dtype,
+                              device=prompt_ids.device)
     key_mask = torch.nn.functional.pad(prompt_mask, (0, max_total - p))
     last_logits, cache = model(
         prompt_ids, attention_mask=key_mask, lora=lora, lora_scale=lora_scale,
@@ -84,7 +94,7 @@ def _decode_init(cache, key_mask, first_logits, row_alive, *, n: int,
     """Expand prefill state to candidate rows: row b*n + j is candidate j of
     prompt b (the one cache-sized copy of the round)."""
     rep = lambda t: t.repeat_interleave(n, dim=0)  # noqa: E731
-    cache = {"k": [rep(c) for c in cache["k"]], "v": [rep(c) for c in cache["v"]]}
+    cache = {key: [rep(c) for c in layers] for key, layers in cache.items()}
     logits = rep(first_logits)
     bn, dev = logits.shape[0], logits.device
     return _DecodeState(
@@ -222,6 +232,13 @@ class LoraMailbox:
         self._swapped_lora = None
         self.last_swap_steps: list[int] = []
         self.last_swap_versions: list[int | None] = []
+        # the adapter the latest consumed swap superseded (the policy's
+        # previous version) and its version: the speculative self-drafter's
+        # draft model. Kept only when ``_track_prev_lora`` is set (an engine
+        # running that drafter), since it holds a second adapter resident
+        self._track_prev_lora = False
+        self._prev_lora = None
+        self._prev_lora_version: int | None = None
 
     def push_lora(self, lora, version: int | None = None) -> None:
         """The next dispatched decode step onwards samples under this
@@ -235,6 +252,10 @@ class LoraMailbox:
             pending, self._pending = self._pending, None
         if pending is not None:
             lora, version = pending
+            if self._track_prev_lora:
+                self._prev_lora = lora_cell[0]
+                self._prev_lora_version = (self.last_swap_versions[-1]
+                                           if self.last_swap_versions else None)
             self._swapped_lora = lora
             lora_cell[0] = lora
             self.last_swap_steps.append(dispatched)
@@ -269,9 +290,14 @@ class GenerationEngine(LoraMailbox):
         prompt_buckets: Sequence[int] | None = None,
         max_concurrent_rows: int = 0,  # 0 = unlimited (vLLM max_num_seqs)
         capture_logprobs: bool = False,
+        kv_quant: str | None = None,  # None/"none" | "int8"
         device: str | torch.device | None = None,  # None = the GPU
     ):
         super().__init__()
+        kv_quant = "none" if kv_quant is None else kv_quant
+        if kv_quant not in ("none", "int8"):
+            raise ValueError(f"kv_quant must be none/int8, got {kv_quant!r}")
+        self.kv_quant = kv_quant
         self.device = resolve_device(device)
         self.cfg = cfg
         self.max_prompt_tokens = max_prompt_tokens
@@ -340,7 +366,7 @@ class GenerationEngine(LoraMailbox):
         cache, key_mask, last_logits = _prefill(
             model, lora, ids, mask, max_total=bucket + self.max_new_tokens,
             lora_scale=self.lora_scale, cache_dtype=self.cache_dtype,
-            attn_impl=self.attn_impl,
+            attn_impl=self.attn_impl, kv_quant=self.kv_quant,
         )
         self._sync()  # an honest prefill/decode timing split
         t_prefill = time.perf_counter() - t0

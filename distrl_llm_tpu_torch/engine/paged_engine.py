@@ -36,17 +36,36 @@ Counterpart of the JAX package's ``engine/paged_engine.py``
   row and attends through ``paged_verify_op`` (kernel K5, one launch per
   layer; S = d+1 launches of K2 with ``spec_verify="unrolled"``), accepts
   by rejection sampling and emits 1..d+1 tokens. Each admission draws the
-  slot's first token with K1.
+  slot's first token with K1. ``spec_drafter="self"`` drafts with the
+  policy's PREVIOUS adapter (the mailbox keeps the one a push superseded):
+  d single-token decode forwards (K2 per layer) whose writes the verify
+  overwrites; ``spec_adapt`` halves the draft length (floor 1) when the
+  accept rate's EMA between host boundaries falls below 0.35 and doubles
+  it back above 0.75.
+* **Riders of the refill scheduler.** ``prefix_sharing``: a group's
+  candidates alias one refcounted prompt page chain and split its partial
+  tail page copy-on-write at admission (the copy planned on the host,
+  enqueued before the step that writes the page). ``continuous_admission``
+  (implies sharing): groups wait in a request queue and are prefilled one
+  at a time into pool-allocated chains as slots and pages allow.
+  ``prefix_cache``: finished chains' full pages enter an engine-owned
+  radix tree; a later group with the same leading pages aliases them and
+  prefills only its suffix (the model's ``paged_prefix`` forward, the
+  plain attention the JAX package runs there); round end parks the cached
+  pages in host memory; a new adapter object drops the cache.
+  ``kv_spill``: a preempted candidate's written pages and logits row are
+  parked in host memory (``engine/page_pool.py::HostPageStore``, copies
+  ordered on the stream) and copied back at its resume instead of a
+  recompute. ``last_pool_stats`` carries the JAX package's keys.
 
-Not ported yet (ROADMAP queue 1 item 7): prefix sharing, continuous
-admission, radix cache, host spill, the self-drafter, the adaptive draft
-length, the turn and gateway hooks, and scan chunks. Their knobs raise
-``NotImplementedError`` naming the ROADMAP item.
+Not ported (ROADMAP items 8 and 11): the turn and gateway hooks. Scan
+chunks raise ``NotImplementedError`` (CUDA graphs over the decode step).
 """
 
 from __future__ import annotations
 
 import time
+import warnings
 from collections import deque
 from dataclasses import dataclass
 from typing import Any, Sequence
@@ -59,7 +78,7 @@ from distrl_llm_tpu_torch.engine.engine import (
     GenerationResult, LoraMailbox, accumulate_round_stats, generate_in_waves,
     run_decode_loop,
 )
-from distrl_llm_tpu_torch.engine.page_pool import PagePool
+from distrl_llm_tpu_torch.engine.page_pool import HostPageStore, PagePool, RadixCache
 from distrl_llm_tpu_torch.engine.speculative import (
     SpecRefillState, draw_gumbel, draw_uniforms, propose_ngram_drafts,
     sampling_probs, spec_accept,
@@ -73,12 +92,6 @@ from distrl_llm_tpu_torch.ops.sampling import sample_with_logprob, token_logprob
 from distrl_llm_tpu_torch.utils.device import resolve_device
 
 Params = dict[str, Any]
-
-_REFILL_ITEM = ("ROADMAP queue 1 item 7: prefix sharing, continuous admission, "
-                "radix cache and host spill on the refill scheduler")
-_SPEC_ITEM = ("ROADMAP queue 1 item 7: the self-drafter and the adaptive draft "
-              "length of speculative decoding")
-
 
 @dataclass
 class _PagedDecodeState:
@@ -109,32 +122,41 @@ def _pack_rows(ids: torch.Tensor, mask: torch.Tensor):
     return packed * packed_mask, packed_mask, real_len
 
 
+def _empty_pools(cfg: ModelConfig, total_pages: int, *, page_size: int, cache_dtype,
+                 kv_quant: str, device) -> tuple[list, list]:
+    """Per-layer zeroed k and v page pools of ``total_pages`` pages."""
+    shape = (cfg.num_kv_heads, total_pages, page_size, cfg.head_dim)
+    return tuple([init_pages(shape, cache_dtype, device, kv_quant)
+                  for _ in range(cfg.num_layers)] for _ in range(2))
+
+
 def _paged_prefill(model: Decoder, lora, prompt_ids, prompt_mask, *,
                    prompt_pages: int, page_size: int, lora_scale: float,
                    cache_dtype, attn_impl: str, kv_quant: str = "none",
-                   total_pages: int | None = None):
+                   total_pages: int | None = None, pools=None, table=None):
     """Pack prompts and run one forward over B rows into fresh page pools
     of ``total_pages`` pages (default ``B · prompt_pages``): row r's prompt
-    lands in pages ``[r · prompt_pages, (r + 1) · prompt_pages)``. Returns
-    (k_pages, v_pages, last-position logits [B, V], real lengths [B])."""
+    lands in pages ``[r · prompt_pages, (r + 1) · prompt_pages)``. With
+    ``pools`` (k, v) and ``table`` [B, prompt_pages] the prompts are written
+    into those pools at the table's pages instead (a continuous admission's
+    chain, padded with the scratch page). Returns (k_pages, v_pages,
+    last-position logits [B, V], real lengths [B])."""
     cfg = model.cfg
     b, p = prompt_ids.shape
     packed_ids, packed_mask, real_len = _pack_rows(prompt_ids, prompt_mask)
     pad_to = prompt_pages * page_size
     packed_ids = torch.nn.functional.pad(packed_ids, (0, pad_to - p))
     packed_mask = torch.nn.functional.pad(packed_mask, (0, pad_to - p))
-    total = b * prompt_pages if total_pages is None else total_pages
-    if total < b * prompt_pages:
-        raise ValueError(f"a pool of {total} pages cannot hold {b} prompts of "
-                         f"{prompt_pages} pages")
-    shape = (cfg.num_kv_heads, total, page_size, cfg.head_dim)
     dev = prompt_ids.device
-    cache = {
-        "k": [init_pages(shape, cache_dtype, dev, kv_quant) for _ in range(cfg.num_layers)],
-        "v": [init_pages(shape, cache_dtype, dev, kv_quant) for _ in range(cfg.num_layers)],
-        "lengths": real_len,
-        "page_indices": torch.as_tensor(make_page_table(b, pad_to, page_size), device=dev),
-    }
+    if pools is None:
+        total = b * prompt_pages if total_pages is None else total_pages
+        if total < b * prompt_pages:
+            raise ValueError(f"a pool of {total} pages cannot hold {b} prompts of "
+                             f"{prompt_pages} pages")
+        pools = _empty_pools(cfg, total, page_size=page_size, cache_dtype=cache_dtype,
+                             kv_quant=kv_quant, device=dev)
+        table = torch.as_tensor(make_page_table(b, pad_to, page_size), device=dev)
+    cache = {"k": pools[0], "v": pools[1], "lengths": real_len, "page_indices": table}
     positions = torch.arange(pad_to, dtype=torch.int32, device=dev)[None, :].expand(b, pad_to)
     logits, cache = model(
         packed_ids, attention_mask=packed_mask, positions=positions, lora=lora,
@@ -359,14 +381,16 @@ def _spec_init(k_pages, v_pages, *, r_slots: int, total: int, max_steps: int,
 
 
 def _admit_tables(s, new_cand: np.ndarray, admit_mask: np.ndarray,
-                  real_len_h: np.ndarray, dst_partial: np.ndarray, *, n: int,
-                  b: int, prompt_pages: int, page_size: int):
+                  copies: tuple[np.ndarray, np.ndarray], *, n: int, b: int):
     """The admit work both refill schedulers share, planned on the host:
-    which slots take which candidates, and the copy of each admitted live
-    slot's partial prompt page into its first owned page ``dst_partial``
-    (decode extends that page in place). Merges the assignments into
-    ``s.cand``. Returns (slots, live, prompt_of) as host arrays and the
-    device index tensors (slots_t, prompt_t)."""
+    which slots take which candidates, and the page copies ``copies`` =
+    (src, dst) that give each admitted live slot its prompt's partial page
+    in its first owned page (decode extends that page in place; under
+    prefix sharing these are the pool's copy-on-write splits). The copies
+    are enqueued here, before any later step writes the split pages, on the
+    same stream. Merges the assignments into ``s.cand``. Returns (slots,
+    live, prompt_of) as host arrays and the device index tensors (slots_t,
+    prompt_t)."""
     total = b * n
     slots = np.nonzero(admit_mask)[0]
     cand = new_cand[slots].astype(np.int64)
@@ -375,27 +399,26 @@ def _admit_tables(s, new_cand: np.ndarray, admit_mask: np.ndarray,
     dev = s.cand.device
     slots_t = _to_device(slots, dev, torch.int64)
     prompt_t = _to_device(prompt_of, dev, torch.int64)
-    if live.any():
-        full = real_len_h[prompt_of[live]] // page_size
-        src = prompt_of[live] * prompt_pages + np.minimum(full, prompt_pages - 1)
+    src, dst = copies
+    if len(src):
         src_t = _to_device(src, dev, torch.int64)
-        dst_t = _to_device(dst_partial[slots[live]], dev, torch.int64)
+        dst_t = _to_device(dst, dev, torch.int64)
         for pages in list(s.k_pages) + list(s.v_pages):
             _copy_pages(pages, src_t, dst_t)
     s.cand[slots_t] = _to_device(cand, dev, torch.int64)
     return slots, live, prompt_of, slots_t, prompt_t
 
 
+_NO_COPIES = (np.zeros(0, np.int64), np.zeros(0, np.int64))
+
+
 def _refill_admit(s: _RefillState, new_cand, admit_mask, last_logits, real_len,
-                  real_len_h, dst_partial, *, n: int, b: int, prompt_pages: int,
-                  page_size: int) -> None:
+                  copies, *, n: int, b: int) -> None:
     """Assign candidates to slots, in place (the plain scheduler): each
     admitted slot takes its prompt's prefill logits and resident length and
     restarts its count; a dead admission (``new_cand == total``) kills the
     slot."""
-    _, live, _, slots_t, prompt_t = _admit_tables(
-        s, new_cand, admit_mask, real_len_h, dst_partial, n=n, b=b,
-        prompt_pages=prompt_pages, page_size=page_size)
+    _, live, _, slots_t, prompt_t = _admit_tables(s, new_cand, admit_mask, copies, n=n, b=b)
     s.done[slots_t] = _to_device(~live, s.done.device)
     s.logits[slots_t] = last_logits[prompt_t]
     s.seq_lengths[slots_t] = real_len[prompt_t]
@@ -403,17 +426,16 @@ def _refill_admit(s: _RefillState, new_cand, admit_mask, last_logits, real_len,
 
 
 def _spec_admit(s: SpecRefillState, new_cand, admit_mask, last_logits, real_len,
-                real_len_h, packed_ids, seeds, dst_partial, *, n: int, b: int,
-                prompt_pages: int, page_size: int, eos_ids, temperature: float,
-                top_p: float, top_p_impl: str, capture_logprobs: bool) -> None:
+                real_len_h, packed_ids, seeds, copies, *, n: int, b: int, eos_ids,
+                temperature: float, top_p: float, top_p_impl: str,
+                capture_logprobs: bool) -> None:
     """Assign candidates to slots, in place (speculative flavor): beyond the
     shared table work, draw each admitted slot's FIRST token from its
     prompt's prefill logits (one launch of K1; the step carries a pending
     token, not logits), seed the n-gram buffer with the packed prompt and
     that token, and record the token as generated output."""
     slots, live, prompt_of, slots_t, prompt_t = _admit_tables(
-        s, new_cand, admit_mask, real_len_h, dst_partial, n=n, b=b,
-        prompt_pages=prompt_pages, page_size=page_size)
+        s, new_cand, admit_mask, copies, n=n, b=b)
     dev = s.done.device
     tok0, logp0 = sample_with_logprob(
         last_logits[prompt_t], temperature, top_p, seeds, top_p_impl=top_p_impl,
@@ -473,22 +495,61 @@ def _refill_decode_step(model: Decoder, lora, s: _RefillState, seeds: torch.Tens
     s.forwards += 1
 
 
+def _self_draft(model: Decoder, drafter_lora, s: SpecRefillState, gen: torch.Generator, *,
+                page_size: int, lora_scale: float, d: int, temperature: float,
+                top_p: float, top_p_impl: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """The self-drafter: the policy under its PREVIOUS adapter proposes d
+    tokens by d single-token decode forwards over the same pages (K2 per
+    layer each). Its writes at ``seq_lengths + i`` are transient: the verify
+    forward rewrites every one of them under the current adapter. Each
+    draft is drawn from q_i, the drafter's own sampling distribution
+    (greedy: its argmax), by a Gumbel draw from the engine's generator (the
+    JAX package draws with ``jax.random.categorical``: the same
+    distribution, not the same bits). Returns (draft [R, d] int32,
+    q [R, d, V] f32)."""
+    tok = s.last_tok
+    drafts, qs = [], []
+    for i in range(d):
+        lens = s.seq_lengths + i
+        cache = {"k": s.k_pages, "v": s.v_pages, "lengths": lens,
+                 "page_indices": s.page_indices}
+        logits, _ = model(tok[:, None], positions=lens[:, None], lora=drafter_lora,
+                          lora_scale=lora_scale, kv_cache=cache, page_size=page_size)
+        q_i = sampling_probs(logits[:, 0], temperature, top_p, top_p_impl=top_p_impl)
+        if temperature == 0.0:
+            tok = q_i.argmax(dim=-1).to(torch.int32)
+        else:
+            g = draw_gumbel(q_i.shape, gen, q_i.device)
+            tok = (torch.log(torch.clamp(q_i, min=1e-30)) + g).argmax(dim=-1).to(torch.int32)
+        drafts.append(tok)
+        qs.append(q_i)
+        s.draft_forwards += 1
+    return torch.stack(drafts, dim=1), torch.stack(qs, dim=1)
+
+
 def _spec_step(model: Decoder, lora, s: SpecRefillState, gen: torch.Generator, *,
                page_size: int, eos_ids, temperature: float, top_p: float,
                lora_scale: float, top_p_impl: str, capture_logprobs: bool,
                max_steps: int, draft_len: int, ngram_k: int,
-               spec_verify: str) -> None:
-    """One speculative step, in place: propose d n-gram drafts per slot,
-    verify ``[last_tok, draft]`` in one (d+1)-position forward (K5 per
-    layer), accept by rejection sampling and emit 1..d+1 tokens, cut at the
-    first EOS and at the occupant's budget."""
+               spec_verify: str, drafter_lora=None, self_draft: bool = False) -> None:
+    """One speculative step, in place: propose d drafts per slot (n-gram
+    lookup, or the previous adapter with ``self_draft``), verify
+    ``[last_tok, draft]`` in one (d+1)-position forward (K5 per layer),
+    accept by rejection sampling and emit 1..d+1 tokens, cut at the first
+    EOS and at the occupant's budget."""
     total = s.out.shape[0] - 1
     r = s.done.shape[0]
     d = draft_len
     dev = s.done.device
     alive = ~s.done
     buf_len = s.seq_lengths + 1  # resident + the pending last_tok
-    draft = propose_ngram_drafts(s.seq_buf[:r], buf_len, k=ngram_k, d=d)
+    if self_draft:
+        draft, draft_probs = _self_draft(
+            model, drafter_lora, s, gen, page_size=page_size, lora_scale=lora_scale,
+            d=d, temperature=temperature, top_p=top_p, top_p_impl=top_p_impl)
+    else:
+        draft = propose_ngram_drafts(s.seq_buf[:r], buf_len, k=ngram_k, d=d)
+        draft_probs = None
     inputs = torch.cat([s.last_tok[:, None], draft], dim=1)  # [R, d+1]
     steps = torch.arange(d + 1, device=dev)
     positions = s.seq_lengths[:, None] + steps[None, :].to(torch.int32)
@@ -500,7 +561,7 @@ def _spec_step(model: Decoder, lora, s: SpecRefillState, gen: torch.Generator, *
     probs = sampling_probs(logits, temperature, top_p, top_p_impl=top_p_impl)
     u = draw_uniforms((r, d), gen, dev)
     g = draw_gumbel((r, logits.shape[-1]), gen, dev)
-    emit, n_emit, n_accept = spec_accept(u, g, probs, draft)
+    emit, n_emit, n_accept = spec_accept(u, g, probs, draft, draft_probs)
 
     # emission stops AT the first EOS among the emitted tokens, and at the
     # occupant's token budget
@@ -601,6 +662,63 @@ def _spec_resume_fixup(model: Decoder, lora, s: SpecRefillState, slot: int, cand
     s.seq_lengths[slot] = real_len + resident
 
 
+def _warm_prefill(model: Decoder, lora, k_pages, v_pages, row_ext: np.ndarray,
+                  suffix: np.ndarray, start: int, *, page_size: int, lora_scale: float,
+                  pad_id: int) -> torch.Tensor:
+    """A group's prefill through a radix-cache hit: the prompt's first
+    ``start`` tokens are resident in cached chain pages, so only the suffix
+    ``suffix`` runs (the model's ``paged_prefix`` forward). Its KV lands in
+    the chain's fresh pages (the hit stops below the last token, so no
+    write touches a cached page) and the group's sampling logits [V] come
+    off the suffix's last token. ``row_ext`` is the chain's table row padded
+    with the scratch page plus one trailing scratch column; the suffix block
+    is padded to the packed width, its padding lanes positioned at that
+    extra column and writing nothing."""
+    dev = _pool_device(k_pages[0])
+    prompt_pages = row_ext.shape[0] - 1
+    t = prompt_pages * page_size
+    steps = np.arange(t)
+    valid = steps < suffix.size
+    tok = np.full(t, pad_id, np.int32)
+    tok[:suffix.size] = suffix
+    positions = np.where(valid, start + steps, prompt_pages * page_size).astype(np.int32)
+    cache = {"k": k_pages, "v": v_pages,
+             "lengths": torch.full((1,), start, dtype=torch.int32, device=dev),
+             "page_indices": _to_device(row_ext[None], dev, torch.int32)}
+    logits, _ = model(
+        _to_device(tok[None], dev, torch.int32),
+        attention_mask=_to_device(valid[None].astype(np.int32), dev),
+        positions=_to_device(positions[None], dev), lora=lora, lora_scale=lora_scale,
+        kv_cache=cache, page_size=page_size, paged_prefix=True,
+        logits_positions=torch.full((1,), max(suffix.size - 1, 0), dtype=torch.int64,
+                                    device=dev))
+    return logits[0, 0]
+
+
+def _page_tiles(k_pages, v_pages, page: int) -> dict:
+    """One page's KV tiles across all layers, ``{"k": [L x tile], "v": ...}``
+    with a tile ``[K, ps, hd]`` (int8 pools: its (weight, scales) pair):
+    what the host store parks."""
+    def take(pages):
+        if is_quantized_pages(pages):
+            return (pages.weight[:, page], pages.scales[:, page])
+        return pages[:, page]
+
+    return {"k": [take(p) for p in k_pages], "v": [take(p) for p in v_pages]}
+
+
+def _restore_page_tiles(k_pages, v_pages, tiles: dict, page: int) -> None:
+    """Copy one parked page's tiles back into the pools at ``page`` (from
+    pinned memory, ordered on the stream)."""
+    for pools, layer_tiles in ((k_pages, tiles["k"]), (v_pages, tiles["v"])):
+        for pages, tile in zip(pools, layer_tiles):
+            if is_quantized_pages(pages):
+                pages.weight[:, page].copy_(tile[0], non_blocking=True)
+                pages.scales[:, page].copy_(tile[1], non_blocking=True)
+            else:
+                pages[:, page].copy_(tile, non_blocking=True)
+
+
 class PagedGenerationEngine(LoraMailbox):
     """Drop-in for ``GenerationEngine`` with a packed paged KV cache (the
     wave or the refill scheduler, speculative decoding on the refill one).
@@ -630,6 +748,7 @@ class PagedGenerationEngine(LoraMailbox):
         continuous_admission: bool | None = None,
         prefix_cache: bool | None = None,
         kv_spill: bool = False,
+        kv_spill_host_mb: int = 0,  # host page store byte cap; 0 = unbounded
         spec_draft: int | None = None,
         spec_ngram: int | None = None,
         spec_drafter: str | None = None,
@@ -641,16 +760,48 @@ class PagedGenerationEngine(LoraMailbox):
         device: str | torch.device | None = None,  # None = the GPU
     ):
         super().__init__()
-        if prefix_sharing or continuous_admission or prefix_cache or kv_spill:
-            raise NotImplementedError(
-                f"the refill scheduler is ported without them ({_REFILL_ITEM})")
         if scheduler not in ("waves", "refill"):
             raise ValueError(f"scheduler must be waves/refill, got {scheduler!r}")
         if scheduler == "refill" and not max_concurrent_rows:
             raise ValueError("scheduler='refill' requires max_concurrent_rows (the "
                              "decode slot count)")
-        if spec_drafter == "self" or spec_adapt:
-            raise NotImplementedError(f"not ported ({_SPEC_ITEM})")
+        refill = scheduler == "refill"
+        if continuous_admission and not refill:
+            raise ValueError("continuous_admission runs on the refill scheduler: set "
+                             "scheduler='refill' and max_concurrent_rows")
+        # continuous admission allocates prompt chains from the refcounted
+        # pool: it is prefix sharing plus lazy prefill
+        prefix_sharing = bool(prefix_sharing or continuous_admission)
+        if prefix_sharing and not refill:
+            raise ValueError("prefix_sharing shares prompt pages across the refill "
+                             "scheduler's slots: set scheduler='refill' and "
+                             "max_concurrent_rows")
+        if prefix_cache and kv_quant == "int8":
+            raise ValueError("prefix_cache requires a lossless KV pool (kv_quant='none'): "
+                             "int8 pages cannot reproduce the cold prefill's attention "
+                             "inputs bit-exactly")
+        if prefix_cache and not continuous_admission:
+            raise ValueError("prefix_cache aliases cached prompt chains out of the "
+                             "continuous-admission pool: set continuous_admission=True")
+        if kv_spill and not prefix_cache:
+            raise ValueError("kv_spill parks KV pages through the tiered cache's host "
+                             "store: it requires prefix_cache=True")
+        if kv_spill and spec_draft:
+            raise ValueError("kv_spill restores raw decode cursors the speculative "
+                             "scheduler does not expose; speculative chains resume by "
+                             "recompute: drop kv_spill or spec_draft")
+        if kv_spill_host_mb < 0:
+            raise ValueError(f"kv_spill_host_mb must be >= 0, got {kv_spill_host_mb}")
+        if spec_adapt and not spec_draft:
+            if spec_draft is not None:
+                raise ValueError("spec_adapt adapts the speculative draft length: it "
+                                 "requires spec_draft > 0")
+            # an unset spec_draft resolves to 0 (the JAX package's plan
+            # database may resolve it otherwise): the controller is inert
+            warnings.warn("spec_adapt requested but spec_draft resolved to 0: the "
+                          "draft-length controller is inert this run", RuntimeWarning,
+                          stacklevel=2)
+            spec_adapt = False
         spec_draft = spec_draft or 0
         if spec_draft < 0 or spec_draft > 16:
             raise ValueError(f"spec_draft must be in [0, 16], got {spec_draft}")
@@ -660,7 +811,7 @@ class PagedGenerationEngine(LoraMailbox):
         spec_ngram = 2 if spec_ngram is None else spec_ngram
         if spec_ngram < 1:
             raise ValueError(f"spec_ngram must be >= 1, got {spec_ngram}")
-        if spec_drafter not in (None, "ngram"):
+        if spec_drafter not in (None, "ngram", "self"):
             raise ValueError(f"spec_drafter must be ngram/self, got {spec_drafter!r}")
         spec_verify = spec_verify or "fused"
         if spec_verify not in ("fused", "unrolled"):
@@ -698,8 +849,17 @@ class PagedGenerationEngine(LoraMailbox):
         self.scheduler = scheduler
         self.spec_draft = spec_draft
         self.spec_ngram = spec_ngram
-        self.spec_drafter = "ngram"
+        self.spec_drafter = spec_drafter or "ngram"
         self.spec_verify = spec_verify
+        self.spec_adapt = bool(spec_adapt)
+        # only the self-drafter reads the mailbox's previous-adapter slot
+        self._track_prev_lora = bool(spec_draft) and self.spec_drafter == "self"
+        self.prefix_sharing = prefix_sharing
+        self.continuous_admission = bool(continuous_admission)
+        self.prefix_cache = bool(prefix_cache)
+        self.kv_spill = bool(kv_spill)
+        self.cb_mode = ("waves" if not refill else "continuous" if continuous_admission
+                        else "refill_shared" if prefix_sharing else "refill")
         self.prompt_buckets = [max_prompt_tokens]
         self.prompt_pages = pages_per_seq(max_prompt_tokens, page_size)
         # per-candidate private region: the partial prompt page (extended in
@@ -708,12 +868,33 @@ class PagedGenerationEngine(LoraMailbox):
         # position (the rejected tail of its last block): they land in the
         # region, never clamped onto resident KV
         self.private_pages = 1 + pages_per_seq(max_new_tokens + spec_draft, page_size)
-        pool_floor = 1 + self.private_pages
+        # continuous admission allocates a prompt chain from the pool, and
+        # the radix cache keeps one more resident there
+        pool_floor = (1 + self.private_pages
+                      + (self.prompt_pages if self.continuous_admission else 0)
+                      + (self.prompt_pages if self.prefix_cache else 0))
         if max_kv_pages and max_kv_pages < pool_floor:
             raise ValueError(f"max_kv_pages={max_kv_pages} cannot fit one sequence "
                              f"(need >= {pool_floor}: scratch + {self.private_pages} "
-                             "private pages)")
+                             "private pages, plus a prompt chain each for continuous "
+                             "admission and the prefix cache)")
+        if (max_kv_pages and self.continuous_admission
+                and max_kv_pages < pool_floor + self.private_pages):
+            warnings.warn(
+                f"max_kv_pages={max_kv_pages} is wedge-prone under continuous "
+                f"admission: the pool fits one sequence (floor {pool_floor}) but "
+                f"cannot overlap the next admission's private region; the least "
+                f"comfortable budget is {pool_floor + self.private_pages} pages",
+                RuntimeWarning, stacklevel=2)
         self.max_kv_pages = max_kv_pages
+        # the radix index and the host page store outlive each round's pool,
+        # so warm prefixes survive into the next round; the cache is dropped
+        # whenever the adapter object changes (cached KV is exact only under
+        # the adapter that wrote it)
+        self._radix = RadixCache(page_size) if self.prefix_cache else None
+        self._kv_store = (HostPageStore(max_bytes=kv_spill_host_mb * 2**20)
+                          if self.prefix_cache else None)
+        self._cache_lora_ref = None
         self.last_round_stats: dict | None = None
         self.last_pool_stats: dict | None = None
         self.last_spec_stats: dict | None = None
@@ -734,9 +915,11 @@ class PagedGenerationEngine(LoraMailbox):
         self.last_spec_stats = None
         total = prompt_ids.shape[0] * max(sampling.n, 1)
         with torch.inference_mode():
-            # a speculative engine never falls back to waves on a small batch
+            # a speculative or prefix-sharing engine never falls back to
+            # waves on a small batch
             if self.scheduler == "refill" and (
-                    total > self.max_concurrent_rows or self.spec_draft):
+                    total > self.max_concurrent_rows or self.spec_draft
+                    or self.prefix_sharing):
                 return self._generate_refill(model, lora, prompt_ids, prompt_mask,
                                              sampling, seed)
             return generate_in_waves(
@@ -821,9 +1004,18 @@ class PagedGenerationEngine(LoraMailbox):
     def _generate_refill(self, model, lora, prompt_ids, prompt_mask,
                          sampling: SamplingConfig, seed: int) -> GenerationResult:
         """Continuous batching: R decode slots, refilled per candidate (the
-        JAX package's ``_generate_refill`` on its unshared, non-continuous
-        path). The host mirrors slot occupancy; per-slot epochs make it
-        ignore snapshots taken before a slot was refilled."""
+        JAX package's ``_generate_refill`` without the turn and gateway
+        hooks). The host mirrors slot occupancy; per-slot epochs make it
+        ignore snapshots taken before a slot was refilled.
+
+        With prefix sharing a group's candidates alias one refcounted prompt
+        chain and split its partial tail page copy-on-write at admission;
+        with continuous admission the groups wait in a request queue and
+        each is prefilled lazily into pool-allocated chain pages when slots
+        and pages allow; with the prefix cache a group whose prompt shares
+        full pages with a finished chain aliases them and prefills only its
+        suffix; with host spill a preempted candidate's pages and logits row
+        are parked in host memory and copied back at its resume."""
         b, p = prompt_ids.shape
         if p != self.max_prompt_tokens:
             raise ValueError(
@@ -835,7 +1027,10 @@ class PagedGenerationEngine(LoraMailbox):
         dev = self.device
         ps = self.page_size
         spec = self.spec_draft > 0
-        real_len_h = np.asarray(prompt_mask).sum(axis=-1).astype(np.int64)
+        sharing = self.prefix_sharing
+        continuous = self.continuous_admission
+        prompt_ids_h, prompt_mask_h = np.asarray(prompt_ids), np.asarray(prompt_mask)
+        real_len_h = prompt_mask_h.sum(axis=-1).astype(np.int64)
         row_alive = real_len_h > 0
         prefill_tokens = int(real_len_h.sum())
         top_p_impl = sampling.resolved_top_p_impl()
@@ -843,26 +1038,71 @@ class PagedGenerationEngine(LoraMailbox):
         gen = torch.Generator(device=dev).manual_seed(seed)
 
         # the decode page pool (vLLM's budgeted block pool), host-authored
-        total_shared = b * self.prompt_pages
         width = self.prompt_pages + self.private_pages
-        worst_pool = 1 + r_slots * self.private_pages
+        if continuous:
+            # prompt chains live in the pool: a chain for each group the
+            # slots can span, plus one admitted ahead
+            worst_pool = (1 + r_slots * self.private_pages
+                          + min(b, r_slots + 1) * self.prompt_pages)
+            shared_static = 0
+        else:
+            worst_pool = 1 + r_slots * self.private_pages
+            shared_static = b * self.prompt_pages
         pool_pages = min(self.max_kv_pages, worst_pool) if self.max_kv_pages else worst_pool
         budgeted = pool_pages < worst_pool
-        pool = PagePool(first_page=total_shared, n_pages=pool_pages, r_slots=r_slots,
-                        width=width, page_size=ps, prompt_pages=self.prompt_pages)
+        cache_on = self.prefix_cache
+        pool = PagePool(first_page=shared_static, n_pages=pool_pages, r_slots=r_slots,
+                        width=width, page_size=ps, prompt_pages=self.prompt_pages,
+                        prefix_sharing=sharing, radix=self._radix if cache_on else None,
+                        store=self._kv_store if cache_on else None)
+        group_hit_tok: dict[int, int] = {}
+        restore_ms: list[float] = []
+        spilled_keys: set = set()  # preempt payloads not consumed by a resume
+        real_toks = [prompt_ids_h[g][prompt_mask_h[g] > 0].astype(np.int32) for g in range(b)]
+        if cache_on:
+            if self._cache_lora_ref is not lora:
+                pool.invalidate_cache()
+                self._cache_lora_ref = lora
+            radix_snap0 = self._radix.snapshot()
+        # cache writes stay legal until a mid-round adapter swap is consumed
+        cache_write = [cache_on]
 
-        ids = torch.as_tensor(np.asarray(prompt_ids), dtype=torch.int32).to(dev)
-        mask = torch.as_tensor(np.asarray(prompt_mask), dtype=torch.int32).to(dev)
+        ids = torch.as_tensor(prompt_ids_h, dtype=torch.int32).to(dev)
+        mask = torch.as_tensor(prompt_mask_h, dtype=torch.int32).to(dev)
         lora_cell = [lora]
-        t0 = time.perf_counter()
-        k_pages, v_pages, last_logits, real_len = _paged_prefill(
-            model, lora, ids, mask, prompt_pages=self.prompt_pages, page_size=ps,
-            lora_scale=self.lora_scale, cache_dtype=self.cache_dtype,
-            attn_impl=self.attn_impl, kv_quant=self.kv_quant,
-            total_pages=total_shared + pool_pages)
-        self._sync()
-        t_prefill = time.perf_counter() - t0
+        t_prefill = 0.0
+        if continuous:
+            # lazy per-group prefill: the pools hold only the pool pages, and
+            # each group's logits row is written when the group is admitted
+            k_pages, v_pages = _empty_pools(
+                self.cfg, pool_pages, page_size=ps, cache_dtype=self.cache_dtype,
+                kv_quant=self.kv_quant, device=dev)
+            last_logits = torch.zeros((b, self.cfg.vocab_size), dtype=torch.float32,
+                                      device=dev)
+            real_len = _to_device(real_len_h.astype(np.int32), dev)
+        else:
+            t0 = time.perf_counter()
+            k_pages, v_pages, last_logits, real_len = _paged_prefill(
+                model, lora, ids, mask, prompt_pages=self.prompt_pages, page_size=ps,
+                lora_scale=self.lora_scale, cache_dtype=self.cache_dtype,
+                attn_impl=self.attn_impl, kv_quant=self.kv_quant,
+                total_pages=shared_static + pool_pages)
+            self._sync()
+            t_prefill = time.perf_counter() - t0
         t_decode0 = time.perf_counter()
+        if sharing and not continuous:
+            # the prefill's static region becomes refcounted prefix chains:
+            # ceil(rl / ps) live pages a prompt, held until its group
+            # finishes; the slack and dead rows' regions feed the free list
+            for g in range(b):
+                base = g * self.prompt_pages
+                region = list(range(base, base + self.prompt_pages))
+                if not row_alive[g]:
+                    pool.reclaim(region)
+                    continue
+                n_chain = max(-(-int(real_len_h[g]) // ps), 1)
+                pool.register_prefix(g, region[:n_chain], int(real_len_h[g]) // ps)
+                pool.reclaim(region[n_chain:])
 
         # snapshot cadence, never longer than a short decode's whole run
         check = max(1, min(self.decode_chunk, 16, max_steps))
@@ -876,7 +1116,9 @@ class PagedGenerationEngine(LoraMailbox):
             return torch.randint(-2**31, 2**31, (rows,), generator=gen,
                                  dtype=torch.int32, device=dev)
 
-        admit_kw = dict(n=n, b=b, prompt_pages=self.prompt_pages, page_size=ps)
+        d_cell = [self.spec_draft]  # the draft length spec_adapt resizes
+        drafter_cell = [None]
+        drafter_version = None
         if spec:
             d = self.spec_draft
             # emission is up to d+1 tokens a step and the verify writes d
@@ -889,22 +1131,29 @@ class PagedGenerationEngine(LoraMailbox):
             state = _spec_init(k_pages, v_pages, r_slots=r_slots, total=total,
                                max_steps=max_steps, buf_width=buf_width, hist_width=d + 2,
                                width=width, scratch=pool.scratch, pad_id=self.pad_id)
+            self_draft = self.spec_drafter == "self"
+            if self_draft:
+                # the policy's previous adapter drafts; before any swap the
+                # current one drafts for itself
+                drafter_cell[0] = self._prev_lora if self._prev_lora is not None else lora
+                drafter_version = (self._prev_lora_version if self._prev_lora is not None
+                                   else None)
 
             def step(s):
                 _spec_step(model, lora_cell[0], s, gen, page_size=ps, eos_ids=self.eos_ids,
                            temperature=temperature, top_p=top_p,
                            lora_scale=self.lora_scale, top_p_impl=top_p_impl,
                            capture_logprobs=self.capture_logprobs, max_steps=max_steps,
-                           draft_len=d, ngram_k=self.spec_ngram,
-                           spec_verify=self.spec_verify)
+                           draft_len=d_cell[0], ngram_k=self.spec_ngram,
+                           spec_verify=self.spec_verify, drafter_lora=drafter_cell[0],
+                           self_draft=self_draft)
 
-            def admit(s, new_cand, admit_mask, dst_partial):
+            def admit(s, new_cand, admit_mask, copies):
                 sampler_calls[0] += 1
                 _spec_admit(s, new_cand, admit_mask, last_logits, real_len, real_len_h,
-                            packed_ids, seeds(int(admit_mask.sum())), dst_partial,
+                            packed_ids, seeds(int(admit_mask.sum())), copies, n=n, b=b,
                             eos_ids=self.eos_ids, temperature=temperature, top_p=top_p,
-                            top_p_impl=top_p_impl, capture_logprobs=self.capture_logprobs,
-                            **admit_kw)
+                            top_p_impl=top_p_impl, capture_logprobs=self.capture_logprobs)
 
             def admit_last_pos(rl: int, plen: int) -> int:
                 if not budgeted:
@@ -924,9 +1173,9 @@ class PagedGenerationEngine(LoraMailbox):
                                     capture_logprobs=self.capture_logprobs,
                                     max_steps=max_steps)
 
-            def admit(s, new_cand, admit_mask, dst_partial):
-                _refill_admit(s, new_cand, admit_mask, last_logits, real_len, real_len_h,
-                              dst_partial, **admit_kw)
+            def admit(s, new_cand, admit_mask, copies):
+                _refill_admit(s, new_cand, admit_mask, last_logits, real_len, copies,
+                              n=n, b=b)
 
             def admit_last_pos(rl: int, plen: int) -> int:
                 if not budgeted:
@@ -934,14 +1183,121 @@ class PagedGenerationEngine(LoraMailbox):
                 return min(rl + plen + lag_tokens, rl + max_steps)
         del k_pages, v_pages
 
+        if cache_on:
+            # spill transport: the page's tiles as they stand, copied to the
+            # host on the stream by the store
+            pool.spill_fn = lambda page: _page_tiles(state.k_pages, state.v_pages, page)
+
         # dead prompts (batch padding) are never queued. Entries are
         # candidate ids, or (cand, prefix, prefix_len, first_logp) for a
-        # preempted candidate awaiting recompute
-        pending: deque = deque(c for c in range(total) if row_alive[c // n])
+        # preempted candidate awaiting its resume; with continuous admission
+        # the groups wait in their own queue until their lazy prefill
+        if continuous:
+            pending: deque = deque()
+            group_queue: deque = deque(g for g in range(b) if row_alive[g])
+        else:
+            pending = deque(c for c in range(total) if row_alive[c // n])
+            group_queue = deque()
         finished = np.array([not row_alive[c // n] for c in range(total)])
+        # a group's chain hold drops when its LAST candidate finishes (a
+        # preempted candidate must still find the chain at its resume)
+        group_left = np.array([n if row_alive[g] else 0 for g in range(b)])
         host_cand = np.full(r_slots, total, np.int64)  # the device's `cand`
         epoch = np.zeros(r_slots, np.int64)
-        resumes = [0]
+        counters = dict(resumes=0, groups_prefilled=0, backfill=0, warm_tokens=0,
+                        warm_prefills=0)
+        dispatched = 0
+
+        def mark_finished(c: int) -> None:
+            if finished[c]:
+                return
+            finished[c] = True
+            if sharing:
+                g = c // n
+                group_left[g] -= 1
+                if group_left[g] == 0 and g in pool.chains:
+                    if cache_write[0]:
+                        # the finished chain's full pages become radix
+                        # inventory; the partial tail derefs as usual
+                        pool.cache_chain(g, real_toks[g])
+                    else:
+                        pool.drop_prefix(g)
+
+        def restore_uploads(uploads) -> None:
+            t0r = time.perf_counter()
+            for _node, page, payload in uploads:
+                _restore_page_tiles(state.k_pages, state.v_pages, payload, page)
+            self._sync()
+            restore_ms.append((time.perf_counter() - t0r) * 1e3)
+
+        def admit_group(g: int) -> bool:
+            """Group ``g``'s lazy prefill into pool-allocated chain pages
+            (through the radix cache when its prefix is resident or
+            restorable), its logits row published, its candidates queued."""
+            nonlocal t_prefill
+            rl = int(real_len_h[g])
+            n_chain = max(-(-rl // ps), 1)
+            resident = []
+            if cache_on:
+                nodes, _hit = pool.radix_match(real_toks[g])
+                if nodes:
+                    resident, uploads = pool.restore_nodes(nodes)
+                    if uploads:
+                        restore_uploads(uploads)
+            t0 = time.perf_counter()
+            if resident:
+                chain = pool.admit_cached(g, resident, n_chain, rl // ps)
+                if chain is None:
+                    return False
+                hit = len(resident) * ps
+                group_hit_tok[g] = hit
+                row_ext = np.full(self.prompt_pages + 1, pool.scratch, np.int32)
+                row_ext[:n_chain] = chain
+                last_logits[g] = _warm_prefill(
+                    model, lora_cell[0], state.k_pages, state.v_pages, row_ext,
+                    real_toks[g][hit:rl], hit, page_size=ps, lora_scale=self.lora_scale,
+                    pad_id=self.pad_id)
+                counters["warm_tokens"] += hit
+                counters["warm_prefills"] += 1
+            else:
+                chain = pool.alloc_prefix(g, n_chain, rl // ps)
+                if chain is None:
+                    return False
+                if cache_on:
+                    group_hit_tok[g] = 0
+                row = np.full((1, self.prompt_pages), pool.scratch, np.int32)
+                row[0, :n_chain] = chain
+                _, _, logits_g, _ = _paged_prefill(
+                    model, lora_cell[0], ids[g:g + 1], mask[g:g + 1],
+                    prompt_pages=self.prompt_pages, page_size=ps,
+                    lora_scale=self.lora_scale, cache_dtype=self.cache_dtype,
+                    attn_impl=self.attn_impl, kv_quant=self.kv_quant,
+                    pools=(state.k_pages, state.v_pages), table=_to_device(row, dev))
+                last_logits[g] = logits_g[0]
+            # an honest prefill/decode split (an upper bound: the wait also
+            # drains decode steps already queued)
+            self._sync()
+            t_prefill += time.perf_counter() - t0
+            counters["groups_prefilled"] += 1
+            pending.extend(range(g * n, (g + 1) * n))
+            return True
+
+        def admit_groups() -> str | None:
+            """Keep the candidate queue stocked while the pool affords the
+            head group's chain and a private region on top, with at most one
+            chain admitted beyond the slots' spread. Returns the head
+            group's decline reason, None once the queue is empty."""
+            while group_queue:
+                g = group_queue[0]
+                if len(pending) >= r_slots:
+                    return "no_slots"
+                if len(pool.chains) >= r_slots + 1:
+                    return "chain_cap"
+                n_chain = max(-(-int(real_len_h[g]) // ps), 1)
+                if pool.free_pages < n_chain + self.private_pages or not admit_group(g):
+                    return "no_pages"
+                group_queue.popleft()
+            return None
 
         def ship_table(s) -> None:
             # admitted slots' rows reach the device before their first step
@@ -950,7 +1306,7 @@ class PagedGenerationEngine(LoraMailbox):
         def fill_idle(s, idle_slots) -> None:
             new_cand = np.full(r_slots, total, np.int64)
             admit_mask = np.zeros(r_slots, bool)
-            dst_partial = np.full(r_slots, pool.scratch, np.int64)
+            src, dst = [], []
             resume = []
             for s_i in idle_slots:
                 if not pending:
@@ -961,28 +1317,62 @@ class PagedGenerationEngine(LoraMailbox):
                 pr = c // n
                 rl = int(real_len_h[pr])
                 # admission is gated on free pages; the queue is FIFO, so a
-                # head that does not fit blocks the rest
-                if not pool.admit(int(s_i), pr, rl, admit_last_pos(rl, plen)):
+                # head that does not fit blocks the rest. Shared, the slot
+                # aliases its group's chain and the imminent first write at
+                # rl splits the chain's tail page as part of the admission
+                if not pool.admit(int(s_i), pr, rl, admit_last_pos(rl, plen),
+                                  first_write=rl if sharing else None):
                     break
                 pending.popleft()
                 new_cand[s_i] = c
                 admit_mask[s_i] = True
-                dst_partial[s_i] = pool.owned[int(s_i)][0]
+                if sharing:
+                    cow = pool.take_copy(int(s_i))
+                    if cow is not None:
+                        src.append(cow)
+                        dst.append(pool.owned[int(s_i)][0])
+                else:
+                    src.append(pr * self.prompt_pages
+                               + min(rl // ps, self.prompt_pages - 1))
+                    dst.append(pool.owned[int(s_i)][0])
                 if plen:
                     resume.append((int(s_i), c, prefix, plen, rl, logp0))
             if not admit_mask.any():
                 return
-            admit(s, new_cand, admit_mask, dst_partial)
+            admit(s, new_cand, admit_mask, (np.asarray(src, np.int64),
+                                            np.asarray(dst, np.int64)))
             host_cand[admit_mask] = new_cand[admit_mask]
             epoch[admit_mask] += 1
+            if dispatched:
+                counters["backfill"] += int(admit_mask.sum())
             ship_table(s)
             for s_i, c, prefix, plen, rl, logp0 in resume:
-                resumes[0] += 1
+                counters["resumes"] += 1
+                if self.kv_spill:
+                    payload = self._kv_store.get(("preempt", c))
+                    if payload is not None:
+                        # the parked pages and logits row, copied back into
+                        # the freshly granted pages in block order; a payload
+                        # the byte cap dropped resumes by recompute below
+                        t0r = time.perf_counter()
+                        owned = pool.owned[s_i]
+                        nv = int(payload["n_valid"])
+                        for page, tiles in zip(owned[:nv], payload["tiles"]):
+                            _restore_page_tiles(s.k_pages, s.v_pages, tiles, page)
+                        s.logits[s_i].copy_(payload["logits"], non_blocking=True)
+                        s.done[s_i] = False
+                        s.gen_lengths[s_i] = plen
+                        s.seq_lengths[s_i] = rl + plen
+                        self._sync()
+                        restore_ms.append((time.perf_counter() - t0r) * 1e3)
+                        pool.note_restored(nv)
+                        self._kv_store.drop(("preempt", c))
+                        spilled_keys.discard(("preempt", c))
+                        continue
                 if spec:
                     # host-built n-gram row: packed prompt, then the prefix
-                    pr = c // n
                     row = np.zeros(s.seq_buf.shape[1], np.int32)
-                    row[:rl] = np.asarray(prompt_ids[pr])[np.asarray(prompt_mask[pr]) > 0]
+                    row[:rl] = real_toks[c // n]
                     row[rl:rl + plen] = prefix[:plen]
                     _spec_resume_fixup(model, lora_cell[0], s, s_i, c, prefix, plen, rl,
                                        row, logp0, page_size=ps, lora_scale=self.lora_scale)
@@ -992,13 +1382,14 @@ class PagedGenerationEngine(LoraMailbox):
 
         def preempt(s_i: int) -> None:
             """Evict slot ``s_i``'s occupant: requeue it at the FRONT with its
-            generated prefix (for recompute), free its pages, and kill the
-            slot on the device with a dead admission."""
+            generated prefix (for its resume; with host spill its written
+            pages and logits row are parked first), free its pages, and kill
+            the slot on the device with a dead admission."""
             c = int(host_cand[s_i])
             # a blocking read of the slot's current truth (the snapshot
             # lags): preemption is rare, the sync is the cost of exactness
             if bool(state.done[s_i]):
-                finished[c] = True
+                mark_finished(c)
             else:
                 plen = int(state.lengths_buf[c])
                 if plen:
@@ -1006,6 +1397,16 @@ class PagedGenerationEngine(LoraMailbox):
                     # a speculative re-admission draws a new first token:
                     # keep the original behavior logprob for the resume
                     logp0 = float(state.logps_buf[c, 0]) if self.capture_logprobs else 0.0
+                    if self.kv_spill:
+                        rl_p = int(real_len_h[c // n])
+                        owned = pool.owned[s_i]
+                        nv = min((rl_p + plen - 1) // ps - rl_p // ps + 1, len(owned))
+                        self._kv_store.put(("preempt", c), {
+                            "tiles": [_page_tiles(state.k_pages, state.v_pages, page)
+                                      for page in owned[:nv]],
+                            "logits": state.logits[s_i], "n_valid": nv})
+                        pool.note_spilled(nv)
+                        spilled_keys.add(("preempt", c))
                     pending.appendleft((c, prefix, plen, logp0))
                 else:
                     pending.appendleft(c)
@@ -1013,22 +1414,39 @@ class PagedGenerationEngine(LoraMailbox):
             pool.release(s_i)
             kill = np.zeros(r_slots, bool)
             kill[s_i] = True
-            admit(state, np.full(r_slots, total, np.int64), kill,
-                  np.full(r_slots, pool.scratch, np.int64))
+            admit(state, np.full(r_slots, total, np.int64), kill, _NO_COPIES)
             host_cand[s_i] = total
             epoch[s_i] += 1
 
+        if continuous:
+            admit_groups()
         fill_idle(state, range(r_slots))
         snapshots: deque = deque()
         # each slot serves <= ceil(total / R) occupants x max_steps, plus up
         # to 2·check of admission lag per handoff; a budgeted pool may
-        # serialize candidates and recompute preempted prefixes: the fully
+        # serialize candidates and recompute preempted prefixes, and
+        # continuous admission gates on chains as a budget does: the fully
         # serial bound
         occupancies = -(-total // r_slots)
-        budget = (max_steps + 2 * check) * (2 * (total + 2) if budgeted else occupancies + 2)
-        dispatched = since_host = 0
+        budget = (max_steps + 2 * check) * (
+            2 * (total + 2) if (budgeted or continuous) else occupancies + 2)
+        since_host = stalled = 0
+        spec_prev = (0, 0)
+        spec_ema = None
+        d_trace = [d_cell[0]]  # the draft length in force at each boundary
         while dispatched < budget and not finished.all():
+            prev_lora = lora_cell[0]
             self._take_pending_lora(lora_cell, dispatched)
+            if lora_cell[0] is not prev_lora:
+                if spec and self.spec_drafter == "self":
+                    # the superseded adapter is now the previous version
+                    drafter_cell[0] = self._prev_lora
+                    drafter_version = self._prev_lora_version
+                if cache_on:
+                    # KV cached under the superseded adapter is no longer
+                    # exact: drop the cache and stop caching this round
+                    pool.invalidate_cache()
+                    cache_write[0] = False
             step(state)
             dispatched += 1
             since_host += 1
@@ -1037,6 +1455,26 @@ class PagedGenerationEngine(LoraMailbox):
             since_host = 0
             snapshots.append((_Snapshot(state.done), _Snapshot(state.seq_lengths),
                               epoch.copy(), host_cand.copy()))
+            if spec and self.spec_adapt:
+                # the draft-length controller: the accept rate between
+                # boundaries feeds an EMA; persistent waste halves d (floor
+                # 1), recovery doubles it back toward the configured max.
+                # It reads the two totals as they stand at this boundary
+                # (the JAX package's one read a boundary): a wait for the
+                # queued steps every `check` steps, never per step, and only
+                # with spec_adapt on
+                tot = _Snapshot(torch.stack([state.accept_total, state.draft_total])).read()
+                acc_now, dtot_now = int(tot[0]), int(tot[1])
+                d_acc, d_draft = acc_now - spec_prev[0], dtot_now - spec_prev[1]
+                spec_prev = (acc_now, dtot_now)
+                if d_draft > 0:
+                    rate = d_acc / d_draft
+                    spec_ema = rate if spec_ema is None else 0.5 * spec_ema + 0.5 * rate
+                    if spec_ema < 0.35 and d_cell[0] > 1:
+                        d_cell[0] = max(1, d_cell[0] // 2)
+                    elif spec_ema > 0.75 and d_cell[0] < self.spec_draft:
+                        d_cell[0] = min(self.spec_draft, d_cell[0] * 2)
+                d_trace.append(d_cell[0])
             if len(snapshots) <= 1:
                 continue
             # the snapshot taken one boundary ago: its copy finished while
@@ -1048,10 +1486,12 @@ class PagedGenerationEngine(LoraMailbox):
             idle = [int(s_i) for s_i in np.nonzero(done_h)[0] if snap_epoch[s_i] == epoch[s_i]]
             for s_i in idle:
                 c = snap_cand[s_i]
-                if pool.owned[s_i]:
+                if pool.owned[s_i] or pool.shared[s_i]:
                     pool.release(s_i)  # frees its pages, points it at scratch
                 if c < total:
-                    finished[c] = True
+                    # after the release, so a finished group's chain frees
+                    # the moment its hold drops
+                    mark_finished(int(c))
                 host_cand[s_i] = total
             table_dirty = bool(idle)
             if budgeted:
@@ -1077,25 +1517,85 @@ class PagedGenerationEngine(LoraMailbox):
                         if victim == s_i:
                             break
                     table_dirty = True
+            marks = pool.total_admissions + counters["groups_prefilled"]
+            if continuous and group_queue:
+                # freed pages may now fit the next group's prefill: the
+                # backfill that replaces the fixed episode batch
+                admit_groups()
             idle_free = [v for v in idle if host_cand[v] >= total]
             if pending:
                 fill_idle(state, idle_free)
                 table_dirty = True
             if table_dirty:
                 ship_table(state)
+            if continuous:
+                # wedge detector: no live slot, work queued, and this
+                # boundary admitted nothing: name the stall after a few
+                # boundaries of grace instead of spinning the step budget
+                if (pool.total_admissions + counters["groups_prefilled"] == marks
+                        and (pending or group_queue)
+                        and (host_cand >= total).all()):
+                    stalled += 1
+                    if stalled > 4:
+                        if group_queue:
+                            rl_h = int(real_len_h[group_queue[0]])
+                        else:
+                            e0 = pending[0]
+                            rl_h = int(real_len_h[(e0[0] if isinstance(e0, tuple)
+                                                   else e0) // n])
+                        need = max(-(-rl_h // ps), 1) + self.private_pages
+                        raise RuntimeError(
+                            f"continuous admission wedged: {int(finished.sum())}/"
+                            f"{total} finished, {len(pending)} pending candidates + "
+                            f"{len(group_queue)} queued groups, no live slot, and the "
+                            f"pool ({pool.free_pages} free / {pool.universe_pages}) "
+                            f"cannot admit the head; the head request needs {need} "
+                            f"pages: raise max_kv_pages to at least {need}")
+                else:
+                    stalled = 0
 
         # a final blocking read closes the snapshot lag on the last occupants
         done_h = state.done.cpu().numpy()
         for s_i in np.nonzero(done_h)[0]:
             if host_cand[s_i] < total:
-                finished[int(host_cand[s_i])] = True
+                mark_finished(int(host_cand[s_i]))
         alive_h = int(state.alive_steps)
+        radix_delta = None
+        if cache_on:
+            # park every resident cached page in the host store: page ids
+            # die with this round's pool, the index and payloads do not;
+            # unconsumed preempt payloads drop (candidate ids are per round)
+            pool.flush_cache()
+            for key in spilled_keys:
+                self._kv_store.drop(key)
+            snap1 = self._radix.snapshot()
+            radix_delta = {k: snap1[k] - radix_snap0[k] for k in snap1}
         self.last_pool_stats = {
             "pool_pages": pool_pages, "worst_case_pages": worst_pool,
             "peak_pages_used": pool.peak_pages_used, "preemptions": pool.preemptions,
-            "resumes": resumes[0], "budgeted": budgeted,
+            "resumes": counters["resumes"], "budgeted": budgeted, "cb_mode": self.cb_mode,
+            "cow_splits": pool.cow_splits,
+            "peak_shared_pages": pool.peak_shared_pages if sharing else None,
+            "pages_shared_frac": (round(pool.peak_shared_pages
+                                        / max(pool.peak_pages_used, 1), 4)
+                                  if sharing else None),
+            "prefill_shared_frac": (round(pool.prefix_admissions
+                                          / max(pool.total_admissions, 1), 4)
+                                    if sharing else None),
+            "backfill_admissions": counters["backfill"],
+            "groups_prefilled": counters["groups_prefilled"] if continuous else None,
             "slot_idle_frac": (round(1.0 - alive_h / (r_slots * dispatched), 4)
                                if dispatched else None),
+            "prefix_cache": cache_on,
+            "radix_hit_rate": (round(radix_delta["hit_tok"]
+                                     / max(radix_delta["lookup_tok"], 1), 4)
+                               if cache_on else None),
+            "prefill_tok_saved": radix_delta["prefill_tok_saved"] if cache_on else None,
+            "radix_evictions": radix_delta["evictions"] if cache_on else None,
+            "spilled_pages": radix_delta["spilled_pages"] if cache_on else None,
+            "restored_pages": radix_delta["restored_pages"] if cache_on else None,
+            "spill_restore_ms_p50": (round(float(np.percentile(restore_ms, 50)), 3)
+                                     if cache_on and restore_ms else None),
         }
         if not finished.all():
             raise RuntimeError(
@@ -1115,17 +1615,33 @@ class PagedGenerationEngine(LoraMailbox):
             emitted = int((hist_h * np.arange(hist_h.size)).sum())
             self.last_spec_stats = {
                 "drafter": self.spec_drafter, "spec_draft": self.spec_draft,
+                "draft_len_final": d_cell[0],
+                "draft_len_switches": sum(a != b_ for a, b_ in zip(d_trace, d_trace[1:])),
+                "draft_len_trace": d_trace,
                 "accept_rate": int(state.accept_total) / drafted if drafted else 0.0,
+                "accepted": int(state.accept_total),
                 "tokens_per_verify_step": emitted / steps_alive if steps_alive else 0.0,
                 "emit_hist": hist_h.tolist(), "drafted": drafted,
                 "verify_impl": self.spec_verify, "verify_forwards": state.forwards,
+                "draft_forwards": state.draft_forwards,
+                "drafter_version": drafter_version,
+                "target_version": (self.last_swap_versions[-1]
+                                   if self.last_swap_versions else None),
             }
+        decode_s = time.perf_counter() - t_decode0
+        if continuous:
+            # the lazy prefills ran inside the decode loop
+            decode_s = max(decode_s - t_prefill, 1e-9)
         stats = accumulate_round_stats(
             self.last_round_stats, prefill_s=t_prefill, prefill_tokens=prefill_tokens,
-            prompt_rows=b, decode_s=time.perf_counter() - t_decode0,
-            gen_tokens=gen_tokens, gen_rows=total)
+            prompt_rows=b, decode_s=decode_s, gen_tokens=gen_tokens, gen_rows=total)
         stats["decode_forwards"] = state.forwards
+        stats["draft_forwards"] = getattr(state, "draft_forwards", 0)
         stats["sampler_calls"] = sampler_calls[0]
+        # prompt tokens the radix cache saved, and the group prefills that ran
+        # warm (the rest ran cold: K4 with attn_impl "splash")
+        stats["prefill_tokens_skipped"] = counters["warm_tokens"]
+        stats["warm_prefills"] = counters["warm_prefills"]
         self.last_round_stats = stats
         return GenerationResult(tokens=out, lengths=lengths, steps_dispatched=dispatched,
                                 logprobs=logps, alive_slot_steps=alive_h)

@@ -42,10 +42,6 @@ def sampling_probs(logits: torch.Tensor, temperature: float, top_p: float,
     if temperature == 0.0:
         idx = logits.argmax(dim=-1)
         return torch.nn.functional.one_hot(idx, logits.shape[-1]).float()
-    if top_p_impl == "bisect_mw":
-        raise NotImplementedError(
-            "top_p_impl='bisect_mw' is not ported yet (ROADMAP: leftovers "
-            "of the dense slice)")
     if top_p_impl not in TOP_P_IMPLS:
         raise ValueError(f"unknown top_p_impl {top_p_impl!r}")
     lg = logits.float()
@@ -184,3 +180,4 @@ class SpecRefillState:
     alive_steps: torch.Tensor  # [] int64 sum over steps of alive slots
     step: int = 0
     forwards: int = 0  # verify forwards run (each launches K5 once per layer)
+    draft_forwards: int = 0  # self-drafter decode forwards (K2 once per layer each)

@@ -22,8 +22,13 @@ projections, the MLP and the LM head batch over the ``[B, S]`` block.
 ``paged_chunked`` (the continuation prefill that resumes a preempted
 sequence) writes the valid tokens of the block the same way and attends
 over each row's dense-gathered context (``chunked_context_attention``).
-The write slots and the attended lengths are computed once per forward,
-not per layer.
+``paged_prefix`` (the warm prefill through a radix-cache hit) writes the
+valid tokens of the suffix block the same way and attends over the row's
+dense-gathered packed window in the compute dtype with the plain
+``attention_reference`` under the mask ``key position <= query position``;
+its ``page_indices`` carry one trailing scratch column that the gather
+drops. The write slots and the attended lengths are computed once per
+forward, not per layer.
 
 Ported: the no-cache (prefill/self-attention, training), dense-cache and
 paged (prefill, decode) branches. ``attn_impl`` "flash" and "splash" run
@@ -44,9 +49,12 @@ int8 or int4 containers: each runs kernel K3 (``ops/quant_matmul.py``), with
 the adapter's delta fused into its epilogue unless LoRA dropout is on (then
 K3 without the adapter, plus ``lora_delta``), as the JAX ``_proj`` does.
 
-The int8 dense cache, ring and ulysses raise
-``NotImplementedError`` naming their ROADMAP item; the paged warm-prefix
-(radix-hit) branch is not ported (ROADMAP queue 1 item 7).
+An int8 dense cache (``init_kv_cache_int8``: int8 ``[B, K, Smax, hd]``
+with f32 ``"k_scale"``/``"v_scale"`` ``[B, K, Smax, 1]``) quantizes each
+new position's head vector (``ops/attention.py::quantize_kv_position``)
+and attends through ``attention_cached_quant``, as the JAX dense-cache
+int8 branch does. Ring and ulysses raise ``NotImplementedError`` naming
+their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -62,7 +70,8 @@ from distrl_llm_tpu_torch.models.configs import ModelConfig
 from distrl_llm_tpu_torch.models.lora import target_shapes
 from distrl_llm_tpu_torch.ops import quant_matmul as _qmm
 from distrl_llm_tpu_torch.ops.attention import (
-    attention, attention_cached, causal_padding_mask,
+    attention, attention_cached, attention_cached_quant, attention_reference,
+    causal_padding_mask, quantize_kv_position,
 )
 from distrl_llm_tpu_torch.ops.linear import dropout_stream, linear, lora_delta
 from distrl_llm_tpu_torch.ops.paged import (
@@ -107,14 +116,6 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     cos = cos[:, :, None, :].to(x.dtype)
     sin = sin[:, :, None, :].to(x.dtype)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
-
-
-def _check_cache(kv_cache: Params) -> None:
-    if "k_scale" in kv_cache:
-        raise NotImplementedError(
-            "int8 dense KV cache is not ported yet (ROADMAP: leftovers of "
-            "the dense slice)"
-        )
 
 
 class DecoderLayer(nn.Module):
@@ -208,7 +209,7 @@ class DecoderLayer(nn.Module):
         attn_impl: str,
         page_indices: torch.Tensor | None = None,  # [B, pps] — paged-cache mode
         page_size: int = 0,
-        paged_mode: str = "prefill",  # "prefill" | "decode" | "verify" | "chunked"
+        paged_mode: str = "prefill",  # "prefill" | "decode" | "verify" | "chunked" | "prefix"
         verify_impl: str = "fused",  # paged_verify_op's sweep
         # decode: lengths + 1; verify, chunked: lengths (resident before the block)
         attn_lengths: torch.Tensor | None = None,
@@ -218,6 +219,8 @@ class DecoderLayer(nn.Module):
         key_valid: torch.Tensor | None = None,  # [B, Sk] for flash/splash
         lora_dropout: float = 0.0,
         layer_seed: int | None = None,  # this layer's dropout seed (training)
+        cache_k_scale: torch.Tensor | None = None,  # int8 dense cache scales
+        cache_v_scale: torch.Tensor | None = None,
     ) -> torch.Tensor:
         cfg = self.cfg
         b, s, _ = x.shape
@@ -255,6 +258,14 @@ class DecoderLayer(nn.Module):
                     q, gather_pages_dense(cache_k, page_indices),
                     gather_pages_dense(cache_v, page_indices), attn_lengths,
                     key_valid[:, :s])
+            elif paged_mode == "prefix":
+                # the packed window in the compute dtype (the trailing
+                # scratch column dropped), the plain attention the JAX
+                # package reaches here: its kernels refuse Sq != Sk
+                ctx = page_indices[:, :-1]
+                att = attention_reference(
+                    q, gather_pages_dense(cache_k, ctx, dtype=q.dtype),
+                    gather_pages_dense(cache_v, ctx, dtype=q.dtype), mask)
             else:
                 # packed prefill: write the prompt pages, attend over the input
                 write_prompt_to_pages(cache_k, k, page_indices, page_size)
@@ -263,13 +274,24 @@ class DecoderLayer(nn.Module):
         elif cache_k is not None:
             # in-place cache write of the new positions, then attention over
             # the whole window (positions not yet written are masked off)
-            cache_k[:, :, cache_offset:cache_offset + s] = k.transpose(1, 2)
-            cache_v[:, :, cache_offset:cache_offset + s] = v.transpose(1, 2)
+            window = slice(cache_offset, cache_offset + s)
+            if cache_k_scale is not None:
+                # int8 cache: each position's head vector with its own scale
+                k8, ks = quantize_kv_position(k.transpose(1, 2))
+                v8, vs = quantize_kv_position(v.transpose(1, 2))
+                cache_k[:, :, window], cache_k_scale[:, :, window] = k8, ks
+                cache_v[:, :, window], cache_v_scale[:, :, window] = v8, vs
+            else:
+                cache_k[:, :, window] = k.transpose(1, 2)
+                cache_v[:, :, window] = v.transpose(1, 2)
             if attn_impl == "flash" and cache_offset == 0 and s > 1:
                 # prefill: the cache holds nothing beyond the prompt being
                 # written, so this is self-attention over the input: K4 on
                 # the fresh k/v, the cache only written
                 att = attention(q, k, v, None, impl="flash", key_valid=key_valid[:, :s])
+            elif cache_k_scale is not None:
+                att = attention_cached_quant(q, cache_k, cache_k_scale, cache_v,
+                                             cache_v_scale, mask)
             else:
                 att = attention_cached(q, cache_k.to(q.dtype), cache_v.to(q.dtype), mask)
         else:
@@ -330,7 +352,7 @@ class Decoder(nn.Module):
         paged_verify: bool = False,  # speculative draft-block verify
         paged_verify_impl: str = "fused",  # verify sweep: "fused" (K5) | "unrolled"
         paged_chunked: bool = False,  # continuation (chunked) prefill over pages
-        paged_prefix: bool = False,  # warm (radix-hit) suffix prefill: not ported
+        paged_prefix: bool = False,  # warm (radix-hit) suffix prefill over pages
         remat: bool = False,  # checkpoint each layer (training, no cache)
         lora_dropout: float = 0.0,  # adapter-input dropout (training)
         dropout_seed: int | None = None,  # this forward's dropout seed
@@ -356,7 +378,10 @@ class Decoder(nn.Module):
         each row's ``lengths`` (positions ``lengths + i``), query i attending
         ``[0, lengths + i + 1)``. ``paged_chunked``: the same block with
         ``attention_mask`` [B, S] marking its real tokens; padding tokens
-        write nothing.
+        write nothing. ``paged_prefix``: the same block written over cached
+        pages, query i (at ``positions``) attending the row's packed
+        window ``[0, lengths + i]``; ``page_indices`` has one trailing
+        scratch column.
 
         Training: ``remat`` checkpoints each layer of the uncached forward
         while grad is enabled; ``lora_dropout`` with a ``dropout_seed``
@@ -372,16 +397,12 @@ class Decoder(nn.Module):
                 f"attn_impl={attn_impl!r} is not ported yet (ROADMAP: queue 1, "
                 "multi-GPU: ring/ulysses sequence parallelism)")
         paged = kv_cache is not None and "page_indices" in kv_cache
-        if kv_cache is not None:
-            _check_cache(kv_cache)
-        if paged_prefix:
-            raise NotImplementedError(
-                "the warm (radix-hit) suffix prefill is not ported yet (ROADMAP "
-                "queue 1 item 7: radix cache on the refill scheduler)")
-        if (paged_verify or paged_chunked) and not paged:
-            raise ValueError("paged_verify and paged_chunked need a paged cache")
-        if paged_verify and paged_chunked:
-            raise ValueError("paged_verify and paged_chunked exclude each other")
+        if (paged_verify or paged_chunked or paged_prefix) and not paged:
+            raise ValueError("paged_verify, paged_chunked and paged_prefix need a "
+                             "paged cache")
+        if paged_verify + paged_chunked + paged_prefix > 1:
+            raise ValueError("paged_verify, paged_chunked and paged_prefix exclude "
+                             "each other")
         if paged:
             if page_size <= 0:
                 raise ValueError("a paged cache needs page_size > 0")
@@ -410,8 +431,8 @@ class Decoder(nn.Module):
         # mask is built only where a path reads it (the JAX needs_dense_mask)
         kernel_attn = attn_impl in ("flash", "splash")
         needs_dense_mask = ((kv_cache is not None and not paged)
-                            or (paged and s > 1 and not kernel_attn
-                                and not paged_verify and not paged_chunked)
+                            or (paged and s > 1 and not kernel_attn and not paged_verify
+                                and not paged_chunked and not paged_prefix)
                             or (kv_cache is None and not kernel_attn))
         mask = (causal_padding_mask(attention_mask, q_len=s,
                                     q_offset=0 if paged else cache_offset)
@@ -422,16 +443,23 @@ class Decoder(nn.Module):
             table = kv_cache["page_indices"]
             paged_kw = {"page_indices": table, "page_size": page_size}
             lengths = kv_cache.get("lengths")
-            if paged_verify or paged_chunked:
+            if paged_verify or paged_chunked or paged_prefix:
                 sel = (None if paged_verify else
                        torch.nonzero(attention_mask[:, :s].reshape(-1) > 0)[:, 0])
                 page, slot = tokens_slots(lengths, table, page_size, s)
                 if sel is not None:
                     page, slot = page[sel], slot[sel]
-                paged_kw.update(paged_mode="verify" if paged_verify else "chunked",
-                                verify_impl=paged_verify_impl,
+                mode = ("verify" if paged_verify else
+                        "chunked" if paged_chunked else "prefix")
+                paged_kw.update(paged_mode=mode, verify_impl=paged_verify_impl,
                                 write_at=(page, slot, sel),
                                 attn_lengths=lengths.to(torch.int32))
+                if paged_prefix:
+                    # query i sits at lengths + i and sees the packed window
+                    # up to itself (the cold prefill's causal rows)
+                    jpos = torch.arange((table.shape[1] - 1) * page_size, device=dev)
+                    qpos = lengths.long()[:, None] + torch.arange(s, device=dev)[None, :]
+                    mask = (jpos[None, None, :] <= qpos[:, :, None])[:, None]
             elif s == 1:  # decode: one write slot per row
                 paged_kw.update(paged_mode="decode",
                                 write_at=(*token_slots(lengths, table, page_size), None),
@@ -449,6 +477,9 @@ class Decoder(nn.Module):
                       **paged_kw)
             ck = kv_cache["k"][i] if kv_cache is not None else None
             cv = kv_cache["v"][i] if kv_cache is not None else None
+            if kv_cache is not None and "k_scale" in kv_cache:
+                kw.update(cache_k_scale=kv_cache["k_scale"][i],
+                          cache_v_scale=kv_cache["v_scale"][i])
             if ckpt:
                 x = checkpoint(layer, x, layer_loras[i], ck, cv, use_reentrant=False, **kw)
             else:
@@ -510,3 +541,18 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int,
         "v": [torch.zeros(shape, dtype=dtype, device=device)
               for _ in range(cfg.num_layers)],
     }
+
+
+def init_kv_cache_int8(cfg: ModelConfig, batch: int, max_seq: int,
+                       device: torch.device | str | None = None) -> Params:
+    """int8 dense decode cache: per-layer zeroed int8 ``[B, K, Smax, hd]``
+    values and f32 ``[B, K, Smax, 1]`` scales (``"k_scale"``/``"v_scale"``),
+    1 + 4/hd bytes an element against bf16's 2 (the JAX package's
+    ``init_kv_cache_int8`` in the port's ``[.., S, hd]`` layout)."""
+    shape = (batch, cfg.num_kv_heads, max_seq, cfg.head_dim)
+    sshape = (batch, cfg.num_kv_heads, max_seq, 1)
+    cache = {kv: [torch.zeros(shape, dtype=torch.int8, device=device)
+                  for _ in range(cfg.num_layers)] for kv in ("k", "v")}
+    cache.update({f"{kv}_scale": [torch.zeros(sshape, dtype=torch.float32, device=device)
+                                  for _ in range(cfg.num_layers)] for kv in ("k", "v")})
+    return cache

@@ -5,6 +5,11 @@ against their kv head directly (``[B, K, G·Sq, D] @ [B, K, D, Sk]``), never
 materializing a repeated K/V. The decode cache is ``[B, K, S, D]`` — PyTorch's
 natural layout for a batched matmul over keys.
 
+The int8 dense decode cache stores each (row, kv head, position)'s head
+vector as int8 with one f32 absmax scale (``quantize_kv_position``), and
+``attention_cached_quant`` reads it with the scales folded into the scores
+and the probabilities (the JAX package's "dot" formulation).
+
 ``attention(..., impl=...)`` dispatches: "reference" is the plain path
 below; "flash" and "splash" both go to kernel K4
 (``ops/flash_attention.py``), which computes their one function with GQA
@@ -62,6 +67,47 @@ def attention_cached(q, k, v, mask, scale: float | None = None):
     ``attention_cached`` "dot" formulation; "mulred" exists there only for
     XLA layout reasons inside scan programs)."""
     return _gqa_attention(q, k, v, mask, scale)
+
+
+def quantize_kv_position(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 per (B, K, position) over head_dim for the dense
+    decode cache: [B, K, S, hd] → (int8 [B, K, S, hd], f32 scales
+    [B, K, S, 1]). ``s = max|x| / 127`` and ``x / s`` are true divisions of
+    two tensors (a division by a Python scalar runs as a reciprocal
+    multiply on CUDA, which rounds otherwise); the quotient rounds half to
+    even and is clamped to [-127, 127] before the cast, so the result is
+    the JAX package's bit for bit."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    s = torch.clamp(amax / torch.full_like(amax, 127.0), min=1e-8)
+    q8 = torch.clamp(torch.round(xf / s), -127.0, 127.0).to(torch.int8)
+    return q8, s
+
+
+def attention_cached_quant(q, k8, k_scale, v8, v_scale, mask,
+                           scale: float | None = None):
+    """Masked GQA attention against an int8 dense cache: k8/v8 int8
+    [B, K, Sk, D], scales f32 [B, K, Sk, 1]. The k scale multiplies the f32
+    scores after the contraction over D, the v scale the softmax
+    probabilities before the PV product (the JAX ``attention_cached_quant``
+    "dot" formulation, f32 throughout). Returns q's dtype."""
+    b, sq, h, d = q.shape
+    kh = k8.shape[1]
+    g = h // kh
+    if scale is None:
+        scale = d**-0.5
+    qg = q.float().reshape(b, sq, kh, g, d).permute(0, 2, 3, 1, 4).reshape(b, kh, g * sq, d)
+    logits = (qg @ k8.float().transpose(-1, -2)).reshape(b, kh, g, sq, -1)
+    logits = logits * k_scale[..., 0][:, :, None, None, :]
+    logits = logits * scale
+    if mask is not None:
+        m = (mask[:, :, None] if mask.shape[1] == 1
+             else mask.reshape(b, kh, g, *mask.shape[2:]))
+        logits = logits.masked_fill(~m, NEG_INF)
+    probs = torch.softmax(logits, dim=-1) * v_scale[..., 0][:, :, None, None, :]
+    out = probs.reshape(b, kh, g * sq, -1) @ v8.float()
+    return (out.reshape(b, kh, g, sq, d).permute(0, 3, 1, 2, 4)
+            .reshape(b, sq, h, d).to(q.dtype))
 
 
 def attention(q, k, v, mask, scale: float | None = None,

@@ -33,10 +33,9 @@ Counterpart of the JAX package's ``ops/paged.py``.
   verify forward's block, the preemption resume's prefix), and
   ``chunked_context_attention`` is the resume's attention over the row's
   dense-gathered context (plain PyTorch, as the JAX package leaves it to
-  XLA).
-
-Not ported yet (ROADMAP queue 1 item 7): the warm-prefix (radix-hit)
-context attention.
+  XLA). The warm (radix-hit) prefill reads its context through
+  ``gather_pages_dense`` in the compute dtype and attends with the plain
+  ``ops/attention.py::attention_reference`` (``models/transformer.py``).
 """
 
 from __future__ import annotations

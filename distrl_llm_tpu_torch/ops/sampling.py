@@ -12,7 +12,15 @@ point is ``sample_with_logprob``:
   version ``fused_sample_reference``.
 * ``top_p_impl="exact"`` runs the plain multi-pass ``sample`` with the
   rank-based sort filter, as the JAX package sends it to XLA.
-* ``"bisect_mw"`` is not ported yet (ROADMAP: leftovers of the dense slice).
+* ``top_p_impl="bisect_mw"`` (the multiway bisection filter) follows the
+  JAX package's own dispatch (``sample_dispatch``): there every top-p
+  filter but "exact" runs the fused kernel on the TPU and the multi-pass
+  ``sample`` with the named filter elsewhere. So a CUDA tensor launches K1
+  (whose bisection keeps the same nucleus up to the threshold's last
+  bits), a CPU tensor runs ``sample`` with
+  ``top_p_filter_bisect_multiway``. The speculative acceptance
+  (``engine/speculative.py::sampling_probs``) uses the plain multiway
+  filter on both, as the JAX package does.
 
 Randomness is a per-row int32 seed: the draw's uniforms hash
 ``(seed, column)`` (murmur3 fmix32), so the kernel, its plain version and the
@@ -84,7 +92,30 @@ def top_p_filter_bisect(logits: torch.Tensor, top_p: float,
     return torch.where(probs >= lo[..., None], logits, NEG_INF)
 
 
-TOP_P_IMPLS = {"exact": top_p_filter, "bisect": top_p_filter_bisect}
+def top_p_filter_bisect_multiway(logits: torch.Tensor, top_p: float,
+                                 passes: int = 4, k: int = 15) -> torch.Tensor:
+    """Nucleus by multiway bisection: each pass tests ``k`` evenly spaced
+    thresholds of the interval at once and narrows it (k+1)-fold, 4 x 15
+    reaching the 2^16 resolution of 16 binary steps. lo only moves onto a
+    tested threshold whose kept mass still reaches top_p (the largest
+    passing, hi the smallest failing), so the kept mass is >= top_p."""
+    probs = torch.softmax(logits.float(), dim=-1)
+    frac = (torch.arange(1, k + 1, dtype=torch.float32, device=probs.device)
+            / torch.full((k,), k + 1.0, device=probs.device))
+    lo = torch.zeros(probs.shape[:-1], dtype=torch.float32, device=probs.device)
+    hi = probs.max(dim=-1).values
+    for _ in range(passes):
+        ts = lo[..., None] + (hi - lo)[..., None] * frac  # [..., k], increasing
+        mass = torch.stack([torch.where(probs >= ts[..., j:j + 1], probs, 0.0).sum(dim=-1)
+                            for j in range(k)], dim=-1)
+        ok = mass >= top_p
+        lo, hi = (torch.where(ok, ts, lo[..., None]).amax(dim=-1),
+                  torch.where(ok, hi[..., None], ts).amin(dim=-1))
+    return torch.where(probs >= lo[..., None], logits, NEG_INF)
+
+
+TOP_P_IMPLS = {"exact": top_p_filter, "bisect": top_p_filter_bisect,
+               "bisect_mw": top_p_filter_bisect_multiway}
 
 
 def _mul_u32(h: torch.Tensor, c: int) -> torch.Tensor:
@@ -328,16 +359,17 @@ def sample_with_logprob(
     capture_logprob: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """The engines' one sampling entry point: (tokens [B] int32, behavior
-    logprobs [B] or None)."""
-    if top_p_impl == "bisect":
+    logprobs [B] or None). "bisect" runs ``fused_sample`` (K1 on a CUDA
+    tensor, its plain version on a CPU one); "bisect_mw" runs K1 on a CUDA
+    tensor and the multi-pass ``sample`` with the multiway filter on a CPU
+    one (the JAX package's dispatch on and off its accelerator); "exact"
+    runs ``sample`` with the sort filter everywhere."""
+    if top_p_impl not in TOP_P_IMPLS:
+        raise ValueError(f"unknown top_p_impl {top_p_impl!r}")
+    if top_p_impl == "bisect" or (top_p_impl == "bisect_mw"
+                                  and logits.device.type == "cuda"):
         tok, logp = fused_sample(logits.float().contiguous(), temperature,
                                  top_p, seeds)
         return tok, (logp if capture_logprob else None)
-    if top_p_impl == "exact":
-        tok = sample(logits, temperature, top_p, seeds, top_p_impl="exact")
-        return tok, (token_logprob(logits, tok) if capture_logprob else None)
-    if top_p_impl == "bisect_mw":
-        raise NotImplementedError(
-            "top_p_impl='bisect_mw' is not ported yet (ROADMAP: leftovers "
-            "of the dense slice)")
-    raise ValueError(f"unknown top_p_impl {top_p_impl!r}")
+    tok = sample(logits, temperature, top_p, seeds, top_p_impl=top_p_impl)
+    return tok, (token_logprob(logits, tok) if capture_logprob else None)

@@ -65,17 +65,15 @@ def decode_batch(tokenizer, ids: np.ndarray, lengths: np.ndarray) -> list[str]:
     ]
 
 
-_SPM_ITEM = "ROADMAP queue 1 item 5: the SPM (Unigram) tokenizer, native/spm.py"
-
-
 def load_tokenizer(model_name_or_path: str):
     """Load a checkpoint's tokenizer (the reference's load_correct_tokenizer,
     train_distributed.py:46).
 
     A directory with a ``tokenizer.json`` of byte-level BPE type loads into
-    ``NativeBPETokenizer`` (with ``tokenizer_config.json``'s chat template,
-    when it has one); a Unigram one (Gemma's sentencepiece) raises, and so
-    does a native build that fails: nothing falls back quietly. Without a
+    ``NativeBPETokenizer``, a Unigram one (Gemma's sentencepiece) into
+    ``NativeSPMTokenizer`` (either with ``tokenizer_config.json``'s chat
+    template, when it has one); a native build that fails raises: nothing
+    falls back quietly. Without a
     local ``tokenizer.json`` (a hub model id), HF ``AutoTokenizer`` loads
     it, imported only then."""
     import json
@@ -93,9 +91,9 @@ def load_tokenizer(model_name_or_path: str):
         with open(tj, encoding="utf-8") as f:
             tj_dict = json.load(f)
         if (tj_dict.get("model") or {}).get("type") == "Unigram":
-            raise NotImplementedError(
-                f"{tj} is a sentencepiece Unigram tokenizer; it is not ported "
-                f"({_SPM_ITEM})")
+            from distrl_llm_tpu_torch.native.spm import NativeSPMTokenizer
+
+            return NativeSPMTokenizer.from_hf_dict(tj_dict, **kw)
         from distrl_llm_tpu_torch.native.tokenizer import NativeBPETokenizer
 
         return NativeBPETokenizer.from_hf_dict(tj_dict, **kw)

@@ -90,6 +90,30 @@ def build_parser() -> argparse.ArgumentParser:
                         "--continuous_batching")
     p.add_argument("--spec_ngram", type=int, default=None,
                    help="lookup n-gram size for --spec_draft (default 2)")
+    p.add_argument("--spec_drafter", choices=["ngram", "self"], default=None,
+                   help="draft source for --spec_draft: 'ngram' (prompt lookup) or "
+                        "'self' (the policy's previous LoRA version)")
+    p.add_argument("--spec_verify", choices=["fused", "unrolled"], default=None,
+                   help="verify attention: one K5 sweep ('fused') or d+1 K2 calls")
+    p.add_argument("--spec_adapt", action="store_true",
+                   help="adapt the draft length to the accept rate (halve on waste, "
+                        "floor 1; grow back on recovery)")
+    p.add_argument("--prefix_sharing", action="store_true",
+                   help="a group's candidates alias one refcounted prompt page chain "
+                        "(copy-on-write tail); requires --continuous_batching")
+    p.add_argument("--continuous_admission", action="store_true",
+                   help="a group request queue with lazy per-group prefill into pool "
+                        "pages (implies --prefix_sharing); requires "
+                        "--continuous_batching")
+    p.add_argument("--prefix_cache", choices=["on", "off"], default=None,
+                   help="the radix prefix cache across rounds; requires "
+                        "--continuous_admission and an unquantized KV pool")
+    p.add_argument("--kv_spill", action="store_true",
+                   help="park preempted and evicted KV pages in host memory and copy "
+                        "them back on resume; requires --prefix_cache on, excludes "
+                        "--spec_draft")
+    p.add_argument("--kv_spill_host_mb", type=int, default=0,
+                   help="host page store cap in MiB for --kv_spill (0 = unbounded)")
     p.add_argument("--clip_ratio", type=float, default=0.0,
                    help="PPO-clip epsilon over engine-captured behavior logprobs "
                         "(0 = the reference's objective)")
@@ -132,6 +156,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 def config_from_args(args: argparse.Namespace) -> TrainConfig:
     fields = {k: v for k, v in vars(args).items() if k in TrainConfig.__dataclass_fields__}
+    # tri-state: omitted = None (unset), "on"/"off" a pin
+    fields["prefix_cache"] = None if args.prefix_cache is None else args.prefix_cache == "on"
     fields["prompt_buckets"] = parse_buckets(args.prompt_buckets)
     fields["learner_len_buckets"] = parse_buckets(args.learner_len_buckets,
                                                   field="learner_len_buckets")

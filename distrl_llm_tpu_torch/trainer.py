@@ -59,24 +59,34 @@ log = logging.getLogger(__name__)
 
 RewardFn = Callable[[Sequence[str], Sequence[str]], np.ndarray]
 
-_DENSE_INT8_ITEM = "ROADMAP queue 1 item 5: the int8 dense KV cache"
-
-
 def engine_kwargs_from_config(config: TrainConfig) -> dict[str, Any]:
-    """Engine-constructor kwargs derived from the config (the paged engine's
-    knobs: KV format, the refill scheduler, speculative decoding, the row
-    cap, behavior-logprob capture); module level so the config -> engine
-    wiring is testable without a checkpoint."""
+    """Engine-constructor kwargs derived from the config (the engines'
+    knobs: KV format, the refill scheduler with prefix sharing, continuous
+    admission, the prefix cache and host spill, speculative decoding, the
+    row cap, behavior-logprob capture); module level so the config ->
+    engine wiring is testable without a checkpoint. An unset knob is left
+    out, an explicit one passed as a pin (the JAX package's convention)."""
     kwargs: dict[str, Any] = {"kv_quant": config.kv_cache_quant}
     if config.decode_scan_chunk is not None:
         # an explicit value, 0 included, reaches the engine as a pin
         kwargs["scan_chunk"] = config.decode_scan_chunk
     if config.engine_impl == "paged" and config.continuous_batching:
         kwargs["scheduler"] = "refill"
-        if config.spec_draft is not None:
-            kwargs["spec_draft"] = config.spec_draft
-        if config.spec_ngram is not None:
-            kwargs["spec_ngram"] = config.spec_ngram
+        if config.prefix_sharing:
+            kwargs["prefix_sharing"] = True
+        if config.continuous_admission:
+            kwargs["continuous_admission"] = True
+        for name in ("spec_draft", "spec_ngram", "spec_drafter", "spec_verify"):
+            if getattr(config, name) is not None:
+                kwargs[name] = getattr(config, name)
+        if config.spec_adapt:
+            kwargs["spec_adapt"] = True
+        if config.prefix_cache is not None:
+            kwargs["prefix_cache"] = config.prefix_cache
+        if config.kv_spill:
+            kwargs["kv_spill"] = True
+            if config.kv_spill_host_mb:
+                kwargs["kv_spill_host_mb"] = config.kv_spill_host_mb
     if config.max_concurrent_sequences:
         kwargs["max_concurrent_rows"] = config.max_concurrent_sequences
     if config.clip_ratio > 0.0:
@@ -129,14 +139,15 @@ def make_engine(config: TrainConfig, model: Decoder, tokenizer, *,
             spec_draft=(config.spec_draft or 0) if config.continuous_batching else 0,
             hbm_bytes=hbm_bytes,
             device=dev,
+            # continuous admission draws prompt chains from the pool, and the
+            # prefix cache keeps one more resident there
+            continuous=config.continuous_admission,
+            prefix_cache=bool(config.prefix_cache),
         )
         log.info("paged engine: %d KV pages of %d tokens under learner_gpu_usage=%.2f",
                  kwargs["max_kv_pages"], DEFAULT_PAGE_SIZE, config.learner_gpu_usage)
         return PagedGenerationEngine(model.cfg, **common, **kwargs)
-    # the dense engine keeps the cache dtype and decodes one step a dispatch
-    if kwargs.pop("kv_quant") not in (None, "none"):
-        raise NotImplementedError(f"kv_cache_quant='int8' with engine_impl='dense' is "
-                                  f"not ported ({_DENSE_INT8_ITEM})")
+    # the dense engine (a bf16 or int8 cache) decodes one step a dispatch
     if (kwargs.pop("scan_chunk", None) or 0) > 1:
         raise NotImplementedError("decode_scan_chunk > 1 has no counterpart yet (CUDA "
                                   "graphs over the decode step)")
@@ -374,7 +385,10 @@ class Trainer:
         values. That is right only because the synchronous loop never
         overlaps a generation round with an update; the pipelined regime,
         which does (ROADMAP queue 1 item 8), would need a copy here."""
-        self._lora_rollout = self.lora
+        # a new dict over the same tensors for each push: the engine's prefix
+        # cache keys its cached KV on the adapter object's identity (the
+        # JAX package hands the engine a new adapter each step)
+        self._lora_rollout = {"layers": {t: dict(ab) for t, ab in self.lora["layers"].items()}}
         self._rollout_weight_version = self.weight_version
 
     # ---------------------------------------------------------------- rollout

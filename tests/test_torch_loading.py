@@ -177,9 +177,20 @@ def test_tokenizers_encode_the_corpus_alike(checkpoint_dir):  # noqa: F811
 
 
 def test_a_unigram_tokenizer_is_refused(tmp_path):
-    (tmp_path / "tokenizer.json").write_text(json.dumps({"model": {"type": "Unigram"}}))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        load_tokenizer(str(tmp_path))
+    """A Unigram tokenizer.json (Gemma's sentencepiece) is no longer refused:
+    it loads into the native SPM tokenizer, whose ids equal the JAX
+    package's (tests/test_torch_spm.py has the full parity cases)."""
+    from distrl_llm_tpu.tokenizer import load_tokenizer as jload_tokenizer
+    from distrl_llm_tpu_torch.native.spm import NativeSPMTokenizer
+
+    vocab = [["<unk>", 0.0], ["▁a", -1.0], ["b", -2.0], ["▁", -3.0], ["a", -4.0]]
+    (tmp_path / "tokenizer.json").write_text(json.dumps({
+        "model": {"type": "Unigram", "unk_id": 0, "vocab": vocab},
+        "added_tokens": [{"id": 5, "content": "<eos>", "special": True}],
+        "normalizer": {"type": "Replace", "pattern": {"String": " "}, "content": "▁"}}))
+    tok = load_tokenizer(str(tmp_path))
+    assert isinstance(tok, NativeSPMTokenizer) and tok.eos_token_id == 5
+    assert tok.encode(" ab a") == jload_tokenizer(str(tmp_path)).encode(" ab a")
 
 
 @pytest.mark.parametrize("kw", [

@@ -164,9 +164,13 @@ def test_unported_branches_raise_naming_roadmap():
     for impl in ("flash", "splash"):
         got, _ = model(torch.from_numpy(ids), attn_impl=impl, **kw)
         np.testing.assert_allclose(got[real].numpy(), want[real].numpy(), atol=1e-5, rtol=0)
-    cache = ttf.init_kv_cache(cfg, 1, 8, dtype=torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model(ids, kv_cache={**cache, "k_scale": None})
+    # the int8 dense cache is ported (tests/test_torch_dense_int8.py): its
+    # prefill over the whole window equals the uncached forward within the
+    # int8 rounding of k and v
+    cache = ttf.init_kv_cache_int8(cfg, ids.shape[0], ids.shape[1], device="cpu")
+    got, _ = model(torch.from_numpy(ids), kv_cache=cache, **kw)
+    assert cache["k_scale"][0].shape == (ids.shape[0], cfg.num_kv_heads, ids.shape[1], 1)
+    np.testing.assert_allclose(got[real].numpy(), want[real].numpy(), atol=2e-2, rtol=0)
     # the paged cache is ported (tests/test_torch_paged*.py)
 
 

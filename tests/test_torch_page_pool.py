@@ -94,12 +94,29 @@ def test_dead_rows_and_clamped_columns():
 
 
 def test_unported_arguments_raise_naming_roadmap():
-    kw = dict(first_page=0, n_pages=4, r_slots=2, width=3, page_size=4, prompt_pages=1)
-    for extra in ({"prefix_sharing": True}, {"radix": object()}, {"store": object()}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TPool(**kw, **extra)
+    """Prefix sharing, the radix cache and the host store are ported
+    (tests/test_torch_prefix_cache.py): the arguments the pool once refused
+    now construct, a cache without sharing is refused as the JAX pool
+    refuses it, and a donor slot's prefix is aliased as in the JAX pool."""
+    from distrl_llm_tpu.engine.page_pool import RadixCache as JRadix
+    from distrl_llm_tpu_torch.engine.page_pool import RadixCache as TRadix
+
+    kw = dict(first_page=0, n_pages=6, r_slots=2, width=3, page_size=4, prompt_pages=1)
+    for jextra, textra in (({"prefix_sharing": True}, {"prefix_sharing": True}),
+                           ({"prefix_sharing": True, "radix": JRadix(4)},
+                            {"prefix_sharing": True, "radix": TRadix(4)})):
+        JPool(**kw, **jextra).check_invariants()
+        TPool(**kw, **textra).check_invariants()
+    with pytest.raises(ValueError, match="prefix_sharing"):
+        JPool(**kw, radix=JRadix(4))
+    with pytest.raises(ValueError, match="prefix_sharing"):
+        TPool(**kw, radix=TRadix(4))
     with pytest.raises(ValueError, match=">= 2 pages"):
         TPool(**{**kw, "n_pages": 1})
-    tp = TPool(**kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tp.admit(0, 0, 2, 3, donor=1)
+    jp, tp = JPool(**kw, prefix_sharing=True), TPool(**kw, prefix_sharing=True)
+    for pool in (jp, tp):
+        pool.register_prefix(0, [0], 1)
+        assert pool.admit(1, 0, 6, 7, first_write=6)
+        assert pool.admit(0, 0, 6, 7, donor=1)
+    np.testing.assert_array_equal(tp.table, jp.table)
+    assert (tp.shared, tp.owned, tp.ref) == (jp.shared, jp.owned, jp.ref)

@@ -351,9 +351,11 @@ def test_paged_attention_op_dispatch():
 
 def test_unported_paged_ops_raise_naming_roadmap():
     """The multi-token writes, the chunked context attention and the verify
-    ops are ported (their parity cases are in test_torch_verify.py); the
-    paged path still to port, the warm (radix-hit) suffix prefill, raises
-    naming its ROADMAP item before computing anything."""
+    ops are ported (their parity cases are in test_torch_verify.py), and so
+    is the warm (radix-hit) suffix prefill (tests/test_torch_prefix_cache.py):
+    its forward takes a table with one trailing scratch column, whose gather
+    drops that column; a table without it is no packed window and cannot
+    be attended as one."""
     from distrl_llm_tpu_torch.models.configs import TINY as TTINY
     from distrl_llm_tpu_torch.models.transformer import Decoder
 
@@ -364,9 +366,16 @@ def test_unported_paged_ops_raise_naming_roadmap():
     cache = tpaged.init_paged_kv_cache(TTINY, 1, 8, 4, dtype=torch.float32)
     cache.update(lengths=torch.zeros((1,), dtype=torch.int32),
                  page_indices=torch.as_tensor(tpaged.make_page_table(1, 8, 4)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Decoder(TTINY)(torch.zeros((1, 2), dtype=torch.int32), kv_cache=cache,
-                       page_size=4, paged_prefix=True)
+    model = Decoder(TTINY)
+    for p in model.parameters():
+        torch.nn.init.normal_(p, std=0.02)
+    ext = torch.cat([cache["page_indices"], cache["page_indices"][:, -1:]], dim=1)
+    logits, _ = model(torch.ones((1, 8), dtype=torch.int32), page_size=4, paged_prefix=True,
+                      kv_cache={**cache, "page_indices": ext})
+    assert logits.shape == (1, 8, TTINY.vocab_size) and torch.isfinite(logits).all()
+    with pytest.raises(ValueError, match="exclude"):
+        model(torch.ones((1, 2), dtype=torch.int32), kv_cache=cache, page_size=4,
+              paged_prefix=True, paged_chunked=True)
 
 
 def test_kernel_wrapper_checks_its_inputs():

@@ -311,8 +311,23 @@ def test_push_lora_mid_round_matches_jax(weights):
     {"scan_chunk": 8},
 ])
 def test_unported_knobs_raise_naming_roadmap(weights, knob):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _tengine(weights, 4, **knob)
+    """Scan chunks (CUDA graphs over the decode step) still raise naming
+    their ROADMAP item; every other knob here is ported and the port's
+    engine accepts or refuses it (ValueError) exactly as the JAX engine
+    does."""
+    if "scan_chunk" in knob:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            _tengine(weights, 4, **knob)
+        return
+    try:
+        _jengine(4, **knob)
+    except ValueError:
+        with pytest.raises(ValueError):
+            _tengine(weights, 4, **knob)
+        return
+    eng = _tengine(weights, 4, **knob)
+    assert eng.prefix_sharing == bool(knob.get("prefix_sharing"))
+    assert eng.spec_drafter == knob.get("spec_drafter", "ngram")
 
 
 def test_engine_checks_its_inputs(weights):

@@ -504,8 +504,9 @@ def test_two_train_steps_over_an_int8_base_match_jax(interpreted_k3):
 def test_chip_smoke_qlora_phases_rehearse_on_cpu():
     """chip_smoke.py's QLoRA phases at TINY on the CPU (K3's plain version
     in its place): the K3 stanza's checks at small shapes, the dense and
-    paged rounds over an int4 base, the f32 teacher-forced logits, two
-    learner steps and the f32 learner parity run."""
+    paged rounds over an int4 base (one greedy round each), the f32
+    teacher-forced logits, two learner steps and the f32 learner parity
+    run."""
     import chip_smoke
 
     stanza = chip_smoke.compare_quant_matmul(
@@ -514,9 +515,9 @@ def test_chip_smoke_qlora_phases_rehearse_on_cpu():
     qw = chip_smoke.make_qlora_weights(CFG, "cpu", seed=0, bits=4, group=16, rank=4)
     assert qw[0].quant == (4, 16)
     runs = chip_smoke.qlora_rollouts(CFG, "cpu", qw, seed=0, max_prompt_tokens=96,
-                                     max_new_tokens=8, n=2, rank=4)
+                                     max_new_tokens=8, n=2, rank=4, greedy_rounds=1)
     for out in runs:
-        assert out["steps"] > 0 and out["model_forwards"] > 0
+        assert out["steps"] > 0 and out["model_forwards"] > 0 and len(out["greedy"]) == 1
         assert out["plain_calls"] == 7 * CFG.num_layers * out["model_forwards"]
     dense_w = chip_smoke.make_weights(CFG, "cpu", seed=0, rank=4)
     lg = chip_smoke.qlora_logits(qw, dense_w, seed=0, steps=2, n=2, max_prompt_tokens=96,

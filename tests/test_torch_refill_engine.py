@@ -384,10 +384,10 @@ def test_cpu_rounds_launch_no_kernel(weights):
     ({**_refill(), "spec_draft": 2, "spec_ngram": 0}, ValueError),
     ({**_refill(), "spec_draft": 2, "spec_verify": "blocked"}, ValueError),
     ({**_refill(), "max_kv_pages": 2}, ValueError),  # cannot fit one sequence
-    ({**_refill(), "spec_draft": 2, "spec_drafter": "self"}, NotImplementedError),
-    ({**_refill(), "spec_draft": 2, "spec_adapt": True}, NotImplementedError),
-    ({**_refill(), "prefix_sharing": True}, NotImplementedError),
-    ({**_refill(), "continuous_admission": True}, NotImplementedError),
+    ({**_refill(), "spec_drafter": "draft_model"}, ValueError),
+    ({**_refill(), "spec_draft": 0, "spec_adapt": True}, ValueError),  # nothing to adapt
+    ({**_refill(), "prefix_cache": True}, ValueError),  # needs continuous_admission
+    ({"continuous_admission": True}, ValueError),  # needs the refill scheduler
 ])
 def test_engine_checks_its_knobs(weights, knob, err):
     with pytest.raises(err, match="ROADMAP" if err is NotImplementedError else None):

@@ -163,5 +163,10 @@ def test_sample_with_logprob_dispatch():
     np.testing.assert_allclose(lp_b.numpy(), lp_e.numpy(), atol=LOGP_ATOL)
     _, none = tsampling.sample_with_logprob(lg, 1.2, 0.95, seeds)
     assert none is None
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsampling.sample_with_logprob(lg, 1.2, 0.95, seeds, top_p_impl="bisect_mw")
+    # bisect_mw on a CPU tensor: the multi-pass sample with the multiway
+    # filter (on a CUDA tensor it launches K1, tests/test_torch_dense_int8.py)
+    tok_m, lp_m = tsampling.sample_with_logprob(lg, 1.2, 0.95, seeds, top_p_impl="bisect_mw",
+                                                capture_logprob=True)
+    want = tsampling.sample(lg, 1.2, 0.95, seeds, top_p_impl="bisect_mw")
+    np.testing.assert_array_equal(tok_m.numpy(), want.numpy())
+    np.testing.assert_allclose(lp_m.numpy(), tsampling.token_logprob(lg, want).numpy(), atol=0)

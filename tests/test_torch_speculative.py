@@ -66,8 +66,11 @@ def test_sampling_probs_matches_jax(temperature, top_p, impl):
     np.testing.assert_allclose(got.numpy(), want, atol=PROB_ATOL, rtol=0)
     if temperature == 0.0:
         np.testing.assert_array_equal(got.numpy(), want)  # one-hot, exactly
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tspec.sampling_probs(_t(logits), 1.0, 0.9, top_p_impl="bisect_mw")
+    # the multiway filter is ported too: its distribution equals JAX's
+    want_mw = np.asarray(jspec.sampling_probs(jnp.asarray(logits), 1.0, 0.9,
+                                              top_p_impl="bisect_mw"))
+    got_mw = tspec.sampling_probs(_t(logits), 1.0, 0.9, top_p_impl="bisect_mw")
+    np.testing.assert_allclose(got_mw.numpy(), want_mw, atol=PROB_ATOL, rtol=0)
 
 
 def _jax_draws(rng, r, d, v):
