@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (``distrl_llm_tpu_torch``).
 
-    python3 chip_smoke.py [--layers N] [--seed S] [--profile] [--until 6|7|8]
+    python3 chip_smoke.py [--layers N] [--seed S] [--profile] [--until 6|7|8|9]
 
 Needs one NVIDIA GPU (Hopper: the kernels build for ``sm_90a``) and ``nvcc``.
 Without a GPU it exits non-zero before computing anything. Phases, each
@@ -132,10 +132,29 @@ printing its own lines:
    and ``Trainer.from_pretrained`` on a 2-layer Gemma-2B-wide checkpoint
    with a Unigram tokenizer the script writes (the native SPM tokenizer,
    the script's expected ids, one step over the int8 dense cache).
+10. full fine-tuning at Gemma-2B width (all 18 layers, D 2048, 8 / 1
+   heads of head_dim 256, F 16384, V 256,000, tied embeddings; random bf16
+   weights from the seed; phase 9's Unigram tokenizer): (a)
+   ``Trainer.train()`` with ``full_finetune=True`` and ``attn_impl=
+   "splash"`` on the paged refill engine (16 slots), 4 prompts x 4 x 128
+   new tokens, microbatch 4, the initial eval and 2 optimizer steps: the
+   learner trains f32 master weights (K4's f32 forward and backward at
+   head_dim 256), the engine prefills in bf16 (K4's bf16 forward at
+   head_dim 256), with K1 and K2; launches held to the path's dispatches
+   by route; every parameter moved (the tied embedding and the norms too)
+   within 2 Adam8bit steps, the rollout copy equal to the masters cast to
+   bf16, the step-2 round's probe logits moved by the push (and the step-1
+   round's equal to the eval round's), the radix cache dropped by a push
+   (three rounds over the rollout copy: cold, warm, after the push cold);
+   ms per step by phase and peak GiB against the state estimate; (b) one
+   LoRA step at the same width under splash with the bf16 learner (K4's
+   bf16 backward at head_dim 256).
 
 Phase 3 holds K4 (forward and backward) against its plain version at the
-learner's [8, 1550, 28 / 4, 128], f32 and bf16, with its time, bound and
-``scaled_dot_product_attention`` as the library yardstick; and K3 at every
+learner's [8, 1550, 28 / 4, 128] and at Gemma-2B's [8, 1550, 8 / 1, 256],
+f32 and bf16, with its time, bound and ``scaled_dot_product_attention`` as
+the library yardstick (the head_dim 256 routes each a line of their own in
+``{"kernels": ...}``); and K3 at every
 projection shape of a layer, M = 64, 320 and 12,400, int4 g64 and int8,
 with its edge cases, one-hot rows that must reproduce ``dequantize()``
 exactly, and ``quantize`` on the card against the CPU bit for bit; K3's
@@ -239,6 +258,14 @@ KERNELS = (
      "replaces": "distrl_llm_tpu/ops/splash.py:58",
      "module": "distrl_llm_tpu_torch.ops.flash_attention",
      "counter": "flash_attention_bwd_launches"},
+    # K4's four routes at head_dim 256 (the Gemma family), each also counted
+    # in the two entries above
+    *({"name": f"flash_attention_{part}_hd256_{dt}", "route": "cuda",
+       "source": "distrl_llm_tpu_torch/csrc/flash_attention.cu",
+       "replaces": "distrl_llm_tpu/ops/splash.py:58",
+       "module": "distrl_llm_tpu_torch.ops.flash_attention",
+       "counter": f"flash_attention_hd256_{dt}_{part}_launches"}
+      for dt in ("bf16", "f32") for part in ("fwd", "bwd")),
     {"name": "quant_matmul", "route": "cuda",
      "source": "distrl_llm_tpu_torch/csrc/quant_matmul.cu",
      "replaces": "distrl_llm_tpu/ops/quant_matmul.py:150",
@@ -278,6 +305,8 @@ LOGIT_STEPS = 4  # teacher-forced decode forwards compared
 # heads; left-padded prompts and right-padded answers of these real lengths
 # (row 0 has no valid key at all; rows 1 and 6 one prompt token)
 FA_BATCH, FA_PROMPT, FA_ANSWER = 8, 350, 1200
+# and at head_dim 256: Gemma-2B's heads (phase 10's learner) on the same rows
+GEMMA_HEADS, GEMMA_KV_HEADS, GEMMA_HEAD_DIM = 8, 1, 256
 FA_PROMPT_LENS = (0, 1, 200, 350, 350, 120, 1, 350)
 FA_ANSWER_LENS = (0, 1200, 1, 700, 0, 1200, 37, 1200)
 # f32: out, dq, dk, dv are sums of up to 1550 (dk, dv: 1550 · 7) products,
@@ -326,6 +355,16 @@ def read_counts() -> dict[str, int]:
             for k in KERNELS}
 
 
+def hd256_counts(head_dim: int, *, bf16_fwd: int = 0, bf16_bwd: int = 0, f32_fwd: int = 0,
+                 f32_bwd: int = 0) -> dict[str, int]:
+    """The counts of K4's head_dim 256 routes a path should show: the given
+    launches at head_dim 256, none at any other."""
+    at = head_dim == 256
+    return {f"flash_attention_{part}_hd256_{dt}": n if at else 0
+            for (dt, part), n in ((("bf16", "fwd"), bf16_fwd), (("bf16", "bwd"), bf16_bwd),
+                                  (("f32", "fwd"), f32_fwd), (("f32", "bwd"), f32_bwd))}
+
+
 def ptxas_lines(log: str) -> list[tuple[str, str]]:
     """ptxas -v's report, one (entry, "registers ...; spills ...") pair per
     entry function (each template instance): its spills come before its
@@ -335,8 +374,9 @@ def ptxas_lines(log: str) -> list[tuple[str, str]]:
         if "Compiling entry function" in line:
             entry = line.split("'")[1] if "'" in line else line.strip()
             # a kernel and its template instance by its mangled arguments,
-            # e.g. paged_mma_kernelIaLi128ELi1EE: int8 pages, hd 128, 1 m-tile
-            m = re.search(r"\d+([a-z_]+_kernel)(I\w*?EE)?", entry)
+            # e.g. paged_mma_kernelIaLi128ELi1EE: int8 pages, hd 128, 1 m-tile;
+            # flash_fwd_mmaILi256EE: K4's bf16 forward at hd 256
+            m = re.search(r"\d+([a-z_]+_(?:kernel|mma))(I\w*?EE)?", entry)
             entry = m.group(1) + (m.group(2) or "") if m else "kernel"
         elif "spill" in line:
             spill = line.strip()
@@ -878,7 +918,8 @@ def flash_bound_ms(valid, *, heads: int, kv_heads: int, head_dim: int, itemsize:
     key-validity rows: the operations over the causal pairs whose key is
     valid (every query row i counts the valid keys j <= i), 4·hd per pair
     and head forward (q·k and p·v), 10·hd backward (s, dp, dv, dk, dq), at
-    the bf16 tensor cores' peak; against the bytes, each input read and
+    the peak of their type (bf16: the tensor cores'; f32, ``itemsize`` 4:
+    the CUDA cores', never TF32); against the bytes, each input read and
     each output written once (forward: q, k, v, key_valid, out, lse;
     backward: q, k, v, key_valid, out, lse, dout, dq, dk, dv)."""
     b, s = valid.shape
@@ -891,7 +932,7 @@ def flash_bound_ms(valid, *, heads: int, kv_heads: int, head_dim: int, itemsize:
         ops = 4 * head_dim * heads * pairs
         nbytes = itemsize * (2 * q_elems + 2 * kv_elems) + 4 * b * s + 4 * b * heads * s
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / BF16_PEAK_OPS_PER_S * 1e3
+    t_ops = ops / (F32_OPS_PER_S if itemsize == 4 else BF16_PEAK_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -987,13 +1028,14 @@ def compare_flash_attention(device, seed: int, **shape) -> dict:
     return res
 
 
-def time_flash_attention(seed: int) -> dict:
-    """K4's forward and backward at the learner's shape in bf16 (the main
-    path's dtype) with its masks, beside the plain version's forward and
-    backward, the card's bound, and ``F.scaled_dot_product_attention`` with
-    a boolean [B, 1, S, S] mask and ``enable_gqa`` as the library yardstick
-    (timed here only; the port never calls it). Backward times are the
-    backward alone (autograd's over a kept graph for plain and library)."""
+def time_flash_attention(seed: int, dtype=None, **shape) -> dict:
+    """K4's forward and backward at the learner's shape (``flash_case``'s,
+    or ``shape``) in ``dtype`` (default bf16, the main path's) with its
+    masks, beside the plain version's forward and backward, the card's
+    bound, and ``F.scaled_dot_product_attention`` with a boolean [B, 1, S,
+    S] mask and ``enable_gqa`` as the library yardstick (timed here only;
+    the port never calls it). Backward times are the backward alone
+    (autograd's over a kept graph for plain and library)."""
     import torch
     import torch.nn.functional as F
 
@@ -1001,7 +1043,7 @@ def time_flash_attention(seed: int) -> dict:
         flash_attention_backward, flash_attention_forward, flash_attention_reference,
     )
 
-    q, k, v, dout, valid = flash_case("cuda", seed, torch.bfloat16)
+    q, k, v, dout, valid = flash_case("cuda", seed, dtype or torch.bfloat16, **shape)
     scale = q.shape[-1] ** -0.5
     fwd_ms = _time_ms(lambda: flash_attention_forward(q, k, v, valid, scale), calls=10)
     out, lse = flash_attention_forward(q, k, v, valid, scale)
@@ -1030,7 +1072,8 @@ def time_flash_attention(seed: int) -> dict:
     except RuntimeError as e:  # the yardstick only: report, never fail the run
         print(f"kernel flash_attention: the library yardstick did not run: {e}")
         library = (None, None)
-    dims = dict(heads=q.shape[2], kv_heads=k.shape[2], head_dim=q.shape[3], itemsize=2)
+    dims = dict(heads=q.shape[2], kv_heads=k.shape[2], head_dim=q.shape[3],
+                itemsize=q.element_size())
     out = {}
     for i, (name, ms) in enumerate((("fwd", fwd_ms), ("bwd", bwd_ms))):
         bound_ms, bound_by = flash_bound_ms(valid, backward=name == "bwd", **dims)
@@ -2863,7 +2906,8 @@ class _StepSink:
 
     def log(self, metrics, step):
         self.records.append((step, dict(metrics)))
-        if "loss" in metrics:
+        if "loss" in metrics and not self.trainer_cell[0]._full:
+            # full fine-tuning's tree is the model: check_full_run holds it
             self.adapters.append(_lora_host(self.trainer_cell[0].lora))
 
     def finish(self):
@@ -2874,12 +2918,14 @@ def _lora_host(lora) -> list:
     return [x.detach().cpu().clone() for x in _lora_leaves(lora)]
 
 
-def trainer_run(build, *, label: str = "") -> dict:
+def trainer_run(build, *, label: str = "", probe=None) -> dict:
     """``build(sink)`` makes a ``Trainer``; this runs its ``train()`` with the
     kernels' counts reset just before and read just after, recording each
     engine round (decode steps, decode forwards, sampler calls, resumes) and
     the model's forward calls inside and outside the engine, so the counts
-    can be held to what the path dispatched."""
+    can be held to what the path dispatched. ``probe(model)``, when given,
+    runs at each round's start on the model the round samples with (its
+    launches are not counted) and its result is kept with the round."""
     import torch
 
     from distrl_llm_tpu_torch.ops import flash_attention as fa
@@ -2888,9 +2934,16 @@ def trainer_run(build, *, label: str = "") -> dict:
     sink = _StepSink(cell)
     trainer = build(sink)
     cell.append(trainer)
-    model, eng = trainer.model, trainer.engine
-    forwards = [0]
-    hook = model.register_forward_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1))
+    # the model the engine samples with (the shared base; in full mode the
+    # rollout copy) and the one the learner trains (the base, or the f32
+    # master weights)
+    model, eng = trainer._engine_params()[0], trainer.engine
+    learner_model = trainer.lora if trainer._full else model
+    forwards, learner_calls = [0], [0]
+    hooks = [model.register_forward_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1))]
+    if learner_model is not model:
+        hooks.append(learner_model.register_forward_hook(
+            lambda *_: learner_calls.__setitem__(0, learner_calls[0] + 1)))
     rounds = []
     generate, push = eng.generate, trainer._push_weights
     dev = model.embed.device
@@ -2911,6 +2964,13 @@ def trainer_run(build, *, label: str = "") -> dict:
         push()
 
     def recorded(*a, **kw):
+        seen = None
+        if probe is not None:
+            held, f_held = read_counts(), forwards[0]
+            seen = probe(a[0])
+            forwards[0] = f_held  # the probe's forward and launches are not the path's
+            for k in KERNELS:
+                setattr(importlib.import_module(k["module"]), k["counter"], held[k["name"]])
         f0 = forwards[0]
         res = generate(*a, **kw)
         drained("generation")
@@ -2918,11 +2978,12 @@ def trainer_run(build, *, label: str = "") -> dict:
         rounds.append({"steps": res.steps_dispatched, "forwards": st.get("decode_forwards", 0),
                        "sampler_calls": st.get("sampler_calls", res.steps_dispatched),
                        "resumes": pool.get("resumes", 0), "refill": bool(pool),
-                       "model_forwards": forwards[0] - f0})
+                       "model_forwards": forwards[0] - f0, "probe": seen,
+                       "prefill_tok_saved": pool.get("prefill_tok_saved")})
         return res
 
     eng.generate, trainer._push_weights = recorded, pushed
-    initial = _lora_host(trainer.lora)
+    initial = [] if trainer._full else _lora_host(trainer.lora)
     if cuda:
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
@@ -2936,13 +2997,16 @@ def trainer_run(build, *, label: str = "") -> dict:
             wall = time.perf_counter() - t
             counts = read_counts()
     finally:
-        hook.remove()
+        for hook in hooks:
+            hook.remove()
         eng.generate, trainer._push_weights = generate, push
     peak = torch.cuda.max_memory_allocated(dev) / 2**30 if cuda else float("nan")
     engine_forwards = sum(r["model_forwards"] for r in rounds)
-    return {"trainer": trainer, "records": sink.records, "adapters": [initial] + sink.adapters,
+    learner = learner_calls[0] if learner_model is not model else forwards[0] - engine_forwards
+    return {"trainer": trainer, "records": sink.records,
+            "adapters": [] if trainer._full else [initial] + sink.adapters,
             "rounds": rounds, "counts": counts, "wall_s": wall, "peak_gib": peak,
-            "learner_forwards": forwards[0] - engine_forwards, "engine_forwards": engine_forwards,
+            "learner_forwards": learner, "engine_forwards": engine_forwards,
             "k4_plain": k4_plain[0], "k3_plain": k3_plain[0], "label": label,
             "pending_ms": pending}
 
@@ -2957,7 +3021,9 @@ def check_trainer_run(out: dict, layers: int, *, steps: int, lr: float, cuda: bo
     quantized base) 7 times per layer per engine forward and twice that per
     learner forward (forward and remat recompute), K4 (flash or splash)
     forward once per layer per prefill and twice per layer per learner
-    forward, backward once; no plain version."""
+    forward, backward once (at head_dim 256 also each by its route and
+    dtype); no plain version. A full fine-tuning run has no adapter: its
+    tree is held by ``check_full_run``."""
     tr, label = out["trainer"], out["label"]
     train = [m for _, m in out["records"] if "loss" in m]
     evals = [m for _, m in out["records"] if any(k.startswith("eval/") for k in m)]
@@ -2990,6 +3056,18 @@ def check_trainer_run(out: dict, layers: int, *, steps: int, lr: float, cuda: bo
     learner = out["learner_forwards"]
     quantized = tr.config.base_quant != "none"
     k4 = tr.config.attn_impl in ("flash", "splash")
+    # K4's head_dim 256 routes by dtype: the engine's prefill at the rollout
+    # weights' dtype, the learner at its trainable model's (f32 masters in
+    # full mode, else the base's)
+    rollout_f32 = str(tr._engine_params()[0].embed.dtype) == "torch.float32"
+    learner_f32 = tr._full or rollout_f32
+    k4_eng, k4_lrn = (layers * prefills, layers * learner) if k4 else (0, 0)
+    routes = hd256_counts(
+        tr.model_cfg.head_dim,
+        bf16_fwd=(0 if rollout_f32 else k4_eng) + (0 if learner_f32 else 2 * k4_lrn),
+        bf16_bwd=0 if learner_f32 else k4_lrn,
+        f32_fwd=(k4_eng if rollout_f32 else 0) + (2 * k4_lrn if learner_f32 else 0),
+        f32_bwd=k4_lrn if learner_f32 else 0)
     want = {
         "fused_sample": sum(r["sampler_calls"] for r in rounds),
         "paged_attention": layers * decode_fwd,
@@ -2997,6 +3075,7 @@ def check_trainer_run(out: dict, layers: int, *, steps: int, lr: float, cuda: bo
         "flash_attention_fwd": layers * (prefills + 2 * learner) if k4 else 0,
         "flash_attention_bwd": layers * learner if k4 else 0,
         "paged_verify": 0,
+        **routes,
     }
     check(c == want, f"{label}: launches {c}, want {want} ({decode_fwd} decode forwards, "
           f"{prefills} prefills, {out['engine_forwards']} engine and {learner} learner forwards)")
@@ -3267,6 +3346,7 @@ def check_rider_counts(out: dict, layers: int, *, splash: bool) -> None:
         "paged_verify": layers * st["decode_forwards"] if spec else 0,
         "flash_attention_fwd": layers * cold if splash else 0,
         "flash_attention_bwd": 0, "quant_matmul": 0,
+        **hd256_counts(0),  # the riders run head dims below 256
     }
     check(c == want and c["fused_sample"] > 0,
           f"{label}: launches {c}, want {want} ({cold} cold group prefills)")
@@ -3770,16 +3850,250 @@ def riders_phase(cfg, args, card: str, t_start: float, *, dense_peak_gib: float,
     return counted
 
 
+# ---------------------------------------------------------------- phase 10
+
+# full fine-tuning (ROADMAP item 13) at Gemma-2B width under splash, which
+# puts K4's head_dim 256 routes on the main path: the f32 learner (f32
+# master weights) forward and backward, the bf16 prefill; (b) one LoRA
+# step with the bf16 learner, K4's bf16 backward at head_dim 256
+FULL_PROMPT_TOKENS = 256  # the R1 prompts are 202-232 Unigram tokens
+FULL_NEW_TOKENS = 128
+FULL_SLOTS = 16  # every row of a 4 x 4 round decodes at once
+FULL_GPU_USAGE = 0.9  # the KV budget beside ~30 GB of learner state
+
+
+def full_config(workdir: Path, **kw):
+    """Phase 10's trainer: Gemma-2B (random bf16 weights), PG, Adam8bit lr
+    2e-5, the paged refill engine under splash, 4 prompts x 4 candidates x
+    128 new tokens, microbatch 4, ``logprob_chunk`` 128 (the default); no
+    checkpoint (a resume state of 12.5 GB is the CPU tests' to check)."""
+    base = dict(model="gemma-2b-random", full_finetune=True, base_quant="none",
+                write_adapter_file=False, checkpoint_dir=None, save_every=0,
+                batch_size=4, num_candidates=4, topk=4, train_batch_size=4,
+                max_prompt_tokens=FULL_PROMPT_TOKENS, max_new_tokens=FULL_NEW_TOKENS,
+                max_concurrent_sequences=FULL_SLOTS, learner_gpu_usage=FULL_GPU_USAGE,
+                eval_n=4)
+    base.update(kw)
+    return trainer_config(workdir, **base)
+
+
+def probe_logits(ids):
+    """``probe(model)`` for ``trainer_run``: the last position's f32 logits
+    of ``ids`` under the model a round samples with."""
+    import torch
+
+    def probe(model):
+        with torch.no_grad():
+            return model(ids, logits_slice=(ids.shape[1] - 1, 1))[0].float().cpu()
+    return probe
+
+
+def full_finetune_run(cfg, device, *, seed: int, workdir: Path, tokenizer_dir: Path,
+                      hbm_bytes=None, config_kw=None) -> dict:
+    """(a) ``Trainer.train()`` with ``full_finetune``: random bf16 weights
+    from ``seed`` become the rollout copy and the f32 masters are built from
+    them; the initial eval, then 2 optimizer steps. Returns
+    ``trainer_run``'s record with the initial weights (on the host) and the
+    probe's logits at each round's start."""
+    import torch
+
+    from distrl_llm_tpu_torch.tokenizer import load_tokenizer
+    from distrl_llm_tpu_torch.trainer import Trainer, make_engine
+
+    tok = load_tokenizer(str(tokenizer_dir))
+    model, _ = make_weights(cfg, device, seed=seed)
+    config = full_config(workdir, seed=seed, dtype=str(model.embed.dtype).removeprefix(
+        "torch."), **(config_kw or {}))
+    initial = [p.detach().to("cpu", copy=True) for p in model.parameters()]
+    engine = make_engine(config, model, tok, hbm_bytes=hbm_bytes)
+    train, test = trainer_datasets(tok)
+    ids = torch.as_tensor(tok.encode(train["problem"][0]), device=model.embed.device)[None]
+    out = trainer_run(lambda sink: Trainer(train, test, smoke_reward, config, tokenizer=tok,
+                                           engine=engine, model=model, sink=sink),
+                      label="full", probe=probe_logits(ids))
+    out.update(initial=initial, config=config, kv_pages=engine.max_kv_pages)
+    return out
+
+
+def check_full_run(out: dict, *, steps: int) -> dict:
+    """Full fine-tuning's tree after ``steps`` steps: every parameter moved
+    from the initial weights (the tied embedding and the norms included),
+    each element by at most ``steps`` Adam8bit steps (5 lr each, plus the
+    rounding of each add); the rollout copy equal to the masters cast to
+    its dtype; each round's probe logits equal to the previous round's
+    when no push came between, different after one. Returns the largest
+    move and the parameter count."""
+    import torch
+
+    tr, label = out["trainer"], out["label"]
+    lr = tr.config.lr
+    rollout = tr._engine_params()[0]
+    names = [n for n, _ in tr.lora.named_parameters()]
+    check("embed" in names and tr.lora.lm_head is None, f"{label}: the tied embedding is "
+          f"not one parameter ({names[:3]})")
+    moved, worst = [], 0.0
+    for name, m, init, r in zip(names, tr.lora.parameters(), out["initial"],
+                                rollout.parameters(), strict=True):
+        d = (m.detach() - init.to(m.device, torch.float32)).abs()
+        bound = steps * 5 * lr * (1 + 1e-6) + steps * m.detach().abs() * 2.0**-23
+        check(bool((d <= bound).all()), f"{label}: {name} moved beyond {steps} Adam8bit "
+              f"steps (max {float(d.max()):.3g})")
+        worst = max(worst, float(d.max()))
+        if not bool((d > 0).any()):
+            moved.append(name)
+        check(torch.equal(r, m.detach().to(r.dtype)), f"{label}: the rollout copy's {name} "
+              "is not the masters cast to its dtype")
+    check(not moved, f"{label}: parameters that did not move: {moved}")
+    probes = [r["probe"] for r in out["rounds"]]
+    check(len(probes) == steps + 1, f"{label}: {len(probes)} rounds, want the eval and "
+          f"{steps} steps")
+    check(torch.equal(probes[0], probes[1]), f"{label}: the first step's round does not "
+          "sample the weights the eval round sampled (no push came between)")
+    for i in range(2, len(probes)):
+        check(not torch.equal(probes[i], probes[i - 1]), f"{label}: round {i} samples the "
+              "weights of the round before it: the push did not reach the engine")
+    return {"max_move": worst, "params": sum(p.numel() for p in tr.lora.parameters()),
+            "probe_delta": [float((probes[i] - probes[i - 1]).abs().max())
+                            for i in range(1, len(probes))]}
+
+
+def cache_miss_after_a_full_push(cfg, device, trainer, *, max_new_tokens: int = 8,
+                                 slots: int = 8, page_size: int = CACHE_PAGE,
+                                 n: int = 2) -> dict:
+    """With the radix cache on, two rounds over the full trainer's rollout
+    copy (the second warm), then the trainer's push (which rewrites the
+    copy in place, here with the same values) and a third round: the
+    cache keys its KV on the weights' version, so that round misses.
+    ``same``: the three rounds' greedy tokens and lengths are equal."""
+    import numpy as np
+
+    model = trainer._engine_params()[0]
+    _, ids, mask, _ = prompt_batch(350)
+    eng = rider_engine(cfg, device, cache_dtype=model.embed.dtype, slots=slots,
+                       max_new_tokens=max_new_tokens, page_size=page_size,
+                       continuous_admission=True, prefix_cache=True)
+    saved, tokens, lengths, versions = [], [], [], []
+    for i in range(3):
+        if i == 2:
+            trainer._push_weights()
+        versions.append(model.weights_version)
+        out = rider_round(eng, model, None, ids, mask, seed=0, n=n,
+                          label="full-FT cache check", max_new_tokens=max_new_tokens)
+        saved.append(eng.last_pool_stats["prefill_tok_saved"])
+        tokens.append(out["res"].tokens)
+        lengths.append(out["res"].lengths)
+    same = all(np.array_equal(t, tokens[0]) for t in tokens) and all(
+        np.array_equal(n_, lengths[0]) for n_ in lengths)
+    return {"saved": saved, "same": same, "versions": versions}
+
+
+def lora_gemma_run(cfg, device, model, *, seed: int, workdir: Path, tokenizer_dir: Path,
+                   hbm_bytes=None, config_kw=None) -> dict:
+    """(b) One LoRA training step over ``model`` (bf16: K4's bf16 backward)
+    with phase 10's engine and batch, under splash."""
+    from distrl_llm_tpu_torch.tokenizer import load_tokenizer
+    from distrl_llm_tpu_torch.trainer import Trainer, make_engine
+
+    tok = load_tokenizer(str(tokenizer_dir))
+    config = full_config(workdir, seed=seed, full_finetune=False,
+                         dtype=str(model.embed.dtype).removeprefix("torch."),
+                         **(config_kw or {}))
+    engine = make_engine(config, model, tok, hbm_bytes=hbm_bytes)
+    train, test = trainer_datasets(tok)
+    train = {k: v[:config.batch_size] for k, v in train.items()}  # one batch: one step
+    return trainer_run(lambda sink: Trainer(train, test, smoke_reward, config, tokenizer=tok,
+                                            engine=engine, model=model, sink=sink),
+                       label="gemma lora")
+
+
+def full_finetune_phase(args, card: str, t_start: float) -> list:
+    """Phase 10 on the card (see the module's docstring). Returns the launch
+    counts of its main-path runs."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from distrl_llm_tpu_torch.config import full_finetune_bytes
+    from distrl_llm_tpu_torch.models.configs import GEMMA_2B
+
+    cfg = GEMMA_2B
+    est = full_finetune_bytes(cfg)["total"]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_full_") as tmp:
+        work = Path(tmp)
+        tok_dir, _ = write_unigram_tokenizer(work / "tokenizer", cfg.vocab_size)
+        a = full_finetune_run(cfg, "cuda", seed=args.seed, workdir=work / "a",
+                              tokenizer_dir=tok_dir)
+        check_trainer_run(a, cfg.num_layers, steps=2, lr=a["config"].lr, cuda=True)
+        c = a["counts"]
+        check(all(c[k] > 0 for k in ("fused_sample", "paged_attention",
+                                     "flash_attention_fwd_hd256_f32",
+                                     "flash_attention_bwd_hd256_f32",
+                                     "flash_attention_fwd_hd256_bf16")),
+              f"full: a kernel of the path was not launched: {c}")
+        held = check_full_run(a, steps=2)
+        tr = a["trainer"]
+        cm = cache_miss_after_a_full_push(cfg, "cuda", tr)
+        check(cm["saved"][1] > 0 and cm["saved"][2] == 0 and cm["same"],
+              f"full: prefix cache across a push: prompt tokens not re-prefilled "
+              f"{cm['saved']} (want the second round warm, the third after the push "
+              f"cold), tokens equal {cm['same']}")
+        rounds = a["rounds"]
+        print(f"full: Trainer.train() with full_finetune at Gemma-2B width ({cfg.num_layers} "
+              f"layers, D {cfg.hidden_size}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+              f"{cfg.head_dim}, F {cfg.intermediate_size}, V {cfg.vocab_size}, tied; "
+              f"{held['params']:,} parameters as f32 masters), attn_impl='splash', paged "
+              f"refill engine ({FULL_SLOTS} slots, {a['kv_pages']} KV pages of 128 under "
+              f"learner_gpu_usage {FULL_GPU_USAGE}), 4 prompts x 4 x {FULL_NEW_TOKENS} new "
+              f"tokens, learner microbatches of 4 x {a['config'].max_seq_length} in f32: "
+              f"{len(rounds)} engine rounds, {a['learner_forwards']} learner forwards; every "
+              f"parameter moved (max {held['max_move']:.3g}, within 2 x 5 lr); rollout copy "
+              f"= masters cast to bf16; probe logits moved {held['probe_delta']} across the "
+              f"rounds (eval -> step 1: no push; step 1 -> step 2: a push); train() "
+              f"{a['wall_s']:.1f} s; peak device memory {a['peak_gib']:.2f} GiB against the "
+              f"state estimate {est / 2**30:.2f} GiB (12 P bytes: masters, grads, 8-bit "
+              f"moments, bf16 rollout copy); launches {c}; {card}")
+        print(f"full: radix cache over the rollout copy (8 slots, 64-token pages): prompt "
+              f"tokens not re-prefilled {cm['saved']} at weights_version {cm['versions']} "
+              f"(the push drops the cache); greedy tokens equal across the three rounds "
+              f"{cm['same']}; {card}")
+        for line in trainer_step_lines(a, card):
+            print(line)
+        counted = [a["counts"]]
+        model = tr._engine_params()[0]
+        del a, tr, held, cm
+        gc.collect()
+        torch.cuda.empty_cache()
+        b = lora_gemma_run(cfg, "cuda", model, seed=args.seed, workdir=work / "b",
+                           tokenizer_dir=tok_dir)
+        check_trainer_run(b, cfg.num_layers, steps=1, lr=b["trainer"].config.lr, cuda=True)
+        check(b["counts"]["flash_attention_bwd_hd256_bf16"] > 0,
+              f"gemma lora: K4's bf16 backward at head_dim 256 did not launch: {b['counts']}")
+        print(f"gemma lora: one LoRA step (rank 32, bf16 base and learner) at Gemma-2B "
+              f"width under splash: train() {b['wall_s']:.1f} s, peak device memory "
+              f"{b['peak_gib']:.2f} GiB; launches {b['counts']}; {card}")
+        for line in trainer_step_lines(b, card):
+            print(line)
+        counted.append(b["counts"])
+        del b, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"full: phase 10 {time.perf_counter() - t0:.1f} s; total "
+          f"{time.perf_counter() - t_start:.1f} s; {card}")
+    return counted
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=28,
                     help="decoder depth of the Qwen2.5-7B-wide model (28 = full)")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--until", type=int, default=9, choices=(6, 7, 8, 9),
+    ap.add_argument("--until", type=int, default=10, choices=(6, 7, 8, 9, 10),
                     help="the last phase to run; 6 skips speculative decoding "
                          "(with --profile, the long part), 7 the trainer, 8 the "
-                         "refill engine's riders; a partial run prints no "
-                         "result line")
+                         "refill engine's riders, 9 full fine-tuning at Gemma-2B "
+                         "width; a partial run prints no result line")
     ap.add_argument("--profile", action="store_true",
                     help="also print the device time per decode step and per "
                          "learner step by kernel (torch.profiler) and the "
@@ -3860,6 +4174,26 @@ def main(argv=None) -> int:
     results["flash_attention_fwd"] = {"max_abs_err": fa_err["f32"]["out"], **fa_times["fwd"]}
     results["flash_attention_bwd"] = {
         "max_abs_err": max(fa_err["f32"][n] for n in ("dq", "dk", "dv")), **fa_times["bwd"]}
+    # K4 at head_dim 256: a Gemma-2B learner microbatch, [8, 1550, 8 / 1, 256]
+    t = time.perf_counter()
+    gemma = dict(heads=GEMMA_HEADS, kv_heads=GEMMA_KV_HEADS, head_dim=GEMMA_HEAD_DIM)
+    g_err = compare_flash_attention("cuda", args.seed, **gemma)
+    for dtype, dt in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        g_times = time_flash_attention(args.seed, dtype, **gemma)
+        for part, r in g_times.items():
+            lib = "not run" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+            print(f"kernel flash_attention {part} at q [{FA_BATCH},{FA_PROMPT + FA_ANSWER},"
+                  f"{GEMMA_HEADS},{GEMMA_HEAD_DIM}], k/v {GEMMA_KV_HEADS} head, {dt}, the "
+                  f"learner's masks: {r['ms']:.4f} ms, plain version {r['plain_ms']:.4f} ms, "
+                  f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), library (scaled_dot_"
+                  f"product_attention, bool mask, enable_gqa) {lib}; {card}")
+            errs = g_err["f32" if dt == "f32" else "bf16"]
+            results[f"flash_attention_{part}_hd256_{dt}"] = {
+                "max_abs_err": errs["out"] if part == "fwd" else max(
+                    errs[n] for n in ("dq", "dk", "dv")), **r}
+        del g_times
+        torch.cuda.empty_cache()
+    print(f"kernel flash_attention: head_dim 256 stanza {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     qmm_err = compare_quant_matmul("cuda", args.seed)
     qmm_times = time_quant_matmul(args.seed)
@@ -4068,6 +4402,15 @@ def main(argv=None) -> int:
     # cache, bisect_mw and a Gemma checkpoint with its Unigram tokenizer
     counted += riders_phase(cfg, args, card, t_start, dense_peak_gib=dense_peak,
                             int8_page_err=lc["int8_plain"], plain_refill_pool=plain_refill)
+    if args.until < 10:
+        print(f"chip_smoke: phases 1-{args.until} done in {time.perf_counter() - t_start:.1f} s "
+              f"(a partial run prints no result line); {card}")
+        return 0
+
+    # 10. full fine-tuning at Gemma-2B width under splash (K4's head_dim 256
+    # routes: the f32 learner, the bf16 prefill), then one LoRA step there
+    # (K4's bf16 backward at head_dim 256)
+    counted += full_finetune_phase(args, card, t_start)
     print(f"chip_smoke: done in {time.perf_counter() - t_start:.1f} s; {card}")
 
     kernels = []

@@ -1,8 +1,10 @@
 """Checkpoint / resume: the trainer's resume state and the adapter artifact.
 
 * :class:`CheckpointManager` — one file per step of the full learner state
-  {adapter, optimizer ``state_dict()``, step, episode, batch-in-episode,
-  samples, the trainer's generator state}, published by an atomic rename and
+  {the trainable tree (the adapter, or full fine-tuning's f32 master
+  weights by parameter name), optimizer ``state_dict()``, step, episode,
+  batch-in-episode, samples, the trainer's generator state}, published by
+  an atomic rename and
   pruned to the newest ``MAX_TO_KEEP`` (3, as the JAX package's Orbax
   manager keeps). Written by ``torch.save`` and read back with ``weights_only=True``:
   the state holds tensors and numbers only. A resume state does not cross

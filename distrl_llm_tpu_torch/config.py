@@ -17,6 +17,8 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Any
 
+from distrl_llm_tpu_torch.models.configs import preset_for_model_name
+
 #: every top-p filter name the JAX package knows (ops/sampling.py TOP_P_IMPLS);
 #: the port implements all three (ops/sampling.py)
 TOP_P_IMPL_NAMES = ("exact", "bisect", "bisect_mw")
@@ -58,6 +60,44 @@ class SamplingConfig:
 
     def replace(self, **kw) -> "SamplingConfig":
         return dataclasses.replace(self, **kw)
+
+
+# the capacity a full-FT config is held to when no card is visible: the
+# NVIDIA H100 80GB the port runs on
+DEFAULT_CARD_BYTES = 80 * 10**9
+_DTYPE_BYTES = {"float32": 4, "bfloat16": 2, "float16": 2}
+
+
+def full_finetune_bytes(model_cfg, dtype: str = "bfloat16") -> dict[str, int]:
+    """Device bytes full fine-tuning holds for ``model_cfg`` (P parameters):
+    the f32 master weights (4 P), their f32 grads (4 P), Adam8bit's two
+    int8 moments with one f32 scale per 256-element block (2 P + P / 32)
+    and the rollout copy at ``dtype`` (the JAX trainer.py:298-322 and
+    :939-943 layout); about 12 P bytes at bf16."""
+    p = model_cfg.param_count
+    out = {"masters": 4 * p, "grads": 4 * p, "moments": 2 * p + p // 32,
+           "rollout": _DTYPE_BYTES[dtype] * p}
+    out["total"] = sum(out.values())
+    return out
+
+
+def check_full_finetune_fits(model_cfg, dtype: str = "bfloat16", name: str = "this model",
+                             hbm_bytes: int | None = None) -> None:
+    """Raise ``NotImplementedError`` naming ROADMAP item 10 when full
+    fine-tuning's state (``full_finetune_bytes``) and the learner's
+    workspace (the share of the card ``engine/budget.py`` keeps for
+    activations, ``ACTIVATION_RESERVE``) exceed one card of ``hbm_bytes``
+    (default ``DEFAULT_CARD_BYTES``)."""
+    from distrl_llm_tpu_torch.engine.budget import ACTIVATION_RESERVE
+
+    hbm = DEFAULT_CARD_BYTES if hbm_bytes is None else hbm_bytes
+    need = full_finetune_bytes(model_cfg, dtype)["total"]
+    if need + ACTIVATION_RESERVE * hbm > hbm:
+        raise NotImplementedError(
+            f"full_finetune of {name} ({model_cfg.param_count / 1e9:.2f} B parameters) "
+            f"needs {need / 1e9:.1f} GB of f32 masters, grads, 8-bit moments and the "
+            f"{dtype} rollout copy, plus the learner's workspace: more than one card of "
+            f"{hbm / 1e9:.1f} GB ({_MULTI_GPU_ITEM})")
 
 
 def parse_buckets(spec: str | None, field: str = "prompt_buckets") -> tuple[int, ...]:
@@ -130,7 +170,8 @@ class TrainConfig:
     # learner logprobs: lm_head + logsumexp per chunk of this many answer
     # positions (0 = dense)
     logprob_chunk: int = 128
-    # full-rank fine-tuning (BASELINE config 3): not ported (item 10)
+    # full-rank fine-tuning (BASELINE config 3): the whole model trains as
+    # f32 master weights; widths past one card are item 10
     full_finetune: bool = False
     # prompt length buckets for the rollout engine; empty = one bucket
     prompt_buckets: tuple[int, ...] = ()
@@ -240,11 +281,9 @@ class TrainConfig:
                 "kl_coeff uses the frozen base as the reference policy — "
                 "full_finetune has no frozen base (keep a LoRA run, or 0)")
         if self.full_finetune:
-            # f32 master weights (30.5 GB at 7B) + f32 grads (30.5) + 8-bit
-            # moments (~15) + the bf16 rollout copy (15) exceed one 80 GB card
-            raise NotImplementedError(
-                f"full_finetune is not ported ({_MULTI_GPU_ITEM}: at 7B its "
-                "master weights, grads, moments and rollout copy exceed one card)")
+            model_cfg = preset_for_model_name(self.model)
+            if model_cfg is not None:  # else the Trainer checks its loaded model
+                check_full_finetune_fits(model_cfg, self.dtype, self.model)
         if self.decode_scan_chunk is not None and self.decode_scan_chunk < 0:
             raise ValueError(f"decode_scan_chunk must be >= 0, got {self.decode_scan_chunk}")
         if self.env not in _ENV_NAMES:

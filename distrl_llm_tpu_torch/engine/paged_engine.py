@@ -889,12 +889,15 @@ class PagedGenerationEngine(LoraMailbox):
         self.max_kv_pages = max_kv_pages
         # the radix index and the host page store outlive each round's pool,
         # so warm prefixes survive into the next round; the cache is dropped
-        # whenever the adapter object changes (cached KV is exact only under
-        # the adapter that wrote it)
+        # whenever the weights that write it change (cached KV is exact only
+        # under them): another adapter object, another model object, or a
+        # model whose ``weights_version`` moved (full fine-tuning's push
+        # rewrites the rollout copy in place)
         self._radix = RadixCache(page_size) if self.prefix_cache else None
         self._kv_store = (HostPageStore(max_bytes=kv_spill_host_mb * 2**20)
                           if self.prefix_cache else None)
         self._cache_lora_ref = None
+        self._cache_weights: tuple | None = None  # (model, its weights_version)
         self.last_round_stats: dict | None = None
         self.last_pool_stats: dict | None = None
         self.last_spec_stats: dict | None = None
@@ -1060,9 +1063,13 @@ class PagedGenerationEngine(LoraMailbox):
         spilled_keys: set = set()  # preempt payloads not consumed by a resume
         real_toks = [prompt_ids_h[g][prompt_mask_h[g] > 0].astype(np.int32) for g in range(b)]
         if cache_on:
-            if self._cache_lora_ref is not lora:
+            weights = (model, model.weights_version)
+            if (self._cache_lora_ref is not lora or self._cache_weights is None
+                    or self._cache_weights[0] is not model
+                    or self._cache_weights[1] != weights[1]):
                 pool.invalidate_cache()
                 self._cache_lora_ref = lora
+                self._cache_weights = weights
             radix_snap0 = self._radix.snapshot()
         # cache writes stay legal until a mid-round adapter swap is consumed
         cache_write = [cache_on]

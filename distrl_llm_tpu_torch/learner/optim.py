@@ -108,88 +108,134 @@ def _dequantize(z: _Quantized) -> torch.Tensor:
     return val.reshape(-1)[: z.size].reshape(z.shape)
 
 
+def _pieces(sizes: list[int], max_elems: int):
+    """Cut a leaf of members of ``sizes`` elements (their flattened
+    concatenation, in order) into chunks of at most ``max_elems`` elements
+    (a multiple of ``BLOCK``) that start on a block boundary and, but for
+    the last, end on one: lists of (member, lo, hi). A member that ends on a
+    block boundary ends its chunk, so an aligned member is never copied."""
+    chunk, start, off = [], 0, 0
+    for i, n in enumerate(sizes):
+        lo = 0
+        while lo < n:
+            hi = min(n, lo + max_elems - (off - start))
+            chunk.append((i, lo, hi))
+            off += hi - lo
+            lo = hi
+            if off % BLOCK == 0 and (lo == n or off - start == max_elems):
+                yield start, chunk
+                chunk, start = [], off
+    if chunk:
+        yield start, chunk
+
+
 class Adam8bit(torch.optim.Optimizer):
     """Adam(lr) with int8 blockwise moment state; defaults match
     bnb.optim.Adam8bit's. The step count is shared by all parameters, as
-    in the JAX state (``count``); ``code_version`` is ``STATE_FORMAT``."""
+    in the JAX state (``count``); ``code_version`` is ``STATE_FORMAT``.
+
+    ``params`` lists the leaves: each a tensor, or a list of tensors that
+    hold ONE leaf of the JAX tree between them (a stacked ``[L, ...]``
+    leaf that the port keeps as L per-layer parameters). A leaf's moments
+    are quantized over the concatenation of its members' flattened
+    elements, so its 256-element blocks, and their scales, are the JAX
+    leaf's even where a member's size is not a multiple of 256 (a norm or
+    a bias). The update runs over block-aligned chunks of at most
+    ``CHUNK`` elements, which bounds its temporaries (``_fma`` works in
+    f64) at any parameter size."""
+
+    CHUNK = 1 << 22
 
     def __init__(self, params, lr: float, b1: float = 0.9, b2: float = 0.999,
                  eps: float = 1e-8, clip_normalized: float = 5.0):
-        super().__init__(params, dict(lr=lr, b1=b1, b2=b2, eps=eps,
-                                      clip_normalized=clip_normalized))
+        self.leaves = [list(p) if isinstance(p, (list, tuple)) else [p] for p in params]
+        super().__init__([t for leaf in self.leaves for t in leaf],
+                         dict(lr=lr, b1=b1, b2=b2, eps=eps, clip_normalized=clip_normalized))
+        if len(self.param_groups) != 1:
+            raise ValueError("Adam8bit takes one parameter group")
         self.count = 0
         self.code_version = STATE_FORMAT
-        for group in self.param_groups:
-            for p in group["params"]:
-                zeros = torch.zeros_like(p, dtype=torch.float32)
-                self.state[p] = {"mu": _quantize(zeros), "nu": _quantize(zeros)}
+        for leaf in self.leaves:
+            n = sum(t.numel() for t in leaf)
+            zeros = torch.zeros(n, dtype=torch.float32, device=leaf[0].device)
+            self.state[leaf[0]] = {"mu": _quantize(zeros), "nu": _quantize(zeros)}
 
     @torch.no_grad()
     def step(self, closure=None):
         if closure is not None:
             raise ValueError("Adam8bit takes no closure")
         self.count += 1
-        for group in self.param_groups:
-            b1, b2, eps = group["b1"], group["b2"], group["eps"]
-            for p in group["params"]:
-                if p.grad is None:
-                    raise ValueError("Adam8bit.step needs a grad for every parameter")
-                st = self.state[p]
-                g = p.grad.float()
-                count = torch.tensor(float(self.count), dtype=torch.float32, device=g.device)
-                bc1 = 1 - torch.pow(torch.tensor(b1, dtype=torch.float32, device=g.device), count)
-                bc2 = 1 - torch.pow(torch.tensor(b2, dtype=torch.float32, device=g.device), count)
-                mu = _fma(1 - b1, g, b1 * _dequantize(st["mu"]))
-                nu = _fma((1 - b2) * g, g, b2 * torch.square(_dequantize(st["nu"])))
+        group = self.param_groups[0]
+        b1, b2, eps = group["b1"], group["b2"], group["eps"]
+        for leaf in self.leaves:
+            if any(p.grad is None for p in leaf):
+                raise ValueError("Adam8bit.step needs a grad for every parameter")
+            dev = leaf[0].device
+            count = torch.tensor(float(self.count), dtype=torch.float32, device=dev)
+            bc1 = 1 - torch.pow(torch.tensor(b1, dtype=torch.float32, device=dev), count)
+            bc2 = 1 - torch.pow(torch.tensor(b2, dtype=torch.float32, device=dev), count)
+            st = self.state[leaf[0]]
+            for start, chunk in _pieces([p.numel() for p in leaf], self.CHUNK):
+                grads = [leaf[i].grad.reshape(-1)[lo:hi] for i, lo, hi in chunk]
+                g = (grads[0] if len(grads) == 1 else torch.cat(grads)).float()
+                n = g.numel()
+                b0, nb = start // BLOCK, -(-n // BLOCK)
+                old = {m: _Quantized(st[m].q[start:start + nb * BLOCK],
+                                     st[m].scale[b0:b0 + nb], n, (n,)) for m in ("mu", "nu")}
+                mu = _fma(1 - b1, g, b1 * _dequantize(old["mu"]))
+                nu = _fma((1 - b2) * g, g, b2 * torch.square(_dequantize(old["nu"])))
                 mu_hat = mu / bc1
                 nu_hat = nu / bc2
                 normalized = torch.clamp(mu_hat / (torch.sqrt(nu_hat) + eps),
                                          -group["clip_normalized"], group["clip_normalized"])
-                p.add_((-group["lr"] * normalized).to(p.dtype))
-                st["mu"], st["nu"] = _quantize(mu), _quantize(torch.sqrt(nu))
-
-    def _params(self) -> list[torch.Tensor]:
-        return [p for group in self.param_groups for p in group["params"]]
+                upd = -group["lr"] * normalized
+                at = 0
+                for i, lo, hi in chunk:
+                    p = leaf[i]
+                    p.view(-1)[lo:hi].add_(upd[at:at + hi - lo].to(p.dtype))
+                    at += hi - lo
+                for m, x in (("mu", mu), ("nu", torch.sqrt(nu))):
+                    z = _quantize(x)
+                    st[m].q[start:start + nb * BLOCK] = z.q
+                    st[m].scale[b0:b0 + nb] = z.scale
 
     def state_dict(self) -> dict:
         """Tensors and numbers only, so ``torch.load(weights_only=True)``
-        reads it back: per parameter (in ``param_groups`` order) both
-        moments' int8 codes and block scales, the hyperparameters, the shared
-        step count and the code version."""
-        state = {i: {f"{m}_{f}": getattr(self.state[p][m], f)
+        reads it back: per leaf (in ``params`` order) both moments' int8
+        codes and block scales, the hyperparameters, the shared step count
+        and the code version."""
+        state = {i: {f"{m}_{f}": getattr(self.state[leaf[0]][m], f)
                      for m in ("mu", "nu") for f in ("q", "scale")}
-                 for i, p in enumerate(self._params())}
-        groups, start = [], 0
-        for group in self.param_groups:
-            n = len(group["params"])
-            groups.append({**{k: v for k, v in group.items() if k != "params"},
-                           "params": list(range(start, start + n))})
-            start += n
+                 for i, leaf in enumerate(self.leaves)}
+        group = self.param_groups[0]
+        groups = [{**{k: v for k, v in group.items() if k != "params"},
+                   "params": list(range(len(group["params"])))}]
         return {"state": state, "param_groups": groups, "count": self.count,
                 "code_version": self.code_version}
 
     def load_state_dict(self, state_dict: dict) -> None:
-        """Restore ``state_dict()``'s output onto this optimizer's
-        parameters (same count, shapes and order), bit for bit."""
-        params = self._params()
-        if len(state_dict["state"]) != len(params) or len(state_dict["param_groups"]) != len(
-                self.param_groups):
+        """Restore ``state_dict()``'s output onto this optimizer's leaves
+        (same count, sizes and order), bit for bit."""
+        if len(state_dict["state"]) != len(self.leaves) or len(
+                state_dict["param_groups"]) != 1:
             raise ValueError("the saved Adam8bit state holds other parameters")
-        for group, saved in zip(self.param_groups, state_dict["param_groups"]):
-            if len(saved["params"]) != len(group["params"]):
-                raise ValueError("the saved Adam8bit state holds other parameter groups")
-            group.update({k: v for k, v in saved.items() if k != "params"})
-        for i, p in enumerate(params):
-            saved = state_dict["state"][i]
+        saved_group = state_dict["param_groups"][0]
+        group = self.param_groups[0]
+        if len(saved_group["params"]) != len(group["params"]):
+            raise ValueError("the saved Adam8bit state holds other parameter groups")
+        group.update({k: v for k, v in saved_group.items() if k != "params"})
+        for i, leaf in enumerate(self.leaves):
+            saved, dev = state_dict["state"][i], leaf[0].device
+            n = sum(p.numel() for p in leaf)
             st = {}
             for m in ("mu", "nu"):
                 q, scale = saved[f"{m}_q"], saved[f"{m}_scale"]
-                if q.numel() != -(-p.numel() // BLOCK) * BLOCK or q.dtype != torch.int8:
-                    raise ValueError(f"saved Adam8bit state {i} does not fit a "
-                                     f"{tuple(p.shape)} parameter")
-                st[m] = _Quantized(q.to(p.device), scale.to(p.device, torch.float32),
-                                   p.numel(), tuple(p.shape))
-            self.state[p] = st
+                if q.numel() != -(-n // BLOCK) * BLOCK or q.dtype != torch.int8:
+                    shapes = [tuple(p.shape) for p in leaf]
+                    raise ValueError(f"saved Adam8bit state {i} does not fit the "
+                                     f"parameters {shapes}")
+                st[m] = _Quantized(q.to(dev), scale.to(dev, torch.float32), n, (n,))
+            self.state[leaf[0]] = st
         self.count = int(state_dict["count"])
         self.code_version = int(state_dict["code_version"])
 
@@ -207,9 +253,15 @@ def check_state_format(optimizer) -> None:
 
 
 def make_optimizer(params, lr: float, use_8bit: bool = True) -> torch.optim.Optimizer:
-    """The learner optimizer over ``params`` (the adapter's leaves): Adam(lr)
-    with 8-bit state by default, else ``torch.optim.Adam(eps=1e-8)`` (the
-    optax formula up to rounding). PyTorch binds an optimizer to its
-    parameters, so they come first here, unlike the JAX transform."""
+    """The learner optimizer over ``params`` (the adapter's leaves, or a
+    full model's, a leaf a tensor or a list of the tensors that form one
+    stacked JAX leaf): Adam(lr) with 8-bit state by default, else
+    ``torch.optim.Adam(eps=1e-8)`` (the optax formula up to rounding; its
+    state is elementwise, so a leaf's members are plain parameters there).
+    PyTorch binds an optimizer to its parameters, so they come first here,
+    unlike the JAX transform."""
     params = list(params)
-    return Adam8bit(params, lr) if use_8bit else torch.optim.Adam(params, lr=lr, eps=1e-8)
+    if use_8bit:
+        return Adam8bit(params, lr)
+    flat = [t for p in params for t in (p if isinstance(p, (list, tuple)) else [p])]
+    return torch.optim.Adam(flat, lr=lr, eps=1e-8)

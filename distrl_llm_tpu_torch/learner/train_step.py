@@ -49,9 +49,6 @@ _RATIO_BOUNDS: tuple[float, ...] = (
 _GRAD_DEPTH_BUCKETS = 4  # LoRA grad-norm depth groups (a0..a3 / b0..b3)
 
 _MULTI_GPU_ITEM = "ROADMAP queue 1 item 10: multi-GPU"
-# at 7B, f32 master weights and grads (2 x 30.5 GB), 8-bit moments (~15 GB)
-# and the bf16 rollout copy (15 GB) exceed one 80 GB card
-_FULL_ITEM = "ROADMAP queue 1 item 10: multi-GPU (full fine-tuning does not fit one card)"
 
 
 class UpdateBatch(NamedTuple):
@@ -108,6 +105,7 @@ def _grad_norm_groups(grads, train_mode: str,
     across targets, split as ``np.array_split``)."""
     leaves = _leaves(grads)
     out = {"grad_norm_total": torch.sqrt(sum(torch.square(g.float()).sum() for g in leaves))}
+    # a full tree's grads are a list of its parameters' grads: the total only
     layers = grads.get("layers") if train_mode == "lora" and isinstance(grads, dict) else None
     if not layers:
         return out
@@ -154,6 +152,10 @@ def _derive_dynamics(sums, grads, *, train_mode: str) -> dict:
 def _leaves(tree) -> list[torch.Tensor]:
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for t in tree for x in _leaves(t)]
+    if isinstance(tree, Decoder):  # full fine-tuning: every parameter trains
+        return list(tree.parameters())
     return [tree]
 
 
@@ -176,14 +178,21 @@ def _microbatch_loss(lora, base: Decoder, mb: UpdateBatch, *, learner_type: str,
                      logit_chunk: int = 0, clip_ratio: float = 0.0,
                      kl_coeff: float = 0.0, off_policy: str = "clip",
                      is_cap: float = 2.0, max_staleness: int = 0,
-                     emit_dynamics: bool = False):
+                     emit_dynamics: bool = False, train_mode: str = "lora"):
     """Loss of one microbatch (unweighted) and, with ``emit_dynamics``, its
-    dynamics sums."""
-    out = answer_logprobs(
-        base, mb.prompt_ids, mb.prompt_mask, mb.answer_ids, mb.answer_mask,
-        lora=lora, lora_scale=lora_scale, remat=remat, attn_impl=attn_impl,
-        lora_dropout=lora_dropout, dropout_seed=dropout_seed,
-        logit_chunk=logit_chunk, return_entropy=emit_dynamics)
+    dynamics sums. ``train_mode="full"``: ``lora`` IS the trainable
+    ``Decoder`` and ``base`` is ignored."""
+    if train_mode == "full":
+        out = answer_logprobs(
+            lora, mb.prompt_ids, mb.prompt_mask, mb.answer_ids, mb.answer_mask,
+            lora=None, remat=remat, attn_impl=attn_impl, logit_chunk=logit_chunk,
+            return_entropy=emit_dynamics)
+    else:
+        out = answer_logprobs(
+            base, mb.prompt_ids, mb.prompt_mask, mb.answer_ids, mb.answer_mask,
+            lora=lora, lora_scale=lora_scale, remat=remat, attn_impl=attn_impl,
+            lora_dropout=lora_dropout, dropout_seed=dropout_seed,
+            logit_chunk=logit_chunk, return_entropy=emit_dynamics)
     logps, entropy = out if emit_dynamics else (out, None)
     # loss terms mask on POLICY spans only; answer_mask stays the attention mask
     loss_m = (mb.answer_mask if mb.loss_mask is None else mb.loss_mask).float()
@@ -235,14 +244,18 @@ def make_train_step(
 
     Returns ``step(lora, base, batch, dropout_seed=None)``: ``lora`` is the
     adapter dict whose f32 leaves ``optimizer`` was built over (updated in
-    place), ``base`` the frozen ``Decoder``. It returns ``loss_sum`` (a
-    0-dim f32 tensor), or ``(loss_sum, dynamics)`` with ``emit_dynamics``.
-    ``dropout_seed`` (LoRA dropout) is drawn anew by the caller per step;
-    each microbatch, layer and target derives its own mask seed from it."""
-    if train_mode == "full":
-        raise NotImplementedError(
-            f"train_mode='full' is not ported yet ({_FULL_ITEM}); the "
-            "trainer's default is LoRA")
+    place), ``base`` the frozen ``Decoder``. ``train_mode="full"`` (the JAX
+    package's full-rank mode): ``lora`` is the trainable ``Decoder`` itself
+    (every parameter with ``requires_grad``, the optimizer built over them)
+    and ``base`` is None. It returns ``loss_sum`` (a 0-dim f32 tensor), or
+    ``(loss_sum, dynamics)`` with ``emit_dynamics``. ``dropout_seed`` (LoRA
+    dropout) is drawn anew by the caller per step; each microbatch, layer
+    and target derives its own mask seed from it."""
+    if train_mode not in ("lora", "full"):
+        raise ValueError(f"train_mode must be 'lora' or 'full', got {train_mode!r}")
+    if train_mode == "full" and kl_coeff > 0.0:
+        # full mode has no frozen base to serve as the reference policy
+        raise ValueError("kl_coeff requires train_mode='lora' (frozen base = ref)")
     if attn_mesh is not None:
         raise NotImplementedError(f"attn_mesh is not ported yet ({_MULTI_GPU_ITEM})")
     if off_policy not in ("clip", "aipo"):
@@ -250,11 +263,14 @@ def make_train_step(
     kw = dict(learner_type=learner_type, lora_scale=lora_scale, remat=remat,
               attn_impl=attn_impl, lora_dropout=lora_dropout, logit_chunk=logit_chunk,
               clip_ratio=clip_ratio, kl_coeff=kl_coeff, off_policy=off_policy,
-              is_cap=is_cap, max_staleness=max_staleness, emit_dynamics=emit_dynamics)
+              is_cap=is_cap, max_staleness=max_staleness, emit_dynamics=emit_dynamics,
+              train_mode=train_mode)
 
-    def step(lora, base: Decoder, batch: UpdateBatch, dropout_seed: int | None = None):
-        if base.cfg != cfg:
-            raise ValueError("the base model's config does not match the step's")
+    def step(lora, base: Decoder | None, batch: UpdateBatch,
+             dropout_seed: int | None = None):
+        model = lora if train_mode == "full" else base
+        if model.cfg != cfg:
+            raise ValueError("the model's config does not match the step's")
         n = batch.prompt_ids.shape[0]
         if n % micro_size:
             raise ValueError(f"batch {n} not divisible by micro {micro_size}")
@@ -292,7 +308,8 @@ def make_train_step(
                     p.grad.div_(denom)
         dynamics = None
         if emit_dynamics:
-            grads = _tree_map(lambda p: p.grad, lora)
+            grads = ([p.grad for p in leaves] if train_mode == "full"
+                     else _tree_map(lambda p: p.grad, lora))
             dynamics = _derive_dynamics(sums, grads, train_mode=train_mode)
         optimizer.step()
         for p in leaves:

@@ -79,6 +79,21 @@ class ModelConfig:
         )
         return self.num_layers * per_layer + self.hidden_size * self.vocab_size
 
+    @property
+    def param_count(self) -> int:
+        """Every parameter of the model: embedding, final norm, LM head
+        (none when tied) and each layer's projections, biases and norms."""
+        per_layer = (
+            self.hidden_size * self.q_dim + 2 * self.hidden_size * self.kv_dim
+            + self.q_dim * self.hidden_size
+            + 3 * self.hidden_size * self.intermediate_size
+            + 2 * self.hidden_size  # attn_norm, mlp_norm
+            + ((self.q_dim + 2 * self.kv_dim) if self.attention_bias else 0)
+        )
+        head = 0 if self.tie_word_embeddings else self.hidden_size * self.vocab_size
+        return (self.num_layers * per_layer + self.vocab_size * self.hidden_size
+                + self.hidden_size + head)
+
     def decode_flops_per_token(self, mean_kv_len: float = 0.0) -> float:
         """Model FLOPs per decoded token: 2·(matmul params) for the dense
         path plus the attention score/value dot-products (2 FLOPs × q_dim

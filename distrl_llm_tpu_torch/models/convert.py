@@ -10,8 +10,13 @@ for int8, ``{"q4": int8 [L, G, g/2, N], "scale"}`` for int4 (the JAX
 package's ``pack_params_int4`` transport form). ``lora_from_numpy`` does the
 same for an adapter tree (``{"layers": {target: {"a", "b"}}}``), and
 ``lora_to_numpy`` carries an adapter back (to compare adapters after a
-learner step). The caller converts on the JAX side (``jax.tree_util.tree_map(np.asarray,
-tree)``), so the port never sees a JAX array.
+learner step). ``params_to_numpy`` carries a dense model back as the JAX
+tree (to compare full fine-tuning's trained weights), and
+``param_stacks`` lists a model's parameters as the JAX tree's leaves (one
+stacked ``[L, ...]`` leaf per layer parameter), the order and grouping
+full fine-tuning's Adam8bit keeps its state in. The caller converts on the
+JAX side (``jax.tree_util.tree_map(np.asarray, tree)``), so the port never
+sees a JAX array.
 """
 
 from __future__ import annotations
@@ -147,3 +152,37 @@ def lora_to_numpy(lora: dict) -> dict:
     return {"layers": {t: {k: x.detach().to("cpu", torch.float32, copy=True).numpy()
                            for k, x in ab.items()}
                        for t, ab in lora["layers"].items()}}
+
+
+def param_stacks(model: Decoder) -> dict[str, list[torch.Tensor]]:
+    """A dense model's parameters as the JAX tree's leaves, in its order
+    (sorted keys): ``embed``, ``final_norm``, ``layers.<name>`` (the L
+    per-layer tensors of one stacked leaf), ``lm_head`` (untied only). The
+    tied embedding is one leaf: the LM head reads ``embed``."""
+    if model.quant is not None:
+        raise ValueError("a quantized model has no dense parameter tree")
+    out = {"embed": [model.embed], "final_norm": [model.final_norm]}
+    for name in sorted(n for n, _ in model.layers[0].named_parameters()):
+        out[f"layers.{name}"] = [getattr(layer, name) for layer in model.layers]
+    if model.lm_head is not None:
+        out["lm_head"] = [model.lm_head]
+    return out
+
+
+def params_to_numpy(model: Decoder) -> dict:
+    """A dense ``Decoder`` → the JAX-layout numpy param tree, the inverse of
+    ``params_from_numpy`` (stacked ``[L, ...]`` layer leaves, the tied
+    embedding once), copied to the host in the model's dtype widened to f32
+    where numpy has no such type (bf16). Always a copy: the optimizer
+    updates the parameters in place."""
+    def host(x: torch.Tensor) -> np.ndarray:
+        x = x.detach()
+        return (x.float() if x.dtype == torch.bfloat16 else x).to("cpu", copy=True).numpy()
+
+    tree: dict = {"layers": {}}
+    for key, ts in param_stacks(model).items():
+        if key.startswith("layers."):
+            tree["layers"][key.split(".", 1)[1]] = host(torch.stack([t.detach() for t in ts]))
+        else:
+            tree[key] = host(ts[0])
+    return tree

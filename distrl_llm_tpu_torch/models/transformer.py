@@ -321,6 +321,9 @@ class Decoder(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.quant = quant
+        # bumped by whoever rewrites the weights in place (full fine-tuning's
+        # push): what an engine's prefix cache keys its cached KV on
+        self.weights_version = 0
         D = cfg.hidden_size
         self.embed = nn.Parameter(
             torch.empty(cfg.vocab_size, D, dtype=dtype, device=device),

@@ -29,7 +29,10 @@ slice starts at the prompt's last position, which is real.
 ``torch.autograd.Function``) on CUDA tensors or raises, never falling back;
 on CPU tensors it runs ``flash_attention_reference``. Each forward launch
 adds one to ``flash_attention_fwd_launches``, each backward call (delta,
-dk/dv and dq kernels) one to ``flash_attention_bwd_launches``.
+dk/dv and dq kernels) one to ``flash_attention_bwd_launches``; at head_dim
+256 also one to its route's ``flash_attention_hd256_{bf16,f32}_{fwd,bwd}_
+launches``. Head dims 64, 128 and 256 (every preset's) are built;
+``check_kernel_domain`` refuses the rest.
 """
 
 from __future__ import annotations
@@ -45,9 +48,23 @@ from distrl_llm_tpu_torch.ops.attention import NEG_INF
 #: version, do not count
 flash_attention_fwd_launches = 0
 flash_attention_bwd_launches = 0
+#: the same launches at head_dim 256 (the Gemma family), by route: each of
+#: these four also counts in the two above
+flash_attention_hd256_bf16_fwd_launches = 0
+flash_attention_hd256_bf16_bwd_launches = 0
+flash_attention_hd256_f32_fwd_launches = 0
+flash_attention_hd256_f32_bwd_launches = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-KERNEL_HEAD_DIMS = (64, 128)  # the head dims the kernel is built for
+KERNEL_HEAD_DIMS = (64, 128, 256)  # the head dims the kernel is built for
+
+
+def check_kernel_domain(q: torch.Tensor) -> None:
+    """Raise ``ValueError`` where K4 is not built for q's head dim (the
+    kernel itself refuses, with a CUDA error, an S whose key-tile lists
+    would take a block past its shared memory)."""
+    if q.shape[-1] not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"K4 is built for head_dim in {KERNEL_HEAD_DIMS}, got {q.shape[-1]}")
 
 
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -127,6 +144,12 @@ def _cuda_checks(tensors) -> None:
         raise ValueError("flash_attention's kernel takes 16-byte aligned tensors")
 
 
+def _count_hd256(q: torch.Tensor, part: str) -> None:
+    if q.shape[-1] == 256:
+        name = f"flash_attention_hd256_{'bf16' if q.dtype == torch.bfloat16 else 'f32'}_{part}"
+        globals()[f"{name}_launches"] += 1
+
+
 def flash_attention_forward(q, k, v, valid, scale: float):
     """One launch of K4's forward on CUDA tensors (q, k, v contiguous, one
     dtype; ``valid`` int32 [B, S]) → (out like q, lse f32 [B, H, S])."""
@@ -143,6 +166,7 @@ def flash_attention_forward(q, k, v, valid, scale: float):
         q.device.index or 0, stream)
     _raise_on(lib, err, "forward")
     flash_attention_fwd_launches += 1
+    _count_hd256(q, "fwd")
     return out, lse
 
 
@@ -163,6 +187,7 @@ def flash_attention_backward(q, k, v, valid, out, lse, dout, scale: float):
         q.device.index or 0, stream)
     _raise_on(lib, err, "backward")
     flash_attention_bwd_launches += 1
+    _count_hd256(q, "bwd")
     return dq, dk, dv
 
 
@@ -198,8 +223,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_reference(q, k, v, key_valid, scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, got {q.device}")
-    if q.shape[-1] not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"K4 is built for head_dim in {KERNEL_HEAD_DIMS}, got "
-                         f"{q.shape[-1]}")
+    check_kernel_domain(q)
     valid = key_valid.to(torch.int32).contiguous()
     return _FlashAttention.apply(q, k, v, valid, float(scale))

@@ -68,7 +68,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="learner logprobs: lm_head + logsumexp per this many answer "
                         "positions; 0 = dense")
     p.add_argument("--full_finetune", action="store_true",
-                   help="full-rank fine-tuning (not ported: it does not fit one card)")
+                   help="full-rank fine-tuning: the whole model trains as f32 master "
+                        "weights (models past one card: not ported)")
     p.add_argument("--attn_impl", type=str, default="reference",
                    choices=["reference", "flash", "splash", "ring", "ulysses"])
     p.add_argument("--engine_impl", type=str, default="dense", choices=["dense", "paged"],
@@ -163,6 +164,10 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
                                                   field="learner_len_buckets")
     fields["learner_prompt_buckets"] = parse_buckets(args.learner_prompt_buckets,
                                                      field="learner_prompt_buckets")
+    if getattr(args, "smoke", False):
+        # the smoke trains TINY (run_smoke): the config's width rules
+        # (full_finetune's fit on one card) are TINY's, not --model's
+        fields["model"] = "tiny"
     return TrainConfig(**fields)
 
 

@@ -15,6 +15,11 @@ one learner:
   JAX package's timeshared roles); the learner's adapter is passed to the
   engine each round, ``weight_version`` counts updates and each round
   checks that it samples the version the learner last published.
+* **Full fine-tuning** (``full_finetune``, the JAX package's
+  ``train_mode="full"``): the whole model trains as f32 master weights (a
+  ``Decoder`` built from the base), and the base becomes the rollout copy:
+  each push casts the masters into it in place, at the base's dtype, and
+  bumps its ``weights_version``; the engine samples it with no adapter.
 * **Metrics**: the reference's exact names (distributed_trainer.py:348-366,
   :412-415) through a pluggable sink (``metrics.py``); each phase's
   ``timing/*_duration`` ends on finished device work.
@@ -23,8 +28,9 @@ one learner:
 
 Not ported (each raises where a config would reach it): the pipelined and
 async regimes and multi-turn envs (ROADMAP queue 1 item 8), remote workers
-(item 9), meshes, the hybrid actor/learner split and full fine-tuning (item
-10), and the observability, lineage, control and gateway planes (item 11).
+(item 9), meshes, the hybrid actor/learner split and full fine-tuning past
+one card (item 10), and the observability, lineage, control and gateway
+planes (item 11).
 """
 
 from __future__ import annotations
@@ -39,11 +45,14 @@ import torch
 
 from distrl_llm_tpu_torch import telemetry
 from distrl_llm_tpu_torch.checkpoint import CheckpointManager, save_adapter_file
-from distrl_llm_tpu_torch.config import SamplingConfig, TrainConfig
+from distrl_llm_tpu_torch.config import (
+    SamplingConfig, TrainConfig, check_full_finetune_fits, full_finetune_bytes,
+)
 from distrl_llm_tpu_torch.data import DictDataset
 from distrl_llm_tpu_torch.learner.optim import check_state_format, make_optimizer
 from distrl_llm_tpu_torch.learner.train_step import make_train_step, prepare_update_batch
 from distrl_llm_tpu_torch.metrics import MetricsSink, make_sink
+from distrl_llm_tpu_torch.models.convert import param_stacks
 from distrl_llm_tpu_torch.models.lora import init_lora_params, lora_scale
 from distrl_llm_tpu_torch.models.transformer import Decoder
 from distrl_llm_tpu_torch.rewards import (
@@ -103,7 +112,8 @@ def make_engine(config: TrainConfig, model: Decoder, tokenizer, *,
     model's device. The paged engine's KV pool is budgeted by
     ``engine/budget.py::kv_pool_pages`` under ``learner_gpu_usage``: the
     engine and the learner share the card (``hbm_bytes`` defaults to the
-    card's memory)."""
+    card's memory), so with ``full_finetune`` the learner's f32 masters,
+    grads and moments are charged beside the rollout weights."""
     from distrl_llm_tpu_torch.engine import GenerationEngine, PagedGenerationEngine
 
     dev = model.embed.device
@@ -127,10 +137,14 @@ def make_engine(config: TrainConfig, model: Decoder, tokenizer, *,
         from distrl_llm_tpu_torch.engine.budget import kv_pool_pages, tree_bytes
         from distrl_llm_tpu_torch.ops.paged import DEFAULT_PAGE_SIZE
 
+        learner_bytes = 0
+        if config.full_finetune:
+            need = full_finetune_bytes(model.cfg, str(model.embed.dtype).removeprefix("torch."))
+            learner_bytes = need["masters"] + need["grads"] + need["moments"]
         kwargs["max_kv_pages"] = kv_pool_pages(
             model.cfg,
             gpu_usage=config.learner_gpu_usage,
-            param_bytes=tree_bytes(model),
+            param_bytes=tree_bytes(model) + learner_bytes,
             batch_prompts=config.batch_size,
             max_prompt_tokens=config.max_prompt_tokens,
             max_new_tokens=config.max_new_tokens,
@@ -196,10 +210,12 @@ class Trainer:
         self.tokenizer = tokenizer
         self.engine = engine
         # the frozen base, shared by the engine and the learner (one card:
-        # the JAX package's timeshared roles)
+        # the JAX package's timeshared roles); None in full mode, where the
+        # base becomes the rollout copy
         self.model = model
         self.model_cfg = model.cfg
         self.device = model.embed.device
+        self._full = config.full_finetune
         self.sink = sink
         # format-reward gate: "strict" swaps the scorer in the parity
         # reward; with a custom reward_function it would be ambiguous
@@ -227,14 +243,20 @@ class Trainer:
         # every seed the trainer hands out (the adapter's init, each engine
         # round, each LoRA-dropout update) is drawn from this generator
         self._gen = torch.Generator().manual_seed(config.seed)
+        # drawn in full mode too, as the JAX trainer splits its adapter key
+        # in both modes: the later seeds stay the same
         lora_gen = torch.Generator(device=self.device).manual_seed(self._next_rng())
-        # adapters train in f32; the base stays at its dtype
-        self.lora = init_lora_params(lora_gen, self.model_cfg, config.max_lora_rank,
-                                     dtype=torch.float32)
-        for leaf in _leaves(self.lora):
-            leaf.requires_grad_(True)
-        self.optimizer = make_optimizer(_leaves(self.lora), config.lr,
-                                        use_8bit=config.optimizer_8bit)
+        if self._full:
+            self.lora = self._master_weights(model)
+            opt_leaves = list(param_stacks(self.lora).values())
+        else:
+            # adapters train in f32; the base stays at its dtype
+            self.lora = init_lora_params(lora_gen, self.model_cfg, config.max_lora_rank,
+                                         dtype=torch.float32)
+            for leaf in _leaves(self.lora):
+                leaf.requires_grad_(True)
+            opt_leaves = _leaves(self.lora)
+        self.optimizer = make_optimizer(opt_leaves, config.lr, use_8bit=config.optimizer_8bit)
         self.train_step = make_train_step(
             self.model_cfg,
             learner_type=config.learner,
@@ -247,6 +269,7 @@ class Trainer:
             logit_chunk=config.logprob_chunk,
             clip_ratio=config.clip_ratio,
             kl_coeff=config.kl_coeff,
+            train_mode="full" if self._full else "lora",
         )
 
         self.total_batch_steps = 0
@@ -272,6 +295,28 @@ class Trainer:
         self._push_weights()
 
     # ------------------------------------------------------------------ setup
+
+    def _master_weights(self, model: Decoder) -> Decoder:
+        """Full fine-tuning's trainable tree (JAX trainer.py:298-322): an f32
+        copy of ``model`` whose every parameter trains (with lr ~2e-5 a
+        step is below bf16's ~0.4% resolution, so bf16 weights would round
+        many updates away). ``model`` stays as the rollout copy, which each
+        push overwrites, and the trainer keeps no frozen base."""
+        if model.quant is not None:
+            raise ValueError("full_finetune requires an unquantized base")
+        if self.device.type == "cuda":
+            from distrl_llm_tpu_torch.engine.budget import device_hbm_bytes
+
+            check_full_finetune_fits(model.cfg, str(model.embed.dtype).removeprefix("torch."),
+                                     self.config.model, device_hbm_bytes(self.device))
+        masters = Decoder(model.cfg, dtype=torch.float32, device=self.device)
+        with torch.no_grad():
+            for p, src in zip(masters.parameters(), model.parameters(), strict=True):
+                p.copy_(src)
+                p.requires_grad_(True)
+        self._rollout_model = model
+        self.model = None
+        return masters
 
     @classmethod
     def from_pretrained(
@@ -312,9 +357,13 @@ class Trainer:
     # ------------------------------------------------------------- checkpoint
 
     def _state_tree(self) -> dict:
+        if self._full:  # the f32 master weights by parameter name
+            trained = {n: p.detach() for n, p in self.lora.named_parameters()}
+        else:
+            trained = {"layers": {t: {k: x.detach() for k, x in ab.items()}
+                                  for t, ab in self.lora["layers"].items()}}
         return {
-            "lora": {"layers": {t: {k: x.detach() for k, x in ab.items()}
-                                for t, ab in self.lora["layers"].items()}},
+            "lora": trained,
             "opt_state": self.optimizer.state_dict(),
             "step": self.total_batch_steps,
             "episode": self.episode,
@@ -330,9 +379,17 @@ class Trainer:
             return
         # in place: the optimizer holds these very tensors
         with torch.no_grad():
-            for t, ab in self.lora["layers"].items():
-                for k, x in ab.items():
-                    x.copy_(restored["lora"]["layers"][t][k])
+            if self._full:
+                saved = restored["lora"]
+                params = dict(self.lora.named_parameters())
+                if sorted(saved) != sorted(params):
+                    raise ValueError("the checkpoint holds another model's weights")
+                for n, p in params.items():
+                    p.copy_(saved[n])
+            else:
+                for t, ab in self.lora["layers"].items():
+                    for k, x in ab.items():
+                        x.copy_(restored["lora"]["layers"][t][k])
         self.optimizer.load_state_dict(restored["opt_state"])
         check_state_format(self.optimizer)
         self.total_batch_steps = int(restored["step"])
@@ -359,8 +416,11 @@ class Trainer:
 
         path = os.path.join(self.config.run_directory, f"model_{self.total_batch_steps}")
         try:
-            save_hf_checkpoint(self.model, path, lora=self.lora,
-                               lora_alpha=self.config.lora_alpha)
+            if self._full:  # the trained tree itself (its f32 master weights)
+                save_hf_checkpoint(self.lora, path)
+            else:
+                save_hf_checkpoint(self.model, path, lora=self.lora,
+                                   lora_alpha=self.config.lora_alpha)
             self._last_hf_export_step = self.total_batch_steps
         except NotImplementedError as e:
             log.warning("HF snapshot skipped: %s", e)
@@ -368,6 +428,8 @@ class Trainer:
     def save_adapter(self) -> None:
         """The reference's per-step adapter artifact (distributed_trainer.py:346
         -> save_lora). Export only: weight sync is in memory."""
+        if self._full:
+            raise RuntimeError("full_finetune has no LoRA adapter to export")
         save_adapter_file(self.lora, self.config.lora_save_path,
                           rank=self.config.max_lora_rank, alpha=self.config.lora_alpha,
                           model_name=self.config.model)
@@ -384,11 +446,27 @@ class Trainer:
         those tensors in place, so the rollout reads the learner's latest
         values. That is right only because the synchronous loop never
         overlaps a generation round with an update; the pipelined regime,
-        which does (ROADMAP queue 1 item 8), would need a copy here."""
-        # a new dict over the same tensors for each push: the engine's prefix
-        # cache keys its cached KV on the adapter object's identity (the
-        # JAX package hands the engine a new adapter each step)
-        self._lora_rollout = {"layers": {t: dict(ab) for t, ab in self.lora["layers"].items()}}
+        which does (ROADMAP queue 1 item 8), would need a copy here.
+
+        Full mode (JAX trainer.py:939-943): the f32 masters are cast into
+        the rollout copy in place, at its dtype (one persistent ``Decoder``,
+        no allocation per push), and its ``weights_version`` goes up by one:
+        the engine's prefix cache keys its cached KV on it, so KV written
+        under the weights before a push is never served after it."""
+        if self._full:
+            with torch.no_grad():
+                for p, src in zip(self._rollout_model.parameters(), self.lora.parameters(),
+                                  strict=True):
+                    p.copy_(src)
+            self._rollout_model.weights_version += 1
+            self._lora_rollout = None
+        else:
+            # a new dict over the same tensors for each push: the engine's
+            # prefix cache keys its cached KV on the adapter object's
+            # identity (the JAX package hands the engine a new adapter each
+            # step)
+            self._lora_rollout = {"layers": {t: dict(ab)
+                                             for t, ab in self.lora["layers"].items()}}
         self._rollout_weight_version = self.weight_version
 
     # ---------------------------------------------------------------- rollout
@@ -408,7 +486,9 @@ class Trainer:
 
     def _engine_params(self) -> tuple:
         """(model, adapter) for an engine call: the shared base with the
-        pushed adapter."""
+        pushed adapter, or in full mode the rollout copy with none."""
+        if self._full:
+            return self._rollout_model, None
         return self.model, self._lora_rollout
 
     def _call_engine(self, *args):

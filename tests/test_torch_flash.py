@@ -8,7 +8,8 @@ jaxlib and flash needs the TPU backend). The inputs are made with numpy from
 a seed and fed to both packages in f32.
 
 * Outputs on rows with a valid key within ``OUT_ATOL`` (f32 sums over at
-  most 64 keys x hd 128 in another order). A row with no valid key is 0 in
+  most 70 keys x hd 256 in another order); bf16 cases (head_dim 256) add
+  one bf16 rounding, ``BF16_REL``. A row with no valid key is 0 in
   the port and a uniform average in the oracle; it is compared only for
   being 0 and finite.
 * dq, dk, dv from ``torch.autograd`` against ``jax.grad`` of a random
@@ -33,14 +34,23 @@ OUT_ATOL = 1e-5
 GRAD_RTOL = 1e-5
 GRAD_ATOL = 1e-5
 
-# (name, B, S, H, K, hd, key-validity pattern)
+# (name, B, S, H, K, hd, key-validity pattern[, dtype]): f32 unless named;
+# the Gemma cases at head_dim 256, Gemma-2B's 8 / 1 heads and 2 / 1
 CASES = (
     ("tiny_left_pad", 3, 9, 4, 2, 16, "left"),
     ("qwen_heads_prompt_answer", 2, 37, 28, 4, 128, "prompt_answer"),
     ("qwen_heads_s1", 3, 1, 28, 4, 128, "left"),
     ("tiny_all_valid", 2, 70, 4, 2, 16, "all"),
     ("tiny_right_pad_non_tile", 2, 67, 4, 1, 32, "right"),
+    ("gemma_heads_prompt_answer", 2, 37, 8, 1, 256, "prompt_answer"),
+    ("gemma_2_1_left_pad", 3, 20, 2, 1, 256, "left"),
+    ("gemma_heads_prompt_answer_bf16", 2, 37, 8, 1, 256, "prompt_answer", "bfloat16"),
+    ("gemma_2_1_left_pad_bf16", 3, 20, 2, 1, 256, "left", "bfloat16"),
 )
+# bf16 cases: the inputs rounded to bf16 go to the JAX oracle in f32; the
+# plain version computes in f32 and rounds its result once to bf16, so the
+# two differ by the tolerances above plus one bf16 rounding (2^-8 of a value)
+BF16_REL = 2.0**-8
 
 
 def _valid(b, s, pattern):
@@ -63,14 +73,20 @@ def _valid(b, s, pattern):
     return v
 
 
+def _dtype(case):
+    return getattr(torch, case[7]) if len(case) > 7 else torch.float32
+
+
 def _inputs(case, seed=0):
-    _, b, s, h, kh, d, pattern = case
+    _, b, s, h, kh, d, pattern = case[:7]
     rng = np.random.default_rng(seed)
     q = rng.standard_normal((b, s, h, d)).astype(np.float32)
     k = rng.standard_normal((b, s, kh, d)).astype(np.float32)
     v = rng.standard_normal((b, s, kh, d)).astype(np.float32)
     valid = _valid(b, s, pattern)
     w = rng.standard_normal((b, s, h, d)).astype(np.float32)
+    if _dtype(case) == torch.bfloat16:  # the values bf16 holds
+        q, k, v, w = (torch.from_numpy(x).bfloat16().float().numpy() for x in (q, k, v, w))
     return q, k, v, valid, w
 
 
@@ -84,9 +100,14 @@ def test_plain_version_matches_jax_reference(case):
     q, k, v, valid, _ = _inputs(case)
     want = np.asarray(j_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                                   j_mask(jnp.asarray(valid), q_len=q.shape[1])))
-    got = fa.flash_attention_reference(*map(torch.from_numpy, (q, k, v, valid))).numpy()
+    dtype = _dtype(case)
+    got = fa.flash_attention_reference(*(torch.from_numpy(x).to(dtype) for x in (q, k, v)),
+                                       torch.from_numpy(valid))
+    assert got.dtype == dtype
+    got = got.float().numpy()
     rows = _has_key(valid)
-    np.testing.assert_allclose(got[rows], want[rows], atol=OUT_ATOL, rtol=0)
+    np.testing.assert_allclose(got[rows], want[rows], atol=OUT_ATOL,
+                               rtol=BF16_REL if dtype == torch.bfloat16 else 0)
     assert np.isfinite(got).all()
     assert (got[~rows] == 0).all()
 
@@ -101,12 +122,14 @@ def test_plain_version_grads_match_jax(case):
         return (j_attention(q_, k_, v_, mask) * w).sum()
 
     want = jax.grad(jloss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
-    tq, tk, tv = (torch.from_numpy(x).requires_grad_(True) for x in (q, k, v))
-    (fa.flash_attention_reference(tq, tk, tv, torch.from_numpy(valid))
-     * torch.from_numpy(w)).sum().backward()
+    dtype = _dtype(case)
+    tq, tk, tv = (torch.from_numpy(x).to(dtype).requires_grad_(True) for x in (q, k, v))
+    out = fa.flash_attention_reference(tq, tk, tv, torch.from_numpy(valid))
+    out.backward(torch.from_numpy(w).to(dtype))  # d(sum(out * w)) / d out = w
     for got, ref, name in zip((tq.grad, tk.grad, tv.grad), want, ("dq", "dk", "dv")):
-        assert torch.isfinite(got).all(), name
-        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=GRAD_RTOL,
+        assert got.dtype == dtype and torch.isfinite(got).all(), name
+        np.testing.assert_allclose(got.float().numpy(), np.asarray(ref),
+                                   rtol=BF16_REL if dtype == torch.bfloat16 else GRAD_RTOL,
                                    atol=GRAD_ATOL, err_msg=name)
 
 
@@ -155,11 +178,20 @@ def test_bf16_inputs_keep_their_dtype_and_track_f32():
     assert bool((err <= out32.abs() * 2.0**-8 + 1e-30).all())
 
 
-@pytest.mark.parametrize("bad", ["rank", "kv_shape", "heads", "dtype", "valid_shape"])
+@pytest.mark.parametrize("bad", ["rank", "kv_shape", "heads", "dtype", "valid_shape",
+                                 "head_dim"])
 def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    """The argument checks (every device), and the head dims the kernel is
+    built for, which a CUDA tensor meets before a launch (96 is not one)."""
     q = torch.zeros((1, 4, 4, 16))
     k = v = torch.zeros((1, 4, 2, 16))
     valid = torch.ones((1, 4), dtype=torch.int32)
+    if bad == "head_dim":
+        for d in fa.KERNEL_HEAD_DIMS:
+            fa.check_kernel_domain(torch.zeros((1, 4, 4, d)))
+        with pytest.raises(ValueError, match="head_dim in"):
+            fa.check_kernel_domain(torch.zeros((1, 4, 4, 96)))
+        return
     args = {"rank": (q[0], k, v, valid), "kv_shape": (q, k[:, :3], v[:, :3], valid),
             "heads": (q[:, :, :3], k, v, valid),
             "dtype": (q, k.double(), v.double(), valid),

@@ -373,11 +373,18 @@ def _assert_close_trees(a, b, atol):
 
 
 def test_train_step_refuses_unported_modes(model):
+    """A learner mesh is item 10. Full fine-tuning is ported
+    (``tests/test_torch_full_finetune.py``): only its KL term, which needs
+    a frozen base, and an unknown mode raise."""
     opt = optim.make_optimizer([torch.zeros(1, requires_grad=True)], LR)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ts.make_train_step(CFG, optimizer=opt, lora_scale=1.0, micro_size=2, train_mode="full")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         ts.make_train_step(CFG, optimizer=opt, lora_scale=1.0, micro_size=2, attn_mesh=object())
+    ts.make_train_step(CFG, optimizer=opt, lora_scale=1.0, micro_size=2, train_mode="full")
+    with pytest.raises(ValueError, match="kl_coeff"):
+        ts.make_train_step(CFG, optimizer=opt, lora_scale=1.0, micro_size=2, train_mode="full",
+                           kl_coeff=0.1)
+    with pytest.raises(ValueError, match="train_mode"):
+        ts.make_train_step(CFG, optimizer=opt, lora_scale=1.0, micro_size=2, train_mode="qlora")
 
 
 # ------------------------------------------------------------ LoRA dropout
