@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (``distrl_llm_tpu_torch``).
 
-    python3 chip_smoke.py [--layers N] [--seed S] [--profile] [--until 6|7|8|9]
+    python3 chip_smoke.py [--layers N] [--seed S] [--profile] [--until 6|7|8|9|10]
 
 Needs one NVIDIA GPU (Hopper: the kernels build for ``sm_90a``) and ``nvcc``.
 Without a GPU it exits non-zero before computing anything. Phases, each
@@ -149,6 +149,26 @@ printing its own lines:
    ms per step by phase and peak GiB against the state estimate; (b) one
    LoRA step at the same width under splash with the bf16 learner (K4's
    bf16 backward at head_dim 256).
+11. scan chunks: the dense engine and the paged wave scheduler with
+   ``scan_chunk`` 16, each chunk of 16 decode steps captured once as a CUDA
+   graph and replayed, at phase 4's cell (28 layers, the same weights from
+   the seed, 4 prompts x 16 x 128 new tokens). (a) dense and (b) paged
+   (bf16 pages), greedy: a first graphed round (its first chunk eager, the
+   second captured), then graphed and eager rounds in turns (G E G E), the
+   counts reset around each and held to what it dispatched (K1 per step, K2
+   per layer per decode forward, replays included), tokens and lengths
+   equal, the largest |dlogp|, ms per step of each, captures and replays;
+   a graphed round of 16 steps under ``torch.profiler`` must name K1 (and
+   K2) in its device trace; with ``--profile`` device ms per step and the
+   idle share of both. (c) a sampled round, graphed vs eager, tokens equal.
+   (d) a second adapter pushed at step 32 (a chunk boundary) on both
+   engines: the same swap log, tokens equal. (e) two graphed greedy rounds
+   over the int4 g64 base at 14 layers (SHALLOW_LAYERS), the second all
+   replays: tokens equal to phase 6's eager round, K3 7 x layers x model
+   forwards. (f) one
+   ``Trainer.train()`` step with ``decode_scan_chunk=16`` on the dense
+   engine (bf16 base, 7 layers, flash, 4 x 16 x 128, the initial eval
+   first): generation, reward and update ms, captures and replays.
 
 Phase 3 holds K4 (forward and backward) against its plain version at the
 learner's [8, 1550, 28 / 4, 128] and at Gemma-2B's [8, 1550, 8 / 1, 256],
@@ -1417,9 +1437,10 @@ def prompt_batch(max_prompt_tokens: int):
 
 def make_engine(cfg, device, *, engine: str, kv_quant: str, cache_dtype,
                 max_prompt_tokens: int, max_new_tokens: int, page_size: int,
-                scale: float, attn_impl: str = "reference"):
-    """The engine a rollout drives: ("dense" or "paged" with ``kv_quant``)
-    and its label, with the tokenizer's EOS and pad ids."""
+                scale: float, attn_impl: str = "reference", scan_chunk: int = 0):
+    """The engine a rollout drives: ("dense" or "paged" with ``kv_quant``,
+    decoding ``scan_chunk`` steps a CUDA graph replay when > 1) and its
+    label, with the tokenizer's EOS and pad ids."""
     from distrl_llm_tpu_torch.engine import GenerationEngine, PagedGenerationEngine
     from distrl_llm_tpu_torch.tokenizer import CharTokenizer
 
@@ -1427,7 +1448,7 @@ def make_engine(cfg, device, *, engine: str, kv_quant: str, cache_dtype,
     common = dict(max_prompt_tokens=max_prompt_tokens, max_new_tokens=max_new_tokens,
                   eos_token_ids=[tok.eos_token_id], pad_token_id=tok.pad_token_id,
                   lora_scale=scale, cache_dtype=cache_dtype, capture_logprobs=True,
-                  attn_impl=attn_impl, device=device)
+                  attn_impl=attn_impl, scan_chunk=scan_chunk, device=device)
     if engine == "dense":
         label = "dense" + (" int8 KV" if kv_quant == "int8" else "")
         return GenerationEngine(cfg, kv_quant=kv_quant, **common), label
@@ -1644,7 +1665,7 @@ def engine_logits(weights, ids, mask, tokens, *, engine: str, kv_quant: str = "n
             _paged_forward(model, lora, st, tokens[:, i], table, page_size=page_size,
                            lora_scale=scale)
             st.seq_lengths += 1
-            out.append(st.logits)
+            out.append(st.logits.clone())
     return out
 
 
@@ -2171,11 +2192,12 @@ def qlora_learner_parity(cfg, device, *, seed: int, group: int = QMM_GROUP, **kw
                           plain_version=k3_plain_version, **kw)
 
 
-def qlora_phase(cfg, args, batch, card: str, t_start: float) -> list:
+def qlora_phase(cfg, args, batch, card: str, t_start: float) -> tuple[list, object]:
     """Phase 6 on the card (see the module's docstring), with phase 5's
     learner ``batch``; the bf16 weights of the earlier phases are freed, so
     the peaks measured here are the QLoRA runs'. Returns the launch counts
-    of every main-path run in it."""
+    of every main-path run in it and the dense engine's greedy tokens over
+    the int4 base (phase 11 holds its graphed round to them)."""
     import torch
 
     counted = []
@@ -2184,6 +2206,7 @@ def qlora_phase(cfg, args, batch, card: str, t_start: float) -> list:
     runs = qlora_rollouts(cfg, "cuda", qw, seed=args.seed, card=card, profile=args.profile,
                           greedy_rounds=1)
     counted += [out["counts"] for out in runs]
+    dense_tokens = runs[0]["greedy_tokens"]
     q8 = make_qlora_weights(cfg, "cuda", seed=args.seed, bits=8, group=None)
     runs8 = qlora_rollouts(cfg, "cuda", q8, seed=args.seed, card=card, engines=(("dense", "none"),),
                            tag="QLoRA int8, ", greedy_rounds=1)
@@ -2246,7 +2269,7 @@ def qlora_phase(cfg, args, batch, card: str, t_start: float) -> list:
           "qlora learner parity: K3 ran where it should not, or not where it should")
     check(lp["loss_rel"] <= LEARNER_REL and lp["grad_rel"] <= LEARNER_REL,
           "qlora learner parity: K3 and its plain version disagree beyond the tolerance")
-    return counted
+    return counted, dense_tokens
 
 
 # ---------------------------------------------------------------- phase 7
@@ -2918,6 +2941,20 @@ def _lora_host(lora) -> list:
     return [x.detach().cpu().clone() for x in _lora_leaves(lora)]
 
 
+def forward_counter(model, cell: list):
+    """A forward hook counting, in ``cell[0]``, the model's forward calls
+    that run: a call made while a CUDA graph is being captured launches
+    nothing (the engines report the steps their replays ran as
+    ``graph_steps``)."""
+    import torch
+
+    def hook(*_):
+        if not (torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()):
+            cell[0] += 1
+
+    return model.register_forward_hook(hook)
+
+
 def trainer_run(build, *, label: str = "", probe=None) -> dict:
     """``build(sink)`` makes a ``Trainer``; this runs its ``train()`` with the
     kernels' counts reset just before and read just after, recording each
@@ -2940,7 +2977,7 @@ def trainer_run(build, *, label: str = "", probe=None) -> dict:
     model, eng = trainer._engine_params()[0], trainer.engine
     learner_model = trainer.lora if trainer._full else model
     forwards, learner_calls = [0], [0]
-    hooks = [model.register_forward_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1))]
+    hooks = [forward_counter(model, forwards)]
     if learner_model is not model:
         hooks.append(learner_model.register_forward_hook(
             lambda *_: learner_calls.__setitem__(0, learner_calls[0] + 1)))
@@ -2975,6 +3012,8 @@ def trainer_run(build, *, label: str = "", probe=None) -> dict:
         res = generate(*a, **kw)
         drained("generation")
         st, pool = eng.last_round_stats, getattr(eng, "last_pool_stats", None) or {}
+        # the steps graph replays ran: each a decode forward no hook saw
+        forwards[0] += st.get("graph_steps", 0)
         rounds.append({"steps": res.steps_dispatched, "forwards": st.get("decode_forwards", 0),
                        "sampler_calls": st.get("sampler_calls", res.steps_dispatched),
                        "resumes": pool.get("resumes", 0), "refill": bool(pool),
@@ -3016,8 +3055,9 @@ def check_trainer_run(out: dict, layers: int, *, steps: int, lr: float, cuda: bo
     losses, weight version and rollout-resident version ``steps``, every
     adapter element within Adam8bit's clip at every step (and moved), the
     reference's metric names, and on the card every kernel launched as often
-    as the path dispatched it: K1 once per sampler call (decode steps and
-    refill admissions), K2 once per layer per paged decode forward, K3 (a
+    as the path dispatched it (graph replays included): K1 once per sampler
+    call (decode steps and refill admissions), K2 once per layer per paged
+    decode forward (none on the dense engine), K3 (a
     quantized base) 7 times per layer per engine forward and twice that per
     learner forward (forward and remat recompute), K4 (flash or splash)
     forward once per layer per prefill and twice per layer per learner
@@ -3070,7 +3110,7 @@ def check_trainer_run(out: dict, layers: int, *, steps: int, lr: float, cuda: bo
         f32_bwd=k4_lrn if learner_f32 else 0)
     want = {
         "fused_sample": sum(r["sampler_calls"] for r in rounds),
-        "paged_attention": layers * decode_fwd,
+        "paged_attention": layers * decode_fwd if tr.config.engine_impl == "paged" else 0,
         "quant_matmul": 7 * layers * (out["engine_forwards"] + 2 * learner) if quantized else 0,
         "flash_attention_fwd": layers * (prefills + 2 * learner) if k4 else 0,
         "flash_attention_bwd": layers * learner if k4 else 0,
@@ -4084,16 +4124,387 @@ def full_finetune_phase(args, card: str, t_start: float) -> list:
     return counted
 
 
+# ---------------------------------------------------------------- phase 11
+
+# scan chunks: the dense engine and the paged wave scheduler decode 16 steps
+# a chunk, each chunk one CUDA graph replay, at phase 4's cell (the same
+# weights from the seed, prompts and shapes); (e) at phase 6's depth over the
+# int4 base, (f) one Trainer.train() step at GRAPH_TRAIN_LAYERS
+GRAPH_CHUNK = 16
+GRAPH_SWAP_STEP = 32  # (d): an in-flight push lands at this chunk boundary
+GRAPH_TRACE_STEPS = 16  # the profiled graphed round of every cell: one chunk
+GRAPH_SHAPE = dict(max_prompt_tokens=350, max_new_tokens=128, n=PA_N, page_size=128,
+                   rank=32, chunk=GRAPH_CHUNK)
+# (f)'s depth: half of SHALLOW_LAYERS, the cut that keeps the script near 700
+# s; (e) stays at SHALLOW_LAYERS, where phase 6's eager tokens were taken
+GRAPH_TRAIN_LAYERS = 7
+
+
+def graph_round(eng, model, lora, ids, mask, sampling, seed: int) -> dict:
+    """One round of ``eng`` with the launch counts reset just before and
+    read just after: its result, ms per decode step (``last_round_stats``),
+    the decode forwards, the steps its graph replays ran, the captures and
+    replays in it, and its peak allocated and reserved device memory."""
+    import torch
+
+    cuda = eng.device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    g = eng.decode_graphs
+    before = (g.captures, g.replays)
+    reset_counts()
+    t = time.perf_counter()
+    res = eng.generate(model, lora, ids, mask, sampling, seed)
+    wall = time.perf_counter() - t
+    counts = read_counts()
+    st = eng.last_round_stats
+    return {"res": res, "counts": counts, "steps": res.steps_dispatched,
+            "forwards": st["decode_forwards"], "graph_steps": st["graph_steps"],
+            "prefills": st["prompt_rows"] // ids.shape[0], "cuda": cuda,
+            "ms_per_step": st["decode_s"] * 1e3 / res.steps_dispatched, "wall_s": wall,
+            "captures": g.captures - before[0], "replays": g.replays - before[1],
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30 if cuda else float("nan"),
+            "reserved_gib": torch.cuda.max_memory_reserved() / 2**30 if cuda else float("nan")}
+
+
+def check_graph_counts(r: dict, layers: int, *, paged: bool, quant: bool, what: str) -> None:
+    """On the card, a round's launches as its path dispatched them, graph
+    replays included: K1 once per decode step, K2 once per layer per paged
+    decode forward, K3 7 times per layer per model forward (each prefill and
+    each decode forward), no K4 (``attn_impl="reference"``), no K5. On the
+    CPU the plain versions run and nothing counts."""
+    c = r["counts"]
+    want = {k["name"]: 0 for k in KERNELS}
+    if r["cuda"]:
+        want["fused_sample"] = r["steps"]
+        want["paged_attention"] = layers * r["forwards"] if paged else 0
+        want["quant_matmul"] = 7 * layers * (r["prefills"] + r["forwards"]) if quant else 0
+    check(c == want, f"{what}: launches {c}, want {want} ({r['steps']} steps, "
+          f"{r['forwards']} decode forwards, {r['graph_steps']} of them replayed)")
+
+
+def graph_engines(cfg, device, *, engine: str, **shape):
+    """(graphed engine at ``scan_chunk`` = the shape's chunk, eager engine)
+    of ``engine``, bf16 on the card and f32 on the CPU, at ``shape``
+    (GRAPH_SHAPE: phase 4's)."""
+    import torch
+
+    from distrl_llm_tpu_torch.models.lora import lora_scale
+
+    sh = {**GRAPH_SHAPE, **shape}
+    kw = dict(engine=engine, kv_quant="none",
+              cache_dtype=torch.bfloat16 if device == "cuda" else torch.float32,
+              max_prompt_tokens=sh["max_prompt_tokens"], max_new_tokens=sh["max_new_tokens"],
+              page_size=sh["page_size"], scale=lora_scale(sh["rank"], 16.0))
+    return (make_engine(cfg, device, scan_chunk=sh["chunk"], **kw)[0],
+            make_engine(cfg, device, **kw)[0])
+
+
+def _greedy_sampling(**shape):
+    from distrl_llm_tpu_torch.config import SamplingConfig
+
+    sh = {**GRAPH_SHAPE, **shape}
+    return SamplingConfig(max_tokens=sh["max_new_tokens"], temperature=0.0, top_p=0.95,
+                          n=sh["n"])
+
+
+def kernel_names_in_trace(eng, model, lora, ids, mask, sampling, seed: int,
+                          steps: int = GRAPH_TRACE_STEPS) -> list:
+    """The kernels the device trace of one graphed round of ``steps`` steps
+    names (``torch.profiler``)."""
+    _, by_name = device_us_by_kernel(lambda: eng.generate(
+        model, lora, ids, mask, sampling.replace(max_tokens=steps), seed))
+    return sorted(by_name)
+
+
+def graph_ab(cfg, device, weights, *, engine: str, seed: int, card: str = "",
+             profile: bool = False, **shape) -> dict:
+    """(a) / (b): the graphed and the eager engine of ``engine`` in turns,
+    G E G E, greedy, after a first graphed round (each key's first chunk
+    eager, the next captured) and an eager warm-up; each round's launches
+    checked; tokens and lengths of the four equal, logprobs' largest
+    distance printed; on the card a warm graphed round replays every chunk
+    and a profiled graphed round must name K1 (and K2, paged) in its device
+    trace; with ``profile``, device ms per decode step of both (rounds
+    differenced: GRAPH_TRACE_STEPS and 128 steps graphed, 8 and 40 eager).
+    Returns the engines, the rounds and the greedy tokens."""
+    import numpy as np
+
+    model, lora = weights
+    sh = {**GRAPH_SHAPE, **shape}
+    _, ids, mask, _ = prompt_batch(sh["max_prompt_tokens"])
+    g, e = graph_engines(cfg, device, engine=engine, **shape)
+    label, cuda, k = f"graphed {engine}", device == "cuda", sh["chunk"]
+    paged = engine == "paged"
+    greedy = _greedy_sampling(**shape)
+    first = graph_round(g, model, lora, ids, mask, greedy, seed)
+    check_graph_counts(first, cfg.num_layers, paged=paged, quant=False,
+                       what=f"{label} first round")
+    if cuda:
+        check(first["captures"] == 1 and first["replays"] == first["steps"] // k - 1,
+              f"{label}: the first round captured {first['captures']} and replayed "
+              f"{first['replays']} chunks, want 1 and {first['steps'] // k - 1}")
+    print(f"{label}: first round (chunk 1 eager, chunk 2 captured, the rest replayed) "
+          f"{1e3 * first['wall_s']:.1f} ms, {first['ms_per_step']:.2f} ms/step; {card}")
+    e.generate(model, lora, ids, mask, greedy.replace(max_tokens=4), seed)  # warm-up
+    rounds = []
+    for eng, kind in ((g, "graphed"), (e, "eager"), (g, "graphed"), (e, "eager")):
+        r = graph_round(eng, model, lora, ids, mask, greedy, seed)
+        check_graph_counts(r, cfg.num_layers, paged=paged, quant=False,
+                           what=f"{engine} {kind}")
+        if cuda and kind == "graphed":
+            check(r["captures"] == 0 and r["graph_steps"] == r["steps"],
+                  f"{label}: a warm round captured {r['captures']} chunks and replayed "
+                  f"{r['graph_steps']} of {r['steps']} steps")
+        rounds.append((kind, r))
+        print(f"{engine} {kind}: {r['steps']} steps in {r['ms_per_step']:.3f} ms/step "
+              f"({r['replays']} replays); peak {r['peak_gib']:.2f} GiB allocated, "
+              f"{r['reserved_gib']:.2f} GiB reserved; {card}")
+    ref = rounds[0][1]["res"]
+    for kind, r in rounds[1:]:
+        check(np.array_equal(r["res"].tokens, ref.tokens)
+              and np.array_equal(r["res"].lengths, ref.lengths),
+              f"{engine}: the {kind} round's tokens or lengths differ from the graphed round's")
+    dlogp = max(float(np.abs(r["res"].logprobs - ref.logprobs).max()) for _, r in rounds)
+    dg = g.decode_graphs
+    traced = ""
+    if cuda:
+        names = kernel_names_in_trace(g, model, lora, ids, mask, greedy, seed)
+        want = ["fused_sample"] + (["paged_"] if paged else [])
+        check(all(any(w in n for n in names) for w in want),
+              f"{label}: the device trace of a graphed round names {names[:20]}, not {want}")
+        traced = (f"; a graphed round's device trace names "
+                  f"{', '.join(n[:40] for n in names if any(w in n for w in want))}")
+    print(f"{label}: G E G E rounds' tokens and lengths equal; max |dlogp| {dlogp:.3g}; "
+          f"captures {dg.captures}, replays {dg.replays}, eager chunks "
+          f"{dg.eager_chunks}{traced}")
+    out = {"g": g, "e": e, "rounds": rounds, "dlogp": dlogp, "tokens": ref.tokens,
+           "greedy": greedy, "ids": ids, "mask": mask, "first": first}
+    if profile:
+        for eng, kind, steps in ((g, "graphed", (GRAPH_TRACE_STEPS, 128)),
+                                 (e, "eager", (8, 40))):
+            prof = profile_decode(lambda n, _eng=eng: _eng.generate(
+                model, lora, ids, mask, greedy.replace(max_tokens=n), seed).steps_dispatched,
+                steps=steps)
+            wall = statistics.median(r["ms_per_step"] for kd, r in rounds if kd == kind)
+            print(f"profile {engine} {kind}: {prof['device_ms_per_step']:.3f} ms of device "
+                  f"time per decode step against {wall:.3f} ms/step unprofiled: device idle "
+                  f"{100 * (1 - prof['device_ms_per_step'] / wall):.1f}%; {card}")
+            for name, ms in prof["top"][:6]:
+                print(f"profile {engine} {kind}: {ms:8.4f} ms/step  {name[:100]}")
+            out[f"profile_{kind}"] = prof
+    return out
+
+
+def graph_sampled(ab: dict, weights, *, seed: int, layers: int, card: str = "") -> list:
+    """(c): one sampled round (t 1.2, top-p 0.95) on the graphed and the
+    eager dense engine of (a): equal tokens. The graphed engine's first
+    sampled chunk runs eagerly (a new key), the next is captured."""
+    import numpy as np
+
+    model, lora = weights
+    sampled = ab["greedy"].replace(temperature=1.2)
+    rs = [graph_round(eng, model, lora, ab["ids"], ab["mask"], sampled, seed + 1)
+          for eng in (ab["g"], ab["e"])]
+    for r, kind in zip(rs, ("graphed", "eager")):
+        check_graph_counts(r, layers, paged=False, quant=False, what=f"sampled {kind}")
+    check(np.array_equal(rs[0]["res"].tokens, rs[1]["res"].tokens),
+          "sampled: the graphed round's tokens differ from the eager round's")
+    check(not np.array_equal(rs[0]["res"].tokens, ab["tokens"]), "sampled: equals greedy")
+    print(f"graphed dense sampled t=1.2 top_p=0.95: tokens equal to the eager round's; "
+          f"{rs[0]['ms_per_step']:.3f} vs {rs[1]['ms_per_step']:.3f} ms/step "
+          f"({rs[0]['captures']} capture, {rs[0]['replays']} replays); {card}")
+    return [r["counts"] for r in rs]
+
+
+def swap_at(engine, step: int, lora, version: int) -> None:
+    """Push ``lora`` as ``engine`` reaches decode step ``step``."""
+    take = engine._take_pending_lora
+
+    def patched(cell, dispatched):
+        if dispatched == step:
+            engine.push_lora(lora, version=version)
+        take(cell, dispatched)
+
+    engine._take_pending_lora = patched
+
+
+def graph_swap(ab: dict, weights, cfg, *, seed: int, card: str = "",
+               step: int = GRAPH_SWAP_STEP, rank: int = 32) -> list:
+    """(d): a second adapter (other tensors, so another graph key) pushed
+    as both dense engines of (a) reach ``step``, a chunk boundary: the same
+    swap log, tokens before it equal to (a)'s, and equal greedy tokens."""
+    import numpy as np
+    import torch
+
+    from distrl_llm_tpu_torch.models.lora import init_lora_params
+
+    model, lora = weights
+    gen = torch.Generator(device=model.embed.device).manual_seed(seed + 7)
+    second = init_lora_params(gen, cfg, rank)
+    for ab_ in second["layers"].values():
+        ab_["b"].normal_(0.0, 0.01, generator=gen)
+    rs = []
+    for eng, kind in ((ab["g"], "graphed"), (ab["e"], "eager")):
+        take = eng._take_pending_lora
+        swap_at(eng, step, second, 1)
+        try:
+            r = graph_round(eng, model, lora, ab["ids"], ab["mask"], ab["greedy"], seed)
+        finally:
+            eng._take_pending_lora = take
+        check_graph_counts(r, cfg.num_layers, paged=False, quant=False, what=f"swap {kind}")
+        check(eng.last_swap_steps == [step] and eng.last_swap_versions == [1],
+              f"swap {kind}: swap log {eng.last_swap_steps} {eng.last_swap_versions}")
+        rs.append(r)
+    check(np.array_equal(rs[0]["res"].tokens, rs[1]["res"].tokens),
+          "swap: the graphed round's tokens differ from the eager round's")
+    check((rs[0]["res"].tokens[..., :step] == ab["tokens"][..., :step]).all(),
+          "swap: tokens before the swap differ from the unswapped round's")
+    print(f"graphed dense, a second adapter pushed at step {step}: swapped in at step "
+          f"{step} on both engines, tokens equal ({rs[0]['captures']} capture, "
+          f"{rs[0]['replays']} replays for the new adapter); the round's tokens equal the "
+          f"unswapped round's on {100 * (rs[0]['res'].tokens == ab['tokens']).mean():.2f}% "
+          f"of positions; {card}")
+    return [r["counts"] for r in rs]
+
+
+def graph_qlora(cfg, device, weights, *, seed: int, eager_tokens, card: str = "",
+                **shape) -> dict:
+    """(e): two graphed greedy rounds of the dense engine over quantized
+    ``weights`` (on the card the int4 g64 base at phase 6's depth; the
+    first captures, the second replays every chunk): K3 launched 7 times
+    per layer per model forward, replays included, its plain version
+    never; tokens equal ``eager_tokens`` (phase 6's eager round)."""
+    import numpy as np
+
+    model, lora = weights
+    sh = {**GRAPH_SHAPE, **shape}
+    _, ids, mask, _ = prompt_batch(sh["max_prompt_tokens"])
+    g, _ = graph_engines(cfg, device, engine="dense", **shape)
+    plain = [0]
+    with counting_plain_calls(_qmm(), "quant_matmul_reference", plain):
+        # the first round captures; the second replays every chunk
+        rs = [graph_round(g, model, lora, ids, mask, _greedy_sampling(**shape), seed)
+              for _ in range(2)]
+    for r in rs:
+        check_graph_counts(r, cfg.num_layers, paged=False, quant=True, what="graphed qlora")
+        check(np.array_equal(r["res"].tokens, eager_tokens),
+              "graphed qlora: tokens differ from phase 6's eager round")
+    if device == "cuda":
+        check(plain[0] == 0 and rs[1]["graph_steps"] == rs[1]["steps"],
+              f"graphed qlora: K3's plain version ran {plain[0]} times; the second round "
+              f"replayed {rs[1]['graph_steps']} of {rs[1]['steps']} steps")
+    r = rs[0]
+    print(f"graphed dense over the quantized base, {cfg.num_layers} layers: two greedy rounds, "
+          f"tokens equal to phase 6's eager round; {r['steps']} steps, {r['ms_per_step']:.3f} "
+          f"ms/step with its first chunk eager and {r['captures']} capture, "
+          f"{rs[1]['ms_per_step']:.3f} ms/step replayed; K3 {r['counts']['quant_matmul']} "
+          f"launches a round = 7 x {cfg.num_layers} x {r['prefills'] + r['forwards']} model "
+          f"forwards; {card}")
+    g.release_decode_graphs()
+    return rs
+
+
+def graph_trainer(cfg, device, *, seed: int, workdir: Path, tokenizer_dir: Path,
+                  **config_kw) -> dict:
+    """(f): ``Trainer.train()`` with ``decode_scan_chunk`` GRAPH_CHUNK on
+    the dense engine ``make_engine`` builds, over a base in the weights'
+    dtype at ``cfg``'s depth (random weights from the seed), flash attention
+    (K4 in the prefill and the learner), phase 8's tokenizer and reward: the
+    initial eval and one step of 4 prompts x 16 x 128 new tokens."""
+    from distrl_llm_tpu_torch.tokenizer import load_tokenizer
+    from distrl_llm_tpu_torch.trainer import Trainer, make_engine as trainer_engine
+
+    tok = load_tokenizer(str(tokenizer_dir))
+    config = trainer_config(workdir, seed=seed, base_quant="none", engine_impl="dense",
+                            continuous_batching=False, max_concurrent_sequences=0,
+                            attn_impl="flash", decode_scan_chunk=GRAPH_CHUNK, save_every=0,
+                            write_adapter_file=False, **config_kw)
+    model, _ = make_weights(cfg, device, seed=seed)
+    engine = trainer_engine(config, model, tok)
+    train, test = trainer_datasets(tok)
+    train = {k: v[:config.batch_size] for k, v in train.items()}  # one batch: one step
+    out = trainer_run(lambda sink: Trainer(train, test, smoke_reward, config, tokenizer=tok,
+                                           engine=engine, model=model, sink=sink),
+                      label="graphed dense")
+    out["config"] = config
+    return out
+
+
+def graph_phase(cfg, args, card: str, t_start: float, *, qlora_tokens) -> list:
+    """Phase 11 on the card (see the module's docstring). Returns the launch
+    counts of its rounds."""
+    import gc
+    import tempfile
+
+    import torch
+
+    t0 = time.perf_counter()
+    weights = make_weights(cfg, "cuda", seed=args.seed)
+    counted = []
+    ab = {}
+    for engine in ("dense", "paged"):
+        ab[engine] = graph_ab(cfg, "cuda", weights, engine=engine, seed=args.seed, card=card,
+                              profile=args.profile)
+        counted += [ab[engine]["first"]["counts"]] + [
+            r["counts"] for _, r in ab[engine]["rounds"]]
+        g, e = (ab[engine]["rounds"][i][1]["ms_per_step"] for i in (0, 1))
+        print(f"graphed {engine}: {g:.3f} ms/step graphed vs {e:.3f} eager; total "
+              f"{time.perf_counter() - t_start:.1f} s; {card}")
+    ab.pop("paged")["g"].release_decode_graphs()
+    counted += graph_sampled(ab["dense"], weights, seed=args.seed, layers=cfg.num_layers,
+                             card=card)
+    counted += graph_swap(ab["dense"], weights, cfg, seed=args.seed, card=card)
+    ab["dense"]["g"].release_decode_graphs()
+    del ab, weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    shallow = dataclasses.replace(cfg, num_layers=min(cfg.num_layers, SHALLOW_LAYERS))
+    qw = make_qlora_weights(shallow, "cuda", seed=args.seed, bits=4, group=QMM_GROUP)
+    counted += [r["counts"] for r in graph_qlora(shallow, "cuda", qw, seed=args.seed,
+                                                 eager_tokens=qlora_tokens, card=card)]
+    del qw
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_graph_") as tmp:
+        work = Path(tmp)
+        tok_dir = write_bpe_tokenizer(work / "tokenizer", cfg.vocab_size)
+        train_cfg = dataclasses.replace(cfg, num_layers=min(cfg.num_layers, GRAPH_TRAIN_LAYERS))
+        f = graph_trainer(train_cfg, "cuda", seed=args.seed, workdir=work / "f",
+                          tokenizer_dir=tok_dir)
+        check_trainer_run(f, train_cfg.num_layers, steps=1, lr=f["config"].lr, cuda=True)
+        dg = f["trainer"].engine.decode_graphs
+        check(dg.replays > 0, f"graphed trainer: no chunk was replayed ({dg.captures} "
+              f"captures)")
+        print(f"trainer graphed dense: Trainer.train() at {train_cfg.num_layers} layers, bf16 "
+              f"base, decode_scan_chunk {GRAPH_CHUNK}, flash: {len(f['rounds'])} engine "
+              f"rounds ({', '.join(str(r['steps']) + ' steps' for r in f['rounds'])}); "
+              f"captures {dg.captures}, replays {dg.replays}; train() {f['wall_s']:.1f} s; "
+              f"peak device memory {f['peak_gib']:.2f} GiB; launches {f['counts']}; {card}")
+        for line in trainer_step_lines(f, card):
+            print(line)
+        counted.append(f["counts"])
+        f["trainer"].engine.release_decode_graphs()
+        del f
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"graphs: phase 11 {time.perf_counter() - t0:.1f} s; total "
+          f"{time.perf_counter() - t_start:.1f} s; {card}")
+    return counted
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=28,
                     help="decoder depth of the Qwen2.5-7B-wide model (28 = full)")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--until", type=int, default=10, choices=(6, 7, 8, 9, 10),
+    ap.add_argument("--until", type=int, default=11, choices=(6, 7, 8, 9, 10, 11),
                     help="the last phase to run; 6 skips speculative decoding "
                          "(with --profile, the long part), 7 the trainer, 8 the "
                          "refill engine's riders, 9 full fine-tuning at Gemma-2B "
-                         "width; a partial run prints no result line")
+                         "width, 10 scan chunks as CUDA graphs; a partial run prints "
+                         "no result line")
     ap.add_argument("--profile", action="store_true",
                     help="also print the device time per decode step and per "
                          "learner step by kernel (torch.profiler) and the "
@@ -4367,7 +4778,8 @@ def main(argv=None) -> int:
     del weights
     torch.cuda.empty_cache()
     shallow = dataclasses.replace(cfg, num_layers=min(cfg.num_layers, SHALLOW_LAYERS))
-    counted += qlora_phase(shallow, args, batch, card, t_start)
+    qlora_counts, qlora_tokens = qlora_phase(shallow, args, batch, card, t_start)
+    counted += qlora_counts
     print(f"qlora: total {time.perf_counter() - t_start:.1f} s; {card}")
     torch.cuda.empty_cache()
 
@@ -4411,6 +4823,16 @@ def main(argv=None) -> int:
     # routes: the f32 learner, the bf16 prefill), then one LoRA step there
     # (K4's bf16 backward at head_dim 256)
     counted += full_finetune_phase(args, card, t_start)
+    if args.until < 11:
+        print(f"chip_smoke: phases 1-{args.until} done in {time.perf_counter() - t_start:.1f} s "
+              f"(a partial run prints no result line); {card}")
+        return 0
+
+    # 11. scan chunks: the dense engine and the paged wave scheduler with
+    # their decode steps as CUDA graph chunks, graphed against eager at
+    # phase 4's cell; a sampled round, an in-flight swap, the int4 base at
+    # phase 6's depth and one Trainer.train() step
+    counted += graph_phase(cfg, args, card, t_start, qlora_tokens=qlora_tokens)
     print(f"chip_smoke: done in {time.perf_counter() - t_start:.1f} s; {card}")
 
     kernels = []

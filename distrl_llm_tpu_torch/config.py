@@ -182,8 +182,9 @@ class TrainConfig:
     engine_impl: str = "dense"
     # KV cache format: None or "none" (the cache dtype) or "int8"
     kv_cache_quant: str | None = None
-    # decode steps per dispatch; the port's engines take 0 or 1 (more is
-    # CUDA graphs over the decode step, not ported)
+    # decode steps per dispatch: k > 1 runs k-step chunks, each a CUDA graph
+    # replay on the GPU (the dense engine and the paged wave scheduler; the
+    # refill scheduler refuses it: ROADMAP queue 1 item 12b)
     decode_scan_chunk: int | None = None
     # cap on concurrent candidate rows (vLLM max_num_seqs); 0 = unlimited
     max_concurrent_sequences: int = 0

@@ -1,0 +1,141 @@
+"""Decode scan chunks as CUDA graphs: k decode steps captured once, then
+replayed.
+
+Counterpart of the JAX package's chunked decode programs (``_decode_chunk``
+and ``_paged_decode_chunk`` over ``scan_steps_guarded``, cached per key by
+``_chunk_fn_for_bucket`` and ``_wave_chunk_fn``). There ``lax.scan`` runs k
+decode steps in one dispatch; here the kernels of k steps are captured once
+as a ``torch.cuda.CUDAGraph`` and replayed, so the host launches one graph
+(and reads ``done`` once) per chunk instead of k steps' worth of kernels.
+
+* **Eager first, then capture.** The first chunk of a key runs eagerly: it
+  builds the kernels (``nvcc``), creates cuBLAS handles, fills the launch
+  planners' caches (``plan_sample_cluster``, ``plan_split_k``) and sets the
+  kernels' attributes, none of which a capture may do. The next chunk of
+  that key is captured on a side stream with ``capture_error_mode=
+  "thread_local"`` (the trainer may generate in its hang detector's thread,
+  while other threads go on using the card) and replayed; every later chunk
+  of the key is replayed. All graphs share one memory pool: they never run
+  at once, and nothing they allocate outlives a replay.
+* **Static state.** A chunk body reads and writes only tensors that live
+  across replays (the engine's decode state, held for that purpose) and
+  reads nothing back to the host: no ``.item()``, ``bool()``, ``.cpu()`` or
+  boolean-mask indexing inside a chunk.
+* **Weights and adapters are read by address.** The key holds their tensor
+  addresses, so an in-place update (the trainer's push, full fine-tuning's
+  cast into the rollout copy) is read by the next replay, and an adapter at
+  other addresses is another key: its first chunk runs eagerly and the next
+  is captured (the JAX package's ``rebuild``).
+* **Launch counts.** The kernel wrappers count their launches in Python,
+  which a replay never runs. A capture launches nothing, so the counts it
+  made are taken back, and each replay adds them.
+* **No fallback.** On a CUDA device a chunk is replayed or its capture
+  raises; nothing catches a failed capture and runs the chunk eagerly. The
+  JAX package's memory guard (``compile_chunk_guarded``, which falls back to
+  per-step dispatch when XLA double-buffers the scanned KV cache) has no
+  counterpart: a graph writes the cache in place.
+
+On the CPU nothing is graphed: the same body runs eagerly at the same
+cadence, which is what the tests hold against the JAX engines.
+"""
+
+from __future__ import annotations
+
+import importlib
+from typing import Any, Callable, Hashable
+
+import torch
+
+# the modules whose ``*_launches`` counters a replay must advance
+_LAUNCH_MODULES = (
+    "distrl_llm_tpu_torch.ops.sampling",
+    "distrl_llm_tpu_torch.ops.paged_native",
+    "distrl_llm_tpu_torch.ops.quant_matmul",
+    "distrl_llm_tpu_torch.ops.flash_attention",
+)
+
+
+def _launch_counts() -> dict[tuple[str, str], int]:
+    out = {}
+    for name in _LAUNCH_MODULES:
+        for attr, value in vars(importlib.import_module(name)).items():
+            if attr.endswith("_launches") and isinstance(value, int):
+                out[(name, attr)] = value
+    return out
+
+
+def _add_launches(counts: dict[tuple[str, str], int]) -> None:
+    for (name, attr), n in counts.items():
+        mod = importlib.import_module(name)
+        setattr(mod, attr, getattr(mod, attr) + n)
+
+
+def tensors_key(tree: Any) -> Hashable:
+    """The addresses, shapes and dtypes of a tree's tensors (dicts in key
+    order, lists, tuples; a module's parameters and buffers): what a
+    captured graph reads them by."""
+    if tree is None:
+        return None
+    if isinstance(tree, torch.nn.Module):
+        tree = [*tree.parameters(), *tree.buffers()]
+    if isinstance(tree, torch.Tensor):
+        return (tree.data_ptr(), tuple(tree.shape), tree.dtype)
+    if isinstance(tree, dict):
+        return tuple((k, tensors_key(tree[k])) for k in sorted(tree))
+    return tuple(tensors_key(t) for t in tree)
+
+
+class DecodeGraphs:
+    """The captured chunks of one engine, by key, with their counts:
+    ``captures`` and ``replays``, and ``eager_chunks`` (chunks run as plain
+    launches: a key's first chunk on the card, every chunk on the CPU)."""
+
+    def __init__(self):
+        self._graphs: dict[Hashable, tuple[torch.cuda.CUDAGraph, dict]] = {}
+        self._warm: set = set()
+        self._pool = None
+        self.captures = 0
+        self.replays = 0
+        self.eager_chunks = 0
+
+    def run(self, key: Hashable, body: Callable[[], None], device: torch.device) -> None:
+        """Run one chunk: ``body()`` does its decode steps in place over
+        static tensors. On a CUDA device it runs eagerly the first time
+        ``key`` is seen, is captured the second time, and is replayed from
+        then on; on the CPU it runs eagerly."""
+        hit = self._graphs.get(key)
+        if hit is None and (device.type != "cuda" or key not in self._warm):
+            body()
+            self.eager_chunks += 1
+            if device.type == "cuda":
+                self._warm.add(key)
+            return
+        if hit is None:
+            hit = self._capture(key, body, device)
+        graph, launches = hit
+        graph.replay()
+        _add_launches(launches)
+        self.replays += 1
+
+    def _capture(self, key, body, device):
+        before = _launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(device):
+            with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
+                body()
+        after = _launch_counts()
+        # the capture launched nothing: its counts come back with each replay
+        _add_launches({k: before[k] - v for k, v in after.items()})
+        launches = {k: v - before[k] for k, v in after.items() if v != before[k]}
+        if self._pool is None:
+            self._pool = graph.pool()
+        self._graphs[key] = (graph, launches)
+        self.captures += 1
+        return graph, launches
+
+    def clear(self) -> None:
+        """Drop every graph (their memory pool with them): the static state
+        they read is about to go."""
+        self._graphs.clear()
+        self._warm.clear()
+        self._pool = None

@@ -19,7 +19,11 @@ Counterpart of the JAX package's ``engine/paged_engine.py``
   launch of the fused sampler K1 on the GPU) and runs one forward that
   writes the token at ``seq_lengths`` and attends over ``seq_lengths + 1``
   (one launch of K2 per layer). The round's last step skips the forward
-  nothing reads.
+  nothing reads. With ``scan_chunk`` = k > 1 the steps run k at a time,
+  each chunk a CUDA graph replay on the GPU (``engine/decode_graph.py``;
+  the dense engine's scaffold: ``engine.run_decode``), over page pools and
+  a decode state the engine keeps at fixed addresses across waves and
+  rounds; a chunk's steps all forward their token.
 * **Refill** (``scheduler="refill"``, continuous batching): R =
   ``max_concurrent_rows`` decode slots; a slot whose occupant finished
   takes the next pending candidate. Decode pages come from a host-side
@@ -59,7 +63,8 @@ Counterpart of the JAX package's ``engine/paged_engine.py``
   recompute. ``last_pool_stats`` carries the JAX package's keys.
 
 Not ported (ROADMAP items 8 and 11): the turn and gateway hooks. Scan
-chunks raise ``NotImplementedError`` (CUDA graphs over the decode step).
+chunks on the refill scheduler (its plain, speculative and self-drafted
+steps) raise ``NotImplementedError`` naming ROADMAP queue 1 item 12b.
 """
 
 from __future__ import annotations
@@ -74,9 +79,10 @@ import numpy as np
 import torch
 
 from distrl_llm_tpu_torch.config import SamplingConfig
+from distrl_llm_tpu_torch.engine.decode_graph import tensors_key
 from distrl_llm_tpu_torch.engine.engine import (
-    GenerationResult, LoraMailbox, accumulate_round_stats, generate_in_waves,
-    run_decode_loop,
+    GenerationResult, LoraMailbox, ScanChunks, _host, _Snapshot, accumulate_round_stats,
+    add_decode_counts, generate_in_waves, run_decode,
 )
 from distrl_llm_tpu_torch.engine.page_pool import HostPageStore, PagePool, RadixCache
 from distrl_llm_tpu_torch.engine.speculative import (
@@ -95,7 +101,8 @@ Params = dict[str, Any]
 
 @dataclass
 class _PagedDecodeState:
-    """Decode state; every tensor is updated in place by the decode step."""
+    """Decode state; every tensor is updated in place by the decode step and
+    keeps its address (what a captured chunk reads it by)."""
 
     out: torch.Tensor  # [Bn, T] int32, pad-filled
     logps: torch.Tensor  # [Bn, T] f32 raw-model logprob of each sampled token
@@ -105,8 +112,9 @@ class _PagedDecodeState:
     seq_lengths: torch.Tensor  # [Bn] tokens resident in the cache per row
     k_pages: list  # L × [K, total_pages, ps, hd] (or QuantizedPages)
     v_pages: list
-    step: int = 0
-    forwards: int = 0  # decode forwards run (each launches K2 once per layer)
+    step: torch.Tensor  # [1] int64: the next step's index, on the device
+    page_indices: torch.Tensor | None = None  # [Bn, width] int32 (chunked: static)
+    seeds: torch.Tensor | None = None  # [scan_chunk, Bn] int32: a chunk's seeds
 
 
 def _pack_rows(ids: torch.Tensor, mask: torch.Tensor):
@@ -191,13 +199,17 @@ def _page_table_rows(prompt_of: torch.Tensor, full: torch.Tensor,
 
 def _paged_fanout(k_pages, v_pages, last_logits, real_len, row_alive, *,
                   n: int, b: int, prompt_pages: int, private_pages: int,
-                  page_size: int, max_steps: int, pad_id: int):
+                  page_size: int, max_steps: int, pad_id: int,
+                  into: _PagedDecodeState | None = None):
     """Expand B prompts to B·n candidate rows that share their prompt's full
     pages. The pools already hold ``B · prompt_pages + B · n ·
     private_pages`` pages; each candidate's copy of its prompt's partial
     page goes, in place, to the first page of its private region (for a
     page-aligned prompt the copied page is never read). Returns (state,
-    page_indices [B·n, prompt_pages + private_pages])."""
+    page_indices [B·n, prompt_pages + private_pages]). With ``into`` (a
+    state over these pools, its buffers at least ``max_steps`` wide and its
+    ``page_indices`` allocated) the state and the table are written into
+    its tensors in place."""
     bn = b * n
     dev = real_len.device
     total_shared = b * prompt_pages
@@ -217,15 +229,26 @@ def _paged_fanout(k_pages, v_pages, last_logits, real_len, row_alive, *,
         max=prompt_pages - 1).repeat_interleave(n)
     for pages in list(k_pages) + list(v_pages):
         _copy_pages(pages, src_partial, priv0)
+    # rows with an empty prompt are batch padding, born done
+    done = (~row_alive).repeat_interleave(n)
+    logits = last_logits.repeat_interleave(n, dim=0)
+    seq_lengths = real_len.to(torch.int32).repeat_interleave(n)
+    if into is not None:
+        into.out.fill_(pad_id)
+        into.logps.zero_()
+        into.gen_lengths.zero_()
+        into.step.zero_()
+        for dst, src in ((into.done, done), (into.logits, logits),
+                         (into.seq_lengths, seq_lengths), (into.page_indices, page_indices)):
+            dst.copy_(src)
+        return into, into.page_indices
     state = _PagedDecodeState(
         out=torch.full((bn, max_steps), pad_id, dtype=torch.int32, device=dev),
         logps=torch.zeros((bn, max_steps), dtype=torch.float32, device=dev),
         gen_lengths=torch.zeros((bn,), dtype=torch.int32, device=dev),
-        # rows with an empty prompt are batch padding, born done
-        done=(~row_alive).repeat_interleave(n),
-        logits=last_logits.repeat_interleave(n, dim=0),
-        seq_lengths=real_len.to(torch.int32).repeat_interleave(n),
+        done=done, logits=logits, seq_lengths=seq_lengths,
         k_pages=list(k_pages), v_pages=list(v_pages),
+        step=torch.zeros((1,), dtype=torch.int64, device=dev),
     )
     return state, page_indices
 
@@ -234,7 +257,7 @@ def _paged_forward(model: Decoder, lora, s: _PagedDecodeState, tok: torch.Tensor
                    page_indices: torch.Tensor, *, page_size: int,
                    lora_scale: float) -> None:
     """The decode forward: write ``tok``'s K/V [Bn] at ``seq_lengths``,
-    attend over ``seq_lengths + 1`` and carry the next logits in
+    attend over ``seq_lengths + 1`` and copy the next logits into
     ``s.logits``. Advancing ``seq_lengths`` is the caller's."""
     cache = {"k": s.k_pages, "v": s.v_pages, "lengths": s.seq_lengths,
              "page_indices": page_indices}
@@ -242,8 +265,7 @@ def _paged_forward(model: Decoder, lora, s: _PagedDecodeState, tok: torch.Tensor
         tok[:, None], positions=s.seq_lengths[:, None], lora=lora,
         lora_scale=lora_scale, kv_cache=cache, page_size=page_size,
     )
-    s.logits = logits[:, 0]
-    s.forwards += 1
+    s.logits.copy_(logits[:, 0])
 
 
 def _paged_decode_step(model: Decoder, lora, s: _PagedDecodeState,
@@ -253,16 +275,18 @@ def _paged_decode_step(model: Decoder, lora, s: _PagedDecodeState,
                        top_p_impl: str, capture_logprobs: bool, last: bool) -> None:
     """One decode step over the paged cache, in place: sample, record, then
     (unless ``last``) forward the token, which writes its K/V at
-    ``seq_lengths`` and attends over ``seq_lengths + 1``."""
+    ``seq_lengths`` and attends over ``seq_lengths + 1``. Nothing is read
+    back to the host (the step index ``s.step`` lives on the device), so the
+    step runs inside a captured graph too."""
     tok, logp = sample_with_logprob(
         s.logits, temperature, top_p, seeds, top_p_impl=top_p_impl,
         capture_logprob=capture_logprobs,
     )
     alive = ~s.done
     tok = torch.where(s.done, pad_id, tok)
-    s.out[:, s.step] = tok
+    s.out.index_copy_(1, s.step, tok[:, None])
     if capture_logprobs:
-        s.logps[:, s.step] = torch.where(s.done, 0.0, logp)
+        s.logps.index_copy_(1, s.step, torch.where(s.done, 0.0, logp)[:, None])
     s.gen_lengths += alive.to(torch.int32)
     s.done |= torch.isin(tok, eos_ids)
     if not last:
@@ -308,26 +332,6 @@ def _to_device(a, device: torch.device, dtype=None) -> torch.Tensor:
     if device.type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t.clone()
-
-
-class _Snapshot:
-    """A copy of a small device tensor taken now and read later: on the GPU
-    an asynchronous copy into pinned memory behind an event, so taking it
-    does not wait for the device."""
-
-    def __init__(self, t: torch.Tensor):
-        if t.device.type == "cuda":
-            self.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            self.host.copy_(t, non_blocking=True)
-            self.event = torch.cuda.Event()
-            self.event.record()
-        else:
-            self.host, self.event = t.clone(), None
-
-    def read(self) -> np.ndarray:
-        if self.event is not None:
-            self.event.synchronize()
-        return self.host.numpy()
 
 
 def _refill_buffers(*, r_slots: int, total: int, max_steps: int, width: int,
@@ -719,7 +723,7 @@ def _restore_page_tiles(k_pages, v_pages, tiles: dict, page: int) -> None:
                 pages[:, page].copy_(tile, non_blocking=True)
 
 
-class PagedGenerationEngine(LoraMailbox):
+class PagedGenerationEngine(LoraMailbox, ScanChunks):
     """Drop-in for ``GenerationEngine`` with a packed paged KV cache (the
     wave or the refill scheduler, speculative decoding on the refill one).
     ``generate`` takes left-padded prompts and returns per-candidate
@@ -816,10 +820,13 @@ class PagedGenerationEngine(LoraMailbox):
         spec_verify = spec_verify or "fused"
         if spec_verify not in ("fused", "unrolled"):
             raise ValueError(f"spec_verify must be fused/unrolled, got {spec_verify!r}")
-        if scan_chunk is not None and scan_chunk > 1:
+        self._init_scan_chunks(scan_chunk)
+        if refill and self.scan_chunk > 1:
             raise NotImplementedError(
-                "scan chunks have no counterpart yet (ROADMAP: CUDA graphs over "
-                "the decode step, a perf_opt PR)")
+                "scan chunks on the refill scheduler (its plain, speculative and "
+                "self-drafted steps as CUDA graphs between host snapshots) are not "
+                "ported yet: ROADMAP queue 1 item 12b; the wave scheduler and the "
+                "dense engine take scan_chunk")
         kv_quant = "none" if kv_quant is None else kv_quant
         if kv_quant not in ("none", "int8"):
             raise ValueError(f"kv_quant must be none/int8, got {kv_quant!r}")
@@ -902,6 +909,32 @@ class PagedGenerationEngine(LoraMailbox):
         self.last_pool_stats: dict | None = None
         self.last_spec_stats: dict | None = None
 
+    def _static_state(self, b: int, n: int, max_total_pages: int) -> _PagedDecodeState:
+        """The wave state and page pools captured chunks read, for ``b``
+        prompts x ``n``: kept across waves and rounds of that shape; another
+        shape frees it, and the graphs over it, first."""
+        key = (b, n)
+        if self._chunk_state is None or self._chunk_state[0] != key:
+            self.release_decode_graphs()
+            bn, dev, t = b * n, self.device, self.max_new_tokens
+            k_pages, v_pages = _empty_pools(self.cfg, max_total_pages, page_size=self.page_size,
+                                            cache_dtype=self.cache_dtype,
+                                            kv_quant=self.kv_quant, device=dev)
+            self._chunk_state = (key, _PagedDecodeState(
+                out=torch.zeros((bn, t), dtype=torch.int32, device=dev),
+                logps=torch.zeros((bn, t), dtype=torch.float32, device=dev),
+                gen_lengths=torch.zeros((bn,), dtype=torch.int32, device=dev),
+                done=torch.zeros((bn,), dtype=torch.bool, device=dev),
+                logits=torch.zeros((bn, self.cfg.vocab_size), dtype=torch.float32,
+                                   device=dev),
+                seq_lengths=torch.zeros((bn,), dtype=torch.int32, device=dev),
+                k_pages=k_pages, v_pages=v_pages,
+                step=torch.zeros((1,), dtype=torch.int64, device=dev),
+                page_indices=torch.zeros((bn, self.prompt_pages + self.private_pages),
+                                         dtype=torch.int32, device=dev),
+                seeds=torch.zeros((self.scan_chunk, bn), dtype=torch.int32, device=dev)))
+        return self._chunk_state[1]
+
     def bucket_for(self, prompt_mask) -> int:
         """Single-bucket engine (interface parity with GenerationEngine)."""
         return self.max_prompt_tokens
@@ -949,13 +982,19 @@ class PagedGenerationEngine(LoraMailbox):
         mask = torch.as_tensor(np.asarray(prompt_mask), dtype=torch.int32).to(self.device)
         prefill_tokens = int(np.asarray(prompt_mask).sum())
 
+        total_pages = b * self.prompt_pages + b * n * self.private_pages
+        chunked = self.scan_chunk > 1 and max_steps > 1
+        static = self._static_state(b, n, total_pages) if chunked else None
         t0 = time.perf_counter()
         k_pages, v_pages, last_logits, real_len = _paged_prefill(
             model, lora, ids, mask, prompt_pages=self.prompt_pages,
             page_size=self.page_size, lora_scale=self.lora_scale,
             cache_dtype=self.cache_dtype, attn_impl=self.attn_impl,
-            kv_quant=self.kv_quant,
-            total_pages=b * self.prompt_pages + b * n * self.private_pages,
+            kv_quant=self.kv_quant, total_pages=total_pages,
+            pools=None if static is None else (static.k_pages, static.v_pages),
+            table=None if static is None else torch.as_tensor(
+                make_page_table(b, self.prompt_pages * self.page_size, self.page_size),
+                device=self.device),
         )
         self._sync()  # an honest prefill/decode timing split
         t_prefill = time.perf_counter() - t0
@@ -965,33 +1004,28 @@ class PagedGenerationEngine(LoraMailbox):
             k_pages, v_pages, last_logits, real_len, mask.sum(dim=-1) > 0,
             n=n, b=b, prompt_pages=self.prompt_pages,
             private_pages=self.private_pages, page_size=self.page_size,
-            max_steps=max_steps, pad_id=self.pad_id,
+            max_steps=max_steps, pad_id=self.pad_id, into=static,
         )
         del k_pages, v_pages
         top_p_impl = sampling.resolved_top_p_impl()
         gen = torch.Generator(device=self.device).manual_seed(seed)
         bn = b * n
-        lora_cell = [lora]
+        step_kw = dict(page_size=self.page_size, eos_ids=self.eos_ids, pad_id=self.pad_id,
+                       temperature=sampling.temperature, top_p=sampling.top_p,
+                       lora_scale=self.lora_scale, top_p_impl=top_p_impl,
+                       capture_logprobs=self.capture_logprobs)
 
-        def step(s: _PagedDecodeState, last: bool) -> None:
-            # in-flight weight update: swap BEFORE sampling, so the recorded
-            # swap step is the first position decoded under the new adapter
-            self._take_pending_lora(lora_cell, s.step)
-            seeds = torch.randint(-2**31, 2**31, (bn,), generator=gen,
-                                  dtype=torch.int32, device=self.device)
-            _paged_decode_step(
-                model, lora_cell[0], s, seeds, page_indices,
-                page_size=self.page_size, eos_ids=self.eos_ids,
-                pad_id=self.pad_id, temperature=sampling.temperature,
-                top_p=sampling.top_p, lora_scale=self.lora_scale,
-                top_p_impl=top_p_impl, capture_logprobs=self.capture_logprobs,
-                last=last,
-            )
+        def step_fn(lo, seeds, last):
+            _paged_decode_step(model, lo, state, seeds, page_indices, last=last, **step_kw)
 
-        state = run_decode_loop(step, state, max_steps, self.decode_chunk)
-        out = state.out.cpu().numpy().reshape(b, n, max_steps)
-        lengths = state.gen_lengths.cpu().numpy().reshape(b, n)
-        logps = (state.logps.cpu().numpy().reshape(b, n, max_steps)
+        key = (("waves", b, n, top_p_impl, sampling.temperature, sampling.top_p,
+                tensors_key(model)) if chunked else None)
+        steps, forwards, graph_steps = run_decode(
+            self, state, step_fn, lora_cell=[lora], gen=gen, max_steps=max_steps,
+            chunked=chunked, key=key)
+        out = _host(state.out[:, :max_steps]).reshape(b, n, max_steps)
+        lengths = _host(state.gen_lengths).reshape(b, n)
+        logps = (_host(state.logps[:, :max_steps]).reshape(b, n, max_steps)
                  if self.capture_logprobs else None)
         stats = accumulate_round_stats(
             self.last_round_stats, prefill_s=t_prefill,
@@ -999,10 +1033,10 @@ class PagedGenerationEngine(LoraMailbox):
             decode_s=time.perf_counter() - t1, gen_tokens=int(lengths.sum()),
             gen_rows=bn,
         )
-        stats["decode_forwards"] = stats.get("decode_forwards", 0) + state.forwards
-        self.last_round_stats = stats
+        self.last_round_stats = add_decode_counts(stats, forwards=forwards,
+                                                  graph_steps=graph_steps)
         return GenerationResult(tokens=out, lengths=lengths,
-                                steps_dispatched=state.step, logprobs=logps)
+                                steps_dispatched=steps, logprobs=logps)
 
     def _generate_refill(self, model, lora, prompt_ids, prompt_mask,
                          sampling: SamplingConfig, seed: int) -> GenerationResult:

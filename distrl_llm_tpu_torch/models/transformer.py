@@ -6,9 +6,10 @@ Counterpart of the JAX package's ``models/transformer.py``. Weights keep its
 adapters stay stacked dicts (``models/lora.py``) and are sliced per layer.
 
 The dense KV cache is ``{"k": [L × [B, K, Smax, hd]], "v": ...}``. The forward
-writes the new positions into it IN PLACE (slice assignment) and returns the
-same dict — the port has no functional-update constraint, so no cache-sized
-copy is ever made.
+writes the new positions into it IN PLACE (slice assignment, or
+``index_copy_`` at a device-tensor offset: the graphed decode step's) and
+returns the same dict — the port has no functional-update constraint, so no
+cache-sized copy is ever made.
 
 A PAGED cache (``ops/paged.py``: per-layer page pools, bf16/f32 or int8
 ``QuantizedPages``, plus ``"lengths"`` [B] and ``"page_indices"`` [B, pps])
@@ -98,6 +99,18 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float,
     if offset:  # Gemma stores the norm weight as a delta around 1
         w = w + 1.0
     return (x * w).to(orig_dtype)
+
+
+def _write_window(cache: torch.Tensor, new: torch.Tensor, offset) -> None:
+    """``cache[:, :, offset:offset + S] = new`` ([B, K, S, ...]) in place. A
+    device-tensor ``offset`` ([1] int64: the graphed decode step's) writes
+    through ``index_copy_``, which reads it on the device."""
+    s = new.shape[2]
+    if isinstance(offset, torch.Tensor):
+        cache.index_copy_(2, offset + torch.arange(s, device=offset.device),
+                          new.to(cache.dtype))
+    else:
+        cache[:, :, offset:offset + s] = new
 
 
 def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float):
@@ -204,7 +217,7 @@ class DecoderLayer(nn.Module):
         cos: torch.Tensor,
         sin: torch.Tensor,
         mask: torch.Tensor | None,
-        cache_offset: int,
+        cache_offset: int | torch.Tensor,
         lora_scale: float,
         attn_impl: str,
         page_indices: torch.Tensor | None = None,  # [B, pps] — paged-cache mode
@@ -274,17 +287,18 @@ class DecoderLayer(nn.Module):
         elif cache_k is not None:
             # in-place cache write of the new positions, then attention over
             # the whole window (positions not yet written are masked off)
-            window = slice(cache_offset, cache_offset + s)
             if cache_k_scale is not None:
                 # int8 cache: each position's head vector with its own scale
                 k8, ks = quantize_kv_position(k.transpose(1, 2))
                 v8, vs = quantize_kv_position(v.transpose(1, 2))
-                cache_k[:, :, window], cache_k_scale[:, :, window] = k8, ks
-                cache_v[:, :, window], cache_v_scale[:, :, window] = v8, vs
+                for cache, new in ((cache_k, k8), (cache_k_scale, ks), (cache_v, v8),
+                                   (cache_v_scale, vs)):
+                    _write_window(cache, new, cache_offset)
             else:
-                cache_k[:, :, window] = k.transpose(1, 2)
-                cache_v[:, :, window] = v.transpose(1, 2)
-            if attn_impl == "flash" and cache_offset == 0 and s > 1:
+                _write_window(cache_k, k.transpose(1, 2), cache_offset)
+                _write_window(cache_v, v.transpose(1, 2), cache_offset)
+            if (s > 1 and attn_impl == "flash"
+                    and not isinstance(cache_offset, torch.Tensor) and cache_offset == 0):
                 # prefill: the cache holds nothing beyond the prompt being
                 # written, so this is self-attention over the input: K4 on
                 # the fresh k/v, the cache only written
@@ -346,7 +360,7 @@ class Decoder(nn.Module):
         lora: Params | None = None,
         lora_scale: float = 1.0,
         kv_cache: Params | None = None,  # init_kv_cache dict, written in place
-        cache_offset: int = 0,
+        cache_offset: int | torch.Tensor = 0,  # or [1] int64 on the device
         attn_impl: str = "reference",
         logits_slice: tuple[int, int] | None = None,  # (start, length) along seq
         positions: torch.Tensor | None = None,  # [B, S] absolute positions
@@ -370,7 +384,10 @@ class Decoder(nn.Module):
         ``cache_offset`` and queries attend to every cache key that
         ``attention_mask`` (length Smax) marks valid. RoPE positions default
         to ``cache_offset + arange(S)`` — they COUNT left-pad columns, as the
-        JAX package's do.
+        JAX package's do. ``cache_offset`` may be a [1] int64 device tensor
+        (the decode step of a captured graph): the cache write, the RoPE
+        positions and the causal mask then read it on the device, and the
+        caller checks the cache's capacity (the engines: at each chunk).
 
         With a paged cache (``page_size`` > 0): prefill (S > 1) self-attends
         over the packed input (``attention_mask`` [B, S]) while writing the
@@ -411,7 +428,7 @@ class Decoder(nn.Module):
                 raise ValueError("a paged cache needs page_size > 0")
         elif kv_cache is not None:
             smax = kv_cache["k"][0].shape[2]
-            if cache_offset + s > smax:
+            if not isinstance(cache_offset, torch.Tensor) and cache_offset + s > smax:
                 raise ValueError(
                     f"KV cache overflow: offset {cache_offset} + seq {s} > "
                     f"capacity {smax}")

@@ -77,7 +77,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--kv_cache_quant", type=str, default=None, choices=["none", "int8"],
                    help="paged KV page format; unset = the cache dtype")
     p.add_argument("--decode_scan_chunk", type=int, default=None,
-                   help="decode steps per dispatch (the port's engines take 0 or 1)")
+                   help="decode steps per chunk, each chunk one CUDA graph replay "
+                        "(dense engine and paged wave scheduler; not with "
+                        "--continuous_batching)")
     p.add_argument("--max_concurrent_sequences", type=int, default=0,
                    help="cap on concurrent candidate rows (vLLM max_num_seqs); 0 = "
                         "unlimited")

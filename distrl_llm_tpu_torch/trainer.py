@@ -161,10 +161,8 @@ def make_engine(config: TrainConfig, model: Decoder, tokenizer, *,
         log.info("paged engine: %d KV pages of %d tokens under learner_gpu_usage=%.2f",
                  kwargs["max_kv_pages"], DEFAULT_PAGE_SIZE, config.learner_gpu_usage)
         return PagedGenerationEngine(model.cfg, **common, **kwargs)
-    # the dense engine (a bf16 or int8 cache) decodes one step a dispatch
-    if (kwargs.pop("scan_chunk", None) or 0) > 1:
-        raise NotImplementedError("decode_scan_chunk > 1 has no counterpart yet (CUDA "
-                                  "graphs over the decode step)")
+    # the dense engine (a bf16 or int8 cache); decode_scan_chunk > 1 runs its
+    # decode steps as CUDA graph chunks
     return GenerationEngine(model.cfg, **common, **kwargs)
 
 

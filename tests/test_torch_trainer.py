@@ -214,14 +214,18 @@ def position_reward(completions, solutions):
     return np.column_stack((np.zeros(n), np.arange(n) / n)).astype(np.float64)
 
 
-def test_trainer_with_real_dense_engines_matches_jax(base_tree):
+def _train_with_real_dense_engines(base_tree, scan_chunk: int):
+    """Both trainers over real dense engines at ``decode_scan_chunk =
+    scan_chunk`` (0: one step a dispatch), greedy; returns the trainers,
+    each engine round's (tokens, lengths) and each step's learner batch."""
     kw = dict(max_prompt_tokens=16, max_new_tokens=12, eos_token_ids=[3], pad_token_id=0,
-              lora_scale=8 / 4, capture_logprobs=False)
-    jeng = JEngine(TINY, cache_dtype=jnp.float32, autotune=False, scan_chunk=0, **kw)
+              lora_scale=8 / 4, capture_logprobs=False, scan_chunk=scan_chunk)
+    jeng = JEngine(TINY, cache_dtype=jnp.float32, autotune=False, **kw)
     eng = GenerationEngine(CFG, cache_dtype=torch.float32, device="cpu", **kw)
     jtr, tr = _trainers(base_tree, jengine=jeng, engine=eng,
                         reward_fns=(position_reward, position_reward), learner="pg", topk=2,
-                        max_new_tokens=12, temperature=0.0, eval_temperature=0.0)
+                        max_new_tokens=12, temperature=0.0, eval_temperature=0.0,
+                        decode_scan_chunk=scan_chunk)
     rounds = {}
     for name, e in (("jax", jeng), ("port", eng)):
         rounds[name] = []
@@ -236,6 +240,11 @@ def test_trainer_with_real_dense_engines_matches_jax(base_tree):
     jbatches, batches = _record_learner_batches(jtr, 3), _record_learner_batches(tr, 2)
     jtr.train()
     tr.train()
+    return jtr, tr, rounds, jbatches, batches
+
+
+def test_trainer_with_real_dense_engines_matches_jax(base_tree):
+    jtr, tr, rounds, jbatches, batches = _train_with_real_dense_engines(base_tree, 0)
     (jev, j1, j2), (ev, r1, r2) = rounds["jax"], rounds["port"]
     for got, want in ((ev, jev), (r1, j1)):  # the eval round and round 1
         np.testing.assert_array_equal(got[0], want[0])
@@ -254,6 +263,27 @@ def test_trainer_with_real_dense_engines_matches_jax(base_tree):
     np.testing.assert_allclose([m["loss"] for m in recs], [m["loss"] for m in jrecs],
                                atol=STEP_ATOL, rtol=0)
     assert all(m["loss"] != 0 for m in recs)
+    diffs = _adapter_diffs(tr.sink.adapters[0], jtr.sink.adapters[0])
+    assert diffs.max() <= ADAPTER_STEP1_ATOL
+
+
+def test_trainer_with_chunked_dense_engines_matches_jax(base_tree):
+    """``decode_scan_chunk=4``: both trainers' engines decode in chunks (the
+    JAX engine in one scanned program a chunk, the port's at the same
+    cadence: on the CPU its chunk body runs eagerly). The eval round and
+    step 1 are held as in the per-step test: tokens, lengths, the learner
+    batch and every metric of step 1 equal (its loss within STEP_ATOL), the
+    adapter after step 1 within ADAPTER_STEP1_ATOL."""
+    jtr, tr, rounds, jbatches, batches = _train_with_real_dense_engines(base_tree, 4)
+    assert tr.engine.scan_chunk_active and jtr.engine.scan_chunk_active
+    assert tr.config.decode_scan_chunk == jtr.config.decode_scan_chunk == 4
+    (jev, j1, _), (ev, r1, _) = rounds["jax"], rounds["port"]
+    for got, want in ((ev, jev), (r1, j1)):
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+    for k in ("coeffs", "sample_mask", "prompt_ids", "prompt_mask", "answer_ids"):
+        np.testing.assert_array_equal(batches[0][k], jbatches[0][k], err_msg=k)
+    _check_records(jtr.sink.records[:2], tr.sink.records[:2])
     diffs = _adapter_diffs(tr.sink.adapters[0], jtr.sink.adapters[0])
     assert diffs.max() <= ADAPTER_STEP1_ATOL
 
@@ -371,8 +401,9 @@ def test_dense_engine_refuses_what_it_cannot_take(base_tree):
     # the int8 dense cache is ported: the dense engine takes the format
     assert trainer.make_engine(_port_config(kv_cache_quant="int8"), model,
                                CharTokenizer()).kv_quant == "int8"
-    with pytest.raises(NotImplementedError, match="CUDA graphs"):
-        trainer.make_engine(_port_config(decode_scan_chunk=4), model, CharTokenizer())
+    chunked = trainer.make_engine(_port_config(decode_scan_chunk=4), model, CharTokenizer())
+    assert isinstance(chunked, GenerationEngine) and chunked.scan_chunk == 4
+    assert chunked.scan_chunk_active is None  # no chunk has run yet
     eng = trainer.make_engine(_port_config(max_concurrent_sequences=8, clip_ratio=0.2),
                               model, CharTokenizer())
     assert isinstance(eng, GenerationEngine)
