@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (``distrl_llm_tpu_torch``).
 
-    python3 chip_smoke.py [--layers N] [--seed S] [--profile] [--until 6|7|8|9|10]
+    python3 chip_smoke.py [--layers N] [--seed S] [--profile] [--until 6|7|...|12]
 
 Needs one NVIDIA GPU (Hopper: the kernels build for ``sm_90a``) and ``nvcc``.
 Without a GPU it exits non-zero before computing anything. Phases, each
@@ -66,9 +66,10 @@ printing its own lines:
    bits), and timed against its bound and the unrolled 5 x K2 as K2 is; then the
    engine of the README's BASELINE config 2 (refill scheduler, 64 slots,
    ``spec_draft=4``, n-gram 2, 128-token pages) over 8 math prompts x 16
-   candidates x 256 new tokens: speculative and plain refill greedy rounds
-   with bf16 pages, then, at 14 layers (SHALLOW_LAYERS), with int8 pages
-   and one sampled speculative round, each with the counts reset around it
+   candidates x 256 new tokens, at 14 layers (SHALLOW_LAYERS, the depth
+   cut that makes room for phase 12): speculative and plain refill greedy
+   rounds with bf16 pages, then with int8 pages, and one sampled
+   speculative round, each with the counts reset around it
    (K5 = layers x verify forwards and no K2 in a speculative round; K2 =
    layers x decode forwards in a plain one), printing
    ms/step, tokens/s, accept rate and tokens per verify step (random
@@ -104,8 +105,10 @@ printing its own lines:
    weights read back bit for bit, the native tokenizer, one step with
    K1-K4 launched.
 9. the refill engine's riders and the dense slice's leftovers, at
-   Qwen2.5-7B width (28 layers, bf16, phase 7's weights and prompts), each
-   round with the counts reset around it and held to what it dispatched:
+   Qwen2.5-7B width (bf16, phase 7's weights and prompts; (a)-(c) at 14
+   layers, SHALLOW_LAYERS, the depth cut that makes room for phase 12, (d)
+   at 28), each round with the counts reset around it and held to what it
+   dispatched:
    (a) prefix sharing, continuous admission and the radix cache (64 slots,
    64-token pages so every prompt has a full page to cache, splash): two
    greedy rounds of 8 prompts x 16 x 256 tokens over the same adapter, the
@@ -118,12 +121,12 @@ printing its own lines:
    lengths; (b) host
    spill under an 80-page budget (8 x 16 x 128), preempted slots' pages and
    logits rows parked and copied back, greedy tokens equal to the
-   worst-case pool's at 28 layers bf16 and at 4 layers f32; (c) the
+   worst-case pool's at 14 layers bf16 and at 4 layers f32; (c) the
    self-drafter with spec_adapt (d = 4; 4 x 16 x 128, 64 slots): adapter v1
    drafts for v2 (v1 moved by one Adam8bit step at lr 2e-5), a greedy and a
    sampled round beside plain decoding with the same push, accept rate,
-   tokens per verify step and the draft length at each boundary (K2 28 per
-   drafter forward, K5 28 per verify forward), and on TINY in f32 greedy
+   tokens per verify step and the draft length at each boundary (K2 once a
+   layer per drafter forward, K5 per verify forward), and on TINY in f32 greedy
    tokens equal to plain refill's; (d) the dense engine with the int8 cache at phase 4's shape
    (ms/step, peak GiB, its quantization on the card equal to the CPU's bit
    for bit, teacher-forced f32 logits within twice the int8 pages' own
@@ -169,6 +172,32 @@ printing its own lines:
    ``Trainer.train()`` step with ``decode_scan_chunk=16`` on the dense
    engine (bf16 base, 7 layers, flash, 4 x 16 x 128, the initial eval
    first): generation, reward and update ms, captures and replays.
+12. scan chunks on the refill scheduler: its plain, speculative and
+   self-drafted steps with ``scan_chunk`` 16 (the largest divisor of the
+   host cadence, 16), each chunk a CUDA graph replay, at the trainer's
+   refill cell (32 slots, phase 4's weights and 4 prompts x 16 x 128 new
+   tokens: 64 candidates over 32 slots, so slots refill). Every round's
+   counts are reset around it and held to what it dispatched (K1 per
+   sampler call, K2 per layer per plain or drafter forward, K5 per layer per
+   verify forward, replays included); every graphed/eager pair has equal
+   tokens, lengths and logprobs. (a) plain refill, greedy, 28 layers, G E G
+   E (the first graphed round holds the capture); (b) speculative refill
+   (``spec_draft=4``, n-gram 2), greedy, 28 layers, G G E, with accept rate
+   and tokens per verify step; with ``--profile`` device ms per step and
+   the idle share of (a) and (b) graphed and eager. Depth cut to 7 layers
+   (GRAPH_TRAIN_LAYERS, phase 11 (f)'s) for (c)-(e): (c) prefix sharing,
+   continuous admission, the radix cache and host spill under 96 of the
+   worst case's 121 64-token pages, two greedy rounds an engine (the second
+   warm), G E round by round: preemptions on both, equal restores, warm
+   groups and prompt tokens not re-prefilled; (d) the self-drafter with
+   ``spec_adapt``,
+   sampled at t 1.2, an adapter one Adam8bit step away pushed at step 32 (a
+   chunk boundary), G E: the swap at 32 on both, equal draft-length traces;
+   (e) one ``Trainer.train()`` step of phase 8's configuration (int4 g64
+   base, refill 32 slots, splash, 4 x 16 x 128, the initial eval first)
+   with ``decode_scan_chunk=16`` and the same step eager: every engine
+   round equal, generation, reward and update ms of each, K3 on every
+   projection of the replayed steps.
 
 Phase 3 holds K4 (forward and backward) against its plain version at the
 learner's [8, 1550, 28 / 4, 128] and at Gemma-2B's [8, 1550, 8 / 1, 256],
@@ -2709,21 +2738,22 @@ def spec_phase(cfg, args, card: str, t_start: float) -> tuple[list, dict, dict]:
     result = {"max_abs_err": err, **{k: v for k, v in times["bfloat16"].items()
                                      if k not in ("unrolled_ms", "copies")}}
     counted = []
-    weights = make_weights(cfg, "cuda", seed=args.seed)
+    # the rounds at SHALLOW_LAYERS (the bf16 pages' too: the depth cut that
+    # makes room for phase 12), the f32 verify logits at the full depth
     shallow = dataclasses.replace(cfg, num_layers=min(cfg.num_layers, SHALLOW_LAYERS))
     shallow_weights = make_weights(shallow, "cuda", seed=args.seed)
     runs = {}
-    for kv_quant, c, w in (("none", cfg, weights), ("int8", shallow, shallow_weights)):
+    for kv_quant in ("none", "int8"):
         for d in (SPEC_DRAFT, 0):
-            out = spec_round(c, "cuda", w, seed=args.seed, spec_draft=d,
+            out = spec_round(shallow, "cuda", shallow_weights, seed=args.seed, spec_draft=d,
                              kv_quant=kv_quant, card=card, profile=args.profile)
-            check_spec_counts(out, c.num_layers)
+            check_spec_counts(out, shallow.num_layers)
             runs[(kv_quant, d)] = out
             counted.append(out["counts"])
         spec, plain = runs[(kv_quant, SPEC_DRAFT)], runs[(kv_quant, 0)]
         same = spec["res"].tokens == plain["res"].tokens
         rows = same.reshape(-1, same.shape[-1]).all(axis=1)
-        print(f"spec {kv_quant} KV, {c.num_layers} layers: speculative vs plain refill "
+        print(f"spec {kv_quant} KV, {shallow.num_layers} layers: speculative vs plain refill "
               f"greedy tokens equal on {100 * same.mean():.2f}% of positions, "
               f"{int(rows.sum())}/{rows.size} rows "
               f"whole (not asserted: bf16 batches the verify's products over 5 positions, "
@@ -2749,9 +2779,9 @@ def spec_phase(cfg, args, card: str, t_start: float) -> tuple[list, dict, dict]:
                          spec_draft=SPEC_DRAFT, kv_quant="none", temperature=1.2, card=card)
     check_spec_counts(sampled, shallow.num_layers)
     counted.append(sampled["counts"])
-    del shallow_weights, w
-    wide = widen(weights)
-    del weights
+    del shallow_weights
+    torch.cuda.empty_cache()
+    wide = widen(make_weights(cfg, "cuda", seed=args.seed))
     torch.cuda.empty_cache()
     lg = verify_logits(wide, seed=args.seed)
     del wide
@@ -3018,7 +3048,7 @@ def trainer_run(build, *, label: str = "", probe=None) -> dict:
                        "sampler_calls": st.get("sampler_calls", res.steps_dispatched),
                        "resumes": pool.get("resumes", 0), "refill": bool(pool),
                        "model_forwards": forwards[0] - f0, "probe": seen,
-                       "prefill_tok_saved": pool.get("prefill_tok_saved")})
+                       "prefill_tok_saved": pool.get("prefill_tok_saved"), "res": res})
         return res
 
     eng.generate, trainer._push_weights = recorded, pushed
@@ -3733,12 +3763,15 @@ def riders_phase(cfg, args, card: str, t_start: float, *, dense_peak_gib: float,
     # collect them, so their models do not count in this phase's peaks
     gc.collect()
     torch.cuda.empty_cache()
-    weights = make_weights(cfg, "cuda", seed=args.seed)
+    # (a)-(c) at SHALLOW_LAYERS, the depth cut that makes room for phase 12;
+    # (d) at the full depth, where phase 4's dense peak was taken
+    shallow = dataclasses.replace(cfg, num_layers=min(cfg.num_layers, SHALLOW_LAYERS))
+    weights = make_weights(shallow, "cuda", seed=args.seed)
     # (a) prefix sharing, continuous admission and the radix cache
-    a = prefix_cache_phase(cfg, "cuda", weights, seed=args.seed, card=card)
+    a = prefix_cache_phase(shallow, "cuda", weights, seed=args.seed, card=card)
     r1, r2 = a["rounds"]
     for r in (r1, r2):
-        check_rider_counts(r, cfg.num_layers, splash=True)
+        check_rider_counts(r, shallow.num_layers, splash=True)
         counted.append(r["counts"])
     groups = len(SPEC_PROBLEMS)
     # round 1 prefills a group warm only where an earlier group of the round
@@ -3756,23 +3789,25 @@ def riders_phase(cfg, args, card: str, t_start: float, *, dense_peak_gib: float,
           f"{plain_refill_pool['peak_pages_used'] * 128} in its pool plus "
           f"{groups * 3 * 128} in its static prompt region; peak shared pages "
           f"{r1['pool']['peak_shared_pages']} / {r2['pool']['peak_shared_pages']}, copy-on-write "
-          f"splits {r1['pool']['cow_splits']}; round 2: radix hit pages "
+          f"splits {r1['pool']['cow_splits']} ({shallow.num_layers} layers); round 2: radix "
+          f"hit pages "
           f"{r2['pool']['prefill_tok_saved'] // CACHE_PAGE} ({r2['pool']['prefill_tok_saved']} prompt "
           f"tokens not re-prefilled, {r2['pool']['restored_pages']} pages copied back from "
           f"host memory in {r2['pool']['spill_restore_ms_p50']} ms p50), hit rate "
           f"{r2['pool']['radix_hit_rate']}; greedy tokens of the warm round equal the cold "
           f"round's on {100 * same.mean():.2f}% of positions (printed, not asserted: a cold "
           f"prefill attends with K4, a warm one with the plain attention, and bf16 at "
-          f"{cfg.num_layers} layers of random weights flips near-ties; in f32 below, with "
+          f"{shallow.num_layers} layers of random weights flips near-ties; in f32 below, with "
           f"the plain attention in both, the two give the same logits and tokens); decode "
           f"{r1['ms_per_step']:.2f} / {r2['ms_per_step']:.2f} ms/step against phase 7's "
-          f"plain refill {plain_refill_pool['ms_per_step']:.2f}; total "
+          f"plain refill at {cfg.num_layers} layers "
+          f"{plain_refill_pool['ms_per_step']:.2f}; total "
           f"{time.perf_counter() - t_start:.1f} s; {card}")
     del a, r1, r2
     # (b) host spill under a small budget, against the worst-case pool
-    b = spill_phase(cfg, "cuda", weights, seed=args.seed, card=card)
-    check_rider_counts(b["spill"], cfg.num_layers, splash=False)
-    check_rider_counts(b["full"], cfg.num_layers, splash=False)
+    b = spill_phase(shallow, "cuda", weights, seed=args.seed, card=card)
+    check_rider_counts(b["spill"], shallow.num_layers, splash=False)
+    check_rider_counts(b["full"], shallow.num_layers, splash=False)
     counted += [b["spill"]["counts"], b["full"]["counts"]]
     sp = b["spill"]["pool"]
     check(sp["preemptions"] > 0 and sp["spilled_pages"] > 0 and sp["restored_pages"] > 0,
@@ -3780,16 +3815,16 @@ def riders_phase(cfg, args, card: str, t_start: float, *, dense_peak_gib: float,
           f"{sp['spilled_pages']}, restored {sp['restored_pages']}: want each > 0")
     check(np.array_equal(b["spill"]["res"].tokens, b["full"]["res"].tokens),
           "host spill: the preempted round's greedy tokens differ from the worst-case pool's")
-    print(f"riders (b): host spill at {cfg.num_layers} layers bf16, {SPILL_PAGES} pages: "
+    print(f"riders (b): host spill at {shallow.num_layers} layers bf16, {SPILL_PAGES} pages: "
           f"{sp['preemptions']} preemptions, {sp['spilled_pages']} pages parked, "
           f"{sp['restored_pages']} copied back, restore {sp['spill_restore_ms_p50']} ms p50; "
           f"greedy tokens equal to the worst-case pool's ({b['full']['pool']['pool_pages']} "
           f"pages, {b['full']['pool']['preemptions']} preemptions); {card}")
     del b
     # (c) the self-drafter and the adaptive draft length
-    c = self_draft_phase(cfg, "cuda", weights, seed=args.seed, card=card)
+    c = self_draft_phase(shallow, "cuda", weights, seed=args.seed, card=card)
     for key in ("greedy", "sampled", "plain"):
-        check_rider_counts(c[key], cfg.num_layers, splash=False)
+        check_rider_counts(c[key], shallow.num_layers, splash=False)
         counted.append(c[key]["counts"])
     g, pl = c["greedy"], c["plain"]
     same = g["res"].tokens == pl["res"].tokens
@@ -3847,6 +3882,9 @@ def riders_phase(cfg, args, card: str, t_start: float, *, dense_peak_gib: float,
     del small, bs
     torch.cuda.empty_cache()
     # (d) the int8 dense cache, bisect_mw, and a Gemma checkpoint
+    del weights
+    torch.cuda.empty_cache()
+    weights = make_weights(cfg, "cuda", seed=args.seed)
     qc = dense_int8_quantize_check("cuda", args.seed)
     check(qc["q_equal"] and qc["s_equal"], "quantize_kv_position: the card's int8 values or "
           "scales differ from the CPU's")
@@ -4494,17 +4532,391 @@ def graph_phase(cfg, args, card: str, t_start: float, *, qlora_tokens) -> list:
     return counted
 
 
+# ---------------------------------------------------------------- phase 12
+
+# scan chunks on the refill scheduler: its plain, speculative and
+# self-drafted steps 16 a chunk, each chunk one CUDA graph replay, at the
+# trainer's refill cell (32 slots, phase 4's 4 prompts x 16 x 128 new tokens:
+# 64 candidates over 32 slots, so slots refill); (c)-(e) at
+# GRAPH_TRAIN_LAYERS, phase 11 (f)'s depth, the cut that keeps the script near
+# 820 s (at SHALLOW_LAYERS their rounds alone took ~100 s)
+REFILL_GRAPH_SHAPE = dict(max_prompt_tokens=350, max_new_tokens=TRAIN_NEW_TOKENS, n=PA_N,
+                          page_size=128, rank=32, chunk=GRAPH_CHUNK, slots=TRAIN_SLOTS)
+REFILL_GRAPH_SWAP_STEP = 32  # (d): a push lands at this chunk boundary
+# (c): 64-token pages (every prompt keeps a full page below its last token for
+# the radix cache) and a pool under the worst case of 32 slots (121 pages),
+# so that occupants are preempted
+REFILL_RIDER_PAGE = CACHE_PAGE
+REFILL_RIDER_PAGES = 96
+
+
+def refill_graph_engines(cfg, device, *, shape: dict, **kw):
+    """(graphed engine at ``scan_chunk`` = the shape's chunk, eager engine):
+    the refill scheduler at ``shape``'s slots with the riders or speculative
+    settings of ``kw``, bf16 pages on the card and f32 on the CPU."""
+    import torch
+
+    from distrl_llm_tpu_torch.models.lora import lora_scale
+
+    common = dict(cache_dtype=torch.bfloat16 if device == "cuda" else torch.float32,
+                  slots=shape["slots"], max_new_tokens=shape["max_new_tokens"],
+                  max_prompt_tokens=shape["max_prompt_tokens"], page_size=shape["page_size"],
+                  scale=lora_scale(shape["rank"], 16.0), **kw)
+    return (rider_engine(cfg, device, scan_chunk=shape["chunk"], **common),
+            rider_engine(cfg, device, **common))
+
+
+def refill_graph_round(eng, model, lora, ids, mask, sampling, seed: int, *, what: str,
+                       layers: int) -> dict:
+    """``graph_round`` of a refill engine, its stats kept, its launches held
+    to what it dispatched (replays included): K1 once per sampler call (a
+    plain step, or a speculative admission), K2 once per layer per plain or
+    self-drafter decode forward, K5 once per layer per verify forward, no
+    K3 or K4. On the CPU the plain versions run and nothing counts."""
+    r = graph_round(eng, model, lora, ids, mask, sampling, seed)
+    st, spec = dict(eng.last_round_stats), eng.last_spec_stats
+    r.update(stats=st, spec=spec, pool=dict(eng.last_pool_stats), what=what)
+    want = {k["name"]: 0 for k in KERNELS}
+    if r["cuda"]:
+        want["fused_sample"] = st["sampler_calls"]
+        want["paged_attention"] = layers * (st["draft_forwards"] if spec else r["forwards"])
+        want["paged_verify"] = layers * r["forwards"] if spec else 0
+    check(r["counts"] == want, f"{what}: launches {r['counts']}, want {want} ({r['steps']} "
+          f"steps, {r['forwards']} forwards, {r['graph_steps']} of them replayed)")
+    return r
+
+
+def check_graph_equal(rounds, what: str) -> float:
+    """Every round's tokens and lengths equal the first's, and its
+    logprobs too (where the engine captures them); returns the largest
+    |dlogp| (0 without logprobs)."""
+    import numpy as np
+
+    ref = rounds[0]["res"]
+    for r in rounds[1:]:
+        check(np.array_equal(r["res"].tokens, ref.tokens)
+              and np.array_equal(r["res"].lengths, ref.lengths)
+              and (ref.logprobs is None) == (r["res"].logprobs is None)
+              and (ref.logprobs is None or np.array_equal(r["res"].logprobs, ref.logprobs)),
+              f"{what}: the {r['what']} round's tokens, lengths or logprobs differ from the "
+              f"{rounds[0]['what']} round's")
+    if ref.logprobs is None:
+        return 0.0
+    return max(float(np.abs(r["res"].logprobs - ref.logprobs).max()) for r in rounds)
+
+
+def check_replayed(g, what: str) -> None:
+    """On the card, a graphed engine replayed chunks and reports
+    ``scan_chunk_active``; on the CPU, where nothing is graphed, it ran
+    chunks."""
+    dg = g.decode_graphs
+    want = dg.replays > 0 if g.device.type == "cuda" else dg.eager_chunks > 0
+    check(want and g.scan_chunk_active, f"{what}: {dg.replays} replays, {dg.eager_chunks} eager "
+          f"chunks, scan_chunk_active {g.scan_chunk_active}")
+
+
+def refill_graph_ab(cfg, device, weights, *, seed: int, spec_draft: int, card: str = "",
+                    profile: bool = False, **shape) -> dict:
+    """(a) plain refill, rounds G E G E, and (b) speculative refill
+    (``spec_draft`` n-gram drafts), rounds G G E: greedy, the graphed engine's
+    first round its capture (each key's first chunk eager, the next
+    captured, the rest replayed), the later graphed rounds all replays; every
+    round's launches checked, tokens, lengths and logprobs all equal. With
+    ``profile``, device ms per step (rounds of 16 and 32 new tokens
+    differenced) and the idle share of the graphed and the eager engine
+    against their unprofiled 128-token rounds."""
+    model, lora = weights
+    sh = {**REFILL_GRAPH_SHAPE, **shape}
+    _, ids, mask, _ = prompt_batch(sh["max_prompt_tokens"])
+    kw = dict(spec_draft=spec_draft, spec_ngram=SPEC_NGRAM) if spec_draft else {}
+    g, e = refill_graph_engines(cfg, device, shape=sh, **kw)
+    label = f"{'spec d=' + str(spec_draft) if spec_draft else 'plain'} refill"
+    greedy = _greedy_sampling(**sh)
+    cuda, k = device == "cuda", sh["chunk"]
+    kinds = ("graphed", "graphed", "eager") if spec_draft else (
+        "graphed", "eager", "graphed", "eager")
+    rounds = []
+    for i, kind in enumerate(kinds):
+        eng = g if kind == "graphed" else e
+        r = refill_graph_round(eng, model, lora, ids, mask, greedy, seed,
+                               what=f"{label} {kind} round {i + 1}", layers=cfg.num_layers)
+        r["kind"] = kind
+        first = kind == "graphed" and i == 0
+        if cuda and kind == "graphed":
+            chunks = r["steps"] // k
+            want = (1, chunks - 1) if first else (0, chunks)
+            check((r["captures"], r["replays"]) == want and r["steps"] % k == 0,
+                  f"{r['what']}: {r['captures']} captures and {r['replays']} replays over "
+                  f"{r['steps']} steps, want {want}")
+        rounds.append(r)
+        extra = ""
+        if spec_draft:
+            s = r["spec"]
+            extra = (f", accept rate {s['accept_rate']:.4f}, {s['tokens_per_verify_step']:.4f} "
+                     f"tokens per verify step")
+        print(f"{label} {kind}{' (first: eager chunk, capture)' if first else ''}: "
+              f"{r['steps']} steps, {r['ms_per_step']:.3f} ms/step ({r['replays']} replays, "
+              f"{r['graph_steps']} steps replayed){extra}; peak {r['peak_gib']:.2f} GiB "
+              f"allocated, {r['reserved_gib']:.2f} GiB reserved; {card}")
+    dlogp = check_graph_equal(rounds, label)
+    check_replayed(g, label)
+    if spec_draft:
+        check(all(r["spec"]["emit_hist"] == rounds[0]["spec"]["emit_hist"] for r in rounds),
+              f"{label}: the emit histograms differ between graphed and eager rounds")
+    dg = g.decode_graphs
+    order = " ".join(r["kind"][0].upper() for r in rounds)
+    print(f"graphed {label}: {order} rounds' tokens, lengths and logprobs equal (max |dlogp| "
+          f"{dlogp:.3g}); captures {dg.captures}, replays {dg.replays}, eager chunks "
+          f"{dg.eager_chunks}; scan_chunk_active {g.scan_chunk_active}")
+    out = {"g": g, "e": e, "rounds": rounds, "tokens": rounds[0]["res"].tokens, "dlogp": dlogp}
+    if profile and cuda:
+        # rounds of 16 and 32 new tokens differenced (a graphed engine's new
+        # length is a new key: its first chunk runs eagerly and the next is
+        # captured, the same kernels as a replay, so the device time holds)
+        for eng, kind in ((g, "graphed"), (e, "eager")):
+            prof = profile_decode(lambda n, _eng=eng: _eng.generate(
+                model, lora, ids, mask, greedy.replace(max_tokens=n), seed).steps_dispatched,
+                steps=(16, 32))
+            wall = statistics.median(r["ms_per_step"] for r in rounds[1:] if r["kind"] == kind)
+            print(f"profile {label} {kind}: {prof['device_ms_per_step']:.3f} ms of device time "
+                  f"per step against {wall:.3f} ms/step unprofiled: device idle "
+                  f"{100 * (1 - prof['device_ms_per_step'] / wall):.1f}%; {card}")
+            for name, ms in prof["top"][:6]:
+                print(f"profile {label} {kind}: {ms:8.4f} ms/step  {name[:100]}")
+            out[f"profile_{kind}"] = prof
+    return out
+
+
+def refill_graph_riders(cfg, device, weights, *, seed: int, card: str = "",
+                        pages: int = REFILL_RIDER_PAGES, min_preemptions: int = 1,
+                        **shape) -> dict:
+    """(c) prefix sharing, continuous admission, the radix cache and host
+    spill under ``pages`` pages (under the worst case, so occupants are
+    preempted), 64-token pages, two greedy rounds an engine (the second
+    admits its groups warm through the cache), graphed and eager in turns:
+    tokens, lengths and logprobs equal round by round, at least
+    ``min_preemptions`` preemptions a round on both, restores, warm groups
+    and prompt tokens not re-prefilled equal."""
+    model, lora = weights
+    sh = {**REFILL_GRAPH_SHAPE, "page_size": REFILL_RIDER_PAGE, **shape}
+    _, ids, mask, _ = prompt_batch(sh["max_prompt_tokens"])
+    g, e = refill_graph_engines(cfg, device, shape=sh, continuous_admission=True,
+                                prefix_cache=True, kv_spill=True, max_kv_pages=pages)
+    greedy = _greedy_sampling(**sh)
+    rounds = {}
+    for rnd in (1, 2):
+        for eng, kind in ((g, "graphed"), (e, "eager")):
+            r = refill_graph_round(eng, model, lora, ids, mask, greedy, seed,
+                                   what=f"riders {kind} round {rnd}", layers=cfg.num_layers)
+            rounds[(kind, rnd)] = r
+            p = r["pool"]
+            print(f"riders {kind} round {rnd}: {r['steps']} steps, {r['ms_per_step']:.3f} "
+                  f"ms/step ({r['replays']} replays); preemptions {p['preemptions']}, "
+                  f"spilled / restored pages {p['spilled_pages']} / {p['restored_pages']}, "
+                  f"{r['stats']['warm_prefills']} of {p['groups_prefilled']} group prefills "
+                  f"warm, {p['prefill_tok_saved']} prompt tokens not re-prefilled; peak "
+                  f"{r['peak_gib']:.2f} GiB; {card}")
+        pair = [rounds[("graphed", rnd)], rounds[("eager", rnd)]]
+        check_graph_equal(pair, f"riders round {rnd}")
+        for key in ("preemptions", "restored_pages", "spilled_pages", "prefill_tok_saved",
+                    "groups_prefilled", "resumes"):
+            check(pair[0]["pool"][key] == pair[1]["pool"][key],
+                  f"riders round {rnd}: {key} {pair[0]['pool'][key]} graphed, "
+                  f"{pair[1]['pool'][key]} eager")
+        check(pair[0]["stats"]["warm_prefills"] == pair[1]["stats"]["warm_prefills"],
+              f"riders round {rnd}: warm group prefills differ")
+    r2 = rounds[("graphed", 2)]
+    check_replayed(g, "riders")
+    preempt = min(rounds[(k, r)]["pool"]["preemptions"] for k in ("graphed", "eager")
+                  for r in (1, 2))
+    check(preempt >= min_preemptions, f"riders: a round with {pages} pages preempted "
+          f"{preempt} times, want at least {min_preemptions}")
+    check(r2["stats"]["warm_prefills"] > 0 and r2["pool"]["prefill_tok_saved"] > 0,
+          f"riders: round 2 admitted no group warm ({r2['pool']})")
+    print(f"graphed riders: G E round by round equal; preemptions >= {preempt} on both, "
+          f"round 2 warm groups {r2['stats']['warm_prefills']}, "
+          f"{r2['pool']['prefill_tok_saved']} prompt tokens not re-prefilled, restores "
+          f"{r2['pool']['restored_pages']}; graphed captures {g.decode_graphs.captures}, "
+          f"replays {g.decode_graphs.replays}; {card}")
+    return {"g": g, "e": e, "rounds": rounds, "preemptions": preempt,
+            "warm_groups": r2["stats"]["warm_prefills"]}
+
+
+def refill_graph_self_draft(cfg, device, weights, *, seed: int, card: str = "",
+                            step: int = REFILL_GRAPH_SWAP_STEP, **shape) -> dict:
+    """(d) the self-drafter with ``spec_adapt``, sampled (t 1.2, top-p
+    0.95): the round opens with adapter v1 (which drafts for itself), v2
+    (v1 moved by one Adam8bit step) is pushed at ``step``, a chunk
+    boundary, and v1 drafts for it from there. Graphed then eager: tokens,
+    lengths and logprobs equal, the swap at ``step`` on both, the draft
+    length at every boundary equal. Each draft length and each drafter
+    adapter is a chunk key of its own."""
+    model, v1 = weights
+    v2 = adam_step_neighbour(v1, seed=seed)
+    sh = {**REFILL_GRAPH_SHAPE, **shape}
+    _, ids, mask, _ = prompt_batch(sh["max_prompt_tokens"])
+    g, e = refill_graph_engines(cfg, device, shape=sh, spec_draft=SPEC_DRAFT,
+                                spec_drafter="self", spec_adapt=True)
+    sampled = _greedy_sampling(**sh).replace(temperature=1.2)
+    rs = []
+    for eng, kind in ((g, "graphed"), (e, "eager")):
+        take = eng._take_pending_lora
+        swap_at(eng, step, v2, 2)
+        try:
+            r = refill_graph_round(eng, model, v1, ids, mask, sampled, seed + 2,
+                                   what=f"self-drafter {kind}", layers=cfg.num_layers)
+        finally:
+            eng._take_pending_lora = take
+        check(eng.last_swap_steps == [step] and eng.last_swap_versions == [2],
+              f"self-drafter {kind}: swap log {eng.last_swap_steps} {eng.last_swap_versions}")
+        s = r["spec"]
+        print(f"self-drafter {kind} t=1.2: {r['steps']} steps, {r['ms_per_step']:.3f} ms/step "
+              f"({r['captures']} captures, {r['replays']} replays); accept rate "
+              f"{s['accept_rate']:.4f}, {s['tokens_per_verify_step']:.4f} tokens per verify "
+              f"step; draft length at each boundary {s['draft_len_trace']}; "
+              f"{s['draft_forwards']} drafter forwards; {card}")
+        rs.append(r)
+    check_graph_equal(rs, "self-drafter")
+    sg, se = rs[0]["spec"], rs[1]["spec"]
+    check(sg["draft_len_trace"] == se["draft_len_trace"] and sg["emit_hist"] == se["emit_hist"],
+          "self-drafter: the draft-length traces or emit histograms differ")
+    check_replayed(g, "self-drafter")
+    switches = sg["draft_len_switches"]
+    why = ("" if switches else
+           f" (the accept rate, {sg['accept_rate']:.4f} over the round, kept the "
+           f"controller's EMA above its 0.35 floor: one Adam8bit step moves the drafter "
+           f"little)")
+    print(f"graphed self-drafter: G E tokens, lengths and logprobs equal; the swap at step "
+          f"{step} on both; draft length switched {switches} times{why}; captures "
+          f"{g.decode_graphs.captures}, replays {g.decode_graphs.replays}; {card}")
+    return {"g": g, "e": e, "rounds": rs, "swap_steps": g.last_swap_steps,
+            "switches": switches}
+
+
+def refill_graph_trainer(cfg, device, *, seed: int, workdir: Path, tokenizer_dir: Path,
+                         group=QMM_GROUP, hbm_bytes=None, **config_kw) -> dict:
+    """(e) one ``Trainer.train()`` step of phase 8's configuration (int4 base,
+    the refill engine ``make_engine`` builds, splash) with
+    ``decode_scan_chunk`` GRAPH_CHUNK and eager, the initial eval first, each
+    from the same seed and checked by ``check_trainer_run``, each trainer
+    dropped before the next starts (its peak memory its own): every engine
+    round's tokens, lengths and logprobs equal. Each run keeps its engine's
+    captures, replays and ``scan_chunk_active``."""
+    import torch
+
+    from distrl_llm_tpu_torch.ops.quant import quantize_base
+    from distrl_llm_tpu_torch.tokenizer import load_tokenizer
+    from distrl_llm_tpu_torch.trainer import Trainer, make_engine as trainer_engine
+
+    tok = load_tokenizer(str(tokenizer_dir))
+    train, test = trainer_datasets(tok)
+    out = {}
+    for kind, chunk in (("graphed", GRAPH_CHUNK), ("eager", 0)):
+        config = trainer_config(workdir / kind, seed=seed, quant_group_size=group,
+                                decode_scan_chunk=chunk, save_every=0,
+                                write_adapter_file=False, **config_kw)
+        model, _ = make_weights(cfg, device, seed=seed)
+        quantize_base(model, config.base_quant, config.quant_group_size)
+        engine = trainer_engine(config, model, tok, hbm_bytes=hbm_bytes)
+        one = {k: v[:config.batch_size] for k, v in train.items()}  # one batch: one step
+        run = trainer_run(lambda sink: Trainer(one, test, smoke_reward, config, tokenizer=tok,
+                                               engine=engine, model=model, sink=sink),
+                          label=f"qlora {kind}")
+        run["config"] = config
+        check_trainer_run(run, cfg.num_layers, steps=1, lr=config.lr, cuda=device == "cuda")
+        dg = run.pop("trainer").engine.decode_graphs
+        run.update(captures=dg.captures, replays=dg.replays,
+                   active=engine.scan_chunk_active)
+        engine.release_decode_graphs()
+        out[kind] = run
+        del model, engine, dg
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    for rg, re_ in zip(out["graphed"]["rounds"], out["eager"]["rounds"], strict=True):
+        check_graph_equal([dict(res=rg["res"], what="graphed"), dict(res=re_["res"],
+                                                                     what="eager")],
+                          "trainer qlora")
+    return out
+
+
+def refill_graph_phase(cfg, args, card: str, t_start: float) -> list:
+    """Phase 12 on the card (see the module's docstring). Returns the launch
+    counts of its rounds."""
+    import tempfile
+
+    import torch
+
+    t0 = time.perf_counter()
+    counted = []
+    gc.collect()
+    torch.cuda.empty_cache()
+    weights = make_weights(cfg, "cuda", seed=args.seed)
+    for d in (0, SPEC_DRAFT):
+        ab = refill_graph_ab(cfg, "cuda", weights, seed=args.seed, spec_draft=d, card=card,
+                             profile=args.profile)
+        counted += [r["counts"] for r in ab["rounds"]]
+        g = [r["ms_per_step"] for r in ab["rounds"][1:] if r["kind"] == "graphed"]
+        e = [r["ms_per_step"] for r in ab["rounds"] if r["kind"] == "eager"]
+        print(f"graphed {'spec' if d else 'plain'} refill: {', '.join(f'{x:.3f}' for x in g)} "
+              f"ms/step graphed (warm) vs {', '.join(f'{x:.3f}' for x in e)} eager; total "
+              f"{time.perf_counter() - t_start:.1f} s; {card}")
+        ab["g"].release_decode_graphs()
+        del ab
+    del weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    shallow = dataclasses.replace(cfg, num_layers=min(cfg.num_layers, GRAPH_TRAIN_LAYERS))
+    weights = make_weights(shallow, "cuda", seed=args.seed)
+    c = refill_graph_riders(shallow, "cuda", weights, seed=args.seed, card=card)
+    counted += [r["counts"] for r in c["rounds"].values()]
+    c["g"].release_decode_graphs()
+    del c
+    d = refill_graph_self_draft(shallow, "cuda", weights, seed=args.seed, card=card)
+    counted += [r["counts"] for r in d["rounds"]]
+    d["g"].release_decode_graphs()
+    del d, weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_refill_graph_") as tmp:
+        work = Path(tmp)
+        tok_dir = write_bpe_tokenizer(work / "tokenizer", cfg.vocab_size)
+        e = refill_graph_trainer(shallow, "cuda", seed=args.seed, workdir=work,
+                                 tokenizer_dir=tok_dir)
+        for kind, run in e.items():
+            if kind == "graphed":
+                check(run["replays"] > 0 and run["active"],
+                      f"trainer qlora graphed: no chunk was replayed ({run['captures']} "
+                      f"captures)")
+            print(f"trainer qlora {kind}: Trainer.train() at {shallow.num_layers} layers over the "
+                  f"int4 g{QMM_GROUP} base, refill engine ({TRAIN_SLOTS} slots), decode_scan_"
+                  f"chunk {run['config'].decode_scan_chunk}: {len(run['rounds'])} engine rounds "
+                  f"({', '.join(str(r['steps']) + ' steps' for r in run['rounds'])}); captures "
+                  f"{run['captures']}, replays {run['replays']}; train() {run['wall_s']:.1f} s; "
+                  f"peak device memory {run['peak_gib']:.2f} GiB; launches {run['counts']}; "
+                  f"{card}")
+            for line in trainer_step_lines(run, card):
+                print(line)
+            counted.append(run["counts"])
+        del e
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"refill graphs: phase 12 {time.perf_counter() - t0:.1f} s; total "
+          f"{time.perf_counter() - t_start:.1f} s; {card}")
+    return counted
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=28,
                     help="decoder depth of the Qwen2.5-7B-wide model (28 = full)")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--until", type=int, default=11, choices=(6, 7, 8, 9, 10, 11),
+    ap.add_argument("--until", type=int, default=12, choices=(6, 7, 8, 9, 10, 11, 12),
                     help="the last phase to run; 6 skips speculative decoding "
                          "(with --profile, the long part), 7 the trainer, 8 the "
                          "refill engine's riders, 9 full fine-tuning at Gemma-2B "
-                         "width, 10 scan chunks as CUDA graphs; a partial run prints "
-                         "no result line")
+                         "width, 10 scan chunks as CUDA graphs, 11 the refill "
+                         "scheduler's; a partial run prints no result line")
     ap.add_argument("--profile", action="store_true",
                     help="also print the device time per decode step and per "
                          "learner step by kernel (torch.profiler) and the "
@@ -4833,6 +5245,16 @@ def main(argv=None) -> int:
     # phase 4's cell; a sampled round, an in-flight swap, the int4 base at
     # phase 6's depth and one Trainer.train() step
     counted += graph_phase(cfg, args, card, t_start, qlora_tokens=qlora_tokens)
+    if args.until < 12:
+        print(f"chip_smoke: phases 1-{args.until} done in {time.perf_counter() - t_start:.1f} s "
+              f"(a partial run prints no result line); {card}")
+        return 0
+
+    # 12. scan chunks on the refill scheduler: its plain, speculative and
+    # self-drafted steps as CUDA graph chunks, graphed against eager at the
+    # trainer's refill cell; the riders under a budget; one Trainer.train()
+    # step of phase 8's configuration graphed and eager
+    counted += refill_graph_phase(cfg, args, card, t_start)
     print(f"chip_smoke: done in {time.perf_counter() - t_start:.1f} s; {card}")
 
     kernels = []

@@ -183,8 +183,9 @@ class TrainConfig:
     # KV cache format: None or "none" (the cache dtype) or "int8"
     kv_cache_quant: str | None = None
     # decode steps per dispatch: k > 1 runs k-step chunks, each a CUDA graph
-    # replay on the GPU (the dense engine and the paged wave scheduler; the
-    # refill scheduler refuses it: ROADMAP queue 1 item 12b)
+    # replay on the GPU (the dense engine, the paged wave scheduler, and the
+    # refill scheduler's plain, speculative and self-drafted steps, where k
+    # rounds down to a divisor of its host cadence)
     decode_scan_chunk: int | None = None
     # cap on concurrent candidate rows (vLLM max_num_seqs); 0 = unlimited
     max_concurrent_sequences: int = 0

@@ -26,6 +26,13 @@ as a ``torch.cuda.CUDAGraph`` and replayed, so the host launches one graph
   cast into the rollout copy) is read by the next replay, and an adapter at
   other addresses is another key: its first chunk runs eagerly and the next
   is captured (the JAX package's ``rebuild``).
+* **Random draws inside a chunk.** A step that draws from a
+  ``torch.Generator`` inside the chunk (the speculative step's uniforms and
+  Gumbel noise, the self-drafter's) names it: it is registered with the
+  graph before the capture, so each replay reads the generator's seed and
+  offset as they stand and advances the offset by the chunk's draws, as the
+  eager steps would (``CUDAGraph.register_generator_state``). Draws made
+  before a chunk (the plain steps' seed vectors) need nothing.
 * **Launch counts.** The kernel wrappers count their launches in Python,
   which a replay never runs. A capture launches nothing, so the counts it
   made are taken back, and each replay adds them.
@@ -98,11 +105,12 @@ class DecodeGraphs:
         self.replays = 0
         self.eager_chunks = 0
 
-    def run(self, key: Hashable, body: Callable[[], None], device: torch.device) -> None:
+    def run(self, key: Hashable, body: Callable[[], None], device: torch.device,
+            generators: tuple = ()) -> None:
         """Run one chunk: ``body()`` does its decode steps in place over
-        static tensors. On a CUDA device it runs eagerly the first time
-        ``key`` is seen, is captured the second time, and is replayed from
-        then on; on the CPU it runs eagerly."""
+        static tensors, drawing only from ``generators``. On a CUDA device it
+        runs eagerly the first time ``key`` is seen, is captured the second
+        time, and is replayed from then on; on the CPU it runs eagerly."""
         hit = self._graphs.get(key)
         if hit is None and (device.type != "cuda" or key not in self._warm):
             body()
@@ -111,15 +119,17 @@ class DecodeGraphs:
                 self._warm.add(key)
             return
         if hit is None:
-            hit = self._capture(key, body, device)
+            hit = self._capture(key, body, device, generators)
         graph, launches = hit
         graph.replay()
         _add_launches(launches)
         self.replays += 1
 
-    def _capture(self, key, body, device):
+    def _capture(self, key, body, device, generators):
         before = _launch_counts()
         graph = torch.cuda.CUDAGraph()
+        for gen in generators:
+            graph.register_generator_state(gen)
         with torch.cuda.device(device):
             with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
                 body()

@@ -493,10 +493,10 @@ class LoraMailbox:
 
 
 class ScanChunks:
-    """What the dense engine and the paged wave scheduler share for scan
-    chunks: ``scan_chunk``, the chunk runner ``decode_graphs`` and the
-    static decode state its graphs read (``_chunk_state``: (shape key,
-    state), one at a time)."""
+    """What the dense engine and the paged engine's wave and refill
+    schedulers share for scan chunks: ``scan_chunk``, the chunk runner
+    ``decode_graphs`` and the static decode state its graphs read
+    (``_chunk_state``: (shape key, state), one at a time)."""
 
     def _init_scan_chunks(self, scan_chunk: int | None) -> None:
         if scan_chunk is not None and scan_chunk < 0:

@@ -33,7 +33,14 @@ Counterpart of the JAX package's ``engine/paged_engine.py``
   chunked forward over its generated prefix). The host reads ``done`` and
   ``seq_lengths`` through asynchronous snapshots every ``check = min(
   decode_chunk, 16, max_steps)`` steps, one boundary late, so no step waits
-  on the device.
+  on the device. With ``scan_chunk`` = k > 1 the steps between host
+  decisions run k at a time (k the largest divisor of ``check`` that is <=
+  ``scan_chunk``, so every admission, grant, preemption and snapshot still
+  falls on its step), each chunk a CUDA graph replay on the GPU over a
+  refill state and page pools kept at fixed addresses across rounds of one
+  shape; the speculative and self-drafted steps' random draws come from a
+  generator registered with the graphs, so a replay draws what the eager
+  steps would.
 * **Speculative decoding** (refill with ``spec_draft = d > 0``): each step
   proposes d n-gram drafts per slot (``engine/speculative.py``), runs one
   verify forward over ``[last_tok, draft]`` that writes d+1 tokens' K/V per
@@ -62,9 +69,7 @@ Counterpart of the JAX package's ``engine/paged_engine.py``
   ordered on the stream) and copied back at its resume instead of a
   recompute. ``last_pool_stats`` carries the JAX package's keys.
 
-Not ported (ROADMAP items 8 and 11): the turn and gateway hooks. Scan
-chunks on the refill scheduler (its plain, speculative and self-drafted
-steps) raise ``NotImplementedError`` naming ROADMAP queue 1 item 12b.
+Not ported (ROADMAP items 8 and 11): the turn and gateway hooks.
 """
 
 from __future__ import annotations
@@ -302,12 +307,14 @@ def _paged_decode_step(model: Decoder, lora, s: _PagedDecodeState,
 
 @dataclass
 class _RefillState:
-    """Decode state of the refill scheduler, updated in place. R slots each
+    """Decode state of the refill scheduler, updated in place (every tensor
+    keeps its address: what a captured chunk reads it by). R slots each
     hold one candidate, or the dead sentinel ``total``. Finished output
     lives in the candidate-indexed ``out``/``logps_buf``/``lengths_buf``, so
     a slot can be re-assigned without disturbing it; their extra row
     ``total`` takes the writes of dead slots (the JAX package's
-    ``mode="drop"``) and is never read."""
+    ``mode="drop"``) and is never read. The host counts ``step`` and
+    ``forwards``; no step body reads them."""
 
     out: torch.Tensor  # [total + 1, T] int32, pad-filled
     logps_buf: torch.Tensor  # [total + 1, T] f32 behavior logprobs
@@ -323,6 +330,8 @@ class _RefillState:
     alive_steps: torch.Tensor  # [] int64 sum over steps of alive slots
     step: int = 0
     forwards: int = 0  # decode forwards run (each launches K2 once per layer)
+    seeds: torch.Tensor | None = None  # [scan_chunk, R] int32: a chunk's seeds
+    gen: torch.Generator | None = None  # chunked: the round's generator, reseeded
 
 
 def _to_device(a, device: torch.device, dtype=None) -> torch.Tensor:
@@ -382,6 +391,29 @@ def _spec_init(k_pages, v_pages, *, r_slots: int, total: int, max_steps: int,
         draft_total=torch.zeros((), dtype=torch.int64, device=dev),
         accept_total=torch.zeros((), dtype=torch.int64, device=dev),
         k_pages=list(k_pages), v_pages=list(v_pages), **bufs)
+
+
+def _refill_reset(s, *, total: int, scratch: int, pad_id: int) -> None:
+    """A kept refill state back to ``_refill_init`` / ``_spec_init``'s
+    contents, in place: every slot dead and pointed at the scratch page, the
+    buffers and totals zeroed (the page pools keep their bytes: no read
+    reaches a position its round did not write)."""
+    s.out.fill_(pad_id)
+    s.logps_buf.zero_()
+    s.lengths_buf.zero_()
+    s.cand.fill_(total)
+    s.done.fill_(True)
+    s.seq_lengths.zero_()
+    s.gen_lengths.zero_()
+    s.page_indices.fill_(scratch)
+    s.alive_steps.zero_()
+    s.step = s.forwards = 0
+    if isinstance(s, SpecRefillState):
+        for t in (s.last_tok, s.seq_buf, s.emit_hist, s.draft_total, s.accept_total):
+            t.zero_()
+        s.draft_forwards = 0
+    else:
+        s.logits.zero_()
 
 
 def _admit_tables(s, new_cand: np.ndarray, admit_mask: np.ndarray,
@@ -492,11 +524,9 @@ def _refill_decode_step(model: Decoder, lora, s: _RefillState, seeds: torch.Tens
              "page_indices": s.page_indices}
     logits, _ = model(tok[:, None], positions=s.seq_lengths[:, None], lora=lora,
                       lora_scale=lora_scale, kv_cache=cache, page_size=page_size)
-    s.logits = logits[:, 0]
+    s.logits.copy_(logits[:, 0])
     s.seq_lengths += alive.to(torch.int32)
     s.alive_steps += alive.sum()
-    s.step += 1
-    s.forwards += 1
 
 
 def _self_draft(model: Decoder, drafter_lora, s: SpecRefillState, gen: torch.Generator, *,
@@ -527,7 +557,6 @@ def _self_draft(model: Decoder, drafter_lora, s: SpecRefillState, gen: torch.Gen
             tok = (torch.log(torch.clamp(q_i, min=1e-30)) + g).argmax(dim=-1).to(torch.int32)
         drafts.append(tok)
         qs.append(q_i)
-        s.draft_forwards += 1
     return torch.stack(drafts, dim=1), torch.stack(qs, dim=1)
 
 
@@ -548,8 +577,10 @@ def _spec_step(model: Decoder, lora, s: SpecRefillState, gen: torch.Generator, *
     alive = ~s.done
     buf_len = s.seq_lengths + 1  # resident + the pending last_tok
     if self_draft:
+        # no previous adapter: the current one drafts for itself
+        drafter = drafter_lora if drafter_lora is not None else lora
         draft, draft_probs = _self_draft(
-            model, drafter_lora, s, gen, page_size=page_size, lora_scale=lora_scale,
+            model, drafter, s, gen, page_size=page_size, lora_scale=lora_scale,
             d=d, temperature=temperature, top_p=top_p, top_p_impl=top_p_impl)
     else:
         draft = propose_ngram_drafts(s.seq_buf[:r], buf_len, k=ngram_k, d=d)
@@ -593,9 +624,9 @@ def _spec_step(model: Decoder, lora, s: SpecRefillState, gen: torch.Generator, *
     s.seq_buf[slot_i, seq_col] = emit
     s.lengths_buf[row] = gen_lengths
     last = torch.gather(emit, 1, (n_emit - 1).clamp(0, d).long()[:, None])[:, 0]
-    s.last_tok = torch.where(alive, last, s.last_tok)
+    s.last_tok.copy_(torch.where(alive, last, s.last_tok))
     s.seq_lengths += n_emit
-    s.gen_lengths = gen_lengths
+    s.gen_lengths.copy_(gen_lengths)
     hw = s.emit_hist.shape[0]
     s.emit_hist += ((n_emit[:, None] == torch.arange(hw, device=dev)[None, :])
                     & alive[:, None]).sum(dim=0)
@@ -603,8 +634,6 @@ def _spec_step(model: Decoder, lora, s: SpecRefillState, gen: torch.Generator, *
     s.draft_total += d * n_alive
     s.accept_total += torch.where(alive, n_accept, 0).sum()
     s.alive_steps += n_alive
-    s.step += 1
-    s.forwards += 1
 
 
 def _resume_forward(model: Decoder, lora, s, slot: int, prefix: np.ndarray,
@@ -821,12 +850,6 @@ class PagedGenerationEngine(LoraMailbox, ScanChunks):
         if spec_verify not in ("fused", "unrolled"):
             raise ValueError(f"spec_verify must be fused/unrolled, got {spec_verify!r}")
         self._init_scan_chunks(scan_chunk)
-        if refill and self.scan_chunk > 1:
-            raise NotImplementedError(
-                "scan chunks on the refill scheduler (its plain, speculative and "
-                "self-drafted steps as CUDA graphs between host snapshots) are not "
-                "ported yet: ROADMAP queue 1 item 12b; the wave scheduler and the "
-                "dense engine take scan_chunk")
         kv_quant = "none" if kv_quant is None else kv_quant
         if kv_quant not in ("none", "int8"):
             raise ValueError(f"kv_quant must be none/int8, got {kv_quant!r}")
@@ -934,6 +957,35 @@ class PagedGenerationEngine(LoraMailbox, ScanChunks):
                                          dtype=torch.int32, device=dev),
                 seeds=torch.zeros((self.scan_chunk, bn), dtype=torch.int32, device=dev)))
         return self._chunk_state[1]
+
+    def _refill_static(self, *, spec: bool, r_slots: int, total: int, max_steps: int,
+                       width: int, total_pages: int, scratch: int, buf_width: int = 0,
+                       hist_width: int = 0):
+        """The refill state, its page pools of ``total_pages`` pages and its
+        generator, which captured chunks read: kept across rounds of one
+        shape and reset in place at a round's start; another shape frees
+        it, and the graphs over it, first."""
+        key = ("spec" if spec else "refill", r_slots, total, max_steps, width, total_pages,
+               self.kv_quant, buf_width, hist_width)
+        if self._chunk_state is None or self._chunk_state[0] != key:
+            self.release_decode_graphs()
+            pools = _empty_pools(self.cfg, total_pages, page_size=self.page_size,
+                                 cache_dtype=self.cache_dtype, kv_quant=self.kv_quant,
+                                 device=self.device)
+            common = dict(r_slots=r_slots, total=total, max_steps=max_steps, width=width,
+                          scratch=scratch, pad_id=self.pad_id)
+            if spec:
+                state = _spec_init(*pools, buf_width=buf_width, hist_width=hist_width,
+                                   **common)
+            else:
+                state = _refill_init(*pools, vocab=self.cfg.vocab_size, **common)
+                state.seeds = torch.zeros((self.scan_chunk, r_slots), dtype=torch.int32,
+                                          device=self.device)
+            state.gen = torch.Generator(device=self.device)
+            self._chunk_state = (key, state)
+        state = self._chunk_state[1]
+        _refill_reset(state, total=total, scratch=scratch, pad_id=self.pad_id)
+        return state
 
     def bucket_for(self, prompt_mask) -> int:
         """Single-bucket engine (interface parity with GenerationEngine)."""
@@ -1072,7 +1124,6 @@ class PagedGenerationEngine(LoraMailbox, ScanChunks):
         prefill_tokens = int(real_len_h.sum())
         top_p_impl = sampling.resolved_top_p_impl()
         temperature, top_p = sampling.temperature, sampling.top_p
-        gen = torch.Generator(device=dev).manual_seed(seed)
 
         # the decode page pool (vLLM's budgeted block pool), host-authored
         width = self.prompt_pages + self.private_pages
@@ -1111,13 +1162,32 @@ class PagedGenerationEngine(LoraMailbox, ScanChunks):
         ids = torch.as_tensor(prompt_ids_h, dtype=torch.int32).to(dev)
         mask = torch.as_tensor(prompt_mask_h, dtype=torch.int32).to(dev)
         lora_cell = [lora]
+        # snapshot cadence, never longer than a short decode's whole run
+        check = max(1, min(self.decode_chunk, 16, max_steps))
+        # scan chunks of k_conf steps: the largest divisor of `check` that is
+        # <= scan_chunk, so every host decision (snapshot reads, admissions,
+        # grants, preemption, spill and restore, the wedge detector, the
+        # draft-length controller) still falls every `check` steps; a
+        # non-divisor would stretch the cadence past the grant horizon
+        k_conf = min(self.scan_chunk, check) if self.scan_chunk > 1 else 0
+        while k_conf > 1 and check % k_conf:
+            k_conf -= 1
+        chunked = k_conf > 1
+        buf_width = self.max_prompt_tokens + max_steps + self.spec_draft + 2
+        static = (self._refill_static(
+            spec=spec, r_slots=r_slots, total=total, max_steps=max_steps, width=width,
+            total_pages=shared_static + pool_pages, scratch=pool.scratch,
+            buf_width=buf_width if spec else 0, hist_width=self.spec_draft + 2 if spec else 0)
+            if chunked else None)
+        gen = (torch.Generator(device=dev) if static is None else static.gen).manual_seed(seed)
         t_prefill = 0.0
         if continuous:
             # lazy per-group prefill: the pools hold only the pool pages, and
             # each group's logits row is written when the group is admitted
-            k_pages, v_pages = _empty_pools(
-                self.cfg, pool_pages, page_size=ps, cache_dtype=self.cache_dtype,
-                kv_quant=self.kv_quant, device=dev)
+            k_pages, v_pages = ((static.k_pages, static.v_pages) if static is not None else
+                                _empty_pools(self.cfg, pool_pages, page_size=ps,
+                                             cache_dtype=self.cache_dtype,
+                                             kv_quant=self.kv_quant, device=dev))
             last_logits = torch.zeros((b, self.cfg.vocab_size), dtype=torch.float32,
                                       device=dev)
             real_len = _to_device(real_len_h.astype(np.int32), dev)
@@ -1127,7 +1197,10 @@ class PagedGenerationEngine(LoraMailbox, ScanChunks):
                 model, lora, ids, mask, prompt_pages=self.prompt_pages, page_size=ps,
                 lora_scale=self.lora_scale, cache_dtype=self.cache_dtype,
                 attn_impl=self.attn_impl, kv_quant=self.kv_quant,
-                total_pages=shared_static + pool_pages)
+                total_pages=shared_static + pool_pages,
+                pools=None if static is None else (static.k_pages, static.v_pages),
+                table=None if static is None else torch.as_tensor(
+                    make_page_table(b, self.prompt_pages * ps, ps), device=dev))
             self._sync()
             t_prefill = time.perf_counter() - t0
         t_decode0 = time.perf_counter()
@@ -1145,17 +1218,32 @@ class PagedGenerationEngine(LoraMailbox, ScanChunks):
                 pool.register_prefix(g, region[:n_chain], int(real_len_h[g]) // ps)
                 pool.reclaim(region[n_chain:])
 
-        # snapshot cadence, never longer than a short decode's whole run
-        check = max(1, min(self.decode_chunk, 16, max_steps))
         # grant horizon: a slot's write frontier advances for up to 2·check
         # steps of snapshot lag plus check steps to the next grant pass
         lag_tokens = 3 * check
         write_ceiling_extra = 0
         sampler_calls = [0]
 
-        def seeds(rows: int) -> torch.Tensor:
+        def seeds(rows: int, out=None) -> torch.Tensor:
             return torch.randint(-2**31, 2**31, (rows,), generator=gen,
-                                 dtype=torch.int32, device=dev)
+                                 dtype=torch.int32, device=dev, out=out)
+
+        # k steps a dispatch: one at a time, or a chunk of k_conf through the
+        # chunk runner (a CUDA graph replay on the GPU) keyed by the static
+        # state's shape, the sampling settings and the weights' and
+        # adapters' tensors; the host counts the steps and forwards
+        graphs = self.decode_graphs
+        replays0 = graphs.replays
+        chunk_key = ((self._chunk_state[0], k_conf, top_p_impl, temperature, top_p,
+                      tensors_key(model)) if chunked else None)
+
+        def run_steps(s, k: int, body, key_fn, generators=()) -> None:
+            if chunked:
+                graphs.run(chunk_key + key_fn(), body, dev, generators=generators)
+            else:
+                body()
+            s.step += k
+            s.forwards += k
 
         d_cell = [self.spec_draft]  # the draft length spec_adapt resizes
         drafter_cell = [None]
@@ -1168,10 +1256,10 @@ class PagedGenerationEngine(LoraMailbox, ScanChunks):
             lag_tokens = 3 * check * (d + 1) + d
             write_ceiling_extra = d
             packed_ids, _, _ = _pack_rows(ids, mask)
-            buf_width = self.max_prompt_tokens + max_steps + d + 2
-            state = _spec_init(k_pages, v_pages, r_slots=r_slots, total=total,
-                               max_steps=max_steps, buf_width=buf_width, hist_width=d + 2,
-                               width=width, scratch=pool.scratch, pad_id=self.pad_id)
+            state = static if static is not None else _spec_init(
+                k_pages, v_pages, r_slots=r_slots, total=total, max_steps=max_steps,
+                buf_width=buf_width, hist_width=d + 2, width=width, scratch=pool.scratch,
+                pad_id=self.pad_id)
             self_draft = self.spec_drafter == "self"
             if self_draft:
                 # the policy's previous adapter drafts; before any swap the
@@ -1180,14 +1268,28 @@ class PagedGenerationEngine(LoraMailbox, ScanChunks):
                 drafter_version = (self._prev_lora_version if self._prev_lora is not None
                                    else None)
 
-            def step(s):
-                _spec_step(model, lora_cell[0], s, gen, page_size=ps, eos_ids=self.eos_ids,
-                           temperature=temperature, top_p=top_p,
-                           lora_scale=self.lora_scale, top_p_impl=top_p_impl,
-                           capture_logprobs=self.capture_logprobs, max_steps=max_steps,
-                           draft_len=d_cell[0], ngram_k=self.spec_ngram,
-                           spec_verify=self.spec_verify, drafter_lora=drafter_cell[0],
-                           self_draft=self_draft)
+            def step(s, k: int) -> None:
+                # the draws of the speculative and self-drafted steps come
+                # from `gen` inside the chunk: registered with its graph, a
+                # replay advances the generator as the eager steps would
+                lo, dl, d_now = lora_cell[0], drafter_cell[0], d_cell[0]
+
+                def body():
+                    for _ in range(k):
+                        _spec_step(model, lo, s, gen, page_size=ps, eos_ids=self.eos_ids,
+                                   temperature=temperature, top_p=top_p,
+                                   lora_scale=self.lora_scale, top_p_impl=top_p_impl,
+                                   capture_logprobs=self.capture_logprobs,
+                                   max_steps=max_steps, draft_len=d_now,
+                                   ngram_k=self.spec_ngram, spec_verify=self.spec_verify,
+                                   drafter_lora=dl, self_draft=self_draft)
+
+                # each draft length is its own graph (the JAX package's
+                # spec:d{d}), and so is each drafter adapter
+                run_steps(s, k, body, lambda: (d_now, tensors_key(lo), tensors_key(dl)),
+                          generators=(gen,))
+                if self_draft:
+                    s.draft_forwards += k * d_now
 
             def admit(s, new_cand, admit_mask, copies):
                 sampler_calls[0] += 1
@@ -1201,18 +1303,29 @@ class PagedGenerationEngine(LoraMailbox, ScanChunks):
                     return rl + max_steps + d  # worst case: no grant passes
                 return min(rl + max(plen, 1) + lag_tokens, rl + max_steps + d)
         else:
-            state = _refill_init(k_pages, v_pages, r_slots=r_slots, total=total,
-                                 max_steps=max_steps, vocab=self.cfg.vocab_size,
-                                 width=width, scratch=pool.scratch, pad_id=self.pad_id)
+            state = static if static is not None else _refill_init(
+                k_pages, v_pages, r_slots=r_slots, total=total, max_steps=max_steps,
+                vocab=self.cfg.vocab_size, width=width, scratch=pool.scratch,
+                pad_id=self.pad_id)
 
-            def step(s):
-                sampler_calls[0] += 1
-                _refill_decode_step(model, lora_cell[0], s, seeds(r_slots), page_size=ps,
-                                    eos_ids=self.eos_ids, pad_id=self.pad_id,
-                                    temperature=temperature, top_p=top_p,
-                                    lora_scale=self.lora_scale, top_p_impl=top_p_impl,
-                                    capture_logprobs=self.capture_logprobs,
-                                    max_steps=max_steps)
+            def step(s, k: int) -> None:
+                # a chunk's k seed vectors are drawn before it, into the
+                # static buffer, by the per-step loop's k calls
+                lo = lora_cell[0]
+                rows = ([seeds(r_slots, out=s.seeds[i]) for i in range(k)] if chunked
+                        else [seeds(r_slots)])
+                sampler_calls[0] += k
+
+                def body():
+                    for i in range(k):
+                        _refill_decode_step(model, lo, s, rows[i], page_size=ps,
+                                            eos_ids=self.eos_ids, pad_id=self.pad_id,
+                                            temperature=temperature, top_p=top_p,
+                                            lora_scale=self.lora_scale, top_p_impl=top_p_impl,
+                                            capture_logprobs=self.capture_logprobs,
+                                            max_steps=max_steps)
+
+                run_steps(s, k, body, lambda: (tensors_key(lo),))
 
             def admit(s, new_cand, admit_mask, copies):
                 _refill_admit(s, new_cand, admit_mask, last_logits, real_len, copies,
@@ -1488,9 +1601,10 @@ class PagedGenerationEngine(LoraMailbox, ScanChunks):
                     # exact: drop the cache and stop caching this round
                     pool.invalidate_cache()
                     cache_write[0] = False
-            step(state)
-            dispatched += 1
-            since_host += 1
+            k = k_conf if chunked else 1
+            step(state, k)
+            dispatched += k
+            since_host += k
             if since_host < check:
                 continue
             since_host = 0
@@ -1642,15 +1756,16 @@ class PagedGenerationEngine(LoraMailbox, ScanChunks):
             raise RuntimeError(
                 f"refill scheduler exhausted its step budget ({budget}) with "
                 f"{int((~finished).sum())}/{total} candidates unfinished")
-        out = state.out[:total].cpu().numpy().reshape(b, n, max_steps)
-        lengths = state.lengths_buf[:total].cpu().numpy().reshape(b, n)
-        logps = (state.logps_buf[:total].cpu().numpy().reshape(b, n, max_steps)
+        # host copies: a chunked engine's state is the next round's
+        out = _host(state.out[:total]).reshape(b, n, max_steps)
+        lengths = _host(state.lengths_buf[:total]).reshape(b, n)
+        logps = (_host(state.logps_buf[:total]).reshape(b, n, max_steps)
                  if self.capture_logprobs else None)
         gen_tokens = int(lengths.sum())
         if spec:
             # acceptance accounting off the device-carried histogram, read
             # once at round end
-            hist_h = state.emit_hist.cpu().numpy()
+            hist_h = _host(state.emit_hist)
             drafted = int(state.draft_total)
             steps_alive = int(hist_h.sum())
             emitted = int((hist_h * np.arange(hist_h.size)).sum())
@@ -1677,6 +1792,7 @@ class PagedGenerationEngine(LoraMailbox, ScanChunks):
             self.last_round_stats, prefill_s=t_prefill, prefill_tokens=prefill_tokens,
             prompt_rows=b, decode_s=decode_s, gen_tokens=gen_tokens, gen_rows=total)
         stats["decode_forwards"] = state.forwards
+        stats["graph_steps"] = (graphs.replays - replays0) * k_conf if chunked else 0
         stats["draft_forwards"] = getattr(state, "draft_forwards", 0)
         stats["sampler_calls"] = sampler_calls[0]
         # prompt tokens the radix cache saved, and the group prefills that ran

@@ -157,7 +157,9 @@ class SpecRefillState:
     ``out``, ``logps_buf`` and ``lengths_buf`` hold one extra row (index
     ``total``) and ``seq_buf`` one extra slot row (index R): writes of dead
     slots and of positions past a step's emission land there and are never
-    read, the counterpart of the JAX package's ``mode="drop"`` scatters."""
+    read, the counterpart of the JAX package's ``mode="drop"`` scatters.
+    Every tensor keeps its address (what a captured chunk reads it by); the
+    host counts ``step`` and the forwards, which no step body reads."""
 
     out: torch.Tensor  # [total + 1, T] int32, pad-filled
     logps_buf: torch.Tensor  # [total + 1, T] f32 behavior logprobs (raw basis)
@@ -181,3 +183,4 @@ class SpecRefillState:
     step: int = 0
     forwards: int = 0  # verify forwards run (each launches K5 once per layer)
     draft_forwards: int = 0  # self-drafter decode forwards (K2 once per layer each)
+    gen: torch.Generator | None = None  # chunked: the round's generator, reseeded

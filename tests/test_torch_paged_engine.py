@@ -311,14 +311,13 @@ def test_push_lora_mid_round_matches_jax(weights):
     {"scan_chunk": 8},
 ])
 def test_unported_knobs_raise_naming_roadmap(weights, knob):
-    """Scan chunks run on the wave scheduler (CUDA graphs over the decode
-    step) and still raise on the refill scheduler, naming its ROADMAP item;
-    every other knob here is ported and the port's engine accepts or refuses
-    it (ValueError) exactly as the JAX engine does."""
+    """Scan chunks run on both schedulers (CUDA graphs over the decode
+    steps); every other knob here is ported and the port's engine accepts
+    or refuses it (ValueError) exactly as the JAX engine does."""
     if "scan_chunk" in knob:
         assert _tengine(weights, 4, **knob).scan_chunk == knob["scan_chunk"]
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12b"):
-            _tengine(weights, 4, scheduler="refill", max_concurrent_rows=4, **knob)
+        refill = _tengine(weights, 4, scheduler="refill", max_concurrent_rows=4, **knob)
+        assert refill.scan_chunk == knob["scan_chunk"] and refill.scan_chunk_active is None
         return
     try:
         _jengine(4, **knob)

@@ -199,14 +199,6 @@ def test_negative_scan_chunk_raises_as_jax(weights, kind):
         _pair(weights, kind, t=4, k=-1)
 
 
-def test_refill_scheduler_refuses_scan_chunks_naming_item_12b(weights):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12b"):
-        PagedGenerationEngine(weights["cfg"], max_prompt_tokens=P, max_new_tokens=4,
-                              eos_token_ids=[NO_EOS], pad_token_id=PAD, page_size=PS,
-                              scheduler="refill", max_concurrent_rows=4, scan_chunk=4,
-                              device="cpu")
-
-
 @pytest.mark.parametrize("kind", ENGINES)
 def test_sampled_chunks_equal_the_per_step_loop(weights, kind):
     """Sampled (t = 1.1, top-p 0.9), 4 over 7: a chunk's k seed vectors are
