@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (``distrl_llm_tpu_torch``).
 
-    python3 chip_smoke.py [--layers N] [--seed S] [--profile] [--until 6|7|...|12]
+    python3 chip_smoke.py [--layers N] [--seed S] [--profile] [--until 6|7|...|13]
 
 Needs one NVIDIA GPU (Hopper: the kernels build for ``sm_90a``) and ``nvcc``.
 Without a GPU it exits non-zero before computing anything. Phases, each
@@ -198,6 +198,25 @@ printing its own lines:
    with ``decode_scan_chunk=16`` and the same step eager: every engine
    round equal, generation, reward and update ms of each, K3 on every
    projection of the replayed steps.
+13. the overlapped rollout modes: ``Trainer.train()`` of phase 8's
+   configuration (int4 g64, refill 32 slots, splash, rank 32, Adam8bit lr
+   2e-5, 4 x 16 x 128) with GRPO and ``clip_ratio=0.2`` in every regime,
+   at 7 layers (GRAPH_TRAIN_LAYERS, as phase 12 (e)), the initial eval and
+   one episode of 4 batches, one model quantized once and each trainer
+   dropped before the next: (a) sync and (b) pipelined with
+   ``decode_scan_chunk=16``, (c) sync and (d) pipelined eager, (e) async
+   with ``inflight_weight_updates``, ``max_staleness=2`` and the buffer at
+   its floor (2 x batch). Each round's launches (the tally of the thread
+   that ran it) and each update's (every other thread's) equal what their
+   counts say, and add up to the run's; pipelined round t >= 1 opened with
+   version t - 1; async swaps are real learner versions on chunk
+   boundaries, the tags change exactly there, the buffer's books balance;
+   a graphed round captures only over adapters no earlier round used, at
+   most the ring's buffers; every regime's first train round equals (a)'s
+   bit for bit; finite losses, the adapter within Adam8bit's clip. Printed:
+   ms per training step and each ``timing/*_duration``, the seconds of
+   host-clock overlap between rounds and updates, peak GiB allocated and
+   reserved, captures and replays, the phase's seconds.
 
 Phase 3 holds K4 (forward and backward) against its plain version at the
 learner's [8, 1550, 28 / 4, 128] and at Gemma-2B's [8, 1550, 8 / 1, 256],
@@ -230,6 +249,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import traceback
 from pathlib import Path
@@ -3080,6 +3100,19 @@ def trainer_run(build, *, label: str = "", probe=None) -> dict:
             "pending_ms": pending}
 
 
+def check_adapter_clip(adapters, lr: float, label: str) -> None:
+    """Each step moved the adapter, and no element beyond Adam8bit's clip
+    (5 lr, plus the rounding of p + step)."""
+    for i in range(1, len(adapters)):
+        before, after = adapters[i - 1], adapters[i]
+        d = [(a - b).abs() for a, b in zip(after, before)]
+        within = all(bool((x <= 5 * lr * (1 + 1e-6) + b.abs() * 2.0**-23).all())
+                     for x, b in zip(d, before))
+        check(within, f"{label} step {i}: an adapter element moved beyond Adam8bit's "
+              f"clip 5 lr = {5 * lr:.3g}")
+        check(any(bool((x > 0).any()) for x in d), f"{label} step {i}: the adapter did not move")
+
+
 def check_trainer_run(out: dict, layers: int, *, steps: int, lr: float, cuda: bool) -> None:
     """The trainer's run did what phase 8's cell asks: ``steps`` finite
     losses, weight version and rollout-resident version ``steps``, every
@@ -3109,15 +3142,7 @@ def check_trainer_run(out: dict, layers: int, *, steps: int, lr: float, cuda: bo
     check(tr.weight_version == steps and tr._rollout_weight_version == steps,
           f"{label}: weight version {tr.weight_version}, rollout-resident "
           f"{tr._rollout_weight_version}, want {steps}")
-    for i in range(1, len(out["adapters"])):
-        before, after = out["adapters"][i - 1], out["adapters"][i]
-        d = [(a - b).abs() for a, b in zip(after, before)]
-        # Adam8bit's clip: |step| <= 5 lr, plus the rounding of p + step
-        within = all(bool((x <= 5 * lr * (1 + 1e-6) + b.abs() * 2.0**-23).all())
-                     for x, b in zip(d, before))
-        check(within, f"{label} step {i}: an adapter element moved beyond Adam8bit's "
-              f"clip 5 lr = {5 * lr:.3g}")
-        check(any(bool((x > 0).any()) for x in d), f"{label} step {i}: the adapter did not move")
+    check_adapter_clip(out["adapters"], lr, label)
     if not cuda:
         return
     c, rounds = out["counts"], out["rounds"]
@@ -4906,17 +4931,409 @@ def refill_graph_phase(cfg, args, card: str, t_start: float) -> list:
     return counted
 
 
+# ------------------------------------------------------------------ phase 13
+# the overlapped rollout modes: phase 8's trainer configuration at 7 layers
+# (as phase 12(e)), GRPO with clip_ratio 0.2 for every regime (async needs
+# it), one episode of 4 batches
+
+OVERLAP_PROBLEMS = TRAIN_PROBLEMS + (
+    ("What is 9 times 7?", "63"),
+    ("What is the square root of 144?", "12"),
+    ("How many sides does a hexagon have?", "6"),
+    ("What is 2 to the power of 10?", "1024"),
+    ("What is 100 divided by 4?", "25"),
+    ("What is the least common multiple of 4 and 6?", "12"),
+    ("What is 17 + 26?", "43"),
+    ("How many degrees are in a right angle?", "90"),
+)
+# (label, the regime's config): (a) sync and (b) pipelined graphed, (c) sync
+# and (d) pipelined eager (the trainer's default), (e) async with in-flight
+# updates at the buffer's floor (2 x batch), which makes rounds interleave
+# with updates
+OVERLAP_REGIMES = (
+    ("sync_graphed", dict(rollout_mode="sync", decode_scan_chunk=GRAPH_CHUNK)),
+    ("pipelined_graphed", dict(rollout_mode="pipelined", decode_scan_chunk=GRAPH_CHUNK)),
+    ("sync_eager", dict(rollout_mode="sync")),
+    ("pipelined_eager", dict(rollout_mode="pipelined")),
+    ("async", dict(rollout_mode="async", inflight_weight_updates=True, max_staleness=2,
+                   rollout_buffer_groups=1, decode_scan_chunk=GRAPH_CHUNK)),
+)
+
+
+def overlap_datasets(tokenizer):
+    """The 16 problems (train, 4 batches of 4) and the first 4 (eval)
+    through the R1 chat template."""
+    from distrl_llm_tpu_torch.data import R1_PREPROMPT, process_dataset
+
+    data = {"problem": [p for p, _ in OVERLAP_PROBLEMS],
+            "solution": [s for _, s in OVERLAP_PROBLEMS]}
+    train = process_dataset(tokenizer, data, R1_PREPROMPT, "")
+    return train, {k: v[:4] for k, v in train.items()}
+
+
+def _kernel_counts(tally) -> dict[str, int]:
+    """A launch tally by (module, counter) as counts by KERNELS name."""
+    return {k["name"]: int(tally.get((k["module"], k["counter"]), 0)) for k in KERNELS}
+
+
+def _overlap_s(a: tuple, b: tuple) -> float:
+    return max(0.0, min(a[1], b[1]) - max(a[0], b[0]))
+
+
+def overlap_run(build, *, label: str) -> dict:
+    """``build(sink)`` makes a ``Trainer``; this runs its ``train()`` with the
+    counts reset just before and read just after, recording on the thread
+    that ran it each engine round (host interval, its own launches from the
+    thread's tally, model forwards, captures, the version it opened with,
+    its swaps and tags) and each update (host interval to the loss on the
+    host, the launches of every thread but the rollout's, learner forwards),
+    each train record's host time and the peak device memory."""
+    import collections
+
+    import numpy as np
+    import torch
+
+    from distrl_llm_tpu_torch.engine.decode_graph import tensors_key
+    from distrl_llm_tpu_torch.ops import launch_count
+
+    cell = []
+    sink = _StepSink(cell)
+    trainer = build(sink)
+    cell.append(trainer)
+    model, eng = trainer.model, trainer.engine
+    dev = model.embed.device
+    cuda = dev.type == "cuda"
+    main = threading.get_ident()
+    fwd, mu = collections.Counter(), threading.Lock()
+
+    def hook(*_):  # a forward made while capturing launches nothing
+        if not (cuda and torch.cuda.is_current_stream_capturing()):
+            with mu:
+                fwd[threading.get_ident()] += 1
+
+    handle = model.register_forward_hook(hook)
+    rounds, updates, tagged, rollout_threads = [], [], [], set()
+    swapped: dict[int, list] = collections.defaultdict(list)  # adapters a round swapped in
+    swap_hook = eng.lora_swap_hook
+
+    def hooked_swap(dropped, taken):
+        swapped[threading.get_ident()].append(tensors_key(taken))
+        swap_hook(dropped, taken)
+
+    if swap_hook is not None:
+        eng.lora_swap_hook = hooked_swap
+    generate, train_step, gen_round = eng.generate, trainer.train_step, trainer._generate_round
+    times = {"records": []}
+    log = sink.log
+
+    def logged(metrics, step):
+        times["records"].append((time.perf_counter(), "loss" in metrics))
+        log(metrics, step)
+
+    def recorded(*a, **kw):
+        ident = threading.get_ident()
+        if ident != main:
+            rollout_threads.add(ident)
+        c0, f0 = launch_count.thread_counts(), fwd[ident]
+        g0 = (eng.decode_graphs.captures, eng.decode_graphs.replays)
+        swapped[ident] = []
+        t0 = time.perf_counter()
+        res = generate(*a, **kw)
+        t1 = time.perf_counter()
+        st = dict(eng.last_round_stats or {})
+        pool = dict(getattr(eng, "last_pool_stats", None) or {})
+        rounds.append({
+            "t": (t0, t1), "thread": ident, "train": a[4].n == trainer.config.num_candidates,
+            "res": res, "steps": res.steps_dispatched, "forwards": st.get("decode_forwards", 0),
+            "sampler_calls": st.get("sampler_calls", res.steps_dispatched),
+            "resumes": pool.get("resumes", 0), "refill": bool(pool),
+            "model_forwards": fwd[ident] - f0 + st.get("graph_steps", 0),
+            "counts": _kernel_counts(launch_count.thread_counts() - c0),
+            "captures": eng.decode_graphs.captures - g0[0],
+            "replays": eng.decode_graphs.replays - g0[1],
+            "adapters": [tensors_key(a[1]), *swapped[ident]]})
+        return res
+
+    def round_tags(batch, sampling):
+        out = gen_round(batch, sampling)
+        if sampling.n == trainer.config.num_candidates and "base_version" in out[0]:
+
+            c = out[0]
+            tagged.append({"base": c["base_version"], "events": list(c["swap_events"]),
+                           "tags": np.asarray(c["version_tags"][0])})
+        return out
+
+    def stepped(*a):
+        before, f0 = launch_count.all_thread_counts(), fwd[main]
+        t0 = time.perf_counter()
+        loss = train_step(*a)
+        float(loss)  # the update ends on the host, as the trainer's next line does
+        t1 = time.perf_counter()
+        after = launch_count.all_thread_counts()
+        tally = collections.Counter()
+        for ident, c in after.items():
+            if ident not in rollout_threads:
+                tally += c - before.get(ident, collections.Counter())
+        updates.append({"t": (t0, t1), "counts": _kernel_counts(tally),
+                        "learner_forwards": fwd[main] - f0})
+        return loss
+
+    eng.generate, trainer.train_step, trainer._generate_round = recorded, stepped, round_tags
+    sink.log = logged
+    initial = _lora_host(trainer.lora)
+    if cuda:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    k4_plain, k3_plain = [0], [0]
+    from distrl_llm_tpu_torch.ops import flash_attention as fa
+
+    try:
+        with (counting_plain_calls(fa, "flash_attention_reference", k4_plain),
+              counting_plain_calls(_qmm(), "quant_matmul_reference", k3_plain)):
+            reset_counts()
+            t = time.perf_counter()
+            trainer.train()
+            wall = time.perf_counter() - t
+            counts = read_counts()
+    finally:
+        handle.remove()
+        eng.generate, trainer.train_step = generate, train_step
+        trainer._generate_round, eng.lora_swap_hook = gen_round, swap_hook
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30 if cuda else float("nan")
+    reserved = torch.cuda.max_memory_reserved(dev) / 2**30 if cuda else float("nan")
+    train_rounds = [r for r in rounds if r["train"]]
+    overlap = sum(_overlap_s(r["t"], u["t"]) for r in train_rounds if r["thread"] != main
+                  for u in updates)
+    stamps = times["records"]
+    step_ms = [1e3 * (t1 - t0) for (t0, _), (t1, is_train) in zip(stamps, stamps[1:])
+               if is_train]
+    return {"trainer": trainer, "label": label, "records": sink.records,
+            "adapters": [initial] + sink.adapters, "rounds": rounds,
+            "train_rounds": train_rounds, "tagged": tagged, "updates": updates,
+            "counts": counts, "wall_s": wall, "peak_gib": peak, "reserved_gib": reserved,
+            "overlap_s": overlap, "step_ms": step_ms, "k4_plain": k4_plain[0],
+            "k3_plain": k3_plain[0], "captures": eng.decode_graphs.captures,
+            "replays": eng.decode_graphs.replays}
+
+
+def check_overlap_run(out: dict, layers: int, *, steps: int, cuda: bool) -> None:
+    """Phase 13's checks of one regime: finite losses and the reference's
+    metric names; the adapter within Adam8bit's clip; the versions each
+    round sampled (pipelined: round t >= 1 the version t - 1; async: every
+    swap a real learner version on a chunk boundary, the tags changing
+    exactly there); the buffer's books; no capture after the first two
+    train rounds and no more than the ring's buffers per key; on the card
+    each round's and each update's own launches as its counts say, and
+    together all the run's."""
+    import numpy as np
+
+    from distrl_llm_tpu_torch.rollout import version_tags_for_round
+
+    tr, label = out["trainer"], out["label"]
+    cfg = tr.config
+    train = [m for _, m in out["records"] if "loss" in m]
+    check(len(train) == steps and len(out["updates"]) == steps,
+          f"{label}: {len(train)} train records, {len(out['updates'])} updates, want {steps}")
+    for m in train:
+        check(math.isfinite(m["loss"]), f"{label}: loss {m['loss']}")
+        check(TRAIN_METRICS <= set(m), f"{label}: train record lacks {TRAIN_METRICS - set(m)}")
+        check(m["rollout_mode"] == cfg.rollout_mode
+              and m["max_staleness"] == cfg.allowed_weight_lag, f"{label}: regime fields")
+    check_adapter_clip(out["adapters"], cfg.lr, label)
+    check(tr.weight_version == steps, f"{label}: weight version {tr.weight_version}")
+    tagged = out["tagged"]
+    check(len(tagged) == steps, f"{label}: {len(tagged)} tagged train rounds")
+    if cfg.rollout_mode == "pipelined":
+        bases = [t["base"] for t in tagged]
+        check(bases == [max(t - 1, 0) for t in range(steps)] and
+              not any(t["events"] for t in tagged),
+              f"{label}: the train rounds opened with versions {bases}, want "
+              f"{[max(t - 1, 0) for t in range(steps)]} (one step stale, never more)")
+    if cfg.rollout_mode == "async":
+        # the refill scheduler's chunk: the largest divisor of its host
+        # cadence that is <= scan_chunk
+        cadence = max(1, min(tr.engine.decode_chunk, 16, cfg.max_new_tokens))
+        k = min(tr.engine.scan_chunk, cadence)
+        while k > 1 and cadence % k:
+            k -= 1
+        for t in tagged:
+            for step, v in t["events"]:
+                check(0 < v <= tr.weight_version, f"{label}: a swap to version {v}")
+                check(k <= 1 or step % k == 0, f"{label}: a swap at step {step}, not on a "
+                      f"chunk boundary of {k}")
+            want = version_tags_for_round(*t["tags"].shape, t["base"], t["events"])
+            check(np.array_equal(t["tags"], want), f"{label}: tags do not change exactly at "
+                  f"the swap steps {t['events']}")
+        swaps = sum(len(t["events"]) for t in tagged)
+        check(swaps > 0, f"{label}: no in-flight swap landed")
+        s = tr._rollout_buffer.stats()
+        check(s["total_put"] == s["total_got"] + s["dropped_stale"] + s["dropped_capacity"]
+              + s["occupancy"], f"{label}: the buffer's books do not balance: {s}")
+    graphed = (cfg.decode_scan_chunk or 0) > 1
+    if graphed and cuda:
+        # a key is captured in its first train round: a round whose adapters
+        # were all seen before replays only, and the train rounds' captures
+        # are at most the ring's buffers
+        seen: set = set()
+        for i, r in enumerate(out["train_rounds"]):
+            new = set(r["adapters"]) - seen
+            check(r["captures"] <= len(new), f"{label}: train round {i} captured "
+                  f"{r['captures']} chunks over adapters seen before")
+            seen |= new
+        ring = tr._ring.size if tr._ring is not None else 1
+        captured = sum(r["captures"] for r in out["train_rounds"])
+        check(captured <= ring and len(seen) <= ring, f"{label}: {captured} captures over "
+              f"{len(seen)} adapters, more than the ring's {ring} buffers")
+    if not cuda:
+        return
+    quant = cfg.base_quant != "none"
+    for r in out["rounds"]:
+        prefills = r["model_forwards"] - r["forwards"] - r["resumes"]
+        want = {**{k["name"]: 0 for k in KERNELS},
+                "fused_sample": r["sampler_calls"], "paged_attention": layers * r["forwards"],
+                "quant_matmul": 7 * layers * r["model_forwards"] if quant else 0,
+                "flash_attention_fwd": layers * prefills}
+        check(r["counts"] == want, f"{label}: a round's launches {r['counts']}, want {want}")
+    for u in out["updates"]:
+        mb = u["learner_forwards"]
+        want = {**{k["name"]: 0 for k in KERNELS},
+                "quant_matmul": 2 * 7 * layers * mb if quant else 0,
+                "flash_attention_fwd": 2 * layers * mb, "flash_attention_bwd": layers * mb}
+        check(mb == cfg.batch_size * cfg.num_candidates // cfg.train_batch_size,
+              f"{label}: {mb} learner forwards, want every microbatch")
+        check(u["counts"] == want, f"{label}: an update's launches {u['counts']}, want {want}")
+    total = {k["name"]: sum(x["counts"][k["name"]] for x in out["rounds"] + out["updates"])
+             for k in KERNELS}
+    check(out["counts"] == total, f"{label}: launches {out['counts']}, the rounds' and "
+          f"updates' own add up to {total}")
+    check(out["k4_plain"] == out["k3_plain"] == 0, f"{label}: a plain version ran")
+
+
+def overlap_trainer(cfg, device, *, seed: int, workdir: Path, tokenizer_dir: Path,
+                    group=QMM_GROUP, hbm_bytes=None, regimes=OVERLAP_REGIMES,
+                    **config_kw) -> dict:
+    """Phase 13: ``Trainer.train()`` in each regime of ``regimes`` in turn, one
+    model quantized once (int4 g64 over random weights from the seed), each
+    trainer and its engine dropped before the next; each run checked by
+    ``check_overlap_run``, and every regime's first train round equal, bit
+    for bit, to the first regime's (the same seed and version 0)."""
+    import torch
+
+    from distrl_llm_tpu_torch.ops.quant import quantize_base
+    from distrl_llm_tpu_torch.tokenizer import load_tokenizer
+    from distrl_llm_tpu_torch.trainer import Trainer, make_engine as trainer_engine
+
+    tok = load_tokenizer(str(tokenizer_dir))
+    train, test = overlap_datasets(tok)
+    model, _ = make_weights(cfg, device, seed=seed)
+    base_kw = dict(seed=seed, quant_group_size=group, learner="grpo", clip_ratio=0.2,
+                   lora_dropout=0.0, save_every=0, write_adapter_file=False,
+                   checkpoint_dir=None)
+    quantize_base(model, "int4", group)
+    out = {}
+    for label, regime in regimes:
+        config = trainer_config(workdir / label, **{**base_kw, **regime, **config_kw})
+        engine = trainer_engine(config, model, tok, hbm_bytes=hbm_bytes)
+        run = overlap_run(lambda sink: Trainer(train, test, smoke_reward, config, tokenizer=tok,
+                                               engine=engine, model=model, sink=sink),
+                          label=label)
+        steps = len(train["problem"]) // config.batch_size
+        check_overlap_run(run, cfg.num_layers, steps=steps, cuda=device == "cuda")
+        run.pop("trainer")
+        run["config"] = config
+        engine.release_decode_graphs()
+        out[label] = run
+        del engine
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    first = {label: run["train_rounds"][0]["res"] for label, run in out.items()}
+    ref_label = next(iter(first))
+    check_graph_equal([dict(res=res, what=label) for label, res in first.items()],
+                      f"overlap round 0 (the reference: {ref_label})")
+    return out
+
+
+def overlap_lines(out: dict, card: str) -> list[str]:
+    import numpy as np
+
+    lines = []
+    for label, run in out.items():
+        recs = [m for _, m in run["records"] if "loss" in m]
+        phases = {k: [1e3 * m[f"timing/{k}_duration"] for m in recs]
+                  for k in ("generation", "reward", "update")}
+        steps = run["step_ms"]
+        lines.append(
+            f"overlap {label}: {len(recs)} steps, ms per training step (record to record) "
+            f"{', '.join(f'{x:.1f}' for x in steps)}; mean of steps 2-{len(steps)} "
+            f"{float(np.mean(steps[1:])):.1f}; timing/generation_duration "
+            f"{', '.join(f'{x:.1f}' for x in phases['generation'])}, reward "
+            f"{', '.join(f'{x:.1f}' for x in phases['reward'])}, update "
+            f"{', '.join(f'{x:.1f}' for x in phases['update'])} ms; generation and update "
+            f"overlapped {run['overlap_s']:.3f} s on the host clock; train() "
+            f"{run['wall_s']:.1f} s; peak {run['peak_gib']:.2f} GiB allocated, "
+            f"{run['reserved_gib']:.2f} reserved; captures {run['captures']}, replays "
+            f"{run['replays']}; launches {run['counts']}; {card}")
+    return lines
+
+
+def overlap_phase(cfg, args, card: str, t_start: float) -> list:
+    """Phase 13 on the card (see the module's docstring). Returns the launch
+    counts of its runs."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    shallow = dataclasses.replace(cfg, num_layers=min(cfg.num_layers, GRAPH_TRAIN_LAYERS))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_overlap_") as tmp:
+        work = Path(tmp)
+        tok_dir = write_bpe_tokenizer(work / "tokenizer", cfg.vocab_size)
+        out = overlap_trainer(shallow, "cuda", seed=args.seed, workdir=work,
+                              tokenizer_dir=tok_dir)
+    for line in overlap_lines(out, card):
+        print(line)
+    sync, pipe = out["sync_graphed"], out["pipelined_graphed"]
+    print(f"overlap: Trainer.train() at {shallow.num_layers} layers over the int4 g{QMM_GROUP} "
+          f"base, refill engine ({TRAIN_SLOTS} slots), GRPO clip 0.2, 4 x 16 x "
+          f"{TRAIN_NEW_TOKENS}; graphed pipelined / sync mean step (2-4) "
+          f"{np.mean(pipe['step_ms'][1:]) / np.mean(sync['step_ms'][1:]):.3f}, eager "
+          f"{np.mean(out['pipelined_eager']['step_ms'][1:]) / np.mean(out['sync_eager']['step_ms'][1:]):.3f}"
+          f"; phase 13 {time.perf_counter() - t0:.1f} s; total "
+          f"{time.perf_counter() - t_start:.1f} s; {card}")
+    return [run["counts"] for run in out.values()]
+
+
+def overlap_rehearsal(workdir) -> dict:
+    """Phase 13 at TINY on the CPU (a 1024-token vocabulary for the
+    hand-written BPE; 8 new tokens, 8 slots): every regime run and checked
+    as on the card, launch counts apart."""
+    from distrl_llm_tpu_torch.models.configs import TINY
+
+    cfg = dataclasses.replace(TINY, vocab_size=1024)
+    work = Path(workdir)
+    tok = write_bpe_tokenizer(work / "tok", cfg.vocab_size)
+    return overlap_trainer(cfg, "cpu", seed=0, workdir=work, tokenizer_dir=tok, group=16,
+                           hbm_bytes=2**30, max_prompt_tokens=96, max_new_tokens=8,
+                           num_candidates=4, topk=4, train_batch_size=4, eval_n=2,
+                           max_concurrent_sequences=8, max_lora_rank=4)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=28,
                     help="decoder depth of the Qwen2.5-7B-wide model (28 = full)")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--until", type=int, default=12, choices=(6, 7, 8, 9, 10, 11, 12),
+    ap.add_argument("--until", type=int, default=13, choices=(6, 7, 8, 9, 10, 11, 12, 13),
                     help="the last phase to run; 6 skips speculative decoding "
                          "(with --profile, the long part), 7 the trainer, 8 the "
                          "refill engine's riders, 9 full fine-tuning at Gemma-2B "
                          "width, 10 scan chunks as CUDA graphs, 11 the refill "
-                         "scheduler's; a partial run prints no result line")
+                         "scheduler's, 12 the overlapped rollout modes; a partial "
+                         "run prints no result line")
     ap.add_argument("--profile", action="store_true",
                     help="also print the device time per decode step and per "
                          "learner step by kernel (torch.profiler) and the "
@@ -5255,6 +5672,16 @@ def main(argv=None) -> int:
     # trainer's refill cell; the riders under a budget; one Trainer.train()
     # step of phase 8's configuration graphed and eager
     counted += refill_graph_phase(cfg, args, card, t_start)
+    if args.until < 13:
+        print(f"chip_smoke: phases 1-{args.until} done in {time.perf_counter() - t_start:.1f} s "
+              f"(a partial run prints no result line); {card}")
+        return 0
+
+    # 13. the overlapped rollout modes: Trainer.train() of phase 8's QLoRA
+    # configuration at 7 layers, sync and pipelined graphed and eager, then
+    # async with in-flight updates; every round's and update's launches,
+    # versions, swaps and captures checked, the overlap measured
+    counted += overlap_phase(cfg, args, card, t_start)
     print(f"chip_smoke: done in {time.perf_counter() - t_start:.1f} s; {card}")
 
     kernels = []

@@ -15,12 +15,21 @@
   same atomic publication, through the port's safetensors codec: an adapter
   written by either package loads in the other. It is an export artifact;
   weight sync never goes through it.
+* :func:`save_rollout_state` / :func:`load_rollout_state` — the async
+  rollout regime's in-flight state (the buffer's queued trajectories, the
+  producer's episode/batch cursor, the admission counters): numpy and str
+  payloads, not tensors, so a pickle sidecar beside ``step_<N>.pt`` keyed by
+  the same step (JAX ``checkpoint.py:37-87``). A resumed run reloads the
+  unconsumed buffer and restarts the producer at its cursor; a missing or
+  corrupt sidecar degrades to a fresh buffer.
 """
 
 from __future__ import annotations
 
 import json
+import logging
 import os
+import pickle
 import re
 import shutil
 import tempfile
@@ -34,6 +43,48 @@ Params = dict[str, Any]
 
 _CKPT = re.compile(r"^step_(\d+)\.pt$")
 MAX_TO_KEEP = 3
+
+log = logging.getLogger(__name__)
+
+
+def rollout_state_path(directory: str, step: int) -> str:
+    return os.path.join(os.path.abspath(directory), f"rollout_state_{step}.pkl")
+
+
+def save_rollout_state(directory: str, step: int, state: dict,
+                       keep: int = MAX_TO_KEEP) -> str:
+    """Atomically write the rollout sidecar for ``step``; prune sidecars past
+    the newest ``keep``, as the checkpoints are."""
+    path = rollout_state_path(directory, step)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = path + f".tmp{os.getpid()}"
+    with open(tmp, "wb") as f:
+        pickle.dump(state, f)
+    os.replace(tmp, path)
+    folder = os.path.dirname(path)
+    stale = sorted((p for p in os.listdir(folder)
+                    if p.startswith("rollout_state_") and p.endswith(".pkl")),
+                   key=lambda p: int(p[len("rollout_state_"):-len(".pkl")]))[:-keep]
+    for name in stale:
+        try:
+            os.remove(os.path.join(folder, name))
+        except OSError:  # a concurrent save already pruned it
+            pass
+    return path
+
+
+def load_rollout_state(directory: str, step: int) -> dict | None:
+    """The sidecar for ``step``; None when absent or unreadable (a corrupt
+    sidecar degrades to a fresh buffer and never blocks the resume)."""
+    path = rollout_state_path(directory, step)
+    if not os.path.exists(path):
+        return None
+    try:
+        with open(path, "rb") as f:
+            return pickle.load(f)
+    except Exception:  # noqa: BLE001 — corrupt sidecar: warn and start fresh
+        log.warning("rollout sidecar %s unreadable; resuming with an empty buffer", path)
+        return None
 
 
 class CheckpointManager:

@@ -8,7 +8,8 @@ names, defaults and validation rules are the JAX package's. A value that
 only an unported path accepts raises ``NotImplementedError`` naming its
 ROADMAP item. The flags of planes that are not ported (observability,
 control, lineage, gateway, remote workers, autotune, meshes) are not fields
-here.
+here, but ``rpc_backoff_s``, whose seeded backoff the async producer's
+restarts use.
 """
 
 from __future__ import annotations
@@ -23,7 +24,8 @@ from distrl_llm_tpu_torch.models.configs import preset_for_model_name
 #: the port implements all three (ops/sampling.py)
 TOP_P_IMPL_NAMES = ("exact", "bisect", "bisect_mw")
 
-_ASYNC_ITEM = "ROADMAP queue 1 item 8: pipelined and async rollout, multi-turn envs"
+_ENV_ITEM = ("ROADMAP queue 1 item 8b: multi-turn envs, full fine-tuning under the "
+             "overlapped rollout modes")
 _MULTI_GPU_ITEM = "ROADMAP queue 1 item 10: multi-GPU"
 # the JAX package's env registry (env/__init__.py env_names)
 _ENV_NAMES = ("math", "code", "verifier")
@@ -218,8 +220,36 @@ class TrainConfig:
     clip_ratio: float = 0.0
     # KL(pi || pi_ref) coefficient, pi_ref the frozen base
     kl_coeff: float = 0.0
-    # "sync" only ("pipelined", "async": item 8)
+    # rollout/learner coupling: "sync" (generation and learning serialize),
+    # "pipelined" (batch t+1 generates while batch t updates, one step
+    # stale), "async" (a producer thread fills a bounded trajectory buffer,
+    # the learner pulls on its own cadence, staleness bounded by
+    # max_staleness and corrected by the AIPO objective; needs clip_ratio)
     rollout_mode: str = "sync"
+    # async staleness bound K: a group whose tokens all lag the learner by
+    # more than K steps is dropped (or down-weighted: staleness_policy);
+    # sync and pipelined derive their allowed lag (0 / 1) from the mode
+    max_staleness: int = 2
+    # async trajectory-buffer capacity in task groups; 0 = 4 x batch_size,
+    # floor 2 x batch_size (a pull of batch_size must fit below the gate)
+    rollout_buffer_groups: int = 0
+    # a pulled group beyond max_staleness: "drop" or "downweight" (its
+    # update coefficients scaled by staleness_downweight^(lag - K))
+    staleness_policy: str = "drop"
+    staleness_downweight: float = 0.5
+    # AIPO's cap on the per-token importance ratio (async)
+    rollout_is_cap: float = 2.0
+    # the old spelling of rollout_mode="pipelined"; after __post_init__ it
+    # reads as rollout_mode != "sync"
+    async_rollout: bool = False
+    # push each optimizer step's adapter into the round in flight (the
+    # engine swaps at its next step or chunk boundary); needs an overlapped
+    # mode and clip_ratio > 0
+    inflight_weight_updates: bool = False
+    # the async producer's restart budget, with seeded exponential backoff
+    # from rpc_backoff_s (the JAX package's RPC retry base)
+    producer_restarts: int = 2
+    rpc_backoff_s: float = 0.25
     # per-update sample dump (distributed_trainer.py:297-299)
     print_samples: bool = True
     # HF-format merged-model snapshots at run_dir/model_{step}; needs
@@ -235,7 +265,7 @@ class TrainConfig:
     # hang detector on generation rounds, seconds (0 = off; the reference's
     # ray.get(timeout=240))
     generation_timeout_s: float = 0.0
-    # rollout environment: "math" only ("code", "verifier": item 8)
+    # rollout environment: "math" only ("code", "verifier": item 8b)
     env: str = "math"
     # format-reward gate: "soft" (the reference's) or "strict"
     format_reward: str = "soft"
@@ -246,9 +276,31 @@ class TrainConfig:
         if self.rollout_mode not in ("sync", "pipelined", "async"):
             raise ValueError(
                 f"rollout_mode must be sync/pipelined/async, got {self.rollout_mode!r}")
-        if self.rollout_mode != "sync":
-            raise NotImplementedError(
-                f"rollout_mode={self.rollout_mode!r} is not ported ({_ASYNC_ITEM})")
+        # async_rollout is the old spelling of rollout_mode="pipelined";
+        # afterwards it reads as "any overlapped mode"
+        if self.async_rollout and self.rollout_mode == "sync":
+            self.rollout_mode = "pipelined"
+        self.async_rollout = self.rollout_mode != "sync"
+        if self.max_staleness < 0:
+            raise ValueError(f"max_staleness must be >= 0, got {self.max_staleness}")
+        if self.staleness_policy not in ("drop", "downweight"):
+            raise ValueError(
+                f"staleness_policy must be drop/downweight, got {self.staleness_policy!r}")
+        if self.rollout_buffer_groups < 0:
+            raise ValueError(
+                f"rollout_buffer_groups must be >= 0, got {self.rollout_buffer_groups}")
+        if self.rollout_mode == "async":
+            if self.clip_ratio <= 0:
+                raise ValueError(
+                    "rollout_mode='async' requires clip_ratio > 0: the bounded-staleness "
+                    "regime trains on trajectories up to max_staleness optimizer steps "
+                    "old, and the truncated-IS correction consumes the engine-captured "
+                    "behavior logprobs that clip_ratio enables")
+            if self.max_staleness < 1:
+                raise ValueError(
+                    "rollout_mode='async' requires max_staleness >= 1 (0 would drop every "
+                    "trajectory the moment the learner steps; use rollout_mode='sync' for "
+                    "strict on-policy)")
         if self.base_quant not in ("none", "int8", "int4"):
             raise ValueError(f"base_quant must be none/int8/int4, got {self.base_quant!r}")
         if self.engine_impl not in ("dense", "paged", "paged_sharded"):
@@ -282,6 +334,30 @@ class TrainConfig:
             raise ValueError(
                 "kl_coeff uses the frozen base as the reference policy — "
                 "full_finetune has no frozen base (keep a LoRA run, or 0)")
+        if self.inflight_weight_updates:
+            if not self.async_rollout:
+                raise ValueError(
+                    "inflight_weight_updates requires async_rollout (there must be an "
+                    "in-flight generation round to update)")
+            if self.clip_ratio <= 0:
+                raise ValueError(
+                    "inflight_weight_updates requires clip_ratio > 0: tokens sampled "
+                    "pre-swap are off-policy for the update, and the clip objective is "
+                    "the correction that consumes their captured behavior logprobs")
+            if self.full_finetune:
+                raise ValueError(
+                    "inflight_weight_updates requires a LoRA run (full_finetune swaps "
+                    "the whole param tree, not an adapter)")
+        if self.rpc_backoff_s < 0:
+            raise ValueError(f"rpc_backoff_s must be >= 0, got {self.rpc_backoff_s}")
+        if self.producer_restarts < 0:
+            raise ValueError(f"producer_restarts must be >= 0, got {self.producer_restarts}")
+        if self.full_finetune and self.async_rollout:
+            # the push casts the masters in place into the one rollout copy,
+            # which the round in flight reads
+            raise NotImplementedError(
+                f"full_finetune with rollout_mode={self.rollout_mode!r} is not ported "
+                f"({_ENV_ITEM})")
         if self.full_finetune:
             model_cfg = preset_for_model_name(self.model)
             if model_cfg is not None:  # else the Trainer checks its loaded model
@@ -294,7 +370,7 @@ class TrainConfig:
             raise ValueError(
                 f"format_reward must be 'soft' or 'strict', got {self.format_reward!r}")
         if self.env != "math":
-            raise NotImplementedError(f"env={self.env!r} is not ported ({_ASYNC_ITEM})")
+            raise NotImplementedError(f"env={self.env!r} is not ported ({_ENV_ITEM})")
         if self.continuous_batching and (
             self.engine_impl != "paged" or not self.max_concurrent_sequences
         ):
@@ -376,9 +452,15 @@ class TrainConfig:
 
     @property
     def allowed_weight_lag(self) -> int:
-        """Optimizer steps the rollout-resident adapter may lag the learner:
-        0 under the synchronous loop, the one mode ported."""
-        return 0
+        """Optimizer steps the rollout-resident adapter may lag the learner
+        before StaleWeightsError fires: sync serializes (0), pipelined
+        overlaps exactly one step (1), async is bounded by the staleness
+        policy (max_staleness)."""
+        if self.rollout_mode == "sync":
+            return 0
+        if self.rollout_mode == "pipelined":
+            return 1
+        return max(self.max_staleness, 1)
 
     @property
     def run_directory(self) -> str:

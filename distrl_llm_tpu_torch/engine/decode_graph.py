@@ -8,15 +8,20 @@ decode steps in one dispatch; here the kernels of k steps are captured once
 as a ``torch.cuda.CUDAGraph`` and replayed, so the host launches one graph
 (and reads ``done`` once) per chunk instead of k steps' worth of kernels.
 
-* **Eager first, then capture.** The first chunk of a key runs eagerly: it
-  builds the kernels (``nvcc``), creates cuBLAS handles, fills the launch
-  planners' caches (``plan_sample_cluster``, ``plan_split_k``) and sets the
-  kernels' attributes, none of which a capture may do. The next chunk of
-  that key is captured on a side stream with ``capture_error_mode=
-  "thread_local"`` (the trainer may generate in its hang detector's thread,
-  while other threads go on using the card) and replayed; every later chunk
-  of the key is replayed. All graphs share one memory pool: they never run
-  at once, and nothing they allocate outlives a replay.
+* **Eager first, then capture.** The first chunk of a key on a thread and
+  stream runs eagerly: it builds the kernels (``nvcc``), creates the
+  thread's cuBLAS handle and workspace, fills the launch planners' caches
+  (``plan_sample_cluster``, ``plan_split_k``) and sets the kernels'
+  attributes, none of which a capture may do. The next chunk of that key is
+  captured on the thread's own side stream with ``capture_error_mode=
+  "thread_local"`` (the trainer's rollout thread captures while the
+  learner's thread goes on using the card) and replayed on the caller's
+  stream; every later chunk of the key is replayed. The capture waits for
+  nothing device-wide (``torch.cuda.graph`` would synchronize the device and
+  empty the allocator's cache, stalling the other thread's work): the side
+  stream is ordered after the caller's, and the caller's after the capture.
+  All graphs share one memory pool: they never run at once, and nothing
+  they allocate outlives a replay.
 * **Static state.** A chunk body reads and writes only tensors that live
   across replays (the engine's decode state, held for that purpose) and
   reads nothing back to the host: no ``.item()``, ``bool()``, ``.cpu()`` or
@@ -34,8 +39,10 @@ as a ``torch.cuda.CUDAGraph`` and replayed, so the host launches one graph
   eager steps would (``CUDAGraph.register_generator_state``). Draws made
   before a chunk (the plain steps' seed vectors) need nothing.
 * **Launch counts.** The kernel wrappers count their launches in Python,
-  which a replay never runs. A capture launches nothing, so the counts it
-  made are taken back, and each replay adds them.
+  which a replay never runs. While a thread captures, its launches go to
+  the capture (``ops/launch_count.py::diverted``), not to the counts, so
+  another thread's launches meanwhile stay its own; each replay adds the
+  captured counts.
 * **No fallback.** On a CUDA device a chunk is replayed or its capture
   raises; nothing catches a failed capture and runs the chunk eagerly. The
   JAX package's memory guard (``compile_chunk_guarded``, which falls back to
@@ -48,33 +55,12 @@ cadence, which is what the tests hold against the JAX engines.
 
 from __future__ import annotations
 
-import importlib
+import threading
 from typing import Any, Callable, Hashable
 
 import torch
 
-# the modules whose ``*_launches`` counters a replay must advance
-_LAUNCH_MODULES = (
-    "distrl_llm_tpu_torch.ops.sampling",
-    "distrl_llm_tpu_torch.ops.paged_native",
-    "distrl_llm_tpu_torch.ops.quant_matmul",
-    "distrl_llm_tpu_torch.ops.flash_attention",
-)
-
-
-def _launch_counts() -> dict[tuple[str, str], int]:
-    out = {}
-    for name in _LAUNCH_MODULES:
-        for attr, value in vars(importlib.import_module(name)).items():
-            if attr.endswith("_launches") and isinstance(value, int):
-                out[(name, attr)] = value
-    return out
-
-
-def _add_launches(counts: dict[tuple[str, str], int]) -> None:
-    for (name, attr), n in counts.items():
-        mod = importlib.import_module(name)
-        setattr(mod, attr, getattr(mod, attr) + n)
+from distrl_llm_tpu_torch.ops import launch_count
 
 
 def tensors_key(tree: Any) -> Hashable:
@@ -95,12 +81,16 @@ def tensors_key(tree: Any) -> Hashable:
 class DecodeGraphs:
     """The captured chunks of one engine, by key, with their counts:
     ``captures`` and ``replays``, and ``eager_chunks`` (chunks run as plain
-    launches: a key's first chunk on the card, every chunk on the CPU)."""
+    launches: a key's first chunk on a thread and stream on the card, every
+    chunk on the CPU)."""
 
     def __init__(self):
         self._graphs: dict[Hashable, tuple[torch.cuda.CUDAGraph, dict]] = {}
+        # (key, thread, stream) whose first chunk ran eagerly
         self._warm: set = set()
         self._pool = None
+        # each capturing thread's side stream, by thread ident
+        self._capture_streams: dict[int, torch.cuda.Stream] = {}
         self.captures = 0
         self.replays = 0
         self.eager_chunks = 0
@@ -109,37 +99,48 @@ class DecodeGraphs:
             generators: tuple = ()) -> None:
         """Run one chunk: ``body()`` does its decode steps in place over
         static tensors, drawing only from ``generators``. On a CUDA device it
-        runs eagerly the first time ``key`` is seen, is captured the second
-        time, and is replayed from then on; on the CPU it runs eagerly."""
+        runs eagerly the first time ``key`` is seen on this thread and
+        stream, is captured the next time (unless another thread captured
+        it), and is replayed from then on; on the CPU it runs eagerly."""
         hit = self._graphs.get(key)
-        if hit is None and (device.type != "cuda" or key not in self._warm):
-            body()
-            self.eager_chunks += 1
-            if device.type == "cuda":
-                self._warm.add(key)
-            return
         if hit is None:
+            warm = (key, threading.get_ident(),
+                    torch.cuda.current_stream(device).cuda_stream
+                    if device.type == "cuda" else None)
+            if device.type != "cuda" or warm not in self._warm:
+                body()
+                self.eager_chunks += 1
+                if device.type == "cuda":
+                    self._warm.add(warm)
+                return
             hit = self._capture(key, body, device, generators)
         graph, launches = hit
         graph.replay()
-        _add_launches(launches)
+        launch_count.add_counts(launches)
         self.replays += 1
 
     def _capture(self, key, body, device, generators):
-        before = _launch_counts()
         graph = torch.cuda.CUDAGraph()
         for gen in generators:
             graph.register_generator_state(gen)
+        ident = threading.get_ident()
         with torch.cuda.device(device):
-            with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
-                body()
-        after = _launch_counts()
-        # the capture launched nothing: its counts come back with each replay
-        _add_launches({k: before[k] - v for k, v in after.items()})
-        launches = {k: v - before[k] for k, v in after.items() if v != before[k]}
+            side = self._capture_streams.get(ident)
+            if side is None:
+                side = self._capture_streams[ident] = torch.cuda.Stream(device)
+            caller = torch.cuda.current_stream(device)
+            side.wait_stream(caller)
+            with launch_count.diverted() as launches, torch.cuda.stream(side):
+                graph.capture_begin(*(() if self._pool is None else (self._pool,)),
+                                    capture_error_mode="thread_local")
+                try:
+                    body()
+                finally:
+                    graph.capture_end()
+            caller.wait_stream(side)
         if self._pool is None:
             self._pool = graph.pool()
-        self._graphs[key] = (graph, launches)
+        self._graphs[key] = (graph, dict(launches))
         self.captures += 1
         return graph, launches
 

@@ -445,7 +445,15 @@ class LoraMailbox:
     """In-flight weight-update mailbox (PipelineRL): ``push_lora`` from the
     learner thread; the decode loop consumes it before the next step.
     ``_swapped_lora`` carries a consumed swap across the waves of a round;
-    ``_reset_lora_mailbox_round`` runs at round entry."""
+    ``_reset_lora_mailbox_round`` runs at round entry.
+
+    ``lora_swap_hook(dropped, taken)``, when set, runs on the decoding
+    thread as a swap is consumed, under the mailbox's lock (so a
+    ``push_lora`` never lands between the take and the hook): ``taken`` is
+    read from the next step on, ``dropped`` (the superseded adapter, or with
+    ``_track_prev_lora`` the previous one that falls out; None if none) is
+    read no more. The trainer's adapter ring (``rollout/adapter_ring.py``)
+    orders its copies against the decoding stream there."""
 
     def __init__(self):
         # single-slot pending mailbox: (adapter, version) written and
@@ -462,6 +470,7 @@ class LoraMailbox:
         self._track_prev_lora = False
         self._prev_lora = None
         self._prev_lora_version: int | None = None
+        self.lora_swap_hook = None
 
     def push_lora(self, lora, version: int | None = None) -> None:
         """The next dispatched decode step onwards samples under this
@@ -473,6 +482,9 @@ class LoraMailbox:
     def _take_pending_lora(self, lora_cell: list, dispatched: int) -> None:
         with self._pending_mu:
             pending, self._pending = self._pending, None
+            if pending is not None and self.lora_swap_hook is not None:
+                self.lora_swap_hook(
+                    self._prev_lora if self._track_prev_lora else lora_cell[0], pending[0])
         if pending is not None:
             lora, version = pending
             if self._track_prev_lora:
@@ -615,8 +627,11 @@ class GenerationEngine(LoraMailbox, ScanChunks):
             )
 
     def _sync(self) -> None:
+        """Wait for the round's own work: the calling thread's stream, never
+        the whole device (the trainer's learner may be running on another
+        stream)."""
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            torch.cuda.current_stream(self.device).synchronize()
 
     def _generate_wave(self, model, lora, prompt_ids, prompt_mask,
                        sampling: SamplingConfig, seed: int) -> GenerationResult:

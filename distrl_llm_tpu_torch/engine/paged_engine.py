@@ -1016,8 +1016,9 @@ class PagedGenerationEngine(LoraMailbox, ScanChunks):
             )
 
     def _sync(self) -> None:
+        """Wait for the round's own stream (``GenerationEngine._sync``)."""
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            torch.cuda.current_stream(self.device).synchronize()
 
     def _generate_wave(self, model, lora, prompt_ids, prompt_mask,
                        sampling: SamplingConfig, seed: int) -> GenerationResult:

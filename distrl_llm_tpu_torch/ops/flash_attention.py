@@ -42,6 +42,7 @@ import functools
 
 import torch
 
+from distrl_llm_tpu_torch.ops import launch_count
 from distrl_llm_tpu_torch.ops.attention import NEG_INF
 
 #: launches of the CUDA forward / backward; CPU calls, which run the plain
@@ -147,13 +148,12 @@ def _cuda_checks(tensors) -> None:
 def _count_hd256(q: torch.Tensor, part: str) -> None:
     if q.shape[-1] == 256:
         name = f"flash_attention_hd256_{'bf16' if q.dtype == torch.bfloat16 else 'f32'}_{part}"
-        globals()[f"{name}_launches"] += 1
+        launch_count.add(__name__, f"{name}_launches")
 
 
 def flash_attention_forward(q, k, v, valid, scale: float):
     """One launch of K4's forward on CUDA tensors (q, k, v contiguous, one
     dtype; ``valid`` int32 [B, S]) → (out like q, lse f32 [B, H, S])."""
-    global flash_attention_fwd_launches
     b, s, h, d = q.shape
     _cuda_checks((q, k, v, valid))
     lib = _kernel_lib()
@@ -165,7 +165,7 @@ def flash_attention_forward(q, k, v, valid, scale: float):
         lse.data_ptr(), b, s, h, k.shape[2], d, scale, _DTYPE_CODES[q.dtype],
         q.device.index or 0, stream)
     _raise_on(lib, err, "forward")
-    flash_attention_fwd_launches += 1
+    launch_count.add(__name__, "flash_attention_fwd_launches")
     _count_hd256(q, "fwd")
     return out, lse
 
@@ -173,7 +173,6 @@ def flash_attention_forward(q, k, v, valid, scale: float):
 def flash_attention_backward(q, k, v, valid, out, lse, dout, scale: float):
     """One call of K4's backward (its delta, dk/dv and dq kernels) on CUDA
     tensors → (dq, dk, dv) in the input dtype."""
-    global flash_attention_bwd_launches
     b, s, h, d = q.shape
     _cuda_checks((q, k, v, valid, out, lse, dout))
     lib = _kernel_lib()
@@ -186,7 +185,7 @@ def flash_attention_backward(q, k, v, valid, out, lse, dout, scale: float):
         dv.data_ptr(), b, s, h, k.shape[2], d, scale, _DTYPE_CODES[q.dtype],
         q.device.index or 0, stream)
     _raise_on(lib, err, "backward")
-    flash_attention_bwd_launches += 1
+    launch_count.add(__name__, "flash_attention_bwd_launches")
     _count_hd256(q, "bwd")
     return dq, dk, dv
 

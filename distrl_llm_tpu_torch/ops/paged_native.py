@@ -42,6 +42,7 @@ from dataclasses import dataclass
 
 import torch
 
+from distrl_llm_tpu_torch.ops import launch_count
 from distrl_llm_tpu_torch.ops.attention import NEG_INF
 from distrl_llm_tpu_torch.ops.paged import MAX_INT8
 
@@ -309,7 +310,6 @@ def paged_launch(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
     allocated here when it has more than one split (the kernel of the call
     writes the partials, a second one merges them), and the body
     ``kernel_route`` picks. Adds one to the wrapper's launch count."""
-    global paged_attention_launches, paged_verify_launches
     verify = q.dim() == 4
     b, h, hd = q.shape[0], q.shape[-2], q.shape[-1]
     s = q.shape[1] if verify else 1
@@ -338,10 +338,7 @@ def paged_launch(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
     if err != 0:
         msg = getattr(lib, f"{name}_error_string")(err).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg} ({err})")
-    if verify:
-        paged_verify_launches += 1
-    else:
-        paged_attention_launches += 1
+    launch_count.add(__name__, f"{name}_launches")
     return out
 
 

@@ -28,6 +28,7 @@ from dataclasses import dataclass
 
 import torch
 
+from distrl_llm_tpu_torch.ops import launch_count
 from distrl_llm_tpu_torch.ops.quant import dequantize, group_size_of, quant_bits
 
 #: launches of the CUDA kernel; CPU calls, which run the plain version, do
@@ -159,7 +160,6 @@ def quant_matmul_launch(x2: torch.Tensor, w: dict, bias, lora_a, lora_b,
     [M, N] in x2's dtype. bf16 follows ``plan_split_k``: with a split, the
     partial sums go to an f32 workspace allocated here, and a second kernel
     of the same call sums them in a fixed order and applies the epilogue."""
-    global quant_matmul_launches
     m, k = x2.shape
     q, scale = _payload(w), w["scale"]
     n = scale.shape[-1]
@@ -217,7 +217,7 @@ def quant_matmul_launch(x2: torch.Tensor, w: dict, bias, lora_a, lora_b,
     if err != 0:
         msg = lib.quant_matmul_error_string(err).decode()
         raise RuntimeError(f"quant_matmul kernel launch failed: {msg} ({err})")
-    quant_matmul_launches += 1
+    launch_count.add(__name__, "quant_matmul_launches")
     return out
 
 

@@ -36,6 +36,7 @@ from dataclasses import dataclass
 
 import torch
 
+from distrl_llm_tpu_torch.ops import launch_count
 from distrl_llm_tpu_torch.ops.attention import NEG_INF
 
 #: launches of the CUDA kernel (one per ``fused_sample`` call on the GPU with
@@ -336,7 +337,6 @@ def _launch(logits: torch.Tensor, temperature: float, top_p: float, seeds: torch
             iters: int) -> tuple[torch.Tensor, torch.Tensor]:
     """One launch of K1 (none for B == 0); outputs from ``torch.empty``, no
     scratch."""
-    global fused_sample_launches
     b, v = logits.shape
     plan = plan_sample_cluster(b, v)
     tok = torch.empty((b,), dtype=torch.int32, device=logits.device)
@@ -349,7 +349,7 @@ def _launch(logits: torch.Tensor, temperature: float, top_p: float, seeds: torch
         tok.data_ptr(), logp.data_ptr(), b, v, iters, plan.cluster, plan.threads,
         plan.cols, logits.device.index or 0, _stream(logits.device)),
         "kernel launch")
-    fused_sample_launches += 1
+    launch_count.add(__name__, "fused_sample_launches")
     return tok, logp
 
 

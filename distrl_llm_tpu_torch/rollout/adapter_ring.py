@@ -1,0 +1,194 @@
+"""The pushed adapter under the overlapped rollout modes: copies into a
+small ring of persistent buffers, ordered against the rollout's stream.
+
+In the pipelined and async modes a generation round runs while the learner
+updates. Adam8bit updates the adapter in place, so a round must not read the
+learner's tensors (the JAX package copies its pushed tree for the same
+reason, JAX ``trainer.py:944-949``). A fresh copy per push would put the
+adapter at new addresses each step, and a CUDA graph reads its adapter by
+address (``engine/decode_graph.py``): every step would pay an eager chunk
+and a capture, and the engine's graphs would pile up. So each push copies
+into one of ``size`` buffers allocated once (two; three when the
+speculative self-drafter keeps the previous adapter resident), and the
+graph keys of a shape stay bounded by the ring's size.
+
+* **Holds.** A buffer is read while a round holds it: from the round's
+  entry (``acquire``, the published adapter) or from an in-flight swap that
+  took it (``swap_hook``, run by the engine's mailbox as the swap is
+  consumed, on whatever thread decodes the round), until the swap that
+  drops it or the round's end (``release_round``, given the handle
+  ``acquire`` returned): holds are kept per round, never per thread. With
+  the self-drafter the dropped adapter is the previous one the engine lets
+  go of; the superseded one stays held as the new previous adapter. A push writes a buffer that is neither published
+  nor held, waiting on the host for one when there is none (a round that
+  has not yet reached the boundary where it lets go).
+* **Device order.** Every hand-off between the learner's stream and the
+  rollout's is a CUDA event, never a device-wide synchronize: the push waits
+  (on the learner's stream) for the events the rollout recorded on its own
+  stream when it let go of the buffer, copies, and records a ready event
+  that the rollout's stream waits on before its first read. On the CPU the
+  host order suffices.
+* **Identity.** Each push publishes a new dict over the buffer's tensors:
+  the engine's radix cache keys cached KV on the adapter object's identity.
+"""
+
+from __future__ import annotations
+
+import threading
+
+import torch
+
+
+def _leaves(tree: dict) -> list[torch.Tensor]:
+    return [tree["layers"][t][k] for t in sorted(tree["layers"]) for k in ("a", "b")]
+
+
+class _Round:
+    """A round's hold: the buffer it reads now (None once released, or
+    after a swap to an adapter the ring does not track)."""
+
+    __slots__ = ("buf",)
+
+    def __init__(self, buf: int | None):
+        self.buf = buf
+
+
+class AdapterRing:
+    """``size`` persistent adapter buffers on ``device``; the learner
+    ``push``es into them, rounds ``acquire`` the published one."""
+
+    def __init__(self, size: int, device: torch.device):
+        if size < 2:
+            raise ValueError(f"an adapter ring needs at least 2 buffers, got {size}")
+        self.size = size
+        self.device = torch.device(device)
+        self._cuda = self.device.type == "cuda"
+        self._bufs: list[dict | None] = [None] * size
+        # the latest published dict over each buffer and its version
+        self._dicts: list[dict | None] = [None] * size
+        self._versions: list[int | None] = [None] * size
+        self._holds = [0] * size
+        self._ready: list = [None] * size  # recorded after the buffer's last write
+        self._released: list[list] = [[] for _ in range(size)]  # since that write
+        self._published: int | None = None
+        self._live: _Round | None = None  # the round in flight on the engine
+        self._cv = threading.Condition()
+        self.pushes = 0
+        self.push_waits = 0  # pushes that waited on the host for a free buffer
+
+    # ------------------------------------------------------------- learner
+
+    def push(self, tree: dict, version: int) -> dict:
+        """Copy ``tree`` ({"layers": {target: {"a", "b"}}}) into a free
+        buffer on the calling thread's stream, publish it as ``version`` and
+        return the new dict over that buffer's tensors."""
+        with self._cv:
+            while True:
+                free = [j for j in self._order() if self._holds[j] == 0]
+                if free:
+                    break
+                self.push_waits += 1
+                self._cv.wait()
+            j = free[0]
+            waits, self._released[j] = self._released[j], []
+        stream = torch.cuda.current_stream(self.device) if self._cuda else None
+        for event in waits:
+            stream.wait_event(event)
+        if self._bufs[j] is None:
+            self._bufs[j] = {"layers": {t: {k: torch.empty_like(x, requires_grad=False)
+                                            for k, x in ab.items()}
+                                        for t, ab in tree["layers"].items()}}
+        with torch.no_grad():
+            for dst, src in zip(_leaves(self._bufs[j]), _leaves(tree), strict=True):
+                dst.copy_(src)
+        ready = None
+        if self._cuda:
+            ready = torch.cuda.Event()
+            ready.record(stream)
+        published = {"layers": {t: dict(ab) for t, ab in self._bufs[j]["layers"].items()}}
+        with self._cv:
+            self._ready[j], self._dicts[j], self._versions[j] = ready, published, version
+            self._published = j
+            self.pushes += 1
+        return published
+
+    def _order(self) -> list[int]:
+        """Buffers a push may write, the one after the published first."""
+        start = 0 if self._published is None else self._published + 1
+        return [(start + i) % self.size for i in range(self.size)
+                if (start + i) % self.size != self._published]
+
+    # ------------------------------------------------------------- rollout
+
+    def acquire(self) -> tuple[dict, int, _Round]:
+        """At a round's entry: hold the published buffer and order the
+        calling stream after its copy; returns (adapter, version, the
+        round's handle for ``release_round``). The engine runs one round at
+        a time, so the swaps its mailbox reports belong to this round until
+        it is released, whichever thread decodes it (the hang detector's
+        runs the round on a thread of its own)."""
+        with self._cv:
+            j = self._published
+            if j is None:
+                raise RuntimeError("no adapter was pushed into the ring")
+            if self._live is not None:
+                raise RuntimeError("a round acquired the adapter ring while another "
+                                   "round on its engine was in flight")
+            self._holds[j] += 1
+            self._live = handle = _Round(j)
+            ready, d, v = self._ready[j], self._dicts[j], self._versions[j]
+        self._wait_ready(ready)
+        return d, v, handle
+
+    def swap_hook(self, dropped, taken) -> None:
+        """The engine mailbox's ``lora_swap_hook``: hold what the swap took,
+        let go of what it dropped (either may be an adapter the ring never
+        published: a test's or a tool's; those are not tracked). What it
+        took is what the round in flight reads from then on."""
+        with self._cv:
+            jt = self._index_of(taken)
+            ready = None
+            if jt is not None:
+                self._holds[jt] += 1
+                ready = self._ready[jt]
+            if self._live is not None:
+                self._live.buf = jt
+            jd = self._index_of(dropped)
+            if jd is not None:
+                self._release_locked(jd)
+        self._wait_ready(ready)
+
+    def release_round(self, handle: _Round) -> None:
+        """At a round's end, on the thread that acquired it: let go of the
+        buffer it read last (the acquired one, or what its last swap took)."""
+        with self._cv:
+            if self._live is handle:
+                self._live = None
+            j, handle.buf = handle.buf, None
+            if j is not None:
+                self._release_locked(j)
+
+    # ------------------------------------------------------------- helpers
+
+    def _index_of(self, d) -> int | None:
+        if d is None:
+            return None
+        return next((j for j, pub in enumerate(self._dicts) if pub is d), None)
+
+    def _release_locked(self, j: int) -> None:
+        if self._cuda:
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.device))
+            self._released[j].append(event)
+        self._holds[j] -= 1
+        if self._holds[j] < 0:
+            raise RuntimeError(f"adapter ring buffer {j} released more often than held")
+        self._cv.notify_all()
+
+    def _wait_ready(self, ready) -> None:
+        if ready is not None:
+            torch.cuda.current_stream(self.device).wait_event(ready)
+
+    def holds(self) -> list[int]:
+        with self._cv:
+            return list(self._holds)

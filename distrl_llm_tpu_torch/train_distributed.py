@@ -124,9 +124,35 @@ def build_parser() -> argparse.ArgumentParser:
                    help="KL(policy || frozen base) penalty coefficient (0 = reference)")
     p.add_argument("--rollout_mode", type=str, default="sync",
                    choices=["sync", "pipelined", "async"],
-                   help="rollout/learner coupling; the port runs 'sync'")
+                   help="rollout/learner coupling: 'sync' serializes generation and "
+                        "update; 'pipelined' generates batch t+1 while batch t updates "
+                        "(one step stale); 'async' decouples them behind a bounded "
+                        "trajectory buffer with --max_staleness admission and the AIPO "
+                        "correction (requires --clip_ratio > 0)")
+    p.add_argument("--max_staleness", type=int, default=2,
+                   help="async staleness bound K in optimizer steps")
+    p.add_argument("--staleness_policy", type=str, default="drop",
+                   choices=["drop", "downweight"],
+                   help="a pulled group beyond --max_staleness: discard it or train it "
+                        "down-weighted by staleness_downweight^(lag-K)")
+    p.add_argument("--staleness_downweight", type=float, default=0.5)
+    p.add_argument("--rollout_is_cap", type=float, default=2.0,
+                   help="AIPO's cap on the per-token importance ratio (async)")
+    p.add_argument("--rollout_buffer_groups", type=int, default=0,
+                   help="async trajectory-buffer capacity in task groups (0 = 4 x "
+                        "batch_size; floor 2 x batch_size)")
+    p.add_argument("--async_rollout", action="store_true",
+                   help="the old spelling of --rollout_mode pipelined")
+    p.add_argument("--inflight_weight_updates", action="store_true",
+                   help="push each optimizer step's adapter into the round in flight "
+                        "(requires an overlapped --rollout_mode and --clip_ratio > 0)")
+    p.add_argument("--producer_restarts", type=int, default=2,
+                   help="restart budget of the async producer's failed rounds")
+    p.add_argument("--rpc_backoff_s", type=float, default=0.25,
+                   help="base delay of the seeded backoff before a producer restart")
     p.add_argument("--env", type=str, default="math", choices=["code", "math", "verifier"],
-                   help="rollout environment; the port runs 'math'")
+                   help="rollout environment; the port runs 'math' (the others: "
+                        "ROADMAP item 8b)")
     p.add_argument("--format_reward", type=str, default="soft", choices=["soft", "strict"])
     p.add_argument("--no_print_samples", dest="print_samples", action="store_false",
                    help="disable the per-update sample dump")

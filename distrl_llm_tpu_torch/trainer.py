@@ -1,8 +1,8 @@
-"""The training loop: the synchronous on-policy PG/GRPO loop on one card.
+"""The training loop: the PG/GRPO loop on one card, synchronous or with
+generation overlapping the update.
 
 Counterpart of the JAX package's ``trainer.py`` (the reference's Trainer,
-distributed_trainer.py:13-416) on its ``rollout_mode="sync"`` path, one card,
-one learner:
+distributed_trainer.py:13-416) on one card, one learner:
 
 * **Rollout**: one ``engine.generate`` call per round over ``batch_size``
   prompts (padded rows discarded after), ``num_candidates`` completions
@@ -14,7 +14,18 @@ one learner:
 * **Weight sync**: the engine and the learner share one ``Decoder`` (the
   JAX package's timeshared roles); the learner's adapter is passed to the
   engine each round, ``weight_version`` counts updates and each round
-  checks that it samples the version the learner last published.
+  checks that it lags the version the learner last published by no more
+  than its mode allows.
+* **Rollout modes** (``rollout_mode``): "sync" serializes generation and
+  update; "pipelined" generates batch t+1 on a one-thread pool while batch
+  t updates (one step stale); "async" runs a producer thread
+  (``rollout/service.py``) into a bounded trajectory buffer that the learner
+  pulls from, bounded by ``max_staleness`` and corrected by the AIPO
+  objective over per-token version tags; ``inflight_weight_updates`` pushes
+  each step's adapter into the round in flight. In the overlapped modes a
+  round runs on a CUDA stream of its own while the learner keeps the main
+  thread's, and each push copies the adapter into a ring of persistent
+  buffers ordered against that stream by events (``rollout/adapter_ring.py``).
 * **Full fine-tuning** (``full_finetune``, the JAX package's
   ``train_mode="full"``): the whole model trains as f32 master weights (a
   ``Decoder`` built from the base), and the base becomes the rollout copy:
@@ -26,15 +37,16 @@ one learner:
 * **Checkpointing**: the resume state (``checkpoint.py``) and the per-step
   adapter artifact.
 
-Not ported (each raises where a config would reach it): the pipelined and
-async regimes and multi-turn envs (ROADMAP queue 1 item 8), remote workers
-(item 9), meshes, the hybrid actor/learner split and full fine-tuning past
-one card (item 10), and the observability, lineage, control and gateway
-planes (item 11).
+Not ported (each raises where a config would reach it): multi-turn envs and
+full fine-tuning under the overlapped modes (ROADMAP queue 1 item 8b),
+remote workers (item 9), meshes, the hybrid actor/learner split and full
+fine-tuning past one card (item 10), and the observability, lineage,
+control and gateway planes (item 11).
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import logging
 import os
 import threading
@@ -44,7 +56,9 @@ import numpy as np
 import torch
 
 from distrl_llm_tpu_torch import telemetry
-from distrl_llm_tpu_torch.checkpoint import CheckpointManager, save_adapter_file
+from distrl_llm_tpu_torch.checkpoint import (
+    CheckpointManager, load_rollout_state, save_adapter_file, save_rollout_state,
+)
 from distrl_llm_tpu_torch.config import (
     SamplingConfig, TrainConfig, check_full_finetune_fits, full_finetune_bytes,
 )
@@ -60,6 +74,8 @@ from distrl_llm_tpu_torch.rewards import (
     make_reward_function,
     reward_function as parity_reward_function,
 )
+from distrl_llm_tpu_torch.rollout.adapter_ring import AdapterRing
+from distrl_llm_tpu_torch.rollout.trajectory import version_tags_for_round
 from distrl_llm_tpu_torch.shaping import flatten_for_update, shape_rewards, topk_filter
 from distrl_llm_tpu_torch.tokenizer import decode_batch, encode_fixed
 from distrl_llm_tpu_torch.utils.chunking import chunk_sizes
@@ -233,6 +249,17 @@ class Trainer:
         self.rewards = reward_computer
         self._reward_fn = reward_function
 
+        # inflight_weight_updates needs an engine that can swap a round in
+        # flight: one without a real push_lora is refused here, never a
+        # silent no-op
+        if config.inflight_weight_updates:
+            push = getattr(engine, "push_lora", None)
+            if not callable(push):
+                raise ValueError(
+                    "inflight_weight_updates requires an engine with a real push_lora "
+                    f"(in-flight weight-update mailbox); {type(engine).__name__} cannot "
+                    "swap a round in flight")
+
         # chunk-composition validation parity (distributed_trainer.py:34-36)
         chunk_sizes(config.batch_size, config.number_of_actors,
                     config.number_of_learners, config.learner_chunk_size)
@@ -241,6 +268,9 @@ class Trainer:
         # every seed the trainer hands out (the adapter's init, each engine
         # round, each LoRA-dropout update) is drawn from this generator
         self._gen = torch.Generator().manual_seed(config.seed)
+        # the rollout thread draws round seeds while the learner's draws
+        # dropout seeds (pipelined and async)
+        self._rng_mu = threading.Lock()
         # drawn in full mode too, as the JAX trainer splits its adapter key
         # in both modes: the later seeds stay the same
         lora_gen = torch.Generator(device=self.device).manual_seed(self._next_rng())
@@ -268,6 +298,13 @@ class Trainer:
             clip_ratio=config.clip_ratio,
             kl_coeff=config.kl_coeff,
             train_mode="full" if self._full else "lora",
+            # async trains on data up to max_staleness steps old: the
+            # truncated-IS objective (AIPO) with its per-token version-lag
+            # mask; the mask stays off (0) under the downweight policy, whose
+            # fade trains the beyond-K tokens on purpose
+            off_policy="aipo" if config.rollout_mode == "async" else "clip",
+            is_cap=config.rollout_is_cap,
+            max_staleness=config.max_staleness if config.staleness_policy == "drop" else 0,
         )
 
         self.total_batch_steps = 0
@@ -284,6 +321,23 @@ class Trainer:
         if config.export_hf_snapshots and not config.run_name:
             log.warning("export_hf_snapshots is set but run_name is not — no "
                         "snapshots will be written (run_dir is derived from run_name)")
+
+        # the overlapped modes' pushes go through a ring of persistent
+        # adapter copies (three when the self-drafter keeps the previous one
+        # resident), which the engine's mailbox tells of each swap
+        self._ring: AdapterRing | None = None
+        if config.async_rollout and not self._full:
+            self._ring = AdapterRing(3 if getattr(engine, "_track_prev_lora", False) else 2,
+                                     self.device)
+        if hasattr(engine, "lora_swap_hook"):
+            engine.lora_swap_hook = self._ring.swap_hook if self._ring is not None else None
+        self._rollout_stream = None  # the overlapped modes' CUDA stream, made in train()
+        self._gen_pool: concurrent.futures.ThreadPoolExecutor | None = None
+        self._rollout_service = None
+        self._rollout_buffer = None
+        self._staleness_policy = None
+        self._rollout_dropped_stale = 0
+        self._resume_rollout_state: dict | None = None
 
         self.ckpt: CheckpointManager | None = None
         if config.checkpoint_dir:
@@ -396,12 +450,34 @@ class Trainer:
         self.total_samples_processed = int(restored["samples"])
         self._gen.set_state(restored["rng"])
         self.weight_version = self.total_batch_steps
+        if self.config.rollout_mode == "async":
+            # buffered but unconsumed trajectories and the producer's cursor;
+            # an absent or corrupt sidecar degrades to a fresh buffer
+            self._resume_rollout_state = load_rollout_state(self.config.checkpoint_dir,
+                                                            self.total_batch_steps)
         log.info("resumed from step %d (episode %d, batch %d)",
                  self.total_batch_steps, self.episode, self.batch_in_episode)
 
     def save_checkpoint(self) -> None:
-        if self.ckpt is not None:
-            self.ckpt.save(self.total_batch_steps, self._state_tree())
+        if self.ckpt is None:
+            return
+        self.ckpt.save(self.total_batch_steps, self._state_tree())
+        buffer = self._rollout_buffer
+        if buffer is not None:
+            # async: the queued trajectories and the producer's cursor ride as
+            # a sidecar of the same step. The cursor is read BEFORE the
+            # buffer: a round landing between the two reads is re-produced on
+            # resume (benign duplicates) instead of losing its tail
+            service, policy = self._rollout_service, self._staleness_policy
+            cursor = service.cursor if service is not None else None
+            save_rollout_state(self.config.checkpoint_dir, self.total_batch_steps, {
+                "buffer": buffer.state_dict(),
+                "cursor": cursor,
+                # the cumulative rollout_dropped_stale never goes backwards
+                # across a resume
+                "policy_dropped": policy.dropped if policy else 0,
+                "policy_admitted": policy.admitted if policy else 0,
+            })
 
     def export_hf_snapshot(self) -> None:
         """The reference's ``save_pretrained`` artifact: an HF-format
@@ -440,11 +516,13 @@ class Trainer:
         adapter the next round passes to the engine, and the version it
         carries, which ``_generate_round`` checks before sampling.
 
-        The pushed adapter IS ``self.lora``, not a copy: Adam8bit updates
-        those tensors in place, so the rollout reads the learner's latest
-        values. That is right only because the synchronous loop never
-        overlaps a generation round with an update; the pipelined regime,
-        which does (ROADMAP queue 1 item 8), would need a copy here.
+        Synchronous: the pushed adapter IS ``self.lora``, not a copy (Adam8bit
+        updates those tensors in place, and no round overlaps an update).
+        Pipelined and async: a round in flight must not read tensors the
+        optimizer is writing, so the adapter is copied, on the learner's
+        stream, into the ring of persistent buffers
+        (``rollout/adapter_ring.py``): at fixed addresses, so the engine's
+        graphs stay keyed by at most the ring's buffers.
 
         Full mode (JAX trainer.py:939-943): the f32 masters are cast into
         the rollout copy in place, at its dtype (one persistent ``Decoder``,
@@ -458,6 +536,8 @@ class Trainer:
                     p.copy_(src)
             self._rollout_model.weights_version += 1
             self._lora_rollout = None
+        elif self._ring is not None:
+            self._lora_rollout = self._ring.push(self.lora, self.weight_version)
         else:
             # a new dict over the same tensors for each push: the engine's
             # prefix cache keys its cached KV on the adapter object's
@@ -470,17 +550,29 @@ class Trainer:
     # ---------------------------------------------------------------- rollout
 
     def _next_rng(self) -> int:
-        """The next seed from the trainer's generator (drawn on the loop's
-        thread only: the hang detector's thread gets its seed as an
+        """The next seed from the trainer's generator, drawn under a lock
+        (the rollout thread draws round seeds while the learner's draws
+        dropout seeds; the hang detector's thread gets its seed as an
         argument)."""
-        return int(torch.randint(2**62, (), generator=self._gen))
+        with self._rng_mu:
+            return int(torch.randint(2**62, (), generator=self._gen))
 
-    def _dispatch_rollout(self, prompt_ids, prompt_mask, sampling: SamplingConfig):
+    def _dispatch_rollout(self, prompt_ids, prompt_mask, sampling: SamplingConfig, lora):
         """One generation round: one engine call over the whole batch (one
         card has no disjoint learner devices for the JAX package's hybrid
         actor/learner split)."""
-        return self._call_engine(*self._engine_params(), prompt_ids, prompt_mask, sampling,
+        model = self._rollout_model if self._full else self.model
+        return self._call_engine(model, lora, prompt_ids, prompt_mask, sampling,
                                  self._next_rng())
+
+    def _on_rollout_stream(self, fn, *args):
+        """``fn(*args)`` on the overlapped modes' rollout thread: on the card,
+        with the device set and the rollout's own stream current, so the
+        round's kernels queue beside the learner's, never behind them."""
+        if self._rollout_stream is None:
+            return fn(*args)
+        with torch.cuda.device(self.device), torch.cuda.stream(self._rollout_stream):
+            return fn(*args)
 
     def _engine_params(self) -> tuple:
         """(model, adapter) for an engine call: the shared base with the
@@ -510,10 +602,17 @@ class Trainer:
             return result
 
         result: dict[str, Any] = {}
+        # the watchdog thread runs the round on the caller's stream
+        stream = (torch.cuda.current_stream(self.device) if self.device.type == "cuda"
+                  else None)
 
         def run() -> None:
             try:
-                result["value"] = self.engine.generate(*args)
+                if stream is None:
+                    result["value"] = self.engine.generate(*args)
+                    return
+                with torch.cuda.device(self.device), torch.cuda.stream(stream):
+                    result["value"] = self.engine.generate(*args)
             except BaseException as e:  # noqa: BLE001 — re-raised on the caller
                 result["error"] = e
 
@@ -542,18 +641,34 @@ class Trainer:
         prompt_ids, prompt_mask = encode_fixed(
             self.tokenizer, problems + [""] * (b_pad - b_real),
             self.config.max_prompt_tokens, side="left")
-        # race detector: the engine samples only with the adapter version the
-        # learner last published (the synchronous loop allows no lag)
+        # race detector: the adapter the round samples lags the learner by no
+        # more than the mode allows (sync 0, pipelined 1, async
+        # max_staleness). The rollout's version is read FIRST: a learner
+        # step landing between the two reads is a benign positive lag
         allowed_lag = self.config.allowed_weight_lag
-        rollout_version = self._rollout_weight_version
-        lag = self.weight_version - rollout_version
-        if not 0 <= lag <= allowed_lag:
-            raise StaleWeightsError(
-                f"rollout holds adapter v{rollout_version} but learner is at "
-                f"v{self.weight_version} — rollout_mode={self.config.rollout_mode!r} "
-                f"allows lag <= {allowed_lag}; _push_weights() was not called after "
-                "the last optimizer step")
-        result = self._dispatch_rollout(prompt_ids, prompt_mask, sampling)
+        hold = None
+        if self._ring is not None:  # holds the published copy until released
+            lora, rollout_version, hold = self._ring.acquire()
+        else:
+            lora, rollout_version = self._engine_params()[1], self._rollout_weight_version
+        try:
+            lag = self.weight_version - rollout_version
+            if not 0 <= lag <= allowed_lag:
+                raise StaleWeightsError(
+                    f"rollout holds adapter v{rollout_version} but learner is at "
+                    f"v{self.weight_version} — rollout_mode={self.config.rollout_mode!r} "
+                    f"allows lag <= {allowed_lag}; _push_weights() was not called after "
+                    "the last optimizer step, or the staleness bound is misconfigured")
+            # the mailbox's swap log before dispatch, so this round's
+            # in-flight swaps (and their versions) can be sliced out after
+            swaps_before = len(getattr(self.engine, "last_swap_steps", ()))
+            result = self._dispatch_rollout(prompt_ids, prompt_mask, sampling, lora)
+        except EngineHangError:
+            hold = None  # the hung round still reads its adapter: the hold stays
+            raise
+        finally:
+            if hold is not None:
+                self._ring.release_round(hold)
         n = sampling.n
         cand: dict[str, Any] = {
             "answers": [decode_batch(self.tokenizer, result.tokens[i], result.lengths[i])
@@ -569,6 +684,25 @@ class Trainer:
             cand["answer_tokens"] = [result.tokens[i] for i in range(b_real)]
             cand["behavior_logps"] = [result.logprobs[i] for i in range(b_real)]
             cand["gen_lengths"] = [result.lengths[i] for i in range(b_real)]
+            # per-token policy-version tags (rollout/trajectory.py): the
+            # round opens at the version it acquired; each in-flight swap it
+            # consumed advances the tag from its recorded step on (a swap
+            # pushed without a version counts one step past the one before)
+            steps = list(getattr(self.engine, "last_swap_steps", ()))[swaps_before:]
+            versions = list(getattr(self.engine, "last_swap_versions", ()))[swaps_before:]
+            events: list[tuple[int, int]] = []
+            inferred = rollout_version
+            for k, step in enumerate(steps):
+                v = versions[k] if k < len(versions) else None
+                inferred = int(v) if v is not None else inferred + 1
+                events.append((int(step), inferred))
+            tags = version_tags_for_round(n, result.tokens.shape[2], rollout_version, events)
+            cand["version_tags"] = [tags for _ in range(b_real)]
+            cand["base_version"] = rollout_version
+            cand["swap_events"] = events
+        # pool and round stats snapshotted here, on the thread that ran the
+        # round: the next round (or an eval) may overwrite the engine's
+        # attributes before the update logs them
         pool = getattr(self.engine, "last_pool_stats", None)
         if pool:
             cand["pool_stats"] = dict(pool)
@@ -601,21 +735,53 @@ class Trainer:
                                   run_dir=cfg.run_directory if cfg.run_name else ".")
         if cfg.run_name:
             os.makedirs(cfg.run_directory, exist_ok=True)
+        if cfg.async_rollout and self.device.type == "cuda" and self._rollout_stream is None:
+            # the overlapped modes' rounds queue on a stream of their own
+            self._rollout_stream = torch.cuda.Stream(self.device)
         try:
             self.evaluate()  # initial eval (distributed_trainer.py:241-242)
+            if cfg.rollout_mode == "async":
+                # the decoupled regime: RolloutService, trajectory buffer,
+                # bounded-staleness learner loop
+                self._train_async()
+                return
             # self.episode is the next episode to start (episode-end saves
             # store episode + 1, so a finished run resumes as a no-op);
             # batch_in_episode is the mid-episode cursor: the shuffle is
             # seeded by (seed, episode), so a resumed run re-derives the
             # batch order and skips the batches already trained
             start_episode = self.episode
+            gen_pool = None
+            if cfg.rollout_mode == "pipelined":
+                gen_pool = self._gen_pool = concurrent.futures.ThreadPoolExecutor(
+                    max_workers=1, thread_name_prefix="rollout")
             for episode in range(start_episode, cfg.episodes):
                 self.episode = episode
                 skip = self.batch_in_episode if episode == start_episode else 0
-                for bi, batch in self._episode_batch_stream(episode, skip):
-                    self._train_batch(batch, episode)
+                # a one-batch lookahead: pipelined, batch t+1's round is
+                # submitted BEFORE batch t's update, so it samples one step
+                # stale while the learner works; the pipeline stays within
+                # the episode (batch order and resume cursor unchanged)
+                stream = self._episode_batch_stream(episode, skip)
+                pending = next(stream, None)
+                gen_future = None
+                if gen_pool is not None and pending is not None:
+                    gen_future = self._submit_round(gen_pool, pending[1])
+                while pending is not None:
+                    bi, batch = pending
+                    pending = next(stream, None)
+                    next_future = None
+                    if gen_pool is not None and pending is not None:
+                        next_future = self._submit_round(gen_pool, pending[1])
+                    self._train_batch(batch, episode, gen_future=gen_future)
+                    gen_future = next_future
                     self.batch_in_episode = bi + 1
                     if cfg.eval_every and self.total_batch_steps % cfg.eval_every == 0:
+                        if gen_future is not None:
+                            # the round in flight drains first: an eval beside
+                            # it would hold two decode states at once and skew
+                            # both timings
+                            concurrent.futures.wait([gen_future])
                         self.evaluate()
                     if cfg.save_every and self.total_batch_steps % cfg.save_every == 0:
                         self.save_checkpoint()
@@ -633,8 +799,23 @@ class Trainer:
             self.save_checkpoint()
             raise
         finally:
+            service = self._rollout_service
+            if service is not None:
+                # closes the buffer and stops after the round in flight; never
+                # joins a possibly hung round (the recovery unit is the process)
+                service.stop()
+                self._rollout_service = None
+            if self._gen_pool is not None:
+                # never join a possibly hung round, and cancel a queued one:
+                # started against a hung engine it would wedge the exit
+                self._gen_pool.shutdown(wait=False, cancel_futures=True)
+                self._gen_pool = None
             self.sink.finish()
             self.rewards.close()
+
+    def _submit_round(self, pool, batch) -> concurrent.futures.Future:
+        return pool.submit(self._on_rollout_stream, self._generate_round, batch,
+                           self.config.train_sampling())
 
     def _episode_batch_stream(self, episode: int, skip: int):
         """One episode's (batch_index, batch) stream: the single owner of
@@ -645,13 +826,117 @@ class Trainer:
             if bi >= skip:
                 yield bi, b
 
-    def _train_batch(self, batch: Mapping[str, Sequence[str]], episode: int) -> None:
+    def _train_batch(self, batch: Mapping[str, Sequence[str]], episode: int,
+                     gen_future: concurrent.futures.Future | None = None) -> None:
         timer = telemetry.PhaseSpans()
         with timer("generation"):
-            # ends on host tokens: the round's device work is done
-            candidates = self._generate_round(batch, self.config.train_sampling())
+            # ends on host tokens: the round's device work is done. Pipelined
+            # hands in the round's future: the phase then records the time
+            # the learner was blocked (the overlap hides the rest)
+            if gen_future is not None:
+                candidates = gen_future.result()
+            else:
+                candidates = self._generate_round(batch, self.config.train_sampling())
         self._update_on_candidates(candidates, episode, timer,
                                    n_samples=len(batch["problem"]))
+
+    # -------------------------------------------------------------- async RL
+
+    def _episode_batches(self, start_episode: int, start_batch: int):
+        """(episode, batch_index, batch) in exactly the sync loop's order: the
+        async regime changes when batches train, never which ones."""
+        for episode in range(start_episode, self.config.episodes):
+            skip = start_batch if episode == start_episode else 0
+            for bi, b in self._episode_batch_stream(episode, skip):
+                yield episode, bi, b
+
+    def _train_async(self) -> None:
+        """The decoupled regime (JAX ``trainer.py:1601-1776``): a
+        ``RolloutService`` thread generates continuously, on the rollout
+        stream, into a bounded ``TrajectoryBuffer`` while this loop pulls
+        ``batch_size`` groups an update. Staleness control is layered: the
+        buffer evicts queued groups already beyond ``max_staleness`` (drop
+        policy), the ``StalenessPolicy`` drops or down-weights at admission,
+        and the AIPO objective masks per token by version lag. Every drop is
+        counted."""
+        from distrl_llm_tpu_torch.distributed.resilience import RetryPolicy
+        from distrl_llm_tpu_torch.rollout import (
+            RolloutService, StalenessPolicy, TrajectoryBuffer, round_to_trajectories,
+            trajectories_to_candidates,
+        )
+
+        cfg = self.config
+        # capacity floor 2 x the pull: a get_batch(batch_size) must always be
+        # satisfiable below the backpressure gate, or the learner and a gated
+        # producer would wait on each other
+        capacity = max(cfg.rollout_buffer_groups or 4 * cfg.batch_size, 2 * cfg.batch_size)
+        buffer = self._rollout_buffer = TrajectoryBuffer(capacity)
+        policy = self._staleness_policy = StalenessPolicy(
+            cfg.max_staleness, mode=cfg.staleness_policy, downweight=cfg.staleness_downweight)
+        self._rollout_dropped_stale = 0
+        start_episode, start_batch = self.episode, self.batch_in_episode
+        restored = self._resume_rollout_state
+        if restored:
+            # the unconsumed trajectories and the producer's cursor
+            buffer.load_state(restored.get("buffer", {}))
+            cursor = restored.get("cursor")
+            if cursor is not None:
+                start_episode, start_batch = int(cursor[0]), int(cursor[1])
+            policy.dropped = int(restored.get("policy_dropped", 0))
+            policy.admitted = int(restored.get("policy_admitted", 0))
+            self._rollout_dropped_stale = buffer.dropped_stale + policy.dropped
+
+        def produce(episode: int, bi: int, batch) -> list:
+            [cand] = self._on_rollout_stream(self._generate_round, batch, cfg.train_sampling())
+            return round_to_trajectories(
+                cand, base_version=cand.get("base_version", self._rollout_weight_version),
+                swap_events=cand.get("swap_events", ()), episode=episode, batch_index=bi)
+
+        service = self._rollout_service = RolloutService(
+            produce, buffer, self._episode_batches(start_episode, start_batch),
+            max_restarts=cfg.producer_restarts,
+            retry_policy=RetryPolicy(base_s=cfg.rpc_backoff_s, seed=cfg.seed))
+        service.start()
+        while True:
+            timer = telemetry.PhaseSpans()
+            if cfg.staleness_policy == "drop":
+                # groups admission would reject go before they cost an update;
+                # not under downweight, whose admission trains them
+                buffer.evict_stale(self.weight_version, policy.max_staleness)
+            with timer("generation"):
+                # the learner's time blocked on the buffer
+                groups = buffer.get_batch(cfg.batch_size)
+            service.raise_if_failed()
+            if not groups:
+                break  # producer done and buffer drained
+            kept, weights = policy.admit(groups, self.weight_version)
+            self._rollout_dropped_stale = buffer.dropped_stale + policy.dropped
+            if not kept:
+                continue
+            cand = trajectories_to_candidates(kept, weights)
+            episode = kept[0].episode
+            self.episode = episode
+            # metrics only: a save stores the producer's cursor and the buffer
+            self.batch_in_episode = kept[-1].batch_index + 1
+            self._update_on_candidates([cand], episode, timer, n_samples=len(kept))
+            if cfg.eval_every and self.total_batch_steps % cfg.eval_every == 0:
+                # the engine is not re-entrant: the producer parks at its next
+                # round boundary while the eval runs
+                service.pause()
+                try:
+                    self.evaluate()
+                finally:
+                    service.resume()
+            if cfg.save_every and self.total_batch_steps % cfg.save_every == 0:
+                self.save_checkpoint()
+                if cfg.export_hf_snapshots and cfg.run_name:
+                    self.export_hf_snapshot()
+        service.raise_if_failed()
+        self.episode = cfg.episodes
+        self.batch_in_episode = 0
+        self.save_checkpoint()
+        if cfg.export_hf_snapshots and cfg.run_name:
+            self.export_hf_snapshot()
 
     def _update_on_candidates(self, candidates: list[dict[str, Any]], episode: int,
                               timer: telemetry.PhaseSpans, n_samples: int) -> None:
@@ -703,6 +988,9 @@ class Trainer:
                 answer_buckets=cfg.learner_len_buckets or None,
                 prompt_buckets=cfg.learner_prompt_buckets or None,
                 device=self.device,
+                # async: per-token version lag (learner version minus each
+                # token's sampling version) feeds AIPO's staleness mask
+                current_version=self.weight_version if cfg.rollout_mode == "async" else None,
             )
             answer_width = int(update.answer_ids.shape[1])
             prompt_width = int(update.prompt_ids.shape[1])
@@ -714,6 +1002,11 @@ class Trainer:
             loss = float(self.train_step(self.lora, self.model, update, dropout_seed))
         self.weight_version += 1
         self._push_weights()
+        if cfg.inflight_weight_updates:
+            # the fresh adapter goes to the round in flight, which swaps at its
+            # next step or chunk boundary; the version rides along so the round
+            # tags every later position with the policy that sampled it
+            self.engine.push_lora(self._lora_rollout, version=self.weight_version)
         if cfg.write_adapter_file:
             self.save_adapter()
 
@@ -733,7 +1026,7 @@ class Trainer:
             # staleness bound, cumulative stale drops (none when synchronous)
             "rollout_mode": cfg.rollout_mode,
             "max_staleness": cfg.allowed_weight_lag,
-            "rollout_dropped_stale": 0,
+            "rollout_dropped_stale": self._rollout_dropped_stale,
         }
         if cfg.learner_len_buckets:
             metrics["learner/answer_width"] = answer_width
@@ -751,6 +1044,9 @@ class Trainer:
         metrics.update(self._engine_metrics(candidates))
         metrics.update(extra_metrics)
         metrics.update(timer.metrics())
+        # the registry's series (rollout/buffer_occupancy, rollout/staleness,
+        # ...) ride the same record
+        metrics.update(telemetry.metrics_snapshot())
         self.sink.log(metrics, step=self.total_batch_steps)
 
     def _engine_metrics(self, candidates) -> dict[str, float]:

@@ -304,6 +304,8 @@ VALID = [
     dict(max_concurrent_sequences=16, prompt_buckets=(128, 256),
          learner_len_buckets=(256, 512), learner_prompt_buckets=(128,)),
     dict(run_name="r1", format_reward="strict", eval_n=4, top_p_exact=True),
+    dict(rollout_mode="pipelined"),
+    dict(rollout_mode="async", clip_ratio=0.2, max_staleness=3, inflight_weight_updates=True),
 ]
 
 INVALID = [
@@ -343,8 +345,8 @@ INVALID = [
 # the unported knobs they need there), the port raises NotImplementedError
 # naming the ROADMAP item
 UNPORTED = [
-    (dict(rollout_mode="pipelined"), {}, "item 8"),
-    (dict(rollout_mode="async", clip_ratio=0.2), {}, "item 8"),
+    (dict(rollout_mode="pipelined", full_finetune=True, model="tiny"), {}, "item 8"),
+    (dict(rollout_mode="async", clip_ratio=0.2, full_finetune=True, model="tiny"), {}, "item 8"),
     (dict(engine_impl="paged_sharded"), {}, "item 10"),
     (dict(full_finetune=True), {}, "item 10"),
     (dict(env="code", engine_impl="paged", continuous_batching=True,
