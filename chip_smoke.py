@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (``distrl_llm_tpu_torch``).
 
-    python3 chip_smoke.py [--layers N] [--seed S] [--profile] [--until 6|7|...|13]
+    python3 chip_smoke.py [--layers N] [--seed S] [--profile] [--until 6|7|...|14]
 
 Needs one NVIDIA GPU (Hopper: the kernels build for ``sm_90a``) and ``nvcc``.
 Without a GPU it exits non-zero before computing anything. Phases, each
@@ -217,6 +217,23 @@ printing its own lines:
    ms per training step and each ``timing/*_duration``, the seconds of
    host-clock overlap between rounds and updates, peak GiB allocated and
    reserved, captures and replays, the phase's seconds.
+14. the kernel domains past rank 64 and 64 query rows: (a) one
+   ``Trainer.train()`` of phase 13's configuration (int4 g64, refill 32
+   slots, splash, Adam8bit, GRPO clip 0.2, 4 x 16 x 128) at 7 layers
+   (GRAPH_TRAIN_LAYERS) with ``max_lora_rank=128``, ``spec_draft=12``
+   (n-gram) and ``decode_scan_chunk=16``, the initial eval and two steps (the
+   second round decodes over a non-zero B): K3 walks the rank in two chunks
+   on every projection, K5 serves 13 x 7 = 91 query rows in two row tiles;
+   each round's and each update's launches held to what they dispatched,
+   replays included (K5 and its row tiles per layer per verify forward, K3
+   and its rank chunks 7 per layer per model forward), K5 launched at 91
+   rows only, finite losses, the adapter within Adam8bit's clip; (b) the
+   refill engine on TINY's width with 8 query heads over 1 kv head in f32 at
+   ``spec_draft=12`` (104 query rows a block, two tiles), whose greedy
+   streams loop: drafts accepted, speculative greedy tokens equal to plain
+   refill's. Printed: ms per training step, each ``timing/*_duration``, the
+   verify forwards and accept rates, the row tiles launched, peak GiB and
+   the phase's seconds.
 
 Phase 3 holds K4 (forward and backward) against its plain version at the
 learner's [8, 1550, 28 / 4, 128] and at Gemma-2B's [8, 1550, 8 / 1, 256],
@@ -228,7 +245,17 @@ with its edge cases, one-hot rows that must reproduce ``dequantize()``
 exactly, and ``quantize`` on the card against the CPU bit for bit; K3's
 time at every projection shape at M = 64 (a CUDA graph over weight copies
 past the L2) and their sum per QLoRA decode step ("K3 per QLoRA decode
-step"), and w_gate at M = 12,400.
+step"), and w_gate at M = 12,400. Then K3 past rank 64, at ranks 128 and
+200 (``QMM_HIGH_RANKS``: the kernel walks the rank in chunks of 64): every
+projection shape at M = 64, w_gate at M = 416 (the verify step at
+spec_draft 12) and 12,400, int4 g64 and int8, f32 x at M = 64 and the edge
+shapes where the chunks meet the tiling, against its plain version; each
+timed beside its bound and the library yardstick, and "K3 per QLoRA decode
+step" at each rank. Then K5 past 64 query rows (``VF_TILE_SHAPES``: S 13 x
+28 / 4 at hd 128, 91 rows; S 17 x 64 / 8 at hd 128 and S 17 x 8 / 1 at hd
+256, 136 rows), 64 rows of lengths 550-650, bf16 and int8 pages (and f32
+at 91 rows), against its plain version, each timed as a CUDA graph over
+page copies past the L2 beside its bound and the unrolled S x K2.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Any failed check raises and the script
@@ -343,6 +370,18 @@ KERNELS = (
      "source": "distrl_llm_tpu_torch/csrc/paged_verify.cu",
      "replaces": "distrl_llm_tpu/ops/paged_native.py:573",
      "module": "distrl_llm_tpu_torch.ops.paged_native", "counter": "paged_verify_launches"},
+    # K3 past rank 64 (its rank chunks) and K5 past 64 query rows (its row
+    # tiles), each also counted in the entry of its kernel above
+    {"name": "quant_matmul_rank_chunks", "route": "cuda",
+     "source": "distrl_llm_tpu_torch/csrc/quant_matmul.cu",
+     "replaces": "distrl_llm_tpu/ops/quant_matmul.py:150",
+     "module": "distrl_llm_tpu_torch.ops.quant_matmul",
+     "counter": "quant_matmul_rank_chunks_launches"},
+    {"name": "paged_verify_row_tiles", "route": "cuda",
+     "source": "distrl_llm_tpu_torch/csrc/paged_verify.cu",
+     "replaces": "distrl_llm_tpu/ops/paged_native.py:573",
+     "module": "distrl_llm_tpu_torch.ops.paged_native",
+     "counter": "paged_verify_row_tiles_launches"},
 )
 
 # K2 at the main path's full configuration: Qwen2.5-7B heads (28 / 4, hd
@@ -406,6 +445,11 @@ QMM_ROWS = (64, 12400)
 QMM_VERIFY_ROWS = 320  # the speculative verify step over a quantized base: 64 slots x 5
 QMM_GROUP = 64
 QMM_RANK = 32
+# K3 past rank 64 (the TPU kernel takes any rank): 128, and 200, no multiple
+# of 32 or 64; at decode's M = 64, the verify step at spec_draft 12 (32
+# slots x S 13 = 416, phase 14's) and the learner's 12,400
+QMM_HIGH_RANKS = (128, 200)
+QMM_HIGH_RANK_ROWS = (64, 416, 12400)
 QMM_F32_REL = 1e-4
 # phase 6, and phase 7's rounds besides its greedy bf16 pair, run at half
 # of Qwen2.5-7B's depth, which keeps the script with phase 9 inside its
@@ -432,6 +476,12 @@ def hd256_counts(head_dim: int, *, bf16_fwd: int = 0, bf16_bwd: int = 0, f32_fwd
     return {f"flash_attention_{part}_hd256_{dt}": n if at else 0
             for (dt, part), n in ((("bf16", "fwd"), bf16_fwd), (("bf16", "bwd"), bf16_bwd),
                                   (("f32", "fwd"), f32_fwd), (("f32", "bwd"), f32_bwd))}
+
+
+def domain_counts(*, rank_chunks: int = 0, row_tiles: int = 0) -> dict[str, int]:
+    """The counts of K3's launches past rank 64 and K5's past 64 query rows a
+    path should show."""
+    return {"quant_matmul_rank_chunks": rank_chunks, "paged_verify_row_tiles": row_tiles}
 
 
 def ptxas_lines(log: str) -> list[tuple[str, str]]:
@@ -698,14 +748,16 @@ def paged_attention_bound_ms(lengths, page_indices, *, q_dtype, kv_dtype,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def paged_case(device, seed: int, *, q_dtype, kv: str, prompt_lens, lengths):
+def paged_case(device, seed: int, *, q_dtype, kv: str, prompt_lens, lengths,
+               heads: int = PA_HEADS, kv_heads: int = PA_KV_HEADS, head_dim: int = PA_HEAD_DIM):
     """K2's inputs at the main path's geometry: random pages in a pool of
     ``P · 3 + P · 16 · 11`` pages for the P = ``len(prompt_lens)`` prompts
     (4 on the main path; 1 for a wave's tail of 16 rows), bf16/f32 or int8
     (quantized from bf16), q pre-scaled by hd^-0.5 in its dtype, and the
     page table the paged engine's fan-out builds for prompts of
-    ``prompt_lens`` real tokens (shared full prompt pages, private tails).
-    Returns the wrapper's positional and keyword arguments."""
+    ``prompt_lens`` real tokens (shared full prompt pages, private tails);
+    Qwen2.5-7B's heads unless ``heads``, ``kv_heads`` and ``head_dim`` say
+    otherwise. Returns the wrapper's positional and keyword arguments."""
     import torch
 
     from distrl_llm_tpu_torch.engine.paged_engine import _page_table_rows
@@ -716,7 +768,7 @@ def paged_case(device, seed: int, *, q_dtype, kv: str, prompt_lens, lengths):
     prompts = len(prompt_lens)
     rows = prompts * PA_N
     total = prompts * PA_PROMPT_PAGES + rows * PA_PRIVATE_PAGES
-    shape = (PA_KV_HEADS, total, PA_PAGE, PA_HEAD_DIM)
+    shape = (kv_heads, total, PA_PAGE, head_dim)
     full = torch.tensor(prompt_lens, device=dev) // PA_PAGE
     table = _page_table_rows(
         torch.arange(prompts, device=dev).repeat_interleave(PA_N),
@@ -731,8 +783,8 @@ def paged_case(device, seed: int, *, q_dtype, kv: str, prompt_lens, lengths):
         kw = {"k_scales": qk.scales, "v_scales": qv.scales}
     else:
         pages = [x.to(getattr(torch, kv)) for x in pages]
-    q = (torch.randn((rows, PA_HEADS, PA_HEAD_DIM), generator=gen, device=dev)
-         .to(q_dtype) * PA_HEAD_DIM**-0.5)
+    q = (torch.randn((rows, heads, head_dim), generator=gen, device=dev)
+         .to(q_dtype) * head_dim**-0.5)
     lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
     return (q, pages[0], pages[1], lens, table), kw
 
@@ -1204,33 +1256,9 @@ def compare_quant_matmul(device, seed: int, *, shapes=QMM_SHAPES,
               for i, (k, n) in enumerate(shapes) for bits in (4, 8)]
     cases += [(k0, n, m, bits, dt, True) for m in (1, 7) for n in (200,) for bits in (4, 8)
               for dt in (torch.bfloat16, torch.float32)]
-    for case_i, (k, n, m, bits, dt, bias) in enumerate(cases):
-        g = group if bits == 4 else None
-        x, w, b, la, lb = qmm_case(device, seed + case_i, k=k, n=n, m=m, bits=bits, group=g,
-                                   dtype=dt, bias=bias)
-        got = qm.quant_matmul(x, w, b, la, lb, scale)
-        want = qm.quant_matmul_reference(x, w, b, la, lb, scale)
-        check(bool(torch.isfinite(got.float()).all()), f"K3 [{m},{k}]x[{k},{n}]: non-finite")
-        err = float((got.float() - want.float()).abs().max())
-        label = f"K3 int{bits} {str(dt).split('.')[-1]} [{m},{k}] x [{k},{n}]"
-        if dt == torch.float32:
-            ymax = float(want.abs().max())
-            check(err <= QMM_F32_REL * ymax, f"{label}: |d| {err:.3g} > {QMM_F32_REL} x {ymax:.3g}")
-            res["f32_rel"] = max(res["f32_rel"], err / ymax)
-            res["f32_abs"] = max(res["f32_abs"], err)
-            print(f"kernel quant_matmul {label}{', bias' if bias else ''}, rank {QMM_RANK}: "
-                  f"max |d| {err:.3g} ({err / ymax:.3g} of max |y| {ymax:.3g})")
-        else:
-            wide = qm.quant_matmul_reference(x.float(), w, None if b is None else b.float(),
-                                             la, lb, scale)
-            noise = float((want.float() - wide).abs().max())
-            tol = 2 * noise + 1e-3
-            check(err <= tol, f"{label}: |d| {err:.3g} > {tol:.3g} (twice the plain version's "
-                  f"own bf16-vs-f32 distance {noise:.3g}, + 1e-3)")
-            res["bf16"].append((label, err, tol))
-            print(f"kernel quant_matmul {label}{', bias' if bias else ''}, rank {QMM_RANK}: "
-                  f"max |d| {err:.3g}; plain version's own bf16-vs-f32 distance {noise:.3g}")
-        del x, w, got, want
+    for case_i, case in enumerate(cases):
+        check_quant_matmul_case(device, seed + case_i, *case, group=group, rank=QMM_RANK,
+                                scale=scale, res=res)
     # one group of the whole K (int4 g = K) and no adapter
     x, w, _, _, _ = qmm_case(device, seed, k=k0, n=200, m=7, bits=4, group=k0,
                              dtype=torch.float32, bias=False, rank=0)
@@ -1268,6 +1296,79 @@ def compare_quant_matmul(device, seed: int, *, shapes=QMM_SHAPES,
           f"{res['f32_abs']:.3g} ({res['f32_rel']:.3g} relative); one-hot rows equal "
           f"dequantize() exactly (int4 g{group} and int8, f32 and bf16); quantize at every "
           f"weight shape of a layer bit-equal on {device} and the CPU (int4 and int8)")
+    return res
+
+
+def check_quant_matmul_case(device, seed: int, k: int, n: int, m: int, bits: int, dt,
+                            bias: bool, *, group: int, rank: int, scale: float,
+                            res: dict) -> None:
+    """One case of K3 against its plain version (``qmm_case``'s inputs:
+    int4 in groups of ``group`` or int8 per column, a rank-``rank`` f32
+    adapter with non-zero B): f32 within ``QMM_F32_REL`` of max |y|, bf16
+    within twice the plain version's own bf16-vs-f32 distance + 1e-3.
+    Records the differences in ``res``."""
+    import torch
+
+    qm = _qmm()
+    g = group if bits == 4 else None
+    x, w, b, la, lb = qmm_case(device, seed, k=k, n=n, m=m, bits=bits, group=g, dtype=dt,
+                               bias=bias, rank=rank)
+    got = qm.quant_matmul(x, w, b, la, lb, scale)
+    want = qm.quant_matmul_reference(x, w, b, la, lb, scale)
+    check(bool(torch.isfinite(got.float()).all()), f"K3 [{m},{k}]x[{k},{n}]: non-finite")
+    err = float((got.float() - want.float()).abs().max())
+    label = f"K3 int{bits} {str(dt).split('.')[-1]} [{m},{k}] x [{k},{n}]"
+    if dt == torch.float32:
+        ymax = float(want.abs().max())
+        check(err <= QMM_F32_REL * ymax, f"{label}, rank {rank}: |d| {err:.3g} > "
+              f"{QMM_F32_REL} x {ymax:.3g}")
+        res["f32_rel"] = max(res["f32_rel"], err / ymax)
+        res["f32_abs"] = max(res["f32_abs"], err)
+        print(f"kernel quant_matmul {label}{', bias' if bias else ''}, rank {rank}: "
+              f"max |d| {err:.3g} ({err / ymax:.3g} of max |y| {ymax:.3g})")
+    else:
+        wide = qm.quant_matmul_reference(x.float(), w, None if b is None else b.float(),
+                                         la, lb, scale)
+        noise = float((want.float() - wide).abs().max())
+        tol = 2 * noise + 1e-3
+        check(err <= tol, f"{label}, rank {rank}: |d| {err:.3g} > {tol:.3g} (twice the plain "
+              f"version's own bf16-vs-f32 distance {noise:.3g}, + 1e-3)")
+        res["bf16"].append((label, err, tol))
+        print(f"kernel quant_matmul {label}{', bias' if bias else ''}, rank {rank}: "
+              f"max |d| {err:.3g}; plain version's own bf16-vs-f32 distance {noise:.3g}")
+
+
+def compare_quant_matmul_ranks(device, seed: int, *, ranks=QMM_HIGH_RANKS, shapes=QMM_SHAPES,
+                               rows=QMM_HIGH_RANK_ROWS, group: int = QMM_GROUP,
+                               scale: float = 0.5, edge_k: int = 256) -> dict:
+    """K3 past rank 64 against its plain version (``check_quant_matmul_case``),
+    at each rank of ``ranks``: bf16 x at every (K, N) of ``shapes`` at the
+    first M of ``rows``, and at w_gate's (the third shape) at the others (the
+    verify step at d = 12, the learner), int4 and int8; f32 x at w_gate's
+    first M; and the edges where the rank chunks meet the tiling: N = 200 at
+    M = 7 (a split call with fewer column blocks than chunks) and K =
+    ``edge_k`` at M = 40 (one split: xa from its own kernel). Returns the
+    largest f32 difference and the bf16 differences with their tolerances."""
+    import torch
+
+    res = {"f32_rel": 0.0, "f32_abs": 0.0, "bf16": []}
+    k0, gate = shapes[0][0], shapes[2 % len(shapes)]
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = [(k, n, rows[0], bits, bf, i < 2) for i, (k, n) in enumerate(shapes)
+             for bits in (4, 8)]
+    cases += [(*gate, m, bits, bf, False) for m in rows[1:] for bits in (4, 8)]
+    cases += [(*gate, rows[0], bits, f32, False) for bits in (4, 8)]
+    cases += [(k0, 200, 7, 4, dt, True) for dt in (bf, f32)]
+    cases += [(edge_k, 512, 40, bits, bf, False) for bits in (4, 8)]
+    n_cases = 0
+    for rank in ranks:
+        for case_i, case in enumerate(cases):
+            check_quant_matmul_case(device, seed + 1000 * rank + case_i, *case, group=group,
+                                    rank=rank, scale=scale, res=res)
+            n_cases += 1
+    print(f"kernel quant_matmul at ranks {list(ranks)}: {n_cases} cases within tolerance (f32 "
+          f"{QMM_F32_REL} x max |y|, bf16 twice the plain version's own distance + 1e-3); "
+          f"max f32 |d| {res['f32_abs']:.3g} ({res['f32_rel']:.3g} relative)")
     return res
 
 
@@ -1319,15 +1420,17 @@ def _graph_ms(calls, replays: int = 5) -> float:
 L2_BYTES = 50e6  # the H100's L2 cache
 
 
-def time_quant_matmul(seed: int, *, shape=(3584, 18944), scale: float = 0.5) -> dict:
+def time_quant_matmul(seed: int, *, shape=(3584, 18944), scale: float = 0.5,
+                      rank: int = QMM_RANK, gate_rows=(QMM_ROWS[1],)) -> dict:
     """K3's, the plain version's and the library yardstick's times beside
-    the bound, bf16 x and a rank-32 adapter, int4 g64 and int8 per column:
-    at decode's M = 64 for every projection shape of ``QMM_SHAPES`` (a bias
-    on the first two, the q/k/v projections), and at the learner's M =
-    12,400 for w_gate (``shape``). At M = 64 the calls cycle through enough
+    the bound, bf16 x and a rank-``rank`` adapter, int4 g64 and int8 per
+    column: at decode's M = 64 for every projection shape of ``QMM_SHAPES``
+    (a bias on the first two, the q/k/v projections), and at each M of
+    ``gate_rows`` for w_gate (``shape``; the learner's 12,400). Up to M =
+    512 the calls cycle through enough
     weight copies that one cycle moves more than twice the 50 MB L2, as a
     decode step meets each layer's weight cold, and are timed as a CUDA
-    graph (``_graph_ms``); at M = 12,400 one call at a time. The library
+    graph (``_graph_ms``); above, one call at a time. The library
     yardstick is ``torch.matmul`` on the weight dequantized beforehand
     (dequantization not timed) plus the adapter's delta as torch ops; the
     port never calls it. Keys (m, k, n, bits)."""
@@ -1338,15 +1441,16 @@ def time_quant_matmul(seed: int, *, shape=(3584, 18944), scale: float = 0.5) -> 
     qm = _qmm()
     out = {}
     runs = [(QMM_ROWS[0], k, n, i < 2) for i, (k, n) in enumerate(QMM_SHAPES)]
-    runs.append((QMM_ROWS[1], *shape, False))
+    runs += [(m, *shape, False) for m in gate_rows]
     for m, k, n, bias in runs:
+        graphed = m <= qm.DECODE_MAX_M
         for bits in (4, 8):
             g = QMM_GROUP if bits == 4 else None
             one = (k * n * bits // 8 + (k // (g or k)) * n * 4 + 2 * m * k
-                   + 4 * QMM_RANK * (k + n))
-            copies = max(2, math.ceil(2 * L2_BYTES / one)) if m <= 64 else 1
+                   + 4 * rank * (k + n))
+            copies = max(2, math.ceil(2 * L2_BYTES / one)) if graphed else 1
             cs = [qmm_case("cuda", seed + i, k=k, n=n, m=m, bits=bits, group=g,
-                           dtype=torch.bfloat16, bias=bias) for i in range(copies)]
+                           dtype=torch.bfloat16, bias=bias, rank=rank) for i in range(copies)]
             s_t = torch.tensor(scale, dtype=torch.bfloat16, device="cuda")
             dense = [(c[0], dequantize(c[1], torch.bfloat16), c[2], c[3].bfloat16(),
                       c[4].bfloat16()) for c in cs]
@@ -1355,7 +1459,7 @@ def time_quant_matmul(seed: int, *, shape=(3584, 18944), scale: float = 0.5) -> 
                 y = torch.matmul(x, wd) + (x @ la) @ lb * s_t
                 return y if b is None else y + b
 
-            if m <= 64:
+            if graphed:
                 ms = _graph_ms([lambda c=c: qm.quant_matmul(*c, scale) for c in cs])
                 library_ms = _graph_ms([lambda d=d: lib(*d) for d in dense])
             else:
@@ -1364,7 +1468,7 @@ def time_quant_matmul(seed: int, *, shape=(3584, 18944), scale: float = 0.5) -> 
             plain_ms = _time_ms(lambda: qm.quant_matmul_reference(*cs[0], scale), calls=5,
                                 warmup=1)
             bound_ms, bound_by = quant_matmul_bound_ms(m, k, n, bits=bits, group=g,
-                                                       rank=QMM_RANK, bias=bias)
+                                                       rank=rank, bias=bias)
             out[(m, k, n, bits)] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                                     "bound_by": bound_by, "library_ms": library_ms,
                                     "copies": copies}
@@ -2364,16 +2468,18 @@ def verify_lengths(seed: int, prompt_lens=(350, 256, 128, 60)) -> list:
     return [n - VF_S for n in reach]
 
 
-def verify_case(device, seed: int, *, q_dtype, kv: str, lengths, prompt_lens=(350, 256, 128, 60)):
+def verify_case(device, seed: int, *, q_dtype, kv: str, lengths, prompt_lens=(350, 256, 128, 60),
+                s: int = VF_S, heads: int = PA_HEADS, kv_heads: int = PA_KV_HEADS,
+                head_dim: int = PA_HEAD_DIM):
     """K5's inputs: K2's pages and fan-out table (``paged_case``) with an
     S-token query block per row, q pre-scaled in its dtype."""
     import torch
 
     args, kw = paged_case(device, seed, q_dtype=q_dtype, kv=kv, prompt_lens=prompt_lens,
-                          lengths=lengths)
+                          lengths=lengths, heads=heads, kv_heads=kv_heads, head_dim=head_dim)
     gen = torch.Generator(device=device).manual_seed(seed + 1)
-    q = (torch.randn((len(lengths), VF_S, PA_HEADS, PA_HEAD_DIM), generator=gen,
-                     device=device).to(q_dtype) * PA_HEAD_DIM**-0.5)
+    q = (torch.randn((len(lengths), s, heads, head_dim), generator=gen,
+                     device=device).to(q_dtype) * head_dim**-0.5)
     return (q,) + args[1:], kw
 
 
@@ -2398,6 +2504,19 @@ def paged_verify_bound_ms(lengths, page_indices, *, q_dtype, kv_dtype, s: int = 
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _verify_tolerance(got, want, q_dtype):
+    """K5's tolerance against its plain version: F32_ATOL for f32 q; for
+    bf16 one bf16 ulp of the value plus F32_ATOL (each version rounds its f32
+    result once)."""
+    import torch
+
+    err = (got - want).abs()
+    if q_dtype == torch.float32:
+        return err, torch.full_like(err, F32_ATOL)
+    mag = torch.maximum(got.abs(), want.abs()).clamp_min(2.0**-126)
+    return err, torch.exp2(torch.floor(torch.log2(mag)) - 7) + F32_ATOL
 
 
 def compare_paged_verify(device, seed: int, ppbs=(1, 2, 4), cases=VF_CASES) -> float:
@@ -2435,12 +2554,7 @@ def compare_paged_verify(device, seed: int, ppbs=(1, 2, 4), cases=VF_CASES) -> f
             got = paged_attention_native_verify(*args, **kw, pages_per_block=ppb)
             again = paged_attention_native_verify(*args, **kw, pages_per_block=ppb)
             gf = got.float()
-            err = (gf - want).abs()
-            if q_dtype == torch.float32:
-                tol = torch.full_like(err, F32_ATOL)
-            else:  # one bf16 ulp of the value, plus the f32 difference
-                mag = torch.maximum(gf.abs(), want.abs()).clamp_min(2.0**-126)
-                tol = torch.exp2(torch.floor(torch.log2(mag)) - 7) + F32_ATOL
+            err, tol = _verify_tolerance(gf, want, q_dtype)
             bad = err > tol
             what = f"K5 {qn}/{kv} ppb={ppb}"
             check(bool(torch.isfinite(gf).all()), f"{what}: non-finite output")
@@ -2464,10 +2578,66 @@ def compare_paged_verify(device, seed: int, ppbs=(1, 2, 4), cases=VF_CASES) -> f
     return worst
 
 
-def time_paged_verify(seed: int) -> dict:
+# K5 past 64 query rows (phase 3): (S, query heads, kv heads, head_dim) of
+# Qwen2.5-7B at d = 12 (91 rows, phase 14's), Qwen2-72B's heads at d = 16
+# and Gemma-2B's at d = 16 (136 rows each; head_dim 256 takes the CUDA-core
+# body)
+VF_TILE_SHAPES = ((13, 28, 4, 128), (17, 64, 8, 128), (17, 8, 1, 256))
+
+
+def compare_paged_verify_tiles(device, seed: int, shapes=VF_TILE_SHAPES,
+                               rows: int = PA_PROMPTS * PA_N) -> float:
+    """K5 past 64 query rows against its plain version on ``device``: each
+    (S, H, K, hd) of ``shapes`` over ``rows`` rows of resident lengths
+    550-650 (and 1, 120 and 127: page crossings of the block), bf16 q over
+    bf16 and int8 pages, and f32 throughout at the first shape (the
+    CUDA-core body's row tiles at head_dim 128); a second run must give the
+    same bits. Prints each shape's row tiles. Returns the largest |dout|."""
+    import torch
+
+    from distrl_llm_tpu_torch.ops.paged_native import (
+        paged_attention_native_verify, paged_attention_native_verify_reference, plan_row_tiles,
+    )
+
+    dev = torch.device(device)
+    worst = 0.0
+    for i, (s, heads, kv_heads, hd) in enumerate(shapes):
+        lengths = [550 + (37 * r) % 101 for r in range(rows)]
+        lengths[:3] = [1, 120, 127]
+        cases = [("bfloat16", "bfloat16"), ("bfloat16", "int8")]
+        cases += [("float32", "float32")] if i == 0 else []
+        for qn, kv in cases:
+            q_dtype = getattr(torch, qn)
+            args, kw = verify_case(dev, seed + i, q_dtype=q_dtype, kv=kv, lengths=lengths, s=s,
+                                   heads=heads, kv_heads=kv_heads, head_dim=hd)
+            tiles = plan_row_tiles(s * heads // kv_heads, hd, q_dtype, args[1].dtype)
+            want = paged_attention_native_verify_reference(*args, **kw).float()
+            got = paged_attention_native_verify(*args, **kw)
+            again = paged_attention_native_verify(*args, **kw)
+            gf = got.float()
+            err, tol = _verify_tolerance(gf, want, q_dtype)
+            bad = err > tol
+            what = (f"K5 S {s} x {heads}/{kv_heads} hd {hd} ({s * heads // kv_heads} rows in "
+                    f"{tiles.tiles} tiles of {tiles.rows}) {qn}/{kv}")
+            check(bool(torch.isfinite(gf).all()), f"{what}: non-finite output")
+            check(not bool(bad.any()), f"{what}: |dout| {float(err.max()):.3g} above the "
+                  f"tolerance on {int(bad.sum())} elements")
+            check(torch.equal(got, again), f"{what}: a second run gave other bits")
+            worst = max(worst, float(err.max()))
+            print(f"kernel paged_verify {what}: max |dout| {float(err.max()):.3g} over "
+                  f"{got.numel()} outputs; second run bit-identical")
+            del args, kw, want, got, again
+    print(f"kernel paged_verify past 64 rows: all cases within tolerance (f32 {F32_ATOL}; bf16 "
+          f"one ulp + {F32_ATOL}); second runs bit-identical; max |dout| {worst:.3g}")
+    return worst
+
+
+def time_paged_verify(seed: int, *, s: int = VF_S, heads: int = PA_HEADS,
+                      kv_heads: int = PA_KV_HEADS, head_dim: int = PA_HEAD_DIM) -> dict:
     """K5's, the plain version's and the unrolled S x K2's times at 64 rows of the verify
     geometry (lengths around 600, prompts of 350 tokens: 4 prompts x 16
-    candidates), bf16 and int8 pages under bf16 q, beside the card's
+    candidates; Qwen2.5-7B's heads and S 5 unless the arguments say
+    otherwise), bf16 and int8 pages under bf16 q, beside the card's
     bound. K5 and the unrolled K2 run as CUDA graphs over copies of the
     pages past twice the L2 (``_rotating_graph_ms``: the ~45 MB these rows
     read would otherwise come from the L2); the plain version one call at a
@@ -2480,26 +2650,27 @@ def time_paged_verify(seed: int) -> dict:
     )
 
     lengths = [550 + (37 * r) % 101 for r in range(PA_PROMPTS * PA_N)]
+    heads_kw = dict(heads=heads, kv_heads=kv_heads, head_dim=head_dim)
     out = {}
     for kv in ("bfloat16", "int8"):
         args, kw = verify_case("cuda", seed, q_dtype=torch.bfloat16, kv=kv, lengths=lengths,
-                               prompt_lens=(350,) * PA_PROMPTS)
+                               prompt_lens=(350,) * PA_PROMPTS, s=s, **heads_kw)
         q, kp, vp, lens, table = args
-        qs = [q[:, i].contiguous() for i in range(VF_S)]
-        ls = [(lens + i + 1).to(torch.int32) for i in range(VF_S)]
+        qs = [q[:, i].contiguous() for i in range(s)]
+        ls = [(lens + i + 1).to(torch.int32) for i in range(s)]
 
         def unrolled(q_, kp_, vp_, lens_, table_, **kw_):
-            for i in range(VF_S):
+            for i in range(s):
                 paged_attention_native(qs[i], kp_, vp_, ls[i], table_, **kw_)
 
-        nbytes = paged_bytes([n + VF_S for n in lengths], table.cpu(), q_dtype=torch.bfloat16,
-                             kv_dtype=kp.dtype, s=VF_S)
+        nbytes = paged_bytes([n + s for n in lengths], table.cpu(), q_dtype=torch.bfloat16,
+                             kv_dtype=kp.dtype, s=s, **heads_kw)
         ms, copies = _rotating_graph_ms(paged_attention_native_verify, args, kw, nbytes)
         unrolled_ms, _ = _rotating_graph_ms(unrolled, args, kw, nbytes)
         plain_ms = _time_ms(lambda: paged_attention_native_verify_reference(*args, **kw),
                             calls=10)
         bound_ms, bound_by = paged_verify_bound_ms(lengths, table.cpu(), q_dtype=torch.bfloat16,
-                                                   kv_dtype=kp.dtype)
+                                                   kv_dtype=kp.dtype, s=s, **heads_kw)
         # no single PyTorch call takes a page table: library_ms is null; the
         # unrolled S launches of K2 are the yardstick
         out[kv] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
@@ -3171,6 +3342,8 @@ def check_trainer_run(out: dict, layers: int, *, steps: int, lr: float, cuda: bo
         "flash_attention_bwd": layers * learner if k4 else 0,
         "paged_verify": 0,
         **routes,
+        **domain_counts(rank_chunks=7 * layers * (out["engine_forwards"] + 2 * learner)
+                        if quantized and tr.config.max_lora_rank > 64 else 0),
     }
     check(c == want, f"{label}: launches {c}, want {want} ({decode_fwd} decode forwards, "
           f"{prefills} prefills, {out['engine_forwards']} engine and {learner} learner forwards)")
@@ -3442,6 +3615,7 @@ def check_rider_counts(out: dict, layers: int, *, splash: bool) -> None:
         "flash_attention_fwd": layers * cold if splash else 0,
         "flash_attention_bwd": 0, "quant_matmul": 0,
         **hd256_counts(0),  # the riders run head dims below 256
+        **domain_counts(),  # rank 32, d <= 4
     }
     check(c == want and c["fused_sample"] > 0,
           f"{label}: launches {c}, want {want} ({cold} cold group prefills)")
@@ -5046,6 +5220,7 @@ def overlap_run(build, *, label: str) -> dict:
             "t": (t0, t1), "thread": ident, "train": a[4].n == trainer.config.num_candidates,
             "res": res, "steps": res.steps_dispatched, "forwards": st.get("decode_forwards", 0),
             "sampler_calls": st.get("sampler_calls", res.steps_dispatched),
+            "draft_forwards": st.get("draft_forwards", 0), "spec": eng.last_spec_stats,
             "resumes": pool.get("resumes", 0), "refill": bool(pool),
             "model_forwards": fwd[ident] - f0 + st.get("graph_steps", 0),
             "counts": _kernel_counts(launch_count.thread_counts() - c0),
@@ -5322,17 +5497,243 @@ def overlap_rehearsal(workdir) -> dict:
                            max_concurrent_sequences=8, max_lora_rank=4)
 
 
+# ------------------------------------------------------------------ phase 14
+# the two kernel domains the port took last, K3 past rank 64 and K5 past 64
+# query rows, through Trainer.train: phase 13's QLoRA configuration (int4
+# g64, refill 32 slots, splash, Adam8bit, GRPO clip 0.2, 4 x 16 x 128) at 7
+# layers (GRAPH_TRAIN_LAYERS) with max_lora_rank 128, spec_draft 12 (n-gram)
+# and decode_scan_chunk 16, the initial eval and two steps (the second
+# step's round decodes over a non-zero B); then the refill engine on TINY's
+# width with 8 query heads over 1 kv head in f32 at spec_draft 12
+DOMAIN_RANK = 128
+DOMAIN_DRAFT = 12
+DOMAIN_REGIME = dict(rollout_mode="sync", decode_scan_chunk=GRAPH_CHUNK,
+                     max_lora_rank=DOMAIN_RANK, spec_draft=DOMAIN_DRAFT, spec_ngram=SPEC_NGRAM)
+
+
+def _paged_native():
+    from distrl_llm_tpu_torch.ops import paged_native
+
+    return paged_native
+
+
+def verify_geometries() -> set:
+    """The (query rows, row tiles, rows a tile, head_dim) K5 launched at
+    since ``_paged_native().launch_geometries`` was last cleared."""
+    return {g[1:] for g in _paged_native().launch_geometries if g[0] == "paged_verify"}
+
+
+def check_domain_run(out: dict, layers: int, *, steps: int, cuda: bool) -> None:
+    """Phase 14 (a)'s checks: ``steps`` finite losses with the reference's
+    metric names, the adapter (rank ``DOMAIN_RANK``) within Adam8bit's clip
+    and its B non-zero after the first step, every round speculative; on
+    the card each round's and each update's own launches as its counts say
+    (K1 per sampler call, K5 and its row tiles per layer per verify forward,
+    K2 per layer per drafter forward (none with n-grams), K3 and its rank
+    chunks 7 per layer per model forward, K4 per layer per prefill; the
+    learner's K3 twice that per forward, K4 twice forward and once
+    backward), together all the run's, no plain version, chunks replayed,
+    and K5 launched at S·G rows only."""
+    tr, label = out["trainer"], out["label"]
+    cfg = tr.config
+    train = [m for _, m in out["records"] if "loss" in m]
+    check(len(train) == steps and len(out["updates"]) == steps,
+          f"{label}: {len(train)} train records, {len(out['updates'])} updates, want {steps}")
+    for m in train:
+        check(math.isfinite(m["loss"]), f"{label}: loss {m['loss']}")
+        check(TRAIN_METRICS <= set(m), f"{label}: train record lacks {TRAIN_METRICS - set(m)}")
+    check_adapter_clip(out["adapters"], cfg.lr, label)
+    check(tr.weight_version == steps, f"{label}: weight version {tr.weight_version}")
+    rank = {ab["a"].shape[-1] for ab in tr.lora["layers"].values()}
+    check(rank == {DOMAIN_RANK}, f"{label}: adapter ranks {rank}, want {DOMAIN_RANK}")
+    b_after = out["adapters"][1][1::2]  # _lora_leaves: each target's a, then its b
+    check(all(bool(b.abs().max() > 0) for b in b_after),
+          f"{label}: the adapter's B is still zero after step 1")
+    check(len(out["train_rounds"]) == steps and all(r["spec"] for r in out["rounds"]),
+          f"{label}: {len(out['train_rounds'])} train rounds, want {steps}, all speculative")
+    if not cuda:
+        return
+    rows = (DOMAIN_DRAFT + 1) * (tr.model_cfg.num_heads // tr.model_cfg.num_kv_heads)
+    geo = verify_geometries()
+    check(len(geo) == 1 and next(iter(geo))[0] == rows, f"{label}: K5 launched at "
+          f"(rows, row tiles, rows a tile, head_dim) {geo}, want {rows} rows only")
+    for r in out["rounds"]:
+        prefills = r["model_forwards"] - r["forwards"] - r["resumes"]
+        want = {**{k["name"]: 0 for k in KERNELS},
+                "fused_sample": r["sampler_calls"],
+                "paged_attention": layers * r["draft_forwards"],
+                "paged_verify": layers * r["forwards"],
+                "quant_matmul": 7 * layers * r["model_forwards"],
+                "flash_attention_fwd": layers * prefills,
+                **domain_counts(rank_chunks=7 * layers * r["model_forwards"],
+                                row_tiles=layers * r["forwards"])}
+        check(r["counts"] == want and r["forwards"] > 0,
+              f"{label}: a round's launches {r['counts']}, want {want}")
+    for u in out["updates"]:
+        mb = u["learner_forwards"]
+        want = {**{k["name"]: 0 for k in KERNELS},
+                "quant_matmul": 2 * 7 * layers * mb,
+                "flash_attention_fwd": 2 * layers * mb, "flash_attention_bwd": layers * mb,
+                **domain_counts(rank_chunks=2 * 7 * layers * mb)}
+        check(mb == cfg.batch_size * cfg.num_candidates // cfg.train_batch_size,
+              f"{label}: {mb} learner forwards, want every microbatch")
+        check(u["counts"] == want, f"{label}: an update's launches {u['counts']}, want {want}")
+    total = {k["name"]: sum(x["counts"][k["name"]] for x in out["rounds"] + out["updates"])
+             for k in KERNELS}
+    check(out["counts"] == total, f"{label}: launches {out['counts']}, the rounds' and "
+          f"updates' own add up to {total}")
+    check(out["k4_plain"] == out["k3_plain"] == 0, f"{label}: a plain version ran")
+    check(sum(r["replays"] for r in out["train_rounds"]) > 0, f"{label}: no chunk replayed")
+
+
+def domain_trainer(cfg, device, *, seed: int, workdir: Path, tokenizer_dir: Path,
+                   group=QMM_GROUP, hbm_bytes=None, **config_kw) -> dict:
+    """Phase 14 (a): ``Trainer.train()`` of ``DOMAIN_REGIME`` over phase 13's
+    configuration (random weights from the seed quantized to int4 g64,
+    phase 8's 8 problems: the initial eval and two steps), run by
+    ``overlap_run`` (counts reset around ``train()``, each round's and
+    update's own launches) and checked by ``check_domain_run``."""
+    import torch
+
+    from distrl_llm_tpu_torch.ops.quant import quantize_base
+    from distrl_llm_tpu_torch.tokenizer import load_tokenizer
+    from distrl_llm_tpu_torch.trainer import Trainer, make_engine as trainer_engine
+
+    tok = load_tokenizer(str(tokenizer_dir))
+    train, test = trainer_datasets(tok)
+    model, _ = make_weights(cfg, device, seed=seed)
+    quantize_base(model, "int4", group)
+    config = trainer_config(workdir, **{
+        **dict(seed=seed, quant_group_size=group, learner="grpo", clip_ratio=0.2,
+               lora_dropout=0.0, save_every=0, write_adapter_file=False, checkpoint_dir=None),
+        **DOMAIN_REGIME, **config_kw})
+    engine = trainer_engine(config, model, tok, hbm_bytes=hbm_bytes)
+    _paged_native().launch_geometries.clear()
+    run = overlap_run(lambda sink: Trainer(train, test, smoke_reward, config, tokenizer=tok,
+                                           engine=engine, model=model, sink=sink),
+                      label="domains")
+    run["geometries"] = verify_geometries()
+    check_domain_run(run, cfg.num_layers, steps=len(train["problem"]) // config.batch_size,
+                     cuda=device == "cuda")
+    run["config"] = config
+    engine.release_decode_graphs()
+    del engine
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return run
+
+
+def domain_exactness(device, seed: int, *, max_new_tokens: int = 32) -> dict:
+    """Phase 14 (b): greedy speculative decoding at ``DOMAIN_DRAFT`` emits
+    plain refill's tokens where drafts are accepted, K5 at 13 x 8 = 104
+    query rows: TINY's width with 8 query heads over 1 kv head, in f32,
+    whose greedy streams loop, through phase 7's engine (8 prompts x 2
+    candidates, 4 slots, 8-token pages)."""
+    import torch
+
+    from distrl_llm_tpu_torch.models.configs import TINY
+
+    cfg = dataclasses.replace(TINY, num_heads=8, num_kv_heads=1)
+    weights = make_weights(cfg, device, seed=seed, rank=4, dtype=torch.float32)
+    kw = dict(seed=seed, n=2, max_new_tokens=max_new_tokens, slots=4, page_size=8,
+              max_prompt_tokens=96)
+    _paged_native().launch_geometries.clear()
+    spec = spec_round(cfg, device, weights, spec_draft=DOMAIN_DRAFT, kv_quant="none", **kw)
+    geo = verify_geometries()
+    plain = spec_round(cfg, device, weights, spec_draft=0, kv_quant="none", **kw)
+    layers, rows = cfg.num_layers, (DOMAIN_DRAFT + 1) * cfg.num_heads // cfg.num_kv_heads
+    check(spec["spec"]["accept_rate"] > 0, "domains (b): no draft accepted")
+    check((spec["res"].tokens == plain["res"].tokens).all()
+          and (spec["res"].lengths == plain["res"].lengths).all(),
+          "domains (b): speculative greedy tokens differ from plain refill's")
+    if device == "cuda":
+        check_spec_counts(spec, layers)
+        check_spec_counts(plain, layers)
+        c = spec["counts"]
+        check(c["paged_verify_row_tiles"] == c["paged_verify"] > 0
+              and plain["counts"]["paged_verify_row_tiles"] == 0,
+              f"domains (b): K5's row tiles launched {c['paged_verify_row_tiles']} times of "
+              f"K5's {c['paged_verify']}")
+        check(len(geo) == 1 and next(iter(geo))[0] == rows,
+              f"domains (b): K5 launched at {geo}, want {rows} rows only")
+    return {"spec": spec, "plain": plain, "geometries": geo, "rows": rows}
+
+
+def domain_phase(cfg, args, card: str, t_start: float) -> list:
+    """Phase 14 on the card (see the module's docstring). Returns the launch
+    counts of its runs."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    shallow = dataclasses.replace(cfg, num_layers=min(cfg.num_layers, GRAPH_TRAIN_LAYERS))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_domains_") as tmp:
+        work = Path(tmp)
+        tok_dir = write_bpe_tokenizer(work / "tokenizer", cfg.vocab_size)
+        a = domain_trainer(shallow, "cuda", seed=args.seed, workdir=work,
+                           tokenizer_dir=tok_dir)
+    recs = [m for _, m in a["records"] if "loss" in m]
+    phases = {k: [1e3 * m[f"timing/{k}_duration"] for m in recs]
+              for k in ("generation", "reward", "update")}
+    spec = [r["spec"] for r in a["train_rounds"]]
+    print(f"domains (a): Trainer.train() at {shallow.num_layers} layers over the int4 "
+          f"g{QMM_GROUP} base, rank {DOMAIN_RANK}, spec_draft {DOMAIN_DRAFT} (n-gram), "
+          f"decode_scan_chunk {GRAPH_CHUNK}, refill {TRAIN_SLOTS} slots, splash, GRPO, 4 x 16 x "
+          f"{TRAIN_NEW_TOKENS}: {len(recs)} steps, losses {[round(m['loss'], 6) for m in recs]}; "
+          f"ms per training step (record to record) {', '.join(f'{x:.1f}' for x in a['step_ms'])}"
+          f"; timing/generation_duration {', '.join(f'{x:.1f}' for x in phases['generation'])}, "
+          f"reward {', '.join(f'{x:.1f}' for x in phases['reward'])}, update "
+          f"{', '.join(f'{x:.1f}' for x in phases['update'])} ms; verify forwards "
+          f"{[r['forwards'] for r in a['train_rounds']]}, accept rate "
+          f"{[round(x['accept_rate'], 4) for x in spec]}; K5 at (rows, row tiles, rows a tile, "
+          f"head_dim) {sorted(a['geometries'])}; captures {a['captures']}, replays "
+          f"{a['replays']}; peak {a['peak_gib']:.2f} GiB allocated, {a['reserved_gib']:.2f} "
+          f"reserved; launches {a['counts']}; {card}")
+    b = domain_exactness("cuda", args.seed)
+    s = b["spec"]["spec"]
+    print(f"domains (b): TINY width, 8/1 heads, f32, spec_draft {DOMAIN_DRAFT}: K5 at "
+          f"{sorted(b['geometries'])}; accept rate {s['accept_rate']:.4f}, "
+          f"{s['tokens_per_verify_step']:.4f} tokens per verify step; speculative greedy tokens "
+          f"equal to plain refill's ({int(np.asarray(b['spec']['res'].lengths).sum())} tokens); "
+          f"launches {b['spec']['counts']}")
+    print(f"domains: phase 14 {time.perf_counter() - t0:.1f} s; total "
+          f"{time.perf_counter() - t_start:.1f} s; {card}")
+    return [a["counts"], b["spec"]["counts"], b["plain"]["counts"]]
+
+
+def domain_rehearsal(workdir) -> dict:
+    """Phase 14 at TINY on the CPU (a 1024-token vocabulary for the
+    hand-written BPE; 8 new tokens, 8 slots): (a) run and checked as on the
+    card, launch counts apart, and (b)."""
+    from distrl_llm_tpu_torch.models.configs import TINY
+
+    cfg = dataclasses.replace(TINY, vocab_size=1024)
+    work = Path(workdir)
+    tok = write_bpe_tokenizer(work / "tok", cfg.vocab_size)
+    a = domain_trainer(cfg, "cpu", seed=0, workdir=work, tokenizer_dir=tok, group=16,
+                       hbm_bytes=2**30, max_prompt_tokens=96, max_new_tokens=8,
+                       num_candidates=4, topk=4, train_batch_size=4, eval_n=2,
+                       max_concurrent_sequences=8)
+    return {"a": a, "b": domain_exactness("cpu", 0, max_new_tokens=16)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=28,
                     help="decoder depth of the Qwen2.5-7B-wide model (28 = full)")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--until", type=int, default=13, choices=(6, 7, 8, 9, 10, 11, 12, 13),
+    ap.add_argument("--until", type=int, default=14, choices=tuple(range(6, 15)),
                     help="the last phase to run; 6 skips speculative decoding "
                          "(with --profile, the long part), 7 the trainer, 8 the "
                          "refill engine's riders, 9 full fine-tuning at Gemma-2B "
                          "width, 10 scan chunks as CUDA graphs, 11 the refill "
-                         "scheduler's, 12 the overlapped rollout modes; a partial "
+                         "scheduler's, 12 the overlapped rollout modes, 13 the "
+                         "kernel domains past rank 64 and 64 query rows; a partial "
                          "run prints no result line")
     ap.add_argument("--profile", action="store_true",
                     help="also print the device time per decode step and per "
@@ -5456,6 +5857,53 @@ def main(argv=None) -> int:
     results["quant_matmul"] = {"max_abs_err": qmm_err["f32_abs"],
                                **qmm_times[(QMM_ROWS[0], 3584, 18944, 4)]}
     results["quant_matmul"].pop("copies")
+    # K3 past rank 64 (its rank chunks) at ranks 128 and 200, then K5 past 64
+    # query rows (its row tiles) at 91 and 136 rows
+    t = time.perf_counter()
+    hr_err = compare_quant_matmul_ranks("cuda", args.seed)
+    for rank in QMM_HIGH_RANKS:
+        hr_times = time_quant_matmul(args.seed, rank=rank, gate_rows=QMM_HIGH_RANK_ROWS[1:])
+        for (m, k, n, bits), r in hr_times.items():
+            timed = (f"a CUDA graph over {r['copies']} weight copies" if m <= 512
+                     else "one call at a time")
+            print(f"kernel quant_matmul at x [{m},{k}] bf16 x int{bits} "
+                  f"{'g' + str(QMM_GROUP) if bits == 4 else 'per-column'} [{k},{n}], rank-"
+                  f"{rank} LoRA ({timed}): {r['ms']:.4f} ms, plain version "
+                  f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+                  f"library (torch.matmul on the weight dequantized beforehand, dequant not "
+                  f"timed, + the LoRA delta) {r['library_ms']:.4f} ms; {card}")
+        step = qlora_decode_step_ms(hr_times)
+        print(f"kernel quant_matmul: K3 per QLoRA decode step at rank {rank} (28 x (2 wq/wo + "
+              f"2 wk/wv + 2 w_gate/w_up + w_down), int4 g{QMM_GROUP}, M {QMM_ROWS[0]}): "
+              f"{step['ms']:.4f} ms, bound {step['bound_ms']:.4f} ms, library "
+              f"{step['library_ms']:.4f} ms; {card}")
+        if rank == QMM_HIGH_RANKS[0]:  # the line's: rank 128, int4 w_gate at M = 64
+            results["quant_matmul_rank_chunks"] = {
+                "max_abs_err": hr_err["f32_abs"], **hr_times[(QMM_ROWS[0], 3584, 18944, 4)]}
+            results["quant_matmul_rank_chunks"].pop("copies")
+        del hr_times
+        torch.cuda.empty_cache()
+    print(f"kernel quant_matmul: ranks {list(QMM_HIGH_RANKS)} stanza "
+          f"{time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    vt_err = compare_paged_verify_tiles("cuda", args.seed)
+    for s_len, heads, kv_heads, hd in VF_TILE_SHAPES:
+        vt = time_paged_verify(args.seed, s=s_len, heads=heads, kv_heads=kv_heads, head_dim=hd)
+        for kv, r in vt.items():
+            print(f"kernel paged_verify at B={PA_PROMPTS * PA_N} x S={s_len} x {heads}/"
+                  f"{kv_heads} heads x hd {hd} ({s_len * heads // kv_heads} rows) x lengths "
+                  f"550-650, {kv} pages, bf16 q (a CUDA graph over {r['copies']} page copies "
+                  f"past twice the L2): {r['ms']:.4f} ms, plain version {r['plain_ms']:.4f} ms, "
+                  f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), unrolled {s_len} x K2 (the "
+                  f"yardstick; no library call takes a page table) {r['unrolled_ms']:.4f} ms; "
+                  f"{card}")
+        if (s_len, heads, kv_heads, hd) == VF_TILE_SHAPES[0]:  # the line's: 91 rows, bf16
+            results["paged_verify_row_tiles"] = {
+                "max_abs_err": vt_err, **{k: vt["bfloat16"][k] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+        del vt
+        torch.cuda.empty_cache()
+    print(f"kernel paged_verify: past 64 rows stanza {time.perf_counter() - t:.1f} s")
 
     # 4. the main path at full width: the dense engine, then the paged engine
     # with bf16 and with int8 pages, each with the counts reset around it
@@ -5682,6 +6130,15 @@ def main(argv=None) -> int:
     # async with in-flight updates; every round's and update's launches,
     # versions, swaps and captures checked, the overlap measured
     counted += overlap_phase(cfg, args, card, t_start)
+    if args.until < 14:
+        print(f"chip_smoke: phases 1-{args.until} done in {time.perf_counter() - t_start:.1f} s "
+              f"(a partial run prints no result line); {card}")
+        return 0
+
+    # 14. K3 past rank 64 and K5 past 64 query rows through Trainer.train():
+    # phase 13's QLoRA configuration at rank 128 with spec_draft 12, graphed;
+    # then speculative vs plain refill at 104 query rows on TINY's width
+    counted += domain_phase(cfg, args, card, t_start)
     print(f"chip_smoke: done in {time.perf_counter() - t_start:.1f} s; {card}")
 
     kernels = []

@@ -58,19 +58,23 @@ extern "C" {
 // lengths: int32 [batch]; tables: int32 [batch, pps]. The table splits into
 // `splits` ranges of pages_per_split pages (the last one ends at pps);
 // workspace: f32 [splits * batch * num_q_heads * (head_dim + 2)] when
-// splits > 1, else null. The caller checks: the query heads per kv head at
-// most 64, a row of a page a multiple of 16 bytes, the pointers 16-byte
-// aligned, the shared memory within the card (ops/paged_native.py).
+// splits > 1, else null. The query heads of a kv head take `row_tiles`
+// blocks (ops/paged_native.py::plan_row_tiles; 1 at every preset). The
+// caller checks: a block's rows at most 64, a row of a page a multiple of
+// 16 bytes, the pointers 16-byte aligned, the shared memory within the card
+// (ops/paged_native.py).
 int paged_attention_launch(const void* q, const void* k_pages, const void* v_pages,
                            const void* k_scales, const void* v_scales, const void* lengths,
                            const void* tables, void* out, void* workspace, int batch,
                            int num_q_heads, int num_kv_heads, int head_dim, int total_pages,
                            int page_size, int pps, int splits, int pages_per_split,
-                           int q_dtype, int kv_dtype, int device, void* stream) {
+                           int row_tiles, int q_dtype, int kv_dtype, int device,
+                           void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
   const paged::Geometry g{batch, 1, num_q_heads, num_kv_heads, 0, 0, head_dim,
-                          total_pages, page_size, pps, splits, pages_per_split, -1};
+                          total_pages, page_size, pps, splits, pages_per_split, -1,
+                          row_tiles, 0};
   const paged::Args a{q, k_pages, v_pages, k_scales, v_scales, lengths, tables,
                       out, workspace, q_dtype, kv_dtype, (cudaStream_t)stream};
   return paged::launch(a, g);

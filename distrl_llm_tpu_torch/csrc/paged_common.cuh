@@ -1,7 +1,7 @@
 // The body shared by K2 (paged_attention.cu) and K5 (paged_verify.cu):
 // attention of a block of query rows over a page table, split over pages.
 //
-// Function. For row b, kv head k and the block's R = S * G query rows
+// Function. For row b, kv head k and its R = S * G query rows
 // r = i * G + g (draft position i < S, query head h = k * G + g):
 //   q      [B, S, H, hd], already scaled by hd^-0.5 (K2: S = 1)
 //   base   lengths[b] + lag (K5: lag 0, the tokens resident before the
@@ -14,7 +14,17 @@
 //   out    online softmax in f32; acc / max(l, 1e-30) in q's dtype, so a
 //          row that attends nothing (K2 at length 0) gives exactly 0.
 //
-// The split (flash-decoding). The grid is (splits, B, K). Split z covers
+// Row tiles. A block serves at most kMaxRows = 64 query rows of a (row, kv
+// head): more (K5 past d = 8 at G 7) take `row_tiles` blocks of tile_rows =
+// ceil(R / row_tiles) rows each, planned on the host
+// (ops/paged_native.py::plan_row_tiles, which also keeps a block's shared
+// memory within the card: the CUDA-core body at head_dim 256 needs ~2.2 KB
+// a row). Each tile reads the (row, kv head)'s pages again; the tiles of a
+// split are neighbours in the grid's x, so they run together and the
+// second read comes from the L2. No tile is empty.
+//
+// The split (flash-decoding). The grid is (splits * row_tiles, B, K),
+// block x = z * row_tiles + tile. Split z covers
 // the pages [z * pps_split, (z + 1) * pps_split) of the table, a whole
 // number of pages; the host plans it from the shapes alone
 // (ops/paged_native.py::plan_paged_split) and never reads the lengths. A
@@ -63,12 +73,22 @@ constexpr float kNegInf = -1e30f;  // the JAX package's NEG_INF
 constexpr float kInvMaxInt8 = 1.0f / 127.5f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kMaxRows = 64;  // query rows per block (S * G)
+constexpr int kMaxRows = 64;  // query rows a block serves (of S * G); more take row tiles
 
 struct Geometry {
   int batch, s_len, heads, kv_heads, groups, rows, hd;
   int total_pages, ps, pps, splits, pages_per_split, lag;
+  int row_tiles, tile_rows;  // blocks a (split, row, kv head), query rows each (the last fewer)
 };
+
+// this block's split z and query rows [r0, r0 + nrows)
+struct Tile {
+  int z, r0, nrows;
+};
+__device__ __forceinline__ Tile block_tile(const Geometry& g) {
+  const int z = blockIdx.x / g.row_tiles, r0 = (blockIdx.x % g.row_tiles) * g.tile_rows;
+  return {z, r0, min(g.tile_rows, g.rows - r0)};
+}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -102,29 +122,30 @@ __device__ __forceinline__ size_t ws_rows(const Geometry& g) {
   return (size_t)g.splits * g.batch * g.kv_heads * g.rows;
 }
 
-// The block's result from shared memory (acc [R][ld], m [R], l [R]): the
-// output itself when the row has one live split, else split z's partials.
+// The block's result from shared memory (acc [nrows][ld], m, l [nrows],
+// for query rows t.r0 + r): the output itself when the row has one live
+// split, else split t.z's partials.
 template <typename QT>
 __device__ __forceinline__ void write_result(const float* acc, int ld, const float* m_s,
                                              const float* l_s, QT* __restrict__ out,
-                                             float* __restrict__ ws, int z, int b, int kvh,
-                                             bool direct, const Geometry& g) {
-  const int n = g.rows * g.hd;
+                                             float* __restrict__ ws, const Tile& t, int b,
+                                             int kvh, bool direct, const Geometry& g) {
+  const int n = t.nrows * g.hd;
   for (int e = threadIdx.x; e < n; e += blockDim.x) {
     const int r = e / g.hd, d = e % g.hd;
     const float a = acc[r * ld + d];
     if (direct) {
-      out[q_offset(b, r, kvh, g) + d] = from_f32<QT>(a / fmaxf(l_s[r], 1e-30f));
+      out[q_offset(b, t.r0 + r, kvh, g) + d] = from_f32<QT>(a / fmaxf(l_s[r], 1e-30f));
     } else {
-      ws[ws_row(z, b, kvh, r, g) * g.hd + d] = a;
+      ws[ws_row(t.z, b, kvh, t.r0 + r, g) * g.hd + d] = a;
     }
   }
   if (!direct) {
     float* ws_m = ws + ws_rows(g) * g.hd;
     float* ws_l = ws_m + ws_rows(g);
-    for (int r = threadIdx.x; r < g.rows; r += blockDim.x) {
-      ws_m[ws_row(z, b, kvh, r, g)] = m_s[r];
-      ws_l[ws_row(z, b, kvh, r, g)] = l_s[r];
+    for (int r = threadIdx.x; r < t.nrows; r += blockDim.x) {
+      ws_m[ws_row(t.z, b, kvh, t.r0 + r, g)] = m_s[r];
+      ws_l[ws_row(t.z, b, kvh, t.r0 + r, g)] = l_s[r];
     }
   }
 }
@@ -315,7 +336,8 @@ paged_mma_kernel(const __nv_bfloat16* __restrict__ q, const KVT* __restrict__ k_
   float* fin_m = red_l + kPW * MT * 16;
   float* fin_l = fin_m + MT * 16;
 
-  const int z = blockIdx.x, b = blockIdx.y, kvh = blockIdx.z;
+  const Tile tile = block_tile(g);
+  const int z = tile.z, b = blockIdx.y, kvh = blockIdx.z;
   const int reach = row_reach(lengths, b, g);
   const int nlive = live_splits(reach, g);
   if (z >= nlive) return;  // the split starts past the row's reach
@@ -372,11 +394,12 @@ paged_mma_kernel(const __nv_bfloat16* __restrict__ q, const KVT* __restrict__ k_
     }
   };
 
-  // q rows [0, R) of the block (zero past R) into swizzled m-tiles
+  // the tile's q rows (zero past them) into swizzled m-tiles
   for (int i = threadIdx.x; i < MT * 16 * (HD / 8); i += kNt) {
     const int r = i / (HD / 8), ch = i % (HD / 8);
-    const bool ok = r < g.rows;
-    cp_async16(q_s + swz<HD>(r, ch), ok ? q + q_offset(b, r, kvh, g) + ch * 8 : q, ok);
+    const bool ok = r < tile.nrows;
+    cp_async16(q_s + swz<HD>(r, ch), ok ? q + q_offset(b, tile.r0 + r, kvh, g) + ch * 8 : q,
+               ok);
   }
   cp_commit();
 #pragma unroll
@@ -390,7 +413,7 @@ paged_mma_kernel(const __nv_bfloat16* __restrict__ q, const KVT* __restrict__ k_
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     const int r = mt * 16 + gq + 8 * hr;
-    lim[hr] = r < g.rows ? min(lengths[b] + g.lag + r / g.groups + 1, hi) : -1;
+    lim[hr] = r < tile.nrows ? min(lengths[b] + g.lag + (tile.r0 + r) / g.groups + 1, hi) : -1;
   }
   cp_wait<kStages - 1>();  // q has landed
   __syncthreads();
@@ -634,7 +657,7 @@ paged_mma_kernel(const __nv_bfloat16* __restrict__ q, const KVT* __restrict__ k_
     }
     __syncthreads();
   }
-  write_result(acc, HD, fin_m, fin_l, out, ws, z, b, kvh, nlive == 1, g);
+  write_result(acc, HD, fin_m, fin_l, out, ws, tile, b, kvh, nlive == 1, g);
 }
 
 // ---------------------------------------------------------------------------
@@ -669,7 +692,8 @@ paged_cc_kernel(const QT* __restrict__ q, const KVT* __restrict__ k_pages,
   constexpr bool kQuant = sizeof(KVT) == 1;
   constexpr int kE = 16 / sizeof(KVT);  // values per 16-byte chunk
   extern __shared__ __align__(128) unsigned char smem[];
-  const int hd = g.hd, rows = g.rows;
+  const Tile tile = block_tile(g);
+  const int hd = g.hd, rows = tile.nrows;
   const int row_b = cc_row_bytes(hd, sizeof(KVT));
   const size_t stage_b = cc_stage_bytes(hd, sizeof(KVT));
   unsigned char* ring = smem;
@@ -681,7 +705,7 @@ paged_cc_kernel(const QT* __restrict__ q, const KVT* __restrict__ k_pages,
   float* a_s = l_s + rows;
   int* lim_s = reinterpret_cast<int*>(a_s + rows);
 
-  const int z = blockIdx.x, b = blockIdx.y, kvh = blockIdx.z;
+  const int z = tile.z, b = blockIdx.y, kvh = blockIdx.z;
   const int reach = row_reach(lengths, b, g);
   const int nlive = live_splits(reach, g);
   if (z >= nlive) return;
@@ -717,13 +741,13 @@ paged_cc_kernel(const QT* __restrict__ q, const KVT* __restrict__ k_pages,
   if (ntiles > 0) load_tile(0);
   cp_commit();
   for (int e = threadIdx.x; e < rows * hd; e += kCcThreads) {
-    q_s[e] = to_f32(q[q_offset(b, e / hd, kvh, g) + e % hd]);
+    q_s[e] = to_f32(q[q_offset(b, tile.r0 + e / hd, kvh, g) + e % hd]);
     acc[e] = 0.0f;
   }
   for (int r = threadIdx.x; r < rows; r += kCcThreads) {
     m_s[r] = kNegInf;
     l_s[r] = 0.0f;
-    lim_s[r] = min(lengths[b] + g.lag + r / g.groups + 1, hi);
+    lim_s[r] = min(lengths[b] + g.lag + (tile.r0 + r) / g.groups + 1, hi);
   }
 
   for (int it = 0; it < ntiles; ++it) {
@@ -798,7 +822,7 @@ paged_cc_kernel(const QT* __restrict__ q, const KVT* __restrict__ k_pages,
   }
   cp_wait<0>();
   __syncthreads();
-  write_result(acc, hd, m_s, l_s, out, ws, z, b, kvh, nlive == 1, g);
+  write_result(acc, hd, m_s, l_s, out, ws, tile, b, kvh, nlive == 1, g);
 }
 
 // ---------------------------------------------------------------------------
@@ -818,8 +842,8 @@ int launch_mma(const Args& a, const Geometry& g) {
   const cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  kernel<<<dim3(g.splits, g.batch, g.kv_heads), MT * MmaCfg<MT, NH>::kPW * 32, smem,
-           a.stream>>>(
+  kernel<<<dim3(g.splits * g.row_tiles, g.batch, g.kv_heads), MT * MmaCfg<MT, NH>::kPW * 32,
+           smem, a.stream>>>(
       (const __nv_bfloat16*)a.q, (const KVT*)a.k_pages, (const KVT*)a.v_pages,
       (const float*)a.k_scales, (const float*)a.v_scales, (const int32_t*)a.lengths,
       (const int32_t*)a.tables, (__nv_bfloat16*)a.out, (float*)a.ws, g);
@@ -828,8 +852,8 @@ int launch_mma(const Args& a, const Geometry& g) {
 
 template <typename KVT, int HD>
 int launch_mma_rows(const Args& a, const Geometry& g) {
-  if (g.rows <= 8) return launch_mma<KVT, HD, 1, 1>(a, g);
-  switch ((g.rows + 15) / 16) {
+  if (g.tile_rows <= 8) return launch_mma<KVT, HD, 1, 1>(a, g);
+  switch ((g.tile_rows + 15) / 16) {
     case 1: return launch_mma<KVT, HD, 1, 2>(a, g);
     case 2: return launch_mma<KVT, HD, 2, 2>(a, g);
     case 3: return launch_mma<KVT, HD, 3, 2>(a, g);
@@ -841,12 +865,12 @@ int launch_mma_rows(const Args& a, const Geometry& g) {
 template <typename QT, typename KVT>
 int launch_cc(const Args& a, const Geometry& g) {
   if (g.hd * (int)sizeof(KVT) % 16) return (int)cudaErrorInvalidValue;
-  const size_t smem = cc_smem_bytes(g.rows, g.hd, sizeof(KVT));
+  const size_t smem = cc_smem_bytes(g.tile_rows, g.hd, sizeof(KVT));
   auto kernel = paged_cc_kernel<QT, KVT>;
   const cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  kernel<<<dim3(g.splits, g.batch, g.kv_heads), kCcThreads, smem, a.stream>>>(
+  kernel<<<dim3(g.splits * g.row_tiles, g.batch, g.kv_heads), kCcThreads, smem, a.stream>>>(
       (const QT*)a.q, (const KVT*)a.k_pages, (const KVT*)a.v_pages, (const float*)a.k_scales,
       (const float*)a.v_scales, (const int32_t*)a.lengths, (const int32_t*)a.tables,
       (QT*)a.out, (float*)a.ws, g);
@@ -883,7 +907,11 @@ inline int launch(const Args& a, Geometry g) {
     return (int)cudaErrorInvalidValue;
   g.groups = g.heads / g.kv_heads;
   g.rows = g.s_len * g.groups;
-  if (g.rows > kMaxRows) return (int)cudaErrorInvalidValue;
+  if (g.row_tiles < 1) return (int)cudaErrorInvalidValue;
+  g.tile_rows = (g.rows + g.row_tiles - 1) / g.row_tiles;
+  // at most kMaxRows a block, and no empty tile
+  if (g.tile_rows > kMaxRows || (g.row_tiles - 1) * g.tile_rows >= g.rows)
+    return (int)cudaErrorInvalidValue;
   int err;
   if (takes_mma(a.q_dtype, a.kv_dtype, g.hd)) {
     if (a.kv_dtype == 1) {

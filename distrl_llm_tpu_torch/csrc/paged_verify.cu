@@ -25,20 +25,35 @@
 // query rows of its (row, kv head).
 //
 // Design: paged_common.cuh's body, K2's with the S draft positions folded
-// into the query rows. All S * G rows of a (row, kv head) sit in one block
-// (35 at Qwen2.5-7B with d = 4: three m16 tiles held as mma A fragments),
-// so each page is read once; the earlier version split them into three
-// tiles of 12 rows for its per-thread accumulators and read every page
-// three times. Twelve warps, four per m-tile, each on 32 positions of a
-// 128-position stage, one block an SM: a 2-stage cp.async ring of K and V
-// tiles, the scores masked per query at its own limit lengths + i + 1 on
-// the fragments; the split over pages and its merge as in K2 (a row whose
-// reach fits one split writes its output directly). int8 pages: the block
-// converts each stage to bf16 once for its three m-tiles. f32 q takes the
-// CUDA-core body. Measured (NVIDIA H100 80GB HBM3, 700 W, chip_smoke.py's
-// stanza, a CUDA graph over page copies past the L2; PERF.md): bf16 0.062
-// ms (0.440 before), int8 0.073 (0.478), against the unrolled 5 x K2's
-// 0.19 and 0.22 and bounds of 0.016 and 0.009.
+// into the query rows. Up to 64 rows, all S * G rows of a (row, kv head)
+// sit in one block (35 at Qwen2.5-7B with d = 4: three m16 tiles held as
+// mma A fragments), so each page is read once; the earlier version split
+// them into three tiles of 12 rows for its per-thread accumulators and read
+// every page three times. Twelve warps, four per m-tile, each on 32
+// positions of a 128-position stage, one block an SM: a 2-stage cp.async
+// ring of K and V tiles, the scores masked per query at its own limit
+// lengths + i + 1 on the fragments; the split over pages and its merge as
+// in K2 (a row whose reach fits one split writes its output directly).
+// int8 pages: the block converts each stage to bf16 once for its three
+// m-tiles. f32 q takes the CUDA-core body.
+//
+// Past 64 rows (d >= 9 at G 7, d >= 8 at G 8, up to 17 x 8 = 136 rows at
+// d = 16) the rows split into the fewest balanced row tiles of at most 64
+// (ops/paged_native.py::plan_row_tiles): 91 rows take two blocks of 46, 136
+// three of 46, 46 and 44, each on the tuned three-m-tile block above. A
+// tile reads its pages again, but the tiles of a split are neighbours in
+// the grid and run together, so the second read is meant to come from the
+// L2 (chip_smoke.py's K5 stanza times it beside the byte bound). More
+// m-tiles in one block (6 at 91 rows, 9 at 136) would read each page once
+// but need 18-36 warps' registers a block, and the CUDA-core body at
+// head_dim 256 (Gemma) cannot hold 136 rows' q and acc in shared memory at
+// all (~2.2 KB a row): one mechanism serves both bodies and every
+// existing shape keeps its block.
+//
+// Measured at S 5 (NVIDIA H100 80GB HBM3, 700 W, chip_smoke.py's stanza, a
+// CUDA graph over page copies past the L2; PERF.md): bf16 0.062 ms (0.440
+// before), int8 0.073 (0.478), against the unrolled 5 x K2's 0.19 and 0.22
+// and bounds of 0.016 and 0.009.
 
 #include "paged_common.cuh"
 
@@ -52,20 +67,22 @@ extern "C" {
 // else null; lengths: int32 [batch], the tokens resident before the block;
 // tables: int32 [batch, pps]. The table splits into `splits` ranges of
 // pages_per_split pages; workspace: f32 [splits * batch * s_len *
-// num_q_heads * (head_dim + 2)] when splits > 1, else null. The caller
-// checks: s_len * (num_q_heads / num_kv_heads) <= 64, a row of a page a
-// multiple of 16 bytes, the pointers 16-byte aligned, the shared memory
-// within the card (ops/paged_native.py).
+// num_q_heads * (head_dim + 2)] when splits > 1, else null. The s_len *
+// (num_q_heads / num_kv_heads) query rows of a (row, kv head) take
+// `row_tiles` blocks of at most 64 rows, none empty. The caller checks: a
+// row of a page a multiple of 16 bytes, the pointers 16-byte aligned, the
+// shared memory of a block within the card (ops/paged_native.py).
 int paged_verify_launch(const void* q, const void* k_pages, const void* v_pages,
                         const void* k_scales, const void* v_scales, const void* lengths,
                         const void* tables, void* out, void* workspace, int batch, int s_len,
                         int num_q_heads, int num_kv_heads, int head_dim, int total_pages,
-                        int page_size, int pps, int splits, int pages_per_split, int q_dtype,
-                        int kv_dtype, int device, void* stream) {
+                        int page_size, int pps, int splits, int pages_per_split, int row_tiles,
+                        int q_dtype, int kv_dtype, int device, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
   const paged::Geometry g{batch, s_len, num_q_heads, num_kv_heads, 0, 0, head_dim,
-                          total_pages, page_size, pps, splits, pages_per_split, 0};
+                          total_pages, page_size, pps, splits, pages_per_split, 0,
+                          row_tiles, 0};
   const paged::Args a{q, k_pages, v_pages, k_scales, v_scales, lengths, tables,
                       out, workspace, q_dtype, kv_dtype, (cudaStream_t)stream};
   return paged::launch(a, g);

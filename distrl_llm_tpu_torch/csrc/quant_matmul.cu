@@ -59,9 +59,18 @@
 // f32 (the learner's f32 parity runs): FMA on the CUDA cores, never TF32
 // or bf16 operands: blocks of 64 x 128 outputs, 256 threads, a loop over K
 // in steps of 32 through two register-staged shared-memory stages, the
-// weight dequantized to f32 in shared memory. Ragged M and N are masked in
-// the kernels, never padded in memory. K must be a multiple of 32, the
-// group even (or the whole K); the rank is padded to 32 or 64 with zeros.
+// weight dequantized to f32 in shared memory; xa = x A from
+// qmm_xa_f32_kernel. Ragged M and N are masked in the kernels, never padded
+// in memory. K must be a multiple of 32, the group even (or the whole K).
+//
+// Any adapter rank, as the TPU kernel takes the whole adapter: every route
+// walks the rank in chunks of R columns (R = 32 up to rank 32, else 64; the
+// last chunk zero-padded), each chunk on the R-wide tiles a rank of 32 or
+// 64 runs on alone. xa is written chunk by chunk (qmm_xa_kernel's and
+// qmm_xa_f32_kernel's grids take a chunk a block; a split call's x A takes
+// one column block a chunk), and the epilogues sum xa B over the chunks in
+// f32 before its one rounding. Padding R to the rank instead would grow
+// the registers of a 64-row tile's xa and B^T fragments with the rank.
 //
 // Measured (chip_smoke.py's K3 stanza, NVIDIA H100 80GB HBM3 at 700 W; the
 // rest in PERF.md): w_gate int4 g64 at M = 12,400 5.66-5.76 ms (library
@@ -113,24 +122,30 @@ __device__ __forceinline__ float lora_at(const void* p, size_t i, int is_bf16) {
                  : static_cast<const float*>(p)[i];
 }
 
-// shared-memory geometry: rows padded by 16 bytes, so ldmatrix's eight
-// 16-byte rows fall in distinct banks and every row stays 16-byte aligned
+// the adapter's rank in chunks of R columns (R = 32 for ranks up to 32,
+// else 64): `chunks` of them, padded to chunks * R (ops/quant_matmul.py::
+// plan_rank). Every route loops over the chunks, so no rank is refused.
+__host__ __device__ __forceinline__ int rank_chunks(int rank, int r) {
+  return r > 0 ? (rank + r - 1) / r : 0;
+}
+
+// shared-memory geometry of the f32 route: rows padded by 16 bytes, so
+// every row stays 16-byte aligned; the epilogue's xa chunk [BM][kAs] and B
+// chunk [R][kWs] reuse the loop's stages
 template <typename T, int BM, int R>
 struct Geo {
   static constexpr int kPad = 16 / (int)sizeof(T);
   static constexpr int kXs = kBK + kPad;  // x tile [BM][kXs]
-  static constexpr int kWs = kBN + kPad;  // w tile [kBK][kWs]; B tile [R][kWs]
-  static constexpr int kAs = R + kPad;    // A tile [kBK][kAs]; xa [BM][kAs]
+  static constexpr int kWs = kBN + kPad;  // w tile [kBK][kWs]; B chunk [R][kWs]
+  static constexpr int kAs = R + kPad;    // xa chunk [BM][kAs]
   static constexpr int kXElems = BM * kXs;
   static constexpr int kWElems = kBK * kWs;
-  static constexpr int kAElems = R ? kBK * kAs : 0;
-  static constexpr int kStage = kXElems + kWElems + kAElems;
+  static constexpr int kStage = kXElems + kWElems;
   static constexpr int kLoopBytes = 2 * kStage * (int)sizeof(T);
   static constexpr int kEpiBytes = R ? (BM * kAs + R * kWs) * (int)sizeof(T) : 0;
   static constexpr int kBytes = kLoopBytes > kEpiBytes ? kLoopBytes : kEpiBytes;
   static constexpr int kEpc = 16 / (int)sizeof(T);            // x values per 16 bytes
   static constexpr int kXChunks = BM * kBK / kEpc / kThreads;  // per thread
-  static constexpr int kAVals = R * kBK / kThreads;            // per thread
 };
 
 // NV f32 values rounded to T and stored with 16-byte stores
@@ -163,18 +178,17 @@ __device__ __forceinline__ uint32_t byte_of(const uint32_t (&w)[4], int j) {
 
 // one K step's operands, held in registers between the global loads and the
 // dequantizing store into shared memory
-template <typename T, int BM, int R>
+template <typename T, int BM>
 struct Raw {
-  uint4 x[Geo<T, BM, R>::kXChunks];
+  uint4 x[Geo<T, BM, 0>::kXChunks];
   uint32_t q[4];
   float s[16];
-  float a[Geo<T, BM, R>::kAVals > 0 ? Geo<T, BM, R>::kAVals : 1];
 };
 
-template <typename T, int BM, int R>
-__device__ __forceinline__ void load_raw(Raw<T, BM, R>& raw, const Args& p, int k0, int m0,
+template <typename T, int BM>
+__device__ __forceinline__ void load_raw(Raw<T, BM>& raw, const Args& p, int k0, int m0,
                                          int n0) {
-  using G = Geo<T, BM, R>;
+  using G = Geo<T, BM, 0>;
   const int tid = threadIdx.x;
   const T* x = static_cast<const T*>(p.x);
   constexpr int kChunksPerRow = kBK / G::kEpc;
@@ -224,20 +238,11 @@ __device__ __forceinline__ void load_raw(Raw<T, BM, R>& raw, const Args& p, int 
 #pragma unroll
     for (int j = 0; j < 16; ++j) raw.s[j] = j < nq && gn + j < p.n ? __ldg(sp + j) : 0.f;
   }
-  if constexpr (R > 0) {
-#pragma unroll
-    for (int i = 0; i < G::kAVals; ++i) {
-      const int e = tid + i * kThreads;
-      const int r = e / R, j = e % R;
-      raw.a[i] = j < p.rank ? lora_at(p.a, (size_t)(k0 + r) * p.rank + j, p.lora_bf16) : 0.f;
-    }
-  }
 }
 
-template <typename T, int BM, int R>
-__device__ __forceinline__ void store_raw(const Raw<T, BM, R>& raw, const Args& p, T* xs,
-                                          T* ws, T* as) {
-  using G = Geo<T, BM, R>;
+template <typename T, int BM>
+__device__ __forceinline__ void store_raw(const Raw<T, BM>& raw, const Args& p, T* xs, T* ws) {
+  using G = Geo<T, BM, 0>;
   const int tid = threadIdx.x;
   constexpr int kChunksPerRow = kBK / G::kEpc;
 #pragma unroll
@@ -266,35 +271,27 @@ __device__ __forceinline__ void store_raw(const Raw<T, BM, R>& raw, const Args& 
     store_vals<8>(ws + row * G::kWs + col, lo);
     store_vals<8>(ws + (row + 1) * G::kWs + col, hi);
   }
-  if constexpr (R > 0) {
-#pragma unroll
-    for (int i = 0; i < G::kAVals; ++i) {
-      const int e = tid + i * kThreads;
-      as[(e / R) * G::kAs + e % R] = from_f32<T>(raw.a[i]);
-    }
-  }
 }
 
 // The K loop: two shared-memory stages, one barrier per step; `compute(xs,
-// ws, as)` consumes a staged step. Ends with a barrier, so the caller may
-// reuse the shared memory.
-template <typename T, int BM, int R, typename Compute>
+// ws)` consumes a staged step. Ends with a barrier, so the caller may reuse
+// the shared memory.
+template <typename T, int BM, typename Compute>
 __device__ __forceinline__ void main_loop(const Args& p, T* smem, int m0, int n0,
                                           Compute&& compute) {
-  using G = Geo<T, BM, R>;
-  Raw<T, BM, R> raw;
+  using G = Geo<T, BM, 0>;
+  Raw<T, BM> raw;
   const int steps = p.k / kBK;
-  load_raw<T, BM, R>(raw, p, 0, m0, n0);
+  load_raw<T, BM>(raw, p, 0, m0, n0);
   for (int kt = 0; kt < steps; ++kt) {
     T* xs = smem + (kt & 1) * G::kStage;
     T* ws = xs + G::kXElems;
-    T* as = ws + G::kWElems;
     // the stage written here was last read two steps ago, before the
     // barrier of the previous step
-    store_raw<T, BM, R>(raw, p, xs, ws, as);
+    store_raw<T, BM>(raw, p, xs, ws);
     __syncthreads();
-    if (kt + 1 < steps) load_raw<T, BM, R>(raw, p, (kt + 1) * kBK, m0, n0);
-    compute(xs, ws, as);
+    if (kt + 1 < steps) load_raw<T, BM>(raw, p, (kt + 1) * kBK, m0, n0);
+    compute(xs, ws);
   }
   __syncthreads();
 }
@@ -313,18 +310,19 @@ __device__ __forceinline__ float finish(const Args& p, float acc, int gcol, floa
 }
 
 // f32: FMA on the CUDA cores. Thread (ty, tx) of a 16 x 16 grid owns rows
-// ty + 16 i and columns tx + 16 j of the block.
+// ty + 16 i and columns tx + 16 j of the block. xa = x A comes from
+// qmm_xa_f32_kernel through the workspace (f32 [M, chunks * R]); the
+// epilogue adds xa B one rank chunk at a time.
 template <int BM, int R>
 __device__ void run_fma(const Args& p, float* smem) {
   using T = float;
   using G = Geo<T, BM, R>;
-  constexpr int kRows = BM / 16, kCols = kBN / 16, kLc = R > 0 ? R / 16 : 1;
+  constexpr int kRows = BM / 16, kCols = kBN / 16;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * kBN;
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
 
   float acc[kRows][kCols] = {};
-  float xacc[kRows][kLc] = {};
-  main_loop<T, BM, R>(p, smem, m0, n0, [&](const T* xs, const T* ws, const T* as) {
+  main_loop<T, BM>(p, smem, m0, n0, [&](const T* xs, const T* ws) {
 #pragma unroll 4
     for (int kk = 0; kk < kBK; ++kk) {
       float av[kRows];
@@ -336,30 +334,34 @@ __device__ void run_fma(const Args& p, float* smem) {
 #pragma unroll
         for (int i = 0; i < kRows; ++i) acc[i][j] = fmaf(av[i], bv, acc[i][j]);
       }
-      if constexpr (R > 0) {
-#pragma unroll
-        for (int j = 0; j < kLc; ++j) {
-          const float bv = as[kk * G::kAs + tx + 16 * j];
-#pragma unroll
-          for (int i = 0; i < kRows; ++i) xacc[i][j] = fmaf(av[i], bv, xacc[i][j]);
-        }
-      }
     }
   });
 
-  float* xa = smem;
-  float* bs = smem + BM * G::kAs;
+  float d[kRows][kCols] = {};
   if constexpr (R > 0) {
+    float* xa = smem;
+    float* bs = smem + BM * G::kAs;
+    const int chunks = rank_chunks(p.rank, R), rpad = chunks * R;
+    for (int ch = 0; ch < chunks; ++ch) {
+      const int c0 = ch * R;
+      for (int e = threadIdx.x; e < BM * R; e += kThreads) {
+        const int r = e / R, j = e % R;
+        xa[r * G::kAs + j] = m0 + r < p.m ? p.ws[(size_t)(m0 + r) * rpad + c0 + j] : 0.f;
+      }
+      for (int e = threadIdx.x; e < R * kBN; e += kThreads) {
+        const int r = e / kBN, cc = e % kBN;
+        bs[r * G::kWs + cc] = c0 + r < p.rank && n0 + cc < p.n
+            ? lora_at(p.b, (size_t)(c0 + r) * p.n + n0 + cc, p.lora_bf16) : 0.f;
+      }
+      __syncthreads();
 #pragma unroll
-    for (int i = 0; i < kRows; ++i)
+      for (int i = 0; i < kRows; ++i)
 #pragma unroll
-      for (int j = 0; j < kLc; ++j) xa[(ty + 16 * i) * G::kAs + tx + 16 * j] = xacc[i][j];
-    for (int e = threadIdx.x; e < R * kBN; e += kThreads) {
-      const int r = e / kBN, cc = e % kBN;
-      bs[r * G::kWs + cc] = r < p.rank && n0 + cc < p.n
-          ? lora_at(p.b, (size_t)r * p.n + n0 + cc, p.lora_bf16) : 0.f;
+        for (int j = 0; j < kCols; ++j)
+          for (int r = 0; r < R; ++r)
+            d[i][j] = fmaf(xa[(ty + 16 * i) * G::kAs + r], bs[r * G::kWs + tx + 16 * j], d[i][j]);
+      __syncthreads();  // the chunk's readers are done before the next is stored
     }
-    __syncthreads();
   }
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
@@ -367,15 +369,54 @@ __device__ void run_fma(const Args& p, float* smem) {
 #pragma unroll
     for (int j = 0; j < kCols; ++j) {
       const int col = tx + 16 * j;
-      float d = 0.f;
-      if constexpr (R > 0) {
-        for (int r = 0; r < R; ++r)
-          d = fmaf(xa[(ty + 16 * i) * G::kAs + r], bs[r * G::kWs + col], d);
-      }
       if (row < p.m && n0 + col < p.n)
         static_cast<float*>(p.out)[(size_t)row * p.n + n0 + col] =
-            finish<float, R>(p, acc[i][j], n0 + col, d);
+            finish<float, R>(p, acc[i][j], n0 + col, d[i][j]);
     }
+  }
+}
+
+// xa = x A in f32 for the f32 route, into the workspace as f32 [M, chunks *
+// R] (zeros past the rank): grid (M / 64, chunks), a block per 64 rows and
+// one rank chunk, thread (ty, tx) on rows ty + 16 i and chunk columns tx + 16
+// j, K in steps of 32 through shared memory.
+template <int R>
+__global__ void __launch_bounds__(kThreads) qmm_xa_f32_kernel(Args p) {
+  constexpr int kRows = 64 / 16, kCols = R / 16;
+  __shared__ float xs[64][kBK + 1];
+  __shared__ float as[kBK][R];
+  const int m0 = blockIdx.x * 64, c0 = blockIdx.y * R;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const float* x = static_cast<const float*>(p.x);
+  float acc[kRows][kCols] = {};
+  for (int k0 = 0; k0 < p.k; k0 += kBK) {
+    for (int e = threadIdx.x; e < 64 * kBK; e += kThreads) {
+      const int r = e / kBK, kk = e % kBK;
+      xs[r][kk] = m0 + r < p.m ? x[(size_t)(m0 + r) * p.k + k0 + kk] : 0.f;
+    }
+    for (int e = threadIdx.x; e < kBK * R; e += kThreads) {
+      const int kk = e / R, j = e % R;
+      as[kk][j] = c0 + j < p.rank
+          ? lora_at(p.a, (size_t)(k0 + kk) * p.rank + c0 + j, p.lora_bf16) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int kk = 0; kk < kBK; ++kk) {
+#pragma unroll
+      for (int i = 0; i < kRows; ++i)
+#pragma unroll
+        for (int j = 0; j < kCols; ++j)
+          acc[i][j] = fmaf(xs[ty + 16 * i][kk], as[kk][tx + 16 * j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+  const int rpad = gridDim.y * R;
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int row = m0 + ty + 16 * i;
+    if (row >= p.m) continue;
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) p.ws[(size_t)row * rpad + c0 + tx + 16 * j] = acc[i][j];
   }
 }
 
@@ -397,11 +438,17 @@ int launch(const Args& p, cudaStream_t stream) {
     if (e != cudaSuccess) return (int)e;
     cap_set = true;
   }
+  if constexpr (R > 0) {
+    qmm_xa_f32_kernel<R><<<dim3((p.m + 63) / 64, rank_chunks(p.rank, R)), kThreads, 0,
+                           stream>>>(p);
+    if (int e = (int)cudaGetLastError()) return e;
+  }
   const dim3 grid((p.n + kBN - 1) / kBN, (p.m + BM - 1) / BM);
   quant_matmul_kernel<T, BM, R><<<grid, kThreads, kBytes, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
+// the rank's chunk width: 32 up to rank 32, else 64 (any rank, in chunks)
 template <typename T, int BM>
 int launch_rank(const Args& p, cudaStream_t stream) {
   if (p.rank == 0) return launch<T, BM, 0>(p, stream);
@@ -492,9 +539,11 @@ struct MmaGeo {
 
 // Main kernel, bf16 x. Grid (N / BN, M / BM, splits): split z covers K rows
 // [z kchunk, min(K, (z + 1) kchunk)). One split: the full epilogue here,
-// with xa = T(x A) read from the workspace (qmm_xa_kernel wrote it).
-// Several: f32 partial sums of y, and from the first column block those of
-// x A, into the workspace, finished by qmm_reduce_kernel.
+// with xa = T(x A) read from the workspace (qmm_xa_kernel wrote it), one
+// rank chunk at a time. Several: f32 partial sums of y, and from column
+// block c < chunks those of x A's rank chunk c, into the workspace,
+// finished by qmm_reduce_kernel (the grid holds at least `chunks` column
+// blocks; one past N computes only its chunk of x A).
 template <int BM, int BITS, int R, int STAGES>
 __global__ void __launch_bounds__(2 * BM, 2) qmm_mma_kernel(Args p) {
   using G = MmaGeo<BM, BITS, R>;
@@ -511,9 +560,11 @@ __global__ void __launch_bounds__(2 * BM, 2) qmm_mma_kernel(Args p) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, c = lane & 3;
   const bool split = p.splits > 1;
-  // x A in the K loop: split calls, first column block
+  // x A in the K loop: split calls, rank chunk blockIdx.x of the first
+  // `chunks` column blocks
   constexpr bool kLoopXa = R > 0;
-  const bool do_xa = kLoopXa && split && blockIdx.x == 0;
+  const int chunks = rank_chunks(p.rank, R), c0 = blockIdx.x * R;
+  const bool do_xa = kLoopXa && split && (int)blockIdx.x < chunks;
   const bool vec_q = p.n % 16 == 0, vec_s = p.n % 4 == 0;
   const T* x = static_cast<const T*>(p.x);
 
@@ -568,7 +619,7 @@ __global__ void __launch_bounds__(2 * BM, 2) qmm_mma_kernel(Args p) {
       const int k0 = kbeg + j * kStepK;
 #pragma unroll
       for (int v = 0; v < G::kAVals; ++v) {
-        const int e = tid + v * NT, r = e / R, col = e % R;
+        const int e = tid + v * NT, r = e / R, col = c0 + e % R;
         areg[v] = k0 + r < kend && col < p.rank
             ? lora_at(p.a, (size_t)(k0 + r) * p.rank + col, p.lora_bf16) : 0.f;
       }
@@ -700,7 +751,8 @@ __global__ void __launch_bounds__(2 * BM, 2) qmm_mma_kernel(Args p) {
         for (int j = 0; j < R / 8; ++j) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            const int row = m0 + 16 * warp + g + 8 * (e >> 1), r = 8 * j + 2 * c + (e & 1);
+            const int row = m0 + 16 * warp + g + 8 * (e >> 1);
+            const int r = c0 + 8 * j + 2 * c + (e & 1);
             if (row < p.m && r < p.rank) wxa[(size_t)row * p.rank + r] = xacc[j][e];
           }
         }
@@ -711,47 +763,55 @@ __global__ void __launch_bounds__(2 * BM, 2) qmm_mma_kernel(Args p) {
 
   T* xa_s = reinterpret_cast<T*>(smem);  // [BM][kAs]
   T* b_s = xa_s + BM * G::kAs;           // [R][kBs]
+  // xab for all MT m16 tiles, summed over the rank chunks
+  float d[MT][4][4] = {};
   if constexpr (R > 0) {
-    // xa (already rounded to T) and B's tile cast to T (rows past the rank
-    // or M and columns past N are 0)
     const T* xa = reinterpret_cast<const T*>(p.ws);
-    for (int e = tid; e < BM * R; e += NT) {
-      const int r = e / R, j = e % R;
-      xa_s[r * G::kAs + j] = m0 + r < p.m ? xa[(size_t)(m0 + r) * R + j] : __float2bfloat16(0.f);
+    const int rpad = chunks * R;
+    for (int ch = 0; ch < chunks; ++ch) {
+      const int r0 = ch * R;
+      // the chunk of xa (already rounded to T) and of B cast to T (rows past
+      // the rank or M and columns past N are 0)
+      for (int e = tid; e < BM * R; e += NT) {
+        const int r = e / R, j = e % R;
+        xa_s[r * G::kAs + j] =
+            m0 + r < p.m ? xa[(size_t)(m0 + r) * rpad + r0 + j] : __float2bfloat16(0.f);
+      }
+      for (int e = tid; e < R * BN; e += NT) {
+        const int r = e / BN, cc = e % BN;
+        const float v = r0 + r < p.rank && n0 + cc < p.n
+            ? lora_at(p.b, (size_t)(r0 + r) * p.n + n0 + cc, p.lora_bf16) : 0.f;
+        b_s[r * G::kBs + cc] = __float2bfloat16(v);
+      }
+      __syncthreads();
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi) {
+#pragma unroll
+        for (int kk = 0; kk < R / 16; ++kk) {
+          uint32_t af[4];
+          ldsm_x4(af, xa_s + (16 * mi + (lane & 15)) * G::kAs + 16 * kk + (lane >> 4) * 8);
+          const T* br = b_s + (16 * kk + 2 * c) * G::kBs + warp * 32 + 4 * g;
+          const uint2 ra = *reinterpret_cast<const uint2*>(br);
+          const uint2 rb = *reinterpret_cast<const uint2*>(br + G::kBs);
+          const uint2 rc = *reinterpret_cast<const uint2*>(br + 8 * G::kBs);
+          const uint2 rd = *reinterpret_cast<const uint2*>(br + 9 * G::kBs);
+#pragma unroll
+          for (int t = 0; t < 4; ++t) {
+            const int sh = 16 * (t & 1);
+            const uint32_t a0 = ((t < 2 ? ra.x : ra.y) >> sh) & 0xffffu;
+            const uint32_t a1 = ((t < 2 ? rb.x : rb.y) >> sh) & 0xffffu;
+            const uint32_t a2 = ((t < 2 ? rc.x : rc.y) >> sh) & 0xffffu;
+            const uint32_t a3 = ((t < 2 ? rd.x : rd.y) >> sh) & 0xffffu;
+            mma_bf16(d[mi][t], af, a0 | (a1 << 16), a2 | (a3 << 16));
+          }
+        }
+      }
+      __syncthreads();  // the chunk's readers are done before the next is stored
     }
-    for (int e = tid; e < R * BN; e += NT) {
-      const int r = e / BN, cc = e % BN;
-      const float v = r < p.rank && n0 + cc < p.n
-          ? lora_at(p.b, (size_t)r * p.n + n0 + cc, p.lora_bf16) : 0.f;
-      b_s[r * G::kBs + cc] = __float2bfloat16(v);
-    }
-    __syncthreads();
   }
   T* out = static_cast<T*>(p.out);
 #pragma unroll
   for (int mi = 0; mi < MT; ++mi) {
-    float d[4][4] = {};
-    if constexpr (R > 0) {
-#pragma unroll
-      for (int kk = 0; kk < R / 16; ++kk) {
-        uint32_t af[4];
-        ldsm_x4(af, xa_s + (16 * mi + (lane & 15)) * G::kAs + 16 * kk + (lane >> 4) * 8);
-        const T* br = b_s + (16 * kk + 2 * c) * G::kBs + warp * 32 + 4 * g;
-        const uint2 ra = *reinterpret_cast<const uint2*>(br);
-        const uint2 rb = *reinterpret_cast<const uint2*>(br + G::kBs);
-        const uint2 rc = *reinterpret_cast<const uint2*>(br + 8 * G::kBs);
-        const uint2 rd = *reinterpret_cast<const uint2*>(br + 9 * G::kBs);
-#pragma unroll
-        for (int t = 0; t < 4; ++t) {
-          const int sh = 16 * (t & 1);
-          const uint32_t a0 = ((t < 2 ? ra.x : ra.y) >> sh) & 0xffffu;
-          const uint32_t a1 = ((t < 2 ? rb.x : rb.y) >> sh) & 0xffffu;
-          const uint32_t a2 = ((t < 2 ? rc.x : rc.y) >> sh) & 0xffffu;
-          const uint32_t a3 = ((t < 2 ? rd.x : rd.y) >> sh) & 0xffffu;
-          mma_bf16(d[t], af, a0 | (a1 << 16), a2 | (a3 << 16));
-        }
-      }
-    }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int row = m0 + 16 * mi + g + 8 * h;
@@ -760,7 +820,8 @@ __global__ void __launch_bounds__(2 * BM, 2) qmm_mma_kernel(Args p) {
 #pragma unroll
       for (int q = 0; q < 8; ++q) {
         const int col = min(col0 + q, p.n - 1);
-        y[q] = finish<T, R>(p, acc[mi][q & 3][2 * h + (q >> 2)], col, d[q & 3][2 * h + (q >> 2)]);
+        y[q] = finish<T, R>(p, acc[mi][q & 3][2 * h + (q >> 2)], col,
+                            d[mi][q & 3][2 * h + (q >> 2)]);
       }
       T* dst = out + (size_t)row * p.n + col0;
       if (p.n % 8 == 0 && col0 + 8 <= p.n) {
@@ -913,14 +974,21 @@ __global__ void __launch_bounds__(256, 1) qmm_wgmma_kernel(Args p) {
   // this lane's two weight columns: its warpgroup's A rows g and g + 8
   const int cw = 64 * (warp >> 2) + 16 * (warp & 3) + 2 * g;
 
-  if constexpr (R > 0) {  // xa for the epilogue (rows past M 0), landing during the loop
-    const T* xa = reinterpret_cast<const T*>(p.ws);
-    for (int e = tid; e < NTOK * (R / 8); e += NT) {
-      const int r = e / (R / 8), ch = e % (R / 8);
-      const bool ok = m0 + r < p.m;
-      cp_async16(xa_s + r * G::kAs + 8 * ch, ok ? xa + (size_t)(m0 + r) * R + 8 * ch : xa, ok);
+  // xa's rank chunk r0 for the epilogue (rows past M 0): the first lands
+  // during the loop
+  const int chunks = rank_chunks(p.rank, R), rpad = chunks * R;
+  auto load_xa = [&](int r0) {
+    if constexpr (R > 0) {
+      const T* xa = reinterpret_cast<const T*>(p.ws);
+      for (int e = tid; e < NTOK * (R / 8); e += NT) {
+        const int r = e / (R / 8), ch = e % (R / 8);
+        const bool ok = m0 + r < p.m;
+        cp_async16(xa_s + r * G::kAs + 8 * ch,
+                   ok ? xa + (size_t)(m0 + r) * rpad + r0 + 8 * ch : xa, ok);
+      }
     }
-  }
+  };
+  load_xa(0);
   cp_commit();
   auto load_stage = [&](int j) {
     unsigned char* st = smem + (j % STAGES) * stage_bytes;
@@ -1032,23 +1100,25 @@ __global__ void __launch_bounds__(256, 1) qmm_wgmma_kernel(Args p) {
     run_stage(i, af0, af1);
     if (i + 1 < steps) run_stage(i + 1, af1, af0);
   }
-  // B^T rows cw and cw + 1 as mma A fragments, loaded while the last
-  // stage's products finish
+  // B^T rows cw and cw + 1 of rank chunk r0 as mma A fragments
   uint32_t bt[R > 0 ? R / 16 : 1][4] = {};
-  if constexpr (R > 0) {
-    auto b_at = [&](int r, int col) {
-      return r < p.rank && n0 + col < p.n
-          ? rnd<T>(lora_at(p.b, (size_t)r * p.n + n0 + col, p.lora_bf16)) : 0.f;
-    };
+  auto load_bt = [&](int r0) {
+    if constexpr (R > 0) {
+      auto b_at = [&](int r, int col) {
+        return r < p.rank && n0 + col < p.n
+            ? rnd<T>(lora_at(p.b, (size_t)r * p.n + n0 + col, p.lora_bf16)) : 0.f;
+      };
 #pragma unroll
-    for (int kr = 0; kr < R / 16; ++kr) {
-      const int r = 16 * kr + 2 * c;
-      bt[kr][0] = pack_bf16x2(b_at(r, cw), b_at(r + 1, cw));
-      bt[kr][1] = pack_bf16x2(b_at(r, cw + 1), b_at(r + 1, cw + 1));
-      bt[kr][2] = pack_bf16x2(b_at(r + 8, cw), b_at(r + 9, cw));
-      bt[kr][3] = pack_bf16x2(b_at(r + 8, cw + 1), b_at(r + 9, cw + 1));
+      for (int kr = 0; kr < R / 16; ++kr) {
+        const int r = r0 + 16 * kr + 2 * c;
+        bt[kr][0] = pack_bf16x2(b_at(r, cw), b_at(r + 1, cw));
+        bt[kr][1] = pack_bf16x2(b_at(r, cw + 1), b_at(r + 1, cw + 1));
+        bt[kr][2] = pack_bf16x2(b_at(r + 8, cw), b_at(r + 9, cw));
+        bt[kr][3] = pack_bf16x2(b_at(r + 8, cw + 1), b_at(r + 9, cw + 1));
+      }
     }
-  }
+  };
+  load_bt(0);  // while the last stage's products finish
   wg_wait<0>();
   keep(af0);
   keep(af1);
@@ -1061,30 +1131,49 @@ __global__ void __launch_bounds__(256, 1) qmm_wgmma_kernel(Args p) {
   // xab^T = B^T xa^T on mma.sync lands in the same layout. A straight-line
   // epilogue over all 128 accumulators outgrows the instruction cache, so
   // this part only rounds and stages; the roundings that remain run in a
-  // loop below.
+  // loop below. T(y) is staged first, so that xab's 128 sums, taken over
+  // the rank chunks, have the accumulators' registers.
   constexpr int kYs = BN + 8;
   T* ys = reinterpret_cast<T*>(smem);  // [NTOK][kYs]: T(y)
   T* ds = ys + NTOK * kYs;             // [NTOK][kYs]: T(T(xab) s)
 #pragma unroll
   for (int j = 0; j < NTOK / 8; ++j) {
-    float d[4] = {};
-    if constexpr (R > 0) {
-#pragma unroll
-      for (int kr = 0; kr < R / 16; ++kr) {
-        uint32_t xb[2];  // xa^T's k16 x n8 tile: xa rows 8 j .. 8 j + 7
-        ldsm_x2(xb, xa_s + (8 * j + (lane & 7)) * G::kAs + 16 * kr + ((lane >> 3) & 1) * 8);
-        mma_bf16(d, bt[kr], xb[0], xb[1]);
-      }
-    }
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int t = 8 * j + 2 * c + e;
       *reinterpret_cast<uint32_t*>(ys + t * kYs + cw) =
           pack_bf16x2(acc[4 * j + e], acc[4 * j + 2 + e]);
-      if constexpr (R > 0) {
+    }
+  }
+  if constexpr (R > 0) {
+    float d[NTOK / 8][4] = {};
+    for (int ch = 0; ch < chunks; ++ch) {
+      if (ch > 0) {  // the next chunk of xa and of B^T
+        __syncthreads();  // every warp is done with the previous chunk of xa
+        load_xa(ch * R);
+        cp_commit();
+        load_bt(ch * R);
+        cp_wait<0>();
+        __syncthreads();
+      }
+#pragma unroll
+      for (int j = 0; j < NTOK / 8; ++j) {
+#pragma unroll
+        for (int kr = 0; kr < R / 16; ++kr) {
+          uint32_t xb[2];  // xa^T's k16 x n8 tile: xa rows 8 j .. 8 j + 7
+          ldsm_x2(xb, xa_s + (8 * j + (lane & 7)) * G::kAs + 16 * kr + ((lane >> 3) & 1) * 8);
+          mma_bf16(d[j], bt[kr], xb[0], xb[1]);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NTOK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int t = 8 * j + 2 * c + e;
         *reinterpret_cast<uint32_t*>(ds + t * kYs + cw) =
-            pack_bf16x2(__fmul_rn(rnd<T>(d[e]), p.lora_scale),
-                        __fmul_rn(rnd<T>(d[2 + e]), p.lora_scale));
+            pack_bf16x2(__fmul_rn(rnd<T>(d[j][e]), p.lora_scale),
+                        __fmul_rn(rnd<T>(d[j][2 + e]), p.lora_scale));
       }
     }
   }
@@ -1130,43 +1219,57 @@ __global__ void __launch_bounds__(256) qmm_reduce_kernel(Args p, int row_block) 
   __shared__ float xa_s[kReduceRows][R > 0 ? R : 1];
   const int m0 = blockIdx.y * row_block, col = blockIdx.x * 256 + threadIdx.x;
   const int rows = min(row_block, p.m - m0);
-  if constexpr (R > 0) {
+  float xab[kReduceRows] = {};
+  if constexpr (R > 0) {  // one rank chunk at a time
     const float* wxa = p.ws + (size_t)p.splits * p.m * p.n;
-    for (int e = threadIdx.x; e < kReduceRows * R; e += 256) {
-      const int r = e / R, j = e % R;
-      float s = 0.f;
-      if (r < rows && j < p.rank) {
-        for (int z = 0; z < p.splits; ++z) s += wxa[((size_t)z * p.m + m0 + r) * p.rank + j];
+    const int chunks = rank_chunks(p.rank, R);
+    for (int ch = 0; ch < chunks; ++ch) {
+      const int r0 = ch * R;
+      if (ch > 0) __syncthreads();  // the previous chunk's readers are done
+      for (int e = threadIdx.x; e < kReduceRows * R; e += 256) {
+        const int r = e / R, j = e % R;
+        float s = 0.f;
+        if (r < rows && r0 + j < p.rank) {
+          for (int z = 0; z < p.splits; ++z)
+            s += wxa[((size_t)z * p.m + m0 + r) * p.rank + r0 + j];
+        }
+        xa_s[r][j] = rnd<T>(s);
       }
-      xa_s[r][j] = rnd<T>(s);
+      __syncthreads();
+      if (col < p.n) {
+        float bcol[R];
+#pragma unroll
+        for (int j = 0; j < R; ++j)
+          bcol[j] = r0 + j < p.rank
+              ? rnd<T>(lora_at(p.b, (size_t)(r0 + j) * p.n + col, p.lora_bf16)) : 0.f;
+#pragma unroll
+        for (int r = 0; r < kReduceRows; ++r) {
+          if (r < rows) {
+#pragma unroll
+            for (int j = 0; j < R; ++j) xab[r] = fmaf(xa_s[r][j], bcol[j], xab[r]);
+          }
+        }
+      }
     }
-    __syncthreads();
   }
   if (col >= p.n) return;
-  float bcol[R > 0 ? R : 1];
-  if constexpr (R > 0) {
 #pragma unroll
-    for (int j = 0; j < R; ++j)
-      bcol[j] = j < p.rank ? rnd<T>(lora_at(p.b, (size_t)j * p.n + col, p.lora_bf16)) : 0.f;
-  }
-  for (int r = 0; r < rows; ++r) {
+  for (int r = 0; r < kReduceRows; ++r) {
+    if (r >= rows) break;
     const int m = m0 + r;
     float acc = 0.f;
 #pragma unroll 4
     for (int z = 0; z < p.splits; ++z) acc += p.ws[((size_t)z * p.m + m) * p.n + col];
-    float xab = 0.f;
-    if constexpr (R > 0) {
-#pragma unroll
-      for (int j = 0; j < R; ++j) xab = fmaf(xa_s[r][j], bcol[j], xab);
-    }
-    static_cast<T*>(p.out)[(size_t)m * p.n + col] = from_f32<T>(finish<T, R>(p, acc, col, xab));
+    static_cast<T*>(p.out)[(size_t)m * p.n + col] =
+        from_f32<T>(finish<T, R>(p, acc, col, xab[r]));
   }
 }
 
-// xa = T(x A) for the one-split calls, into the workspace as bf16 [M, R]
-// (R the rank padded to 32 or 64, zeros past the rank), on mma.sync: a
-// block of 4 warps per 64 rows, K in steps of 64 through two shared-memory
-// stages (x by cp.async in x_at's layout, A rounded to bf16 on its way in).
+// xa = T(x A) for the one-split calls, into the workspace as bf16 [M,
+// chunks * R] (zeros past the rank), on mma.sync: grid (M / 64, chunks), a
+// block of 4 warps per 64 rows and rank chunk, K in steps of 64 through two
+// shared-memory stages (x by cp.async in x_at's layout, A rounded to bf16
+// on its way in).
 constexpr int kXaRows = 64;
 
 template <int R>
@@ -1176,6 +1279,7 @@ __global__ void __launch_bounds__(128) qmm_xa_kernel(Args p) {
   __shared__ __align__(128) T xs[2][kXaRows * kStepK];
   __shared__ __align__(16) T as[2][kStepK * kAs];
   const int m0 = blockIdx.x * kXaRows, tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int c0 = blockIdx.y * R, rpad = gridDim.y * R;
   const T* x = static_cast<const T*>(p.x);
   const int steps = (p.k + kStepK - 1) / kStepK;
   auto load = [&](int i) {
@@ -1188,8 +1292,8 @@ __global__ void __launch_bounds__(128) qmm_xa_kernel(Args p) {
     for (int e = tid; e < kStepK * R; e += 128) {
       const int r = e / R, j = e % R;
       as[i & 1][r * kAs + j] = __float2bfloat16(
-          k0 + r < p.k && j < p.rank ? lora_at(p.a, (size_t)(k0 + r) * p.rank + j, p.lora_bf16)
-                                     : 0.f);
+          k0 + r < p.k && c0 + j < p.rank
+              ? lora_at(p.a, (size_t)(k0 + r) * p.rank + c0 + j, p.lora_bf16) : 0.f);
     }
     cp_commit();
   };
@@ -1224,7 +1328,7 @@ __global__ void __launch_bounds__(128) qmm_xa_kernel(Args p) {
     for (int h = 0; h < 2; ++h) {
       const int row = m0 + 16 * warp + g + 8 * h;
       if (row < p.m)
-        *reinterpret_cast<uint32_t*>(xa + (size_t)row * R + 8 * j + 2 * c) =
+        *reinterpret_cast<uint32_t*>(xa + (size_t)row * rpad + c0 + 8 * j + 2 * c) =
             pack_bf16x2(acc[j][2 * h], acc[j][2 * h + 1]);
     }
   }
@@ -1242,13 +1346,17 @@ int launch_mma(const Args& p, cudaStream_t stream) {
     if (e != cudaSuccess) return (int)e;
     cap = smem;
   }
+  const int chunks = rank_chunks(p.rank, R);
   if constexpr (R > 0) {
     if (p.splits == 1) {
-      qmm_xa_kernel<R><<<(p.m + kXaRows - 1) / kXaRows, 128, 0, stream>>>(p);
+      qmm_xa_kernel<R><<<dim3((p.m + kXaRows - 1) / kXaRows, chunks), 128, 0, stream>>>(p);
       if (int e = (int)cudaGetLastError()) return e;
     }
   }
-  const dim3 grid((p.n + G::kBN - 1) / G::kBN, (p.m + BM - 1) / BM, p.splits);
+  // a split call's x A takes one column block per rank chunk
+  const int col_blocks = (p.n + G::kBN - 1) / G::kBN;
+  const dim3 grid(p.splits > 1 ? max(col_blocks, chunks) : col_blocks, (p.m + BM - 1) / BM,
+                  p.splits);
   qmm_mma_kernel<BM, BITS, R, STAGES><<<grid, G::kThreads, smem, stream>>>(p);
   if (int e = (int)cudaGetLastError()) return e;
   if (p.splits > 1) {
@@ -1287,7 +1395,8 @@ int launch_wg(const Args& p, cudaStream_t stream) {
     cap = smem;
   }
   if constexpr (R > 0) {
-    qmm_xa_kernel<R><<<(p.m + kXaRows - 1) / kXaRows, 128, 0, stream>>>(p);
+    qmm_xa_kernel<R><<<dim3((p.m + kXaRows - 1) / kXaRows, rank_chunks(p.rank, R)), 128, 0,
+                       stream>>>(p);
     if (int e = (int)cudaGetLastError()) return e;
   }
   const dim3 grid((p.n + G::kBN - 1) / G::kBN, (p.m + G::kTok - 1) / G::kTok);
@@ -1319,12 +1428,12 @@ extern "C" {
 // contiguous; x, q and scale 16-byte aligned. bf16 splits K into `splits`
 // ranges of `k_per_split` rows (1: no split); with more than one,
 // `workspace` is f32 scratch of splits * m * (n + rank) values; with one
-// split and an adapter, m * r bf16 values (xa, r the rank padded to 32 or
-// 64); else null.
+// split and an adapter, xa [m, r] in `dtype` (r the rank padded to a
+// multiple of 32 up to rank 32, else of 64); else null.
 // `block_m` 64 or 256 picks the bf16 tile's tokens (f32: 64, one split). Runs on
 // `stream` of `device`; returns the first CUDA error (0 = ok). The caller
-// checks: k % 32 == 0, group divides k and is even (or is k), rank <= 64,
-// k_per_split a multiple of 64 and of the group, splits * k_per_split >= k.
+// checks: k % 32 == 0, group divides k and is even (or is k), k_per_split a
+// multiple of 64 and of the group, splits * k_per_split >= k. Any rank.
 int quant_matmul_launch(const void* x, const void* q, const void* scale, const void* bias,
                         const void* lora_a, const void* lora_b, void* out, void* workspace,
                         int m, int k, int n, int group, int bits, int rank, float lora_scale,

@@ -24,11 +24,12 @@ the card adds one to ``paged_attention_launches``, also when it runs the
 merge kernel of a split.
 
 K2 and K5 share one body (``csrc/paged_common.cuh``): the S·G query rows
-of a (row, kv head) in one block, the table split over pages into the
-ranges ``plan_paged_split`` gives (flash-decoding; the partials merged by a
-second kernel in split order), a cp.async ring of 64- or 128-position
-stages, and mma.sync for bf16 q over bf16 or int8 pages at head_dim 64 or
-128 (``MMA_SHAPES``); every
+of a (row, kv head) in one block up to ``MAX_ROWS`` (more take the row
+tiles ``plan_row_tiles`` gives, a block each), the table split over pages
+into the ranges ``plan_paged_split`` gives (flash-decoding; the partials
+merged by a second kernel in split order), a cp.async ring of 64- or
+128-position stages, and mma.sync for bf16 q over bf16 or int8 pages at
+head_dim 64 or 128 (``MMA_SHAPES``); every
 other case (f32 q or f32 pages, other head sizes) runs the same split on
 the CUDA cores in f32.
 """
@@ -49,13 +50,16 @@ from distrl_llm_tpu_torch.ops.paged import MAX_INT8
 #: launches of the CUDA kernel; CPU calls, which run the plain version, do
 #: not count
 paged_attention_launches = 0
+#: every geometry K2 or K5 launched on the card since the caller last
+#: cleared it: (kernel, query rows, row tiles, rows a tile, head_dim)
+launch_geometries: set[tuple[str, int, int, int, int]] = set()
 
 # dtype codes of the C launcher
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _SMEM_LIMIT = 232448  # dynamic shared memory a block can use on Hopper
 
 # the kernels' geometry (csrc/paged_common.cuh)
-MAX_ROWS = 64  # query rows (S · G) a block serves (kMaxRows)
+MAX_ROWS = 64  # query rows (of S · G) a block serves (kMaxRows); more take row tiles
 MMA_HEAD_DIMS = (64, 128)  # head sizes of the tensor-core body
 # its block by (m16 tiles, 8-row halves holding query rows): positions a
 # ring stage, stages, warps per m-tile (MmaCfg in the source)
@@ -116,6 +120,39 @@ def plan_paged_split(batch: int, kv_heads: int, pps: int, page_size: int, s: int
     return PagedSplitPlan(splits, per, splits * pairs)
 
 
+@dataclass(frozen=True)
+class RowTiles:
+    """How the S·G query rows of a (row, kv head) spread over blocks:
+    ``tiles`` blocks of ``rows`` query rows each, the last one the rest
+    (never empty)."""
+
+    tiles: int
+    rows: int
+
+
+@functools.lru_cache(maxsize=None)
+def plan_row_tiles(rows: int, head_dim: int, q_dtype: torch.dtype,
+                   kv_dtype: torch.dtype) -> RowTiles:
+    """The row tiles of a (row, kv head)'s ``rows`` query rows: the fewest
+    balanced tiles of at most ``MAX_ROWS`` rows whose block fits the card's
+    shared memory (``smem_bytes``: the CUDA-core body at head_dim 256 needs
+    ~2.2 KB a row, so Gemma-2B's 136 rows at d = 16 could not sit in one
+    block). Up to 64 rows that fit, one tile: every shape of the earlier
+    kernels keeps its block. Raises ValueError only when one row does not
+    fit."""
+    if rows < 1:
+        raise ValueError(f"a block serves at least 1 query row, got {rows}")
+    cap = MAX_ROWS
+    while cap >= 1 and smem_bytes(cap, head_dim, q_dtype, kv_dtype) > _SMEM_LIMIT:
+        cap -= 1
+    if cap < 1:
+        raise ValueError(f"one query row at head_dim {head_dim} needs "
+                         f"{smem_bytes(1, head_dim, q_dtype, kv_dtype)} bytes of shared "
+                         f"memory, above the card's {_SMEM_LIMIT}")
+    per = -(-rows // -(-rows // cap))
+    return RowTiles(-(-rows // per), per)
+
+
 def kernel_route(q_dtype: torch.dtype, kv_dtype: torch.dtype, head_dim: int) -> str:
     """Which body a call takes: ``"mma"`` (the tensor cores) for bf16 q over
     bf16 or int8 pages at head_dim 64 or 128, else ``"cuda_cores"``."""
@@ -127,23 +164,26 @@ def kernel_route(q_dtype: torch.dtype, kv_dtype: torch.dtype, head_dim: int) -> 
 
 def _mma_shape(rows: int) -> tuple[int, int, int, int, int]:
     if not 1 <= rows <= MAX_ROWS:
-        raise ValueError(f"a block serves 1 to {MAX_ROWS} query rows, got {rows}")
+        raise ValueError(f"a block serves 1 to {MAX_ROWS} query rows (more take row "
+                         f"tiles), got {rows}")
     mt, nh = -(-rows // 16), 1 if rows <= 8 else 2
     return (mt, nh) + MMA_SHAPES[(mt, nh)]
 
 
 def mma_layout(rows: int) -> tuple[int, int]:
     """(m16 tiles, warps) of a tensor-core block serving ``rows`` query
-    rows: the rows padded to 16-row tiles, each tile shared by the warps
-    that take its share of a stage's positions (``MMA_SHAPES``): 4 warps
-    for K2's 7 rows, 12 for K5's 35."""
+    rows (at most ``MAX_ROWS``): the rows padded to 16-row tiles, each tile
+    shared by the warps that take its share of a stage's positions
+    (``MMA_SHAPES``): 4 warps for K2's 7 rows, 12 for K5's 35 and for each
+    46-row tile of 91."""
     mt, _, _, _, pw = _mma_shape(rows)
     return mt, mt * pw
 
 
 def smem_bytes(rows: int, head_dim: int, q_dtype: torch.dtype,
                kv_dtype: torch.dtype) -> int:
-    """Dynamic shared memory of one block of the body ``kernel_route``
+    """Dynamic shared memory of one block of ``rows`` query rows (at most
+    ``MAX_ROWS``) in the body ``kernel_route``
     picks (the layouts in csrc/paged_common.cuh). Tensor cores: bf16 q
     [16·MT, hd], the ring's stages (K and V tiles in their stored type, and
     int8's scales; ``MMA_SHAPES``), int8's bf16 work tiles, and the m, l of
@@ -257,21 +297,17 @@ def _check_args(q, k_pages, v_pages, lengths, page_indices, k_scales, v_scales,
 @functools.lru_cache(maxsize=None)
 def _check_kernel_geometry(rows: int, hd: int, q_dtype: torch.dtype,
                            kv_dtype: torch.dtype) -> str:
-    """What the kernels take (raises ValueError otherwise): at most
-    ``MAX_ROWS`` query rows (S · G) a block, a head_dim of at least 8 whose
-    page rows are a multiple of 16 bytes (the ring copies 16-byte chunks),
-    and shared memory within the card. Any page size. Returns the route;
-    checked once per geometry."""
-    if not 1 <= rows <= MAX_ROWS:
-        raise ValueError(f"{rows} query rows (S x query heads per kv head) exceed the "
-                         f"kernel's {MAX_ROWS} a block")
+    """What the kernels take (raises ValueError otherwise): any number of
+    query rows (S · G; ``plan_row_tiles`` spreads them over blocks whose
+    shared memory fits the card), a head_dim of at least 8 whose page rows
+    are a multiple of 16 bytes (the ring copies 16-byte chunks). Any page
+    size. Returns the route; checked once per geometry."""
+    if rows < 1:
+        raise ValueError(f"{rows} query rows (S x query heads per kv head): need >= 1")
     if hd < 8 or (hd * kv_dtype.itemsize) % 16:
         raise ValueError(f"head_dim must be >= 8 with rows of a multiple of 16 bytes, got "
                          f"{hd} in {kv_dtype}")
-    need = smem_bytes(rows, hd, q_dtype, kv_dtype)
-    if need > _SMEM_LIMIT:
-        raise ValueError(f"{rows} query rows at head_dim {hd} need {need} bytes of shared "
-                         f"memory, above the card's {_SMEM_LIMIT}")
+    plan_row_tiles(rows, hd, q_dtype, kv_dtype)
     return kernel_route(q_dtype, kv_dtype, hd)
 
 
@@ -295,7 +331,7 @@ def _kernel_lib() -> ctypes.CDLL:
     use; see ops/_build.py)."""
     from distrl_llm_tpu_torch.ops import _build
 
-    return _declare(_build.load("paged_attention").lib, "paged_attention", 12)
+    return _declare(_build.load("paged_attention").lib, "paged_attention", 13)
 
 
 def _stream(device: torch.device) -> int:
@@ -308,14 +344,18 @@ def paged_launch(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
     """One call of K2 (q [B, H, hd]) or K5 (q [B, S, H, hd]) on checked
     CUDA tensors: the split from ``plan_paged_split``, its f32 workspace
     allocated here when it has more than one split (the kernel of the call
-    writes the partials, a second one merges them), and the body
-    ``kernel_route`` picks. Adds one to the wrapper's launch count."""
+    writes the partials, a second one merges them), the row tiles from
+    ``plan_row_tiles``, and the body ``kernel_route`` picks. Records the
+    geometry it launched in ``launch_geometries`` and adds one to the
+    wrapper's launch count."""
     verify = q.dim() == 4
     b, h, hd = q.shape[0], q.shape[-2], q.shape[-1]
     s = q.shape[1] if verify else 1
     kh, total_pages, ps, _ = k_pages.shape
     pps = page_indices.shape[1]
-    _check_kernel_geometry(s * (h // kh), hd, q.dtype, k_pages.dtype)
+    rows = s * (h // kh)
+    _check_kernel_geometry(rows, hd, q.dtype, k_pages.dtype)
+    tiles = plan_row_tiles(rows, hd, q.dtype, k_pages.dtype)
     for t in (q, k_pages, v_pages):
         if t.data_ptr() % 16:
             raise ValueError("q and the pages must be 16-byte aligned")
@@ -329,7 +369,7 @@ def paged_launch(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
             v_scales.data_ptr() if v_scales is not None else None,
             lengths.data_ptr(), page_indices.data_ptr(), out.data_ptr(),
             ws.data_ptr() if ws is not None else None)
-    dims = (h, kh, hd, total_pages, ps, pps, plan.splits, plan.pages_per_split,
+    dims = (h, kh, hd, total_pages, ps, pps, plan.splits, plan.pages_per_split, tiles.tiles,
             _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_pages.dtype], q.device.index or 0,
             _stream(q.device))
     name = "paged_verify" if verify else "paged_attention"
@@ -338,7 +378,10 @@ def paged_launch(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
     if err != 0:
         msg = getattr(lib, f"{name}_error_string")(err).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg} ({err})")
+    launch_geometries.add((name, rows, tiles.tiles, tiles.rows, hd))
     launch_count.add(__name__, f"{name}_launches")
+    if verify and tiles.tiles > 1:
+        launch_count.add(__name__, "paged_verify_row_tiles_launches")
     return out
 
 
@@ -394,6 +437,9 @@ def paged_attention_native(
 
 #: launches of K5; CPU calls, which run the plain version, do not count
 paged_verify_launches = 0
+#: the launches of K5 among them whose query rows take more than one block
+#: (``plan_row_tiles``)
+paged_verify_row_tiles_launches = 0
 
 _VERIFY_PPB = 2  # pages scored per softmax update by default
 
@@ -458,7 +504,7 @@ def _verify_lib() -> ctypes.CDLL:
     use; see ops/_build.py)."""
     from distrl_llm_tpu_torch.ops import _build
 
-    return _declare(_build.load("paged_verify").lib, "paged_verify", 13)
+    return _declare(_build.load("paged_verify").lib, "paged_verify", 14)
 
 
 def paged_attention_native_verify(
@@ -472,8 +518,9 @@ def paged_attention_native_verify(
     ``k_scales``/``v_scales`` [K, P, ps, 1]; lengths int32 [B], the tokens
     resident before the block; page_indices int32 [B, pps] → [B, S, H, hd]
     in q's dtype, query i attending ``[0, lengths + i + 1)``. On a CUDA
-    tensor: one call of K5 on the current stream (all S · G query rows of a
-    (row, kv head) in one block; for a split table, the merge too), or an
+    tensor: one call of K5 on the current stream (the S · G query rows of a
+    (row, kv head) in one block, or in ``plan_row_tiles``'s blocks past 64;
+    for a split table, the merge too), or an
     exception, never a fallback. On a CPU tensor: the plain version.
     ``pages_per_block`` must be >= 1 and is ignored by the kernel, as
     K2's."""

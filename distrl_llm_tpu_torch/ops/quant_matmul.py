@@ -16,7 +16,9 @@ on CPU tensors it runs ``quant_matmul_reference``. Both go through one
 ``torch.autograd.Function`` whose backward is the gradient of the plain math
 written in PyTorch (as the JAX package's ``jax.custom_vjp`` runs ``jax.vjp``
 over its reference): dx, dA and dB, and dbias for a bias that asks for one;
-q and scale get none. Each launch adds one to ``quant_matmul_launches``.
+q and scale get none. Each launch adds one to ``quant_matmul_launches``
+(and one with a rank above 64, which the kernel walks in chunks, to
+``quant_matmul_rank_chunks_launches``).
 """
 
 from __future__ import annotations
@@ -34,10 +36,13 @@ from distrl_llm_tpu_torch.ops.quant import dequantize, group_size_of, quant_bits
 #: launches of the CUDA kernel; CPU calls, which run the plain version, do
 #: not count
 quant_matmul_launches = 0
+#: the launches among them whose adapter takes more than one rank chunk
+#: (rank above ``RANK_CHUNK``)
+quant_matmul_rank_chunks_launches = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_RANK = 64  # the adapter ranks the kernel takes
 K_STEP = 32  # the input dim must be a multiple of it
+RANK_CHUNK = 64  # adapter columns a chunk of the kernel's rank loop (32 up to rank 32)
 
 # split-K planning for the bf16 kernel (``plan_split_k``)
 SMS = 132  # the H100 SXM's streaming multiprocessors
@@ -59,14 +64,29 @@ class SplitPlan:
     k_per_split: int
     blocks: int
 
-    def workspace_numel(self, m: int, n: int, rank: int) -> int:
-        """f32 elements of a bf16 call's scratch: with a split, each split's
-        partial y [M, N] and partial x·A [M, rank]; without, xa = T(x·A) in
-        bf16 [M, r] (r the rank padded to 32 or 64), which a first kernel of
-        the call writes for the main kernel's epilogue."""
+    def workspace_numel(self, m: int, n: int, rank: int, itemsize: int = 2) -> int:
+        """f32 elements of a call's scratch: with a split, each split's
+        partial y [M, N] and partial x·A [M, rank]; without, xa = T(x·A)
+        [M, r] in x's dtype (``itemsize`` bytes: bf16 2, f32 4; r the rank
+        padded to whole chunks, ``plan_rank``), which a first kernel of the
+        call writes for the main kernel's epilogue."""
         if self.splits > 1:
             return self.splits * m * (n + rank)
-        return 0 if rank == 0 else m * (32 if rank <= 32 else 64) // 2
+        tile, chunks = plan_rank(rank)
+        return m * tile * chunks * itemsize // 4
+
+
+def plan_rank(rank: int) -> tuple[int, int]:
+    """How K3 walks an adapter of ``rank`` columns: (R, chunks), chunks of R
+    columns, R = 32 up to rank 32, else ``RANK_CHUNK``; the last chunk
+    zero-padded. Every route loops over the chunks, so K3 takes any rank, as
+    the TPU kernel does; (0, 0) without an adapter."""
+    if rank < 0:
+        raise ValueError(f"an adapter rank is >= 0, got {rank}")
+    if rank == 0:
+        return 0, 0
+    tile = 32 if rank <= 32 else RANK_CHUNK
+    return tile, -(-rank // tile)
 
 
 def plan_split_k(m: int, k: int, n: int, group: int, sms: int = SMS) -> SplitPlan:
@@ -181,8 +201,6 @@ def quant_matmul_launch(x2: torch.Tensor, w: dict, bias, lora_a, lora_b,
     rank, lora_code = 0, 0
     if lora_a is not None:
         rank = lora_a.shape[-1]
-        if rank > MAX_RANK:
-            raise ValueError(f"K3 takes adapter ranks up to {MAX_RANK}, got {rank}")
         if lora_a.dtype not in _DTYPE_CODES:
             lora_a = lora_a.float()
         lora_b = lora_b.to(lora_a.dtype)
@@ -197,14 +215,12 @@ def quant_matmul_launch(x2: torch.Tensor, w: dict, bias, lora_a, lora_b,
         raise ValueError("K3 takes 16-byte aligned x, payload and scales")
     lib = _kernel_lib()
     out = torch.empty((m, n), dtype=dt, device=x2.device)
-    ws = None
     if dt == torch.bfloat16:
         plan = plan_split_k(m, k, n, group)
-        if plan.workspace_numel(m, n, rank):
-            ws = torch.empty(plan.workspace_numel(m, n, rank), dtype=torch.float32,
-                             device=x2.device)
-    else:  # f32: the CUDA cores, 64-row tiles, one split, no scratch
+    else:  # f32: the CUDA cores, 64-row tiles, one split
         plan = SplitPlan(64, 128, 1, k, math.ceil(m / 64) * math.ceil(n / 128))
+    numel = plan.workspace_numel(m, n, rank, x2.element_size())
+    ws = torch.empty(numel, dtype=torch.float32, device=x2.device) if numel else None
     err = lib.quant_matmul_launch(
         x2.data_ptr(), q.data_ptr(), scale.data_ptr(),
         None if bias is None else bias.data_ptr(),
@@ -218,6 +234,8 @@ def quant_matmul_launch(x2: torch.Tensor, w: dict, bias, lora_a, lora_b,
         msg = lib.quant_matmul_error_string(err).decode()
         raise RuntimeError(f"quant_matmul kernel launch failed: {msg} ({err})")
     launch_count.add(__name__, "quant_matmul_launches")
+    if rank > RANK_CHUNK:
+        launch_count.add(__name__, "quant_matmul_rank_chunks_launches")
     return out
 
 

@@ -404,9 +404,10 @@ def test_kernel_wrapper_checks_its_inputs():
 
 
 def test_kernel_geometry_limits():
-    """What the kernels take (csrc/paged_common.cuh): up to 64 query rows a
-    block, a head_dim >= 8 whose page rows are a multiple of 16 bytes, any
-    page size, shared memory within the card. bf16 q over bf16 or int8
+    """What the kernels take (csrc/paged_common.cuh): any number of query
+    rows (up to 64 a block, more in row tiles, each block's shared memory
+    within the card), a head_dim >= 8 whose page rows are a multiple of 16
+    bytes, any page size. bf16 q over bf16 or int8
     pages at head_dim 64 or 128 takes the tensor cores, the rest the CUDA
     cores; the main path's geometry fits at every pages_per_block (which
     the kernel ignores) and the exact shared memory of each ring."""
@@ -420,14 +421,19 @@ def test_kernel_geometry_limits():
     assert tnative._check_kernel_geometry(10, 16, f32, f32) == "cuda_cores"  # TINY, S 5
     assert tnative._check_kernel_geometry(2, 16, bf, i8) == "cuda_cores"
     assert tnative._check_kernel_geometry(8, 256, bf, bf) == "cuda_cores"  # gemma
-    with pytest.raises(ValueError, match="query rows"):
-        tnative._check_kernel_geometry(65, 128, bf, bf)
+    # past 64 rows, or past the shared memory of one block, row tiles
+    assert tnative._check_kernel_geometry(65, 128, bf, bf) == "mma"
+    assert tnative.plan_row_tiles(65, 128, bf, bf) == tnative.RowTiles(2, 33)
+    assert tnative._check_kernel_geometry(64, 256, f32, f32) == "cuda_cores"
+    assert tnative.plan_row_tiles(64, 256, f32, f32) == tnative.RowTiles(2, 32)
+    with pytest.raises(ValueError, match="query row"):
+        tnative._check_kernel_geometry(0, 128, bf, bf)
     with pytest.raises(ValueError, match="head_dim"):
         tnative._check_kernel_geometry(7, 4, f32, f32)
     with pytest.raises(ValueError, match="head_dim"):
         tnative._check_kernel_geometry(7, 24, bf, i8)  # 24-byte rows
-    with pytest.raises(ValueError, match="shared memory"):
-        tnative._check_kernel_geometry(64, 256, f32, f32)
+    with pytest.raises(ValueError, match="shared memory"):  # one f32 row of 8 KB pages
+        tnative._check_kernel_geometry(1, 2048, f32, f32)
     # tensor cores: bf16 q [16, 128], 2 stages of bf16 K and V [64, 128], the
     # m and l of 4 warps and of the block (three blocks an SM)
     assert tnative.smem_bytes(7, 128, bf, bf) == 4096 + 2 * 32768 + 512 + 128
@@ -468,7 +474,7 @@ def test_paged_kernel_wrapper_signature_matches_the_c_launcher(monkeypatch):
                            "paged_attention_error_string": Fn()})()
     monkeypatch.setattr(_build, "load", lambda name: type("B", (), {"lib": lib}))
     got = tnative._kernel_lib.__wrapped__().paged_attention_launch.argtypes
-    assert len(got) == len(params) == 22
+    assert len(got) == len(params) == 23  # 9 pointers, 13 ints (row_tiles among them), the stream
     for c_param, ct in zip(params, got):
         assert ct is (ctypes.c_void_p if "*" in c_param else ctypes.c_int), c_param
 

@@ -129,7 +129,7 @@ def _inputs(b, s, h, kh, hd, ps, pps, kv_dtype=torch.bfloat16, q_dtype=torch.bfl
 
 
 @pytest.mark.parametrize("kv", [torch.bfloat16, torch.int8])
-@pytest.mark.parametrize("b,s", [(64, None), (16, None), (64, 5), (16, 5), (512, None)])
+@pytest.mark.parametrize("b,s", [(64, None), (16, None), (64, 5), (16, 5), (512, None), (64, 13)])
 def test_wrapper_hands_the_kernel_the_plan_and_its_workspace(monkeypatch, b, s, kv):
     """K2 (s None) and K5 through a stand-in library: the plan's splits and
     pages per split, a workspace of the planned size (none for one split),
@@ -164,15 +164,18 @@ def test_wrapper_hands_the_kernel_the_plan_and_its_workspace(monkeypatch, b, s, 
     for c_param, arg in zip(params, args):
         assert (arg is None or isinstance(arg, int)) and (arg is not None or "*" in c_param)
     plan = tnative.plan_paged_split(b, KV_HEADS, PPS, PAGE, s or 1)
+    tiles = tnative.plan_row_tiles((s or 1) * h // KV_HEADS, hd, q.dtype, kp.dtype)
     ws_ptr = args[8]
     ints = args[9:-1]
     if s is None:
         assert ints == (b, h, KV_HEADS, hd, kp.shape[1], PAGE, PPS, plan.splits,
-                        plan.pages_per_split, 1, 1 if kv == torch.bfloat16 else 2, 0)
+                        plan.pages_per_split, tiles.tiles, 1,
+                        1 if kv == torch.bfloat16 else 2, 0)
         assert (tnative.paged_attention_launches, tnative.paged_verify_launches) == (1, 0)
     else:
         assert ints == (b, s, h, KV_HEADS, hd, kp.shape[1], PAGE, PPS, plan.splits,
-                        plan.pages_per_split, 1, 1 if kv == torch.bfloat16 else 2, 0)
+                        plan.pages_per_split, tiles.tiles, 1,
+                        1 if kv == torch.bfloat16 else 2, 0)
         assert (tnative.paged_attention_launches, tnative.paged_verify_launches) == (0, 1)
     want = plan.workspace_numel(b, s or 1, h, hd)
     if want:

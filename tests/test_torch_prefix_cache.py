@@ -33,9 +33,9 @@ from distrl_llm_tpu_torch.engine.page_pool import PagePool as TPool
 from distrl_llm_tpu_torch.engine.page_pool import RadixCache as TRadix
 from distrl_llm_tpu_torch.models.configs import QWEN2_7B as TQWEN, TINY as TTINY
 from tests.test_torch_refill_engine import (  # noqa: F401  (weights: the fixture)
-    LOGP_ATOL, _SnapshotJnp, _assert_same, _jengine, _prompts, _refill, _run,
-    _run_both, _tengine, weights,
+    LOGP_ATOL, _assert_same, _jengine, _prompts, _refill, _run, _run_both, _tengine, weights,
 )
+from tests.test_torch_refill_preemption import _SnapshotJnp
 
 PS = 8
 

@@ -39,9 +39,9 @@ from distrl_llm_tpu_torch.config import SamplingConfig
 from distrl_llm_tpu_torch.models.convert import lora_from_numpy
 from tests.test_torch_prefix_cache import _one_torch_thread  # noqa: F401  (autouse)
 from tests.test_torch_refill_engine import (  # noqa: F401  (weights: the fixture)
-    LOGP_ATOL, LOGP_ATOL_INT8, _SnapshotJnp, _common, _lora, _prompts, _swap_at,
-    weights,
+    LOGP_ATOL, LOGP_ATOL_INT8, _common, _lora, _prompts, _swap_at, weights,
 )
+from tests.test_torch_refill_preemption import _SnapshotJnp
 from tests.test_torch_self_draft import _perturbed
 
 _JENGINES: dict = {}

@@ -94,6 +94,11 @@ def test_workspace_sizes():
     assert one.workspace_numel(12400, 18944, 8) == 12400 * 32 // 2  # rank padded to 32
     assert one.workspace_numel(12400, 18944, 40) == 12400 * 64 // 2
     assert one.workspace_numel(12400, 18944, 0) == 0
+    # past rank 64 the rank runs in chunks of 64: padded to whole chunks
+    assert one.workspace_numel(12400, 18944, 128) == 12400 * 128 // 2
+    assert one.workspace_numel(12400, 18944, 200) == 12400 * 256 // 2
+    assert one.workspace_numel(12400, 18944, 200, itemsize=4) == 12400 * 256  # f32 xa
+    assert plan.workspace_numel(64, 18944, 200) == plan.splits * 64 * (18944 + 200)
 
 
 class _FakeLib:
@@ -140,11 +145,18 @@ def test_wrapper_allocates_the_workspace_the_plan_asks_for(monkeypatch, m, k, n,
         assert len(ws) == 1 and ws[0].numel() == want and ws[0].dtype == torch.float32
     else:
         assert ws_ptr is None
-    # f32 activations take the CUDA-core kernel: one split, no scratch
+    # f32 activations take the CUDA-core kernel: one split; scratch only for
+    # xa = x A in f32 (the rank padded to 32)
     fake.calls.clear()
+    allocated.clear()
     qmm.quant_matmul_launch(x.float(), w, None, a, b, 0.5)
     (args,) = fake.calls
-    assert args[7] is None and (args[17], args[18], args[19]) == (64, 1, k)
+    assert (args[17], args[18], args[19]) == (64, 1, k)
+    if rank:
+        ws = [t for t in allocated if t.data_ptr() == args[7]]
+        assert len(ws) == 1 and ws[0].numel() == m * 32 and ws[0].dtype == torch.float32
+    else:
+        assert args[7] is None
 
 
 def test_wrapper_rejects_an_odd_group():

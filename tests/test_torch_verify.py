@@ -175,9 +175,10 @@ def test_wrapper_checks_its_inputs():
 
 def test_row_tiles_cover_every_query_row():
     """K5 serves all S · G query rows of a (row, kv head, split) in one
-    block, so each page is read once: on the tensor cores the rows pad to
-    m16 tiles (Qwen2.5-7B at d = 4: 35 rows, 3 tiles, 4 warps each), none
-    empty, up to 64 rows a block; more are refused."""
+    block up to 64, so each page is read once: on the tensor cores the rows
+    pad to m16 tiles (Qwen2.5-7B at d = 4: 35 rows, 3 tiles, 4 warps each),
+    none empty; more take balanced row tiles of at most 64 (Qwen2.5-7B at
+    d = 12: 91 rows, two blocks of 46)."""
     assert tnative.mma_layout(35) == (3, 12)
     assert tnative.mma_layout(7) == (1, 4)  # K2's G = 7
     assert tnative.mma_layout(16) == (1, 4)
@@ -187,11 +188,14 @@ def test_row_tiles_cover_every_query_row():
         tiles, warps = tnative.mma_layout(rows)
         assert 16 * (tiles - 1) < rows <= 16 * tiles  # every row, no empty tile
         assert warps % tiles == 0 and warps // tiles in (1, 2, 4)
-    for rows in (0, 65):
+    for rows in (0, 65):  # one block's rows; more take row tiles
         with pytest.raises(ValueError, match="query rows"):
             tnative.mma_layout(rows)
-    with pytest.raises(ValueError, match="query rows"):  # S 10 x G 7
-        tnative._check_kernel_geometry(70, 128, torch.bfloat16, torch.bfloat16)
+    bf = torch.bfloat16
+    assert tnative._check_kernel_geometry(70, 128, bf, bf) == "mma"  # S 10 x G 7
+    assert tnative.plan_row_tiles(70, 128, bf, bf) == tnative.RowTiles(2, 35)
+    assert tnative.plan_row_tiles(91, 128, bf, bf) == tnative.RowTiles(2, 46)
+    assert tnative.mma_layout(46) == (3, 12)
 
 
 @pytest.mark.parametrize("quant", ["none", "int8"])
