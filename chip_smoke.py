@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (``distrl_llm_tpu_torch``).
 
-    python3 chip_smoke.py [--layers N] [--seed S] [--profile] [--until 6|7|...|14]
+    python3 chip_smoke.py [--layers N] [--seed S] [--profile] [--until 6|7|...|15]
 
 Needs one NVIDIA GPU (Hopper: the kernels build for ``sm_90a``) and ``nvcc``.
 Without a GPU it exits non-zero before computing anything. Phases, each
@@ -157,7 +157,8 @@ printing its own lines:
    graph and replayed, at phase 4's cell (28 layers, the same weights from
    the seed, 4 prompts x 16 x 128 new tokens). (a) dense and (b) paged
    (bf16 pages), greedy: a first graphed round (its first chunk eager, the
-   second captured), then graphed and eager rounds in turns (G E G E), the
+   second captured), then graphed and eager rounds in turns (G E G; a
+   second eager round was cut in PR 17 for the script's time), the
    counts reset around each and held to what it dispatched (K1 per step, K2
    per layer per decode forward, replays included), tokens and lengths
    equal, the largest |dlogp|, ms per step of each, captures and replays;
@@ -181,7 +182,8 @@ printing its own lines:
    sampler call, K2 per layer per plain or drafter forward, K5 per layer per
    verify forward, replays included); every graphed/eager pair has equal
    tokens, lengths and logprobs. (a) plain refill, greedy, 28 layers, G E G
-   E (the first graphed round holds the capture); (b) speculative refill
+   (the first graphed round holds the capture; a second eager round was
+   cut in PR 17 for the script's time); (b) speculative refill
    (``spec_draft=4``, n-gram 2), greedy, 28 layers, G G E, with accept rate
    and tokens per verify step; with ``--profile`` device ms per step and
    the idle share of (a) and (b) graphed and eager. Depth cut to 7 layers
@@ -234,6 +236,34 @@ printing its own lines:
    refill's. Printed: ms per training step, each ``timing/*_duration``, the
    verify forwards and accept rates, the row tiles launched, peak GiB and
    the phase's seconds.
+15. multi-turn environments and full fine-tuning under the overlapped
+   modes: (a) ``Trainer.train()`` of phase 13's QLoRA configuration at 7
+   layers with ``env="verifier"``, ``max_turns=3``, continuous admission and
+   a 256-token window that an episode's turns share, the engine's EOS set
+   widened to every 32nd id (random weights almost never sample the one EOS
+   id, so turns would never end by choice) and each turn's reward raised by
+   a hash of its completion (random weights format nothing:
+   ``hashed_env_reward``), the initial eval and two steps graphed
+   (``decode_scan_chunk=16``), then on a fresh trainer from the same seed
+   the eval and first step eager: more than one turn an episode and turn
+   resumes in training and in eval, each round's ``turn_prefill_saved_tokens``
+   the sum over its resumes of the prompt and the turns before, every
+   row's loss mask 1 exactly on the policy's spans and each injected span
+   the verifier's critique, the eager rounds, masks and loss equal to the
+   graphed ones, every round's and update's launches as dispatched (a turn
+   resume is a chunked forward: K3, no K4); (b) at full width, 2 layers,
+   f32, one prompt: a refill round whose scripted hook grants one
+   observation continues exactly as a dense engine's greedy round over the
+   whole conversation (tokens; logprobs within 1e-4; the logits the resume
+   leaves within ``LOGIT_F32_ATOL`` of a dense forward's); (c) phase 10's
+   full fine-tuning at Gemma-2B width (18 layers, graphed) pipelined, then
+   async (clip 0.2, ``max_staleness=2``), 3 steps each: the rollout copy a
+   ring of two bf16 ``Decoder``s, every push writing the copy no round
+   held (the ring's books), the rounds reading only those two copies (two
+   graph keys), pipelined round t opening with version t - 1, round 0 and
+   the eval equal to a sync trainer's from the same seed. Printed: turns,
+   resumes, declines, ``env/step_ms_p50``, each ``timing/*_duration``, the
+   ring's books, peak GiB beside phase 10's, the phase's seconds.
 
 Phase 3 holds K4 (forward and backward) against its plain version at the
 learner's [8, 1550, 28 / 4, 128] and at Gemma-2B's [8, 1550, 8 / 1, 256],
@@ -4458,9 +4488,9 @@ def kernel_names_in_trace(eng, model, lora, ids, mask, sampling, seed: int,
 def graph_ab(cfg, device, weights, *, engine: str, seed: int, card: str = "",
              profile: bool = False, **shape) -> dict:
     """(a) / (b): the graphed and the eager engine of ``engine`` in turns,
-    G E G E, greedy, after a first graphed round (each key's first chunk
+    G E G, greedy, after a first graphed round (each key's first chunk
     eager, the next captured) and an eager warm-up; each round's launches
-    checked; tokens and lengths of the four equal, logprobs' largest
+    checked; tokens and lengths of the three equal, logprobs' largest
     distance printed; on the card a warm graphed round replays every chunk
     and a profiled graphed round must name K1 (and K2, paged) in its device
     trace; with ``profile``, device ms per decode step of both (rounds
@@ -4486,7 +4516,7 @@ def graph_ab(cfg, device, weights, *, engine: str, seed: int, card: str = "",
           f"{1e3 * first['wall_s']:.1f} ms, {first['ms_per_step']:.2f} ms/step; {card}")
     e.generate(model, lora, ids, mask, greedy.replace(max_tokens=4), seed)  # warm-up
     rounds = []
-    for eng, kind in ((g, "graphed"), (e, "eager"), (g, "graphed"), (e, "eager")):
+    for eng, kind in ((g, "graphed"), (e, "eager"), (g, "graphed")):
         r = graph_round(eng, model, lora, ids, mask, greedy, seed)
         check_graph_counts(r, cfg.num_layers, paged=paged, quant=False,
                            what=f"{engine} {kind}")
@@ -4513,7 +4543,7 @@ def graph_ab(cfg, device, weights, *, engine: str, seed: int, card: str = "",
               f"{label}: the device trace of a graphed round names {names[:20]}, not {want}")
         traced = (f"; a graphed round's device trace names "
                   f"{', '.join(n[:40] for n in names if any(w in n for w in want))}")
-    print(f"{label}: G E G E rounds' tokens and lengths equal; max |dlogp| {dlogp:.3g}; "
+    print(f"{label}: G E G rounds' tokens and lengths equal; max |dlogp| {dlogp:.3g}; "
           f"captures {dg.captures}, replays {dg.replays}, eager chunks "
           f"{dg.eager_chunks}{traced}")
     out = {"g": g, "e": e, "rounds": rounds, "dlogp": dlogp, "tokens": ref.tokens,
@@ -4816,7 +4846,7 @@ def check_replayed(g, what: str) -> None:
 
 def refill_graph_ab(cfg, device, weights, *, seed: int, spec_draft: int, card: str = "",
                     profile: bool = False, **shape) -> dict:
-    """(a) plain refill, rounds G E G E, and (b) speculative refill
+    """(a) plain refill, rounds G E G, and (b) speculative refill
     (``spec_draft`` n-gram drafts), rounds G G E: greedy, the graphed engine's
     first round its capture (each key's first chunk eager, the next
     captured, the rest replayed), the later graphed rounds all replays; every
@@ -4832,8 +4862,7 @@ def refill_graph_ab(cfg, device, weights, *, seed: int, spec_draft: int, card: s
     label = f"{'spec d=' + str(spec_draft) if spec_draft else 'plain'} refill"
     greedy = _greedy_sampling(**sh)
     cuda, k = device == "cuda", sh["chunk"]
-    kinds = ("graphed", "graphed", "eager") if spec_draft else (
-        "graphed", "eager", "graphed", "eager")
+    kinds = ("graphed", "graphed", "eager") if spec_draft else ("graphed", "eager", "graphed")
     rounds = []
     for i, kind in enumerate(kinds):
         eng = g if kind == "graphed" else e
@@ -5154,14 +5183,17 @@ def _overlap_s(a: tuple, b: tuple) -> float:
     return max(0.0, min(a[1], b[1]) - max(a[0], b[0]))
 
 
-def overlap_run(build, *, label: str) -> dict:
-    """``build(sink)`` makes a ``Trainer``; this runs its ``train()`` with the
-    counts reset just before and read just after, recording on the thread
-    that ran it each engine round (host interval, its own launches from the
-    thread's tally, model forwards, captures, the version it opened with,
-    its swaps and tags) and each update (host interval to the loss on the
-    host, the launches of every thread but the rollout's, learner forwards),
-    each train record's host time and the peak device memory."""
+def overlap_run(build, *, label: str, drive=None) -> dict:
+    """``build(sink)`` makes a ``Trainer``; this runs its ``train()`` (or
+    ``drive(trainer)``) with the counts reset just before and read just
+    after, recording on the thread that ran it each engine round (host
+    interval, its own launches from the thread's tally, model forwards, the
+    preemption and turn resumes, captures, the weights it read, the version
+    it opened with, its swaps and tags, an environment's columns) and each
+    update (host interval to the loss on the host, the launches of every
+    thread but the rollout's, learner forwards), each train record's host
+    time and the peak device memory. In full mode the model forwards are
+    counted on every rollout copy and on the f32 masters."""
     import collections
 
     import numpy as np
@@ -5174,8 +5206,14 @@ def overlap_run(build, *, label: str) -> dict:
     sink = _StepSink(cell)
     trainer = build(sink)
     cell.append(trainer)
-    model, eng = trainer.model, trainer.engine
-    dev = model.embed.device
+    eng = trainer.engine
+    if trainer._full:  # every rollout copy, and the masters the learner trains
+        ring = trainer._ring
+        models = [*(ring._bufs if ring is not None else [trainer._rollout_model]),
+                  trainer.lora]
+    else:
+        models = [trainer.model]
+    dev = models[0].embed.device
     cuda = dev.type == "cuda"
     main = threading.get_ident()
     fwd, mu = collections.Counter(), threading.Lock()
@@ -5185,8 +5223,8 @@ def overlap_run(build, *, label: str) -> dict:
             with mu:
                 fwd[threading.get_ident()] += 1
 
-    handle = model.register_forward_hook(hook)
-    rounds, updates, tagged, rollout_threads = [], [], [], set()
+    handles = [m.register_forward_hook(hook) for m in models]
+    rounds, updates, tagged, rollout_threads, env_rounds = [], [], [], set(), []
     swapped: dict[int, list] = collections.defaultdict(list)  # adapters a round swapped in
     swap_hook = eng.lora_swap_hook
 
@@ -5217,25 +5255,33 @@ def overlap_run(build, *, label: str) -> dict:
         st = dict(eng.last_round_stats or {})
         pool = dict(getattr(eng, "last_pool_stats", None) or {})
         rounds.append({
-            "t": (t0, t1), "thread": ident, "train": a[4].n == trainer.config.num_candidates,
+            "t": (t0, t1), "thread": ident,
+            "train": a[4].n == trainer.config.num_candidates and not evaluating[0],
             "res": res, "steps": res.steps_dispatched, "forwards": st.get("decode_forwards", 0),
             "sampler_calls": st.get("sampler_calls", res.steps_dispatched),
             "draft_forwards": st.get("draft_forwards", 0), "spec": eng.last_spec_stats,
             "resumes": pool.get("resumes", 0), "refill": bool(pool),
+            "turn_resumes": pool.get("turn_resumes") or 0,
+            "turn_saved": pool.get("turn_prefill_saved_tokens") or 0,
             "model_forwards": fwd[ident] - f0 + st.get("graph_steps", 0),
             "counts": _kernel_counts(launch_count.thread_counts() - c0),
             "captures": eng.decode_graphs.captures - g0[0],
             "replays": eng.decode_graphs.replays - g0[1],
+            "model_key": tensors_key(a[0]),
             "adapters": [tensors_key(a[1]), *swapped[ident]]})
         return res
 
     def round_tags(batch, sampling):
         out = gen_round(batch, sampling)
-        if sampling.n == trainer.config.num_candidates and "base_version" in out[0]:
-
-            c = out[0]
+        c = out[0]
+        train_round = sampling.n == trainer.config.num_candidates and not evaluating[0]
+        if train_round and "base_version" in c:
             tagged.append({"base": c["base_version"], "events": list(c["swap_events"]),
                            "tags": np.asarray(c["version_tags"][0])})
+        if "turns" in c:
+            env_rounds.append({"train": train_round, "problems": list(batch["problem"]),
+                               "solutions": list(batch["solution"]), "n": sampling.n,
+                               "cand": c})
         return out
 
     def stepped(*a):
@@ -5253,9 +5299,21 @@ def overlap_run(build, *, label: str) -> dict:
                         "learner_forwards": fwd[main] - f0})
         return loss
 
+    # an eval round may share the train rounds' shape (phase 10's eval_n is
+    # num_candidates): the rounds run inside evaluate() are told apart
+    evaluating, evaluate = [False], trainer.evaluate
+
+    def evaluated():
+        evaluating[0] = True
+        try:
+            return evaluate()
+        finally:
+            evaluating[0] = False
+
     eng.generate, trainer.train_step, trainer._generate_round = recorded, stepped, round_tags
+    trainer.evaluate = evaluated
     sink.log = logged
-    initial = _lora_host(trainer.lora)
+    initial = [] if trainer._full else _lora_host(trainer.lora)
     if cuda:
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
@@ -5267,13 +5325,15 @@ def overlap_run(build, *, label: str) -> dict:
               counting_plain_calls(_qmm(), "quant_matmul_reference", k3_plain)):
             reset_counts()
             t = time.perf_counter()
-            trainer.train()
+            (drive or (lambda tr: tr.train()))(trainer)
             wall = time.perf_counter() - t
             counts = read_counts()
     finally:
-        handle.remove()
+        for handle in handles:
+            handle.remove()
         eng.generate, trainer.train_step = generate, train_step
         trainer._generate_round, eng.lora_swap_hook = gen_round, swap_hook
+        trainer.evaluate = evaluate
     peak = torch.cuda.max_memory_allocated(dev) / 2**30 if cuda else float("nan")
     reserved = torch.cuda.max_memory_reserved(dev) / 2**30 if cuda else float("nan")
     train_rounds = [r for r in rounds if r["train"]]
@@ -5285,6 +5345,7 @@ def overlap_run(build, *, label: str) -> dict:
     return {"trainer": trainer, "label": label, "records": sink.records,
             "adapters": [initial] + sink.adapters, "rounds": rounds,
             "train_rounds": train_rounds, "tagged": tagged, "updates": updates,
+            "env_rounds": env_rounds,
             "counts": counts, "wall_s": wall, "peak_gib": peak, "reserved_gib": reserved,
             "overlap_s": overlap, "step_ms": step_ms, "k4_plain": k4_plain[0],
             "k3_plain": k3_plain[0], "captures": eng.decode_graphs.captures,
@@ -5340,18 +5401,21 @@ def check_overlap_run(out: dict, layers: int, *, steps: int, cuda: bool) -> None
             check(np.array_equal(t["tags"], want), f"{label}: tags do not change exactly at "
                   f"the swap steps {t['events']}")
         swaps = sum(len(t["events"]) for t in tagged)
-        check(swaps > 0, f"{label}: no in-flight swap landed")
+        check(swaps > 0 if cfg.inflight_weight_updates else swaps == 0,
+              f"{label}: {swaps} in-flight swaps landed, inflight_weight_updates "
+              f"{cfg.inflight_weight_updates}")
         s = tr._rollout_buffer.stats()
         check(s["total_put"] == s["total_got"] + s["dropped_stale"] + s["dropped_capacity"]
               + s["occupancy"], f"{label}: the buffer's books do not balance: {s}")
     graphed = (cfg.decode_scan_chunk or 0) > 1
     if graphed and cuda:
-        # a key is captured in its first train round: a round whose adapters
-        # were all seen before replays only, and the train rounds' captures
-        # are at most the ring's buffers
+        # a key is captured in its first train round: a round whose weights
+        # (the model and each adapter it read) were all seen before replays
+        # only, and the train rounds' captures are at most the ring's
+        # buffers (adapters; in full mode the rollout copies)
         seen: set = set()
         for i, r in enumerate(out["train_rounds"]):
-            new = set(r["adapters"]) - seen
+            new = {(r["model_key"], a) for a in r["adapters"]} - seen
             check(r["captures"] <= len(new), f"{label}: train round {i} captured "
                   f"{r['captures']} chunks over adapters seen before")
             seen |= new
@@ -5362,18 +5426,26 @@ def check_overlap_run(out: dict, layers: int, *, steps: int, cuda: bool) -> None
     if not cuda:
         return
     quant = cfg.base_quant != "none"
+    hd = tr.model_cfg.head_dim
+    # K4 at head_dim 256 by its route: the prefill at the rollout weights'
+    # dtype (bf16), the learner at the trained tree's (full mode: f32)
     for r in out["rounds"]:
-        prefills = r["model_forwards"] - r["forwards"] - r["resumes"]
+        # a preemption's or a turn's resume is a chunked forward: K3, no K4
+        prefills = r["model_forwards"] - r["forwards"] - r["resumes"] - r["turn_resumes"]
         want = {**{k["name"]: 0 for k in KERNELS},
                 "fused_sample": r["sampler_calls"], "paged_attention": layers * r["forwards"],
                 "quant_matmul": 7 * layers * r["model_forwards"] if quant else 0,
-                "flash_attention_fwd": layers * prefills}
+                "flash_attention_fwd": layers * prefills,
+                **hd256_counts(hd, bf16_fwd=layers * prefills)}
         check(r["counts"] == want, f"{label}: a round's launches {r['counts']}, want {want}")
     for u in out["updates"]:
         mb = u["learner_forwards"]
+        routes = (hd256_counts(hd, f32_fwd=2 * layers * mb, f32_bwd=layers * mb) if tr._full
+                  else hd256_counts(hd, bf16_fwd=2 * layers * mb, bf16_bwd=layers * mb))
         want = {**{k["name"]: 0 for k in KERNELS},
                 "quant_matmul": 2 * 7 * layers * mb if quant else 0,
-                "flash_attention_fwd": 2 * layers * mb, "flash_attention_bwd": layers * mb}
+                "flash_attention_fwd": 2 * layers * mb, "flash_attention_bwd": layers * mb,
+                **routes}
         check(mb == cfg.batch_size * cfg.num_candidates // cfg.train_batch_size,
               f"{label}: {mb} learner forwards, want every microbatch")
         check(u["counts"] == want, f"{label}: an update's launches {u['counts']}, want {want}")
@@ -5722,19 +5794,540 @@ def domain_rehearsal(workdir) -> dict:
     return {"a": a, "b": domain_exactness("cpu", 0, max_new_tokens=16)}
 
 
+# ---------------------------------------------------------------- phase 15
+
+# multi-turn environments and full fine-tuning under the overlapped modes.
+# (a) the verifier environment through Trainer.train(): phase 13's QLoRA
+# configuration at GRAPH_TRAIN_LAYERS with env="verifier", continuous
+# admission and a window of ENV_NEW_TOKENS that an episode's turns share
+ENV_NEW_TOKENS = 256
+ENV_TURNS = 3
+# random weights almost never sample the tokenizer's one EOS id among
+# 152,064, so every candidate would run to its window and each round fall
+# back to one turn: the engine's EOS set is also every ENV_EOS_STRIDE-th id
+# (a test construction for random weights), which ends a sampled turn after
+# about that many tokens
+ENV_EOS_STRIDE = 32
+ENV_REGIME = dict(env="verifier", max_turns=ENV_TURNS, continuous_admission=True,
+                  max_new_tokens=ENV_NEW_TOKENS)
+# (b) the KV-exactness pin: full width, EXACT_LAYERS layers, f32, greedy, an
+# EOS set of every 4th id, one scripted observation of EXACT_OBS tokens
+EXACT_LAYERS = 2
+EXACT_EOS_STRIDE = 4
+EXACT_PROMPT = 48
+EXACT_NEW_TOKENS = 96
+EXACT_OBS = 16
+EXACT_LOGP_ATOL = 1e-4  # f32 behavior logprobs, paged chunked vs dense attention
+# (c) phase 10's full fine-tuning at Gemma-2B width, pipelined and async
+FULL_OVERLAP_STEPS = 3
+FULL_OVERLAP_LAYERS = 18
+PHASE10_PEAK_GIB = 34.2  # smoke-full-gemma's peak allocated, one rollout copy (PR 12)
+
+
+@contextlib.contextmanager
+def hashed_env_reward():
+    """The port's environments with each turn's shaped reward raised by a
+    hash of its completion in [0, 1) (``smoke_reward``'s accuracy column):
+    random weights format nothing and solve nothing, so every group's
+    rewards would be equal, every advantage 0 and every learner microbatch
+    skipped. Observations and episode ends are the environments' own (an
+    episode whose observation the engine declines keeps its turns' rewards
+    and scores accuracy 0)."""
+    import zlib
+
+    from distrl_llm_tpu_torch.env import registry
+
+    saved = dict(registry.ENV_REGISTRY)
+
+    def hashed(cls):
+        class Hashed(cls):
+            def step(self, completion):
+                step = super().step(completion)
+                step.reward += zlib.crc32(completion.encode("utf-8")) % 1000 / 1000
+                return step
+        Hashed.name = cls.name
+        return Hashed
+
+    for name in ("code", "verifier"):
+        registry.ENV_REGISTRY[name] = hashed(saved[name])
+    try:
+        yield
+    finally:
+        registry.ENV_REGISTRY.clear()
+        registry.ENV_REGISTRY.update(saved)
+
+
+def env_eos_ids(vocab: int, tokenizer, stride: int) -> list[int]:
+    return sorted({tokenizer.eos_token_id, *range(stride - 1, vocab, stride)})
+
+
+def check_env_run(out: dict, tok) -> dict:
+    """Phase 15 (a)'s environment checks over every round (eval and train):
+    on every row the loss mask is 1 exactly on the policy's spans, and each
+    injected span holds the tokens of the observation the verifier gives
+    when the episode is replayed turn by turn; each round's
+    ``turn_resumes`` is its granted observations' count and its
+    ``turn_prefill_saved_tokens`` the sum over them of the prompt and the
+    turns before. Returns turns and resumes by kind of round."""
+    import numpy as np
+
+    from distrl_llm_tpu_torch.env import VerifierFeedbackEnv
+    from distrl_llm_tpu_torch.tokenizer import encode_fixed
+
+    tr, label = out["trainer"], out["label"]
+    cfg, drv = tr.config, tr._env_driver
+    check(len(out["env_rounds"]) == len(out["rounds"]),
+          f"{label}: {len(out['env_rounds'])} environment rounds of {len(out['rounds'])}")
+    stats = {kind: {"turns": [], "resumes": 0, "declined": 0, "saved": 0}
+             for kind in ("train", "eval")}
+    for er, r in zip(out["env_rounds"], out["rounds"], strict=True):
+        c, n = er["cand"], er["n"]
+        problems = er["problems"]
+        _, mask = encode_fixed(tok, problems + [""] * (cfg.batch_size - len(problems)),
+                               cfg.max_prompt_tokens, side="left")
+        real_len = mask.sum(axis=-1)
+        resumes = saved = 0
+        for g, (masks, turns_g, toks_g) in enumerate(zip(c["loss_mask"], c["turns"],
+                                                          c["answer_tokens"])):
+            for i in range(n):
+                row_mask, turns, toks = np.asarray(masks[i]), turns_g[i], np.asarray(toks_g[i])
+                want = np.zeros_like(row_mask)
+                env = VerifierFeedbackEnv(cfg.format_reward, cfg.max_turns)
+                env.reset({"problem": problems[g], "solution": er["solutions"][g]})
+                for t in turns:
+                    s, e = t["policy_span"]
+                    want[s:e] = 1
+                    step = env.step(drv._decode(toks[s:e]))
+                    if t["env_span"] is None:
+                        continue
+                    e0, e1 = t["env_span"]
+                    obs = drv._encode(step.observation)
+                    check(e0 == e and np.array_equal(toks[e0:e1], obs),
+                          f"{label}: row {g * n + i}'s injected span {t['env_span']} is not "
+                          "the verifier's critique")
+                    resumes += 1
+                    saved += int(real_len[g]) + e
+                check(np.array_equal(row_mask, want), f"{label}: row {g * n + i}'s loss mask "
+                      "is not 1 exactly on its policy spans")
+                stats["train" if er["train"] else "eval"]["turns"].append(len(turns))
+        check(r["turn_resumes"] == resumes and r["turn_saved"] == saved,
+              f"{label}: a round's turn_resumes {r['turn_resumes']} and "
+              f"turn_prefill_saved_tokens {r['turn_saved']}, want {resumes} and {saved} (the "
+              "granted observations, the prompt and the turns before each)")
+        kind = stats["train" if er["train"] else "eval"]
+        kind["resumes"] += resumes
+        kind["saved"] += saved
+        kind["declined"] += c["env_stats"].resume_declined
+    for kind, st in stats.items():
+        mean = float(np.mean(st["turns"]))
+        check(mean > 1 and st["resumes"] > 0, f"{label}: {kind} rounds took {mean:.3f} turns "
+              f"an episode and {st['resumes']} resumes; want more than one turn")
+        st["turns_mean"] = mean
+    return stats
+
+
+def env_trainer(cfg, device, *, seed: int, workdir: Path, tokenizer_dir: Path,
+                group=QMM_GROUP, hbm_bytes=None, chunk: int = GRAPH_CHUNK,
+                one_step: bool = False, eos_stride: int = ENV_EOS_STRIDE, label: str = "env",
+                **config_kw) -> dict:
+    """(a) ``Trainer.train()`` of phase 13's QLoRA configuration (random
+    weights from the seed quantized to int4 g64, GRPO clip 0.2, splash,
+    refill) with ``ENV_REGIME`` and ``decode_scan_chunk`` ``chunk``, the
+    engine's EOS set widened to every ``eos_stride``-th id, run by
+    ``overlap_run`` and checked by ``check_overlap_run`` and
+    ``check_env_run``. With ``one_step`` a fresh trainer drives the initial
+    eval and the first step through its own methods, as ``train()`` does."""
+    import torch
+
+    from distrl_llm_tpu_torch.ops.quant import quantize_base
+    from distrl_llm_tpu_torch.tokenizer import load_tokenizer
+    from distrl_llm_tpu_torch.trainer import Trainer, make_engine as trainer_engine
+
+    tok = load_tokenizer(str(tokenizer_dir))
+    train, test = trainer_datasets(tok)
+    model, _ = make_weights(cfg, device, seed=seed)
+    quantize_base(model, "int4", group)
+    config = trainer_config(workdir, **{
+        **dict(seed=seed, quant_group_size=group, learner="grpo", clip_ratio=0.2,
+               lora_dropout=0.0, save_every=0, write_adapter_file=False, checkpoint_dir=None,
+               decode_scan_chunk=chunk), **ENV_REGIME, **config_kw})
+    engine = trainer_engine(config, model, tok, hbm_bytes=hbm_bytes)
+    engine.eos_ids = torch.tensor(env_eos_ids(cfg.vocab_size, tok, eos_stride),
+                                  dtype=torch.int32, device=engine.device)
+
+    def first_step(tr):
+        tr.evaluate()
+        _, batch = next(tr._episode_batch_stream(0, 0))
+        tr._train_batch(batch, 0)
+        tr.rewards.close()
+
+    with hashed_env_reward():
+        run = overlap_run(lambda sink: Trainer(train, test, smoke_reward, config, tokenizer=tok,
+                                               engine=engine, model=model, sink=sink),
+                          label=label, drive=first_step if one_step else None)
+    steps = 1 if one_step else len(train["problem"]) // config.batch_size
+    check_overlap_run(run, cfg.num_layers, steps=steps, cuda=device == "cuda")
+    run["env"] = check_env_run(run, tok)
+    run["config"] = config
+    run.pop("trainer")
+    engine.release_decode_graphs()
+    del engine, model
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return run
+
+
+def env_graph_eager(cfg, device, **kw) -> dict:
+    """(a): the graphed run (the initial eval and two steps), then on a fresh
+    trainer from the same seed the eval and first step eager; the eager
+    rounds' tokens, lengths, logprobs and loss masks and its loss equal the
+    graphed run's."""
+    import numpy as np
+
+    g = env_trainer(cfg, device, label="env graphed", **kw)
+    e = env_trainer(cfg, device, chunk=0, one_step=True, label="env eager", **kw)
+    k = len(e["rounds"])
+    for rg, re_, eg, ee in zip(g["rounds"][:k], e["rounds"], g["env_rounds"][:k],
+                                e["env_rounds"], strict=True):
+        check_graph_equal([dict(res=rg["res"], what="graphed"), dict(res=re_["res"],
+                                                                     what="eager")],
+                          "env graphed vs eager")
+        check(all(np.array_equal(a, b) for a, b in zip(eg["cand"]["loss_mask"],
+                                                       ee["cand"]["loss_mask"], strict=True)),
+              "env graphed vs eager: loss masks differ")
+    lg = [m["loss"] for _, m in g["records"] if "loss" in m]
+    le = [m["loss"] for _, m in e["records"] if "loss" in m]
+    check(le == lg[:1], f"env graphed vs eager: the first step's loss {le} vs {lg[:1]}")
+    return {"graphed": g, "eager": e}
+
+
+def env_resume_exact(device, seed: int, *, layers: int = EXACT_LAYERS, cfg=None) -> dict:
+    """(b) the KV-exactness pin: at full width, ``layers`` layers, f32, one
+    prompt, a refill round whose scripted hook grants one observation
+    continues exactly as a dense engine's greedy round over the whole
+    conversation (prompt, turn 1, observation) as its prompt: the same
+    tokens, logprobs within ``EXACT_LOGP_ATOL``, and the logits the resume
+    leaves in the slot within ``LOGIT_F32_ATOL`` of the dense forward's.
+    ``cfg`` replaces Qwen2.5-7B's width (the CPU rehearsal's)."""
+    import numpy as np
+    import torch
+
+    from distrl_llm_tpu_torch.config import SamplingConfig
+    from distrl_llm_tpu_torch.engine import GenerationEngine, PagedGenerationEngine
+    from distrl_llm_tpu_torch.engine import paged_engine as tpe
+    from distrl_llm_tpu_torch.models.configs import QWEN2_7B
+
+    cfg = dataclasses.replace(cfg or QWEN2_7B, num_layers=layers)
+    model, lora = make_weights(cfg, device, seed=seed, dtype=torch.float32)
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(4, cfg.vocab_size, (1, EXACT_PROMPT)).astype(np.int32)
+    mask = np.ones_like(ids)
+    scale = 16.0 / 32
+    common = dict(eos_token_ids=list(range(0, cfg.vocab_size, EXACT_EOS_STRIDE)),
+                  pad_token_id=1, lora_scale=scale, cache_dtype=torch.float32,
+                  capture_logprobs=True, device=device)
+    refill = PagedGenerationEngine(cfg, max_prompt_tokens=EXACT_PROMPT,
+                                   max_new_tokens=EXACT_NEW_TOKENS, page_size=16,
+                                   max_concurrent_rows=1, scheduler="refill", **common)
+    greedy = SamplingConfig(max_tokens=EXACT_NEW_TOKENS, temperature=0.0, n=1)
+    base = refill.generate(model, lora, ids, mask, greedy, seed)
+    g1 = int(base.lengths[0, 0])
+    gen1 = base.tokens[0, 0, :g1]
+    check(g1 + EXACT_OBS + 2 <= EXACT_NEW_TOKENS, f"env exact: turn 1 took {g1} tokens, no "
+          "room for the observation")
+    # ids one past a multiple of the stride: no EOS among them
+    obs = (1 + EXACT_EOS_STRIDE * (8 + np.arange(EXACT_OBS))).astype(np.int32)
+
+    class Grant:
+        def __init__(self):
+            self.calls = []
+
+        def __call__(self, cand, tokens):
+            self.calls.append(len(tokens))
+            return obs if len(self.calls) == 1 else None
+
+        def declined(self, cand):
+            raise SmokeFailure("env exact: the observation was declined")
+
+    kept = {}
+    fixup = tpe._turn_resume_fixup
+
+    def watched(model_, lora_, s, slot, *a, **k):
+        fixup(model_, lora_, s, slot, *a, **k)
+        kept["logits"] = s.logits[slot].detach().clone()
+
+    refill.turn_hook = Grant()
+    tpe._turn_resume_fixup = watched
+    reset_counts()
+    try:
+        res = refill.generate(model, lora, ids, mask, greedy, seed)
+    finally:
+        tpe._turn_resume_fixup = fixup
+        refill.turn_hook = None
+    counts = read_counts()
+    total, row = int(res.lengths[0, 0]), res.tokens[0, 0]
+    stats = refill.last_pool_stats
+    check(stats["turn_resumes"] == 1 and stats["turn_prefill_saved_tokens"] == EXACT_PROMPT + g1,
+          f"env exact: turn_resumes {stats['turn_resumes']}, saved "
+          f"{stats['turn_prefill_saved_tokens']}, want 1 and {EXACT_PROMPT + g1}")
+    check(np.array_equal(row[:g1], gen1) and np.array_equal(row[g1:g1 + EXACT_OBS], obs),
+          "env exact: turn 1 and the observation are not in the row verbatim")
+    start = g1 + EXACT_OBS
+    check(total > start, "env exact: nothing was decoded after the observation")
+    conv = np.concatenate([ids[0], gen1, obs]).astype(np.int32)[None]
+    dense = GenerationEngine(cfg, max_prompt_tokens=conv.shape[1],
+                             max_new_tokens=EXACT_NEW_TOKENS - start, **common)
+    dres = dense.generate(model, lora, conv, np.ones_like(conv), SamplingConfig(
+        max_tokens=EXACT_NEW_TOKENS - start, temperature=0.0, n=1), seed)
+    g2 = int(dres.lengths[0, 0])
+    check(total - start == g2 and np.array_equal(row[start:total], dres.tokens[0, 0, :g2]),
+          f"env exact: the continuation {row[start:total].tolist()} differs from the dense "
+          f"round's {dres.tokens[0, 0, :g2].tolist()}")
+    logp_err = float(np.abs(res.logprobs[0, 0, start:total] - dres.logprobs[0, 0, :g2]).max())
+    check(logp_err <= EXACT_LOGP_ATOL, f"env exact: logprobs differ by {logp_err:.3g} > "
+          f"{EXACT_LOGP_ATOL}")
+    with torch.no_grad():
+        full = model(torch.as_tensor(conv, device=device), lora=lora, lora_scale=scale,
+                     logits_slice=(conv.shape[1] - 1, 1))[0][0, 0].float()
+    logit_err = float((kept["logits"] - full).abs().max())
+    check(logit_err <= LOGIT_F32_ATOL, f"env exact: the resume's logits differ from the dense "
+          f"forward's by {logit_err:.3g} > {LOGIT_F32_ATOL}")
+    check(device == "cpu" or (counts["paged_attention"] > 0 and counts["fused_sample"] > 0),
+          f"env exact: K1/K2 not launched: {counts}")
+    return {"turn1": g1, "continuation": g2, "logp_err": logp_err, "logit_err": logit_err,
+            "logit_std": float(full.std()), "counts": counts}
+
+
+def full_overlap_datasets(tokenizer, steps: int):
+    """``steps`` batches of 4 of ``OVERLAP_PROBLEMS`` (train) and the first 4
+    (eval) through the R1 chat template."""
+    from distrl_llm_tpu_torch.data import R1_PREPROMPT, process_dataset
+
+    probs = OVERLAP_PROBLEMS[:4 * steps]
+    data = {"problem": [p for p, _ in probs], "solution": [s for _, s in probs]}
+    train = process_dataset(tokenizer, data, R1_PREPROMPT, "")
+    return train, {k: v[:4] for k, v in train.items()}
+
+
+def full_overlap_run(cfg, device, *, seed: int, workdir: Path, tokenizer_dir: Path,
+                     mode: str, hbm_bytes=None, steps: int = FULL_OVERLAP_STEPS,
+                     **config_kw) -> dict:
+    """(c) ``Trainer.train()`` with phase 10's full fine-tuning (random bf16
+    weights from the seed), clip 0.2, ``max_staleness`` 2 and
+    ``decode_scan_chunk`` 16 under ``rollout_mode`` ``mode`` (``"sync"``:
+    only the initial eval and the first round, through the trainer's own
+    methods), run by ``overlap_run``; an overlapped run is checked by
+    ``check_overlap_run`` and the ring's books: every push wrote a copy no
+    round held and that was not the published one, each round read one of
+    the ring's two copies (each one graph key), and the published copy
+    holds the masters cast to bf16."""
+    import torch
+
+    from distrl_llm_tpu_torch.engine.decode_graph import tensors_key
+    from distrl_llm_tpu_torch.tokenizer import load_tokenizer
+    from distrl_llm_tpu_torch.trainer import Trainer, make_engine
+
+    tok = load_tokenizer(str(tokenizer_dir))
+    train, test = full_overlap_datasets(tok, steps)
+    model, _ = make_weights(cfg, device, seed=seed)
+    config = full_config(workdir, seed=seed, dtype=str(model.embed.dtype).removeprefix("torch."),
+                         rollout_mode=mode, clip_ratio=0.2, max_staleness=2,
+                         decode_scan_chunk=GRAPH_CHUNK, **config_kw)
+    engine = make_engine(config, model, tok, hbm_bytes=hbm_bytes)
+
+    def first_round(tr):
+        tr.evaluate()
+        _, batch = next(tr._episode_batch_stream(0, 0))
+        tr._generate_round(batch, config.train_sampling())
+        tr.rewards.close()
+
+    run = overlap_run(lambda sink: Trainer(train, test, smoke_reward, config, tokenizer=tok,
+                                           engine=engine, model=model, sink=sink),
+                      label=f"full {mode}", drive=first_round if mode == "sync" else None)
+    tr = run.pop("trainer")
+    run.update(config=config, kv_pages=engine.max_kv_pages)
+    if mode != "sync":
+        label, ring = run["label"], tr._ring
+        check_overlap_run(dict(run, trainer=tr), cfg.num_layers, steps=steps,
+                          cuda=device == "cuda")
+        check(ring is not None and ring.size == 2 and ring.holds() == [0, 0],
+              f"{label}: the ring of rollout copies {ring and ring.holds()}")
+        published = None
+        for j, version, holds, _events in ring.books:
+            check(holds[j] == 0 and j != published, f"{label}: the push of version {version} "
+                  f"wrote copy {j} (holds {holds}, published {published})")
+            published = j
+        check([b[1] for b in ring.books] == list(range(steps + 1)),
+              f"{label}: the pushes' versions {[b[1] for b in ring.books]}")
+        keys = {tensors_key(b) for b in ring._bufs}
+        check(len(keys) == 2 and {r["model_key"] for r in run["rounds"]} <= keys,
+              f"{label}: rounds read weights outside the ring's two copies")
+        rollout = tr._engine_params()[0]
+        check(all(torch.equal(p, m.detach().to(p.dtype)) for p, m in
+                  zip(rollout.parameters(), tr.lora.parameters(), strict=True)),
+              f"{label}: the published copy is not the masters cast to bf16")
+        run["books"] = list(ring.books)
+        run["push_waits"] = ring.push_waits
+        run["weights_versions"] = [b.weights_version for b in ring._bufs]
+    run["rounds_res"] = [r["res"] for r in run["rounds"]]
+    for r in run["rounds"]:
+        r.pop("res")
+    engine.release_decode_graphs()
+    del engine, model, tr
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return run
+
+
+def full_overlap(cfg, device, *, seed: int, workdir: Path, tokenizer_dir: Path,
+                 hbm_bytes=None, steps: int = FULL_OVERLAP_STEPS, **config_kw) -> dict:
+    """(c): pipelined, then async, then the sync trainer's eval and first
+    round; round 0 (and the eval before it) equal across the three, the
+    pipelined rounds opening with versions 0, 0, 1, ..."""
+    out = {}
+    for mode in ("pipelined", "async", "sync"):
+        out[mode] = full_overlap_run(cfg, device, seed=seed, workdir=workdir / mode,
+                                     tokenizer_dir=tokenizer_dir, mode=mode,
+                                     hbm_bytes=hbm_bytes, steps=steps, **config_kw)
+    first = len(out["sync"]["rounds_res"])  # the eval rounds and round 0
+    for mode in ("pipelined", "async"):
+        for k, (a, b) in enumerate(zip(out[mode]["rounds_res"][:first],
+                                       out["sync"]["rounds_res"], strict=True)):
+            check_graph_equal([dict(res=b, what="sync"), dict(res=a, what=mode)],
+                              f"full {mode} round {k - first + 1 if k >= first - 1 else 'eval'}")
+    bases = [t["base"] for t in out["pipelined"]["tagged"]]
+    check(bases == [max(t - 1, 0) for t in range(steps)], f"full pipelined: the rounds opened "
+          f"with versions {bases}")
+    return out
+
+
+def env_phase(args, card: str, t_start: float) -> list:
+    """Phase 15 on the card (see the module's docstring). Returns the launch
+    counts of its runs."""
+    import tempfile
+
+    import torch
+
+    from distrl_llm_tpu_torch.models.configs import GEMMA_2B, QWEN2_7B
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    qwen = dataclasses.replace(QWEN2_7B, num_layers=GRAPH_TRAIN_LAYERS)
+    gemma = dataclasses.replace(GEMMA_2B, num_layers=FULL_OVERLAP_LAYERS)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_env_") as tmp:
+        work = Path(tmp)
+        tok_dir = write_bpe_tokenizer(work / "tokenizer", qwen.vocab_size)
+        a = env_graph_eager(qwen, "cuda", seed=args.seed, workdir=work / "a",
+                            tokenizer_dir=tok_dir)
+        t_a = time.perf_counter() - t0
+        b = env_resume_exact("cuda", args.seed)
+        t_b = time.perf_counter() - t0 - t_a
+        gtok, _ = write_unigram_tokenizer(work / "gemma_tokenizer", gemma.vocab_size)
+        c = full_overlap(gemma, "cuda", seed=args.seed, workdir=work / "c", tokenizer_dir=gtok)
+        t_c = time.perf_counter() - t0 - t_a - t_b
+    for kind in ("graphed", "eager"):
+        run = a[kind]
+        recs = [m for _, m in run["records"] if "loss" in m]
+        phases = {k: [1e3 * m[f"timing/{k}_duration"] for m in recs]
+                  for k in ("generation", "reward", "update")}
+        env = run["env"]
+        print(f"env (a) smoke-env-verifier-qlora {kind}: Trainer.train() at "
+              f"{qwen.num_layers} layers over the int4 g{QMM_GROUP} base, env='verifier', "
+              f"max_turns {ENV_TURNS}, refill {TRAIN_SLOTS} slots with continuous admission, "
+              f"decode_scan_chunk {run['config'].decode_scan_chunk}, GRPO clip 0.2, 4 x 16 x "
+              f"{ENV_NEW_TOKENS} (the window an episode's turns share), EOS every "
+              f"{ENV_EOS_STRIDE}th id: {len(recs)} steps, losses "
+              f"{[round(m['loss'], 6) for m in recs]}; turns an episode train "
+              f"{env['train']['turns_mean']:.3f} / eval {env['eval']['turns_mean']:.3f}; "
+              f"turn resumes train {env['train']['resumes']} / eval {env['eval']['resumes']}, "
+              f"declined {env['train']['declined']} / {env['eval']['declined']}, prompt and "
+              f"turn tokens not re-prefilled {env['train']['saved']} / {env['eval']['saved']}; "
+              f"env/step_ms_p50 {[round(m.get('env/step_ms_p50', float('nan')), 4) for m in recs]}"
+              f"; timing/generation_duration {', '.join(f'{x:.1f}' for x in phases['generation'])}"
+              f", reward {', '.join(f'{x:.1f}' for x in phases['reward'])}, update "
+              f"{', '.join(f'{x:.1f}' for x in phases['update'])} ms; captures "
+              f"{run['captures']}, replays {run['replays']}; peak {run['peak_gib']:.2f} GiB "
+              f"allocated; launches {run['counts']}; {card}")
+    print(f"env (a): the eager eval and first step equal the graphed ones (tokens, lengths, "
+          f"logprobs, loss masks, loss)")
+    print(f"env (b) smoke-env-resume-exact: Qwen2.5-7B width, {EXACT_LAYERS} layers, f32, one "
+          f"prompt of {EXACT_PROMPT}: turn 1 {b['turn1']} tokens, a {EXACT_OBS}-token "
+          f"observation resumed in place, then {b['continuation']} tokens equal to the dense "
+          f"engine's greedy round over the whole conversation; logprobs max |d| "
+          f"{b['logp_err']:.3g} (tolerance {EXACT_LOGP_ATOL}); the resume's logits vs the dense "
+          f"forward's max |d| {b['logit_err']:.3g} (tolerance {LOGIT_F32_ATOL}; logit std "
+          f"{b['logit_std']:.4g}); launches {b['counts']}")
+    for mode in ("pipelined", "async"):
+        run = c[mode]
+        recs = [m for _, m in run["records"] if "loss" in m]
+        phases = {k: [1e3 * m[f"timing/{k}_duration"] for m in recs]
+                  for k in ("generation", "reward", "update")}
+        print(f"env (c) smoke-full-gemma-{mode}: Trainer.train() with full_finetune at "
+              f"Gemma-2B width ({gemma.num_layers} layers), splash, refill {FULL_SLOTS} slots, "
+              f"4 x 4 x {FULL_NEW_TOKENS}, clip 0.2, decode_scan_chunk {GRAPH_CHUNK}: "
+              f"{len(recs)} steps, losses {[round(m['loss'], 6) for m in recs]}; rounds opened "
+              f"with versions {[t['base'] for t in run['tagged']]}; ring books (copy, version, "
+              f"holds at the choice, events waited) {run['books']}, push waits "
+              f"{run['push_waits']}, copies' weights_version {run['weights_versions']}; ms per "
+              f"training step {', '.join(f'{x:.1f}' for x in run['step_ms'])}; "
+              f"timing/generation_duration {', '.join(f'{x:.1f}' for x in phases['generation'])}"
+              f", update {', '.join(f'{x:.1f}' for x in phases['update'])} ms; overlap "
+              f"{run['overlap_s']:.3f} s; captures {run['captures']}, replays {run['replays']}; "
+              f"{run['kv_pages']} KV pages; peak {run['peak_gib']:.2f} GiB allocated, "
+              f"{run['reserved_gib']:.2f} reserved (phase 10, one rollout copy: "
+              f"{PHASE10_PEAK_GIB}); launches {run['counts']}; {card}")
+    print(f"env (c): round 0 and the eval before it equal the sync trainer's "
+          f"({len(c['sync']['rounds_res'])} rounds)")
+    print(f"env: phase 15 {time.perf_counter() - t0:.1f} s ((a) {t_a:.1f}, (b) {t_b:.1f}, (c) "
+          f"{t_c:.1f}); total {time.perf_counter() - t_start:.1f} s; {card}")
+    return [a["graphed"]["counts"], a["eager"]["counts"], b["counts"],
+            c["pipelined"]["counts"], c["async"]["counts"], c["sync"]["counts"]]
+
+
+def env_rehearsal(workdir) -> dict:
+    """Phase 15 at small shapes on the CPU: (a) at TINY's width with a
+    1024-token vocabulary (the hand-written BPE), 8 slots, a 192-token
+    window, graphed and eager; (b) at TINY's width; (c) on a 2-layer
+    Gemma-shaped config; each checked as on the card, launch counts
+    apart."""
+    from distrl_llm_tpu_torch.models.configs import TINY
+
+    work = Path(workdir)
+    cfg = dataclasses.replace(TINY, vocab_size=1024)
+    tok = write_bpe_tokenizer(work / "tok", cfg.vocab_size)
+    a = env_graph_eager(cfg, "cpu", seed=0, workdir=work / "a", tokenizer_dir=tok, group=16,
+                        hbm_bytes=2**30, max_prompt_tokens=96, max_new_tokens=192,
+                        num_candidates=4, topk=4, train_batch_size=4, eval_n=2,
+                        max_concurrent_sequences=8, max_lora_rank=4, eos_stride=8)
+    gemma = dataclasses.replace(cfg, hidden_size=64, intermediate_size=128, num_heads=2,
+                                num_kv_heads=1, head_dim=256, tie_word_embeddings=True,
+                                hidden_act="gelu_tanh", rmsnorm_offset=True,
+                                scale_embeddings=True, attention_bias=False)
+    b = env_resume_exact("cpu", 0, cfg=TINY)
+    gtok, _ = write_unigram_tokenizer(work / "gtok", gemma.vocab_size)
+    c = full_overlap(gemma, "cpu", seed=0, workdir=work / "c", tokenizer_dir=gtok,
+                     hbm_bytes=2**30, max_prompt_tokens=256, max_new_tokens=8,
+                     max_concurrent_sequences=8, steps=3)
+    return {"a": a, "b": b, "c": c}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=28,
                     help="decoder depth of the Qwen2.5-7B-wide model (28 = full)")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--until", type=int, default=14, choices=tuple(range(6, 15)),
+    ap.add_argument("--until", type=int, default=15, choices=tuple(range(6, 16)),
                     help="the last phase to run; 6 skips speculative decoding "
                          "(with --profile, the long part), 7 the trainer, 8 the "
                          "refill engine's riders, 9 full fine-tuning at Gemma-2B "
                          "width, 10 scan chunks as CUDA graphs, 11 the refill "
                          "scheduler's, 12 the overlapped rollout modes, 13 the "
-                         "kernel domains past rank 64 and 64 query rows; a partial "
-                         "run prints no result line")
+                         "kernel domains past rank 64 and 64 query rows, 14 the "
+                         "multi-turn environments and full fine-tuning under the "
+                         "overlapped modes; a partial run prints no result line")
     ap.add_argument("--profile", action="store_true",
                     help="also print the device time per decode step and per "
                          "learner step by kernel (torch.profiler) and the "
@@ -6139,6 +6732,16 @@ def main(argv=None) -> int:
     # phase 13's QLoRA configuration at rank 128 with spec_draft 12, graphed;
     # then speculative vs plain refill at 104 query rows on TINY's width
     counted += domain_phase(cfg, args, card, t_start)
+    if args.until < 15:
+        print(f"chip_smoke: phases 1-{args.until} done in {time.perf_counter() - t_start:.1f} s "
+              f"(a partial run prints no result line); {card}")
+        return 0
+
+    # 15. multi-turn environments: the verifier environment through
+    # Trainer.train() over phase 13's QLoRA configuration, graphed and eager;
+    # the in-place turn resume against a dense decode of the whole
+    # conversation; full fine-tuning at Gemma-2B width pipelined and async
+    counted += env_phase(args, card, t_start)
     print(f"chip_smoke: done in {time.perf_counter() - t_start:.1f} s; {card}")
 
     kernels = []

@@ -24,11 +24,7 @@ from distrl_llm_tpu_torch.models.configs import preset_for_model_name
 #: the port implements all three (ops/sampling.py)
 TOP_P_IMPL_NAMES = ("exact", "bisect", "bisect_mw")
 
-_ENV_ITEM = ("ROADMAP queue 1 item 8b: multi-turn envs, full fine-tuning under the "
-             "overlapped rollout modes")
 _MULTI_GPU_ITEM = "ROADMAP queue 1 item 10: multi-GPU"
-# the JAX package's env registry (env/__init__.py env_names)
-_ENV_NAMES = ("math", "code", "verifier")
 
 
 @dataclass
@@ -265,8 +261,16 @@ class TrainConfig:
     # hang detector on generation rounds, seconds (0 = off; the reference's
     # ray.get(timeout=240))
     generation_timeout_s: float = 0.0
-    # rollout environment: "math" only ("code", "verifier": item 8b)
+    # rollout environment: "math" (single-turn, the reference's task),
+    # "code" (sandboxed <tool> execution, its output fed back) or
+    # "verifier" (a critique and a retry, the improvement rewarded). The
+    # multi-turn environments step between the turns of the paged refill
+    # engine, whose turn hook continues each conversation on its resident
+    # KV; the injected tokens are loss-masked in the learner
     env: str = "math"
+    # conversation turns per episode of a multi-turn environment ("math" is
+    # single-turn: > 1 there is a dead flag, refused)
+    max_turns: int = 1
     # format-reward gate: "soft" (the reference's) or "strict"
     format_reward: str = "soft"
 
@@ -352,25 +356,41 @@ class TrainConfig:
             raise ValueError(f"rpc_backoff_s must be >= 0, got {self.rpc_backoff_s}")
         if self.producer_restarts < 0:
             raise ValueError(f"producer_restarts must be >= 0, got {self.producer_restarts}")
-        if self.full_finetune and self.async_rollout:
-            # the push casts the masters in place into the one rollout copy,
-            # which the round in flight reads
-            raise NotImplementedError(
-                f"full_finetune with rollout_mode={self.rollout_mode!r} is not ported "
-                f"({_ENV_ITEM})")
         if self.full_finetune:
             model_cfg = preset_for_model_name(self.model)
             if model_cfg is not None:  # else the Trainer checks its loaded model
                 check_full_finetune_fits(model_cfg, self.dtype, self.model)
         if self.decode_scan_chunk is not None and self.decode_scan_chunk < 0:
             raise ValueError(f"decode_scan_chunk must be >= 0, got {self.decode_scan_chunk}")
-        if self.env not in _ENV_NAMES:
-            raise ValueError(f"env must be one of {', '.join(_ENV_NAMES)}, got {self.env!r}")
+        from distrl_llm_tpu_torch.env.registry import env_names
+
+        if self.env not in env_names():
+            raise ValueError(f"env must be one of {', '.join(env_names())}, got {self.env!r}")
+        if self.max_turns < 1:
+            raise ValueError(f"max_turns must be >= 1, got {self.max_turns}")
         if self.format_reward not in ("soft", "strict"):
             raise ValueError(
                 f"format_reward must be 'soft' or 'strict', got {self.format_reward!r}")
+        if self.env == "math" and self.max_turns > 1:
+            raise ValueError(
+                "max_turns > 1 is a dead flag with env='math' (single-turn by "
+                "construction) — pick env='code' or env='verifier'")
         if self.env != "math":
-            raise NotImplementedError(f"env={self.env!r} is not ported ({_ENV_ITEM})")
+            # the turn hook lives in the refill scheduler's idle pass, and a
+            # continuing conversation stays on its resident KV
+            if not (self.continuous_batching and self.continuous_admission):
+                raise ValueError(
+                    f"env={self.env!r} (multi-turn) requires continuous_batching + "
+                    "continuous_admission: turn continuations run on the refill "
+                    "scheduler's slots over resident KV")
+            if self.engine_impl != "paged":
+                raise ValueError(
+                    f"env={self.env!r} requires engine_impl='paged' (the turn hook "
+                    "lives on the paged refill engine)")
+            if self.spec_draft:
+                raise ValueError(
+                    f"env={self.env!r} is incompatible with spec_draft: the turn hook "
+                    "and the speculative resume contend for the same slot state")
         if self.continuous_batching and (
             self.engine_impl != "paged" or not self.max_concurrent_sequences
         ):

@@ -97,6 +97,14 @@ def _repeat_rows(src: torch.Tensor, n: int, dst: torch.Tensor | None) -> torch.T
     return dst
 
 
+def is_eos(tok: torch.Tensor, eos_ids: torch.Tensor) -> torch.Tensor:
+    """``tok`` in the EOS set, elementwise, by comparing every token with
+    every EOS id: what ``torch.isin`` computes, but capturable by a CUDA
+    graph at any EOS set's size (past a few dozen ids ``torch.isin`` sorts,
+    and its unique step waits on the host, which a capture refuses)."""
+    return (tok.unsqueeze(-1) == eos_ids).any(dim=-1)
+
+
 def _host(t: torch.Tensor) -> np.ndarray:
     """A host copy of ``t`` that owns its memory: the chunked engines' state
     is reused by the next round, and a CPU tensor's ``.numpy()`` would
@@ -200,7 +208,7 @@ def _decode_step(model: Decoder, lora, s: _DecodeState, seeds: torch.Tensor, *,
     # were still alive; they attend to it on the next forward
     position = s.step + prompt_len
     s.key_mask.index_copy_(1, position, alive.to(s.key_mask.dtype)[:, None])
-    s.done |= torch.isin(tok, eos_ids)
+    s.done |= is_eos(tok, eos_ids)
     if not last:
         logits, _ = model(
             tok[:, None], attention_mask=s.key_mask, lora=lora,

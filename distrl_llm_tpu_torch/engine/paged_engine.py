@@ -68,8 +68,17 @@ Counterpart of the JAX package's ``engine/paged_engine.py``
   parked in host memory (``engine/page_pool.py::HostPageStore``, copies
   ordered on the stream) and copied back at its resume instead of a
   recompute. ``last_pool_stats`` carries the JAX package's keys.
+* **The turn hook** (multi-turn episodes, ``env/driver.py``): with
+  ``turn_hook`` set, the refill scheduler's idle pass offers each finished
+  candidate's tokens to the hook before it releases the slot. Observation
+  tokens returned are appended in place: the slot keeps its occupant, its
+  pages and the conversation's KV, and one chunked forward over the
+  observation (the model's ``paged_chunked`` forward, as the preemption
+  resume) writes its KV and the next logits; decoding then continues in
+  the same window of ``max_new_tokens``. A hook forces the refill scheduler
+  and refuses the wave scheduler and speculative decoding.
 
-Not ported (ROADMAP items 8 and 11): the turn and gateway hooks.
+Not ported (ROADMAP item 11): the gateway hooks.
 """
 
 from __future__ import annotations
@@ -83,11 +92,12 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
+from distrl_llm_tpu_torch import telemetry
 from distrl_llm_tpu_torch.config import SamplingConfig
 from distrl_llm_tpu_torch.engine.decode_graph import tensors_key
 from distrl_llm_tpu_torch.engine.engine import (
     GenerationResult, LoraMailbox, ScanChunks, _host, _Snapshot, accumulate_round_stats,
-    add_decode_counts, generate_in_waves, run_decode,
+    add_decode_counts, generate_in_waves, is_eos, run_decode,
 )
 from distrl_llm_tpu_torch.engine.page_pool import HostPageStore, PagePool, RadixCache
 from distrl_llm_tpu_torch.engine.speculative import (
@@ -103,6 +113,10 @@ from distrl_llm_tpu_torch.ops.sampling import sample_with_logprob, token_logprob
 from distrl_llm_tpu_torch.utils.device import resolve_device
 
 Params = dict[str, Any]
+
+# the turn hook's telemetry series (this module is their one owner)
+ENGINE_TURN_RESUMES = "engine/turn_resumes"  # counter
+ENGINE_TURN_PREFILL_SAVED = "engine/turn_prefill_saved_tokens"  # counter
 
 @dataclass
 class _PagedDecodeState:
@@ -293,7 +307,7 @@ def _paged_decode_step(model: Decoder, lora, s: _PagedDecodeState,
     if capture_logprobs:
         s.logps.index_copy_(1, s.step, torch.where(s.done, 0.0, logp)[:, None])
     s.gen_lengths += alive.to(torch.int32)
-    s.done |= torch.isin(tok, eos_ids)
+    s.done |= is_eos(tok, eos_ids)
     if not last:
         _paged_forward(model, lora, s, tok, page_indices, page_size=page_size,
                        lora_scale=lora_scale)
@@ -476,7 +490,7 @@ def _spec_admit(s: SpecRefillState, new_cand, admit_mask, last_logits, real_len,
     tok0, logp0 = sample_with_logprob(
         last_logits[prompt_t], temperature, top_p, seeds, top_p_impl=top_p_impl,
         capture_logprob=capture_logprobs)
-    s.done[slots_t] = _to_device(~live, dev) | torch.isin(tok0, eos_ids)
+    s.done[slots_t] = _to_device(~live, dev) | is_eos(tok0, eos_ids)
     # the n-gram buffer: packed prompt, then tok0 at position real_len
     k, p = len(slots), packed_ids.shape[1]
     rows = torch.zeros((k, s.seq_buf.shape[1]), dtype=torch.int32, device=dev)
@@ -519,7 +533,7 @@ def _refill_decode_step(model: Decoder, lora, s: _RefillState, seeds: torch.Tens
         s.logps_buf[row, col] = logp
     s.gen_lengths += alive.to(torch.int32)
     s.lengths_buf[row] = s.gen_lengths
-    s.done |= (torch.isin(tok, eos_ids) & alive) | (s.gen_lengths >= max_steps)
+    s.done |= (is_eos(tok, eos_ids) & alive) | (s.gen_lengths >= max_steps)
     cache = {"k": s.k_pages, "v": s.v_pages, "lengths": s.seq_lengths,
              "page_indices": s.page_indices}
     logits, _ = model(tok[:, None], positions=s.seq_lengths[:, None], lora=lora,
@@ -601,9 +615,9 @@ def _spec_step(model: Decoder, lora, s: SpecRefillState, gen: torch.Generator, *
     # emission stops AT the first EOS among the emitted tokens, and at the
     # occupant's token budget
     pos = steps[None, :]
-    is_eos = torch.isin(emit, eos_ids) & (pos < n_emit[:, None])
-    any_eos = is_eos.any(dim=1)
-    first_eos = is_eos.to(torch.int8).argmax(dim=1).to(torch.int32)
+    eos_at = is_eos(emit, eos_ids) & (pos < n_emit[:, None])
+    any_eos = eos_at.any(dim=1)
+    first_eos = eos_at.to(torch.int8).argmax(dim=1).to(torch.int32)
     n_emit = torch.where(any_eos, first_eos + 1, n_emit)
     room = torch.clamp(max_steps - s.gen_lengths, min=0)
     n_emit = torch.where(alive, torch.minimum(n_emit, room), 0)
@@ -637,19 +651,25 @@ def _spec_step(model: Decoder, lora, s: SpecRefillState, gen: torch.Generator, *
 
 
 def _resume_forward(model: Decoder, lora, s, slot: int, prefix: np.ndarray,
-                    resident: int, real_len: int, *, page_size: int,
-                    lora_scale: float, logits_position: int) -> torch.Tensor:
-    """Rebuild a preempted candidate's KV by recompute: one chunked forward
-    over its generated ``prefix`` (the first ``resident`` tokens real) at
-    positions ``real_len + i`` into the slot's freshly granted pages.
-    Returns the logits [V] at ``logits_position``."""
+                    resident: int, start: int, *, page_size: int,
+                    lora_scale: float, logits_position: int,
+                    max_position: int | None = None) -> torch.Tensor:
+    """One chunked forward over ``prefix`` (the first ``resident`` tokens
+    real) at positions ``start + i`` into the slot's pages, after the
+    ``start`` tokens resident there: a preempted candidate's generated
+    prefix after its prompt (its KV rebuilt by recompute), or a turn's
+    observation after the whole conversation. ``max_position`` clamps the
+    padding lanes' positions (they write no KV). Returns the logits [V] at
+    ``logits_position``."""
     dev = s.done.device
     t = prefix.shape[0]
     valid = (np.arange(t) < resident).astype(np.int32)[None, :]
     cache = {"k": s.k_pages, "v": s.v_pages,
-             "lengths": torch.full((1,), real_len, dtype=torch.int32, device=dev),
+             "lengths": torch.full((1,), start, dtype=torch.int32, device=dev),
              "page_indices": s.page_indices[slot:slot + 1]}
-    positions = (real_len + torch.arange(t, dtype=torch.int32, device=dev))[None, :]
+    positions = (start + torch.arange(t, dtype=torch.int32, device=dev))[None, :]
+    if max_position is not None:
+        positions = positions.clamp(max=max_position)
     logits, _ = model(
         _to_device(prefix[None], dev, torch.int32), attention_mask=_to_device(valid, dev),
         positions=positions, lora=lora, lora_scale=lora_scale, kv_cache=cache,
@@ -671,6 +691,40 @@ def _resume_fixup(model: Decoder, lora, s: _RefillState, slot: int, prefix: np.n
     s.done[slot] = False
     s.gen_lengths[slot] = plen
     s.seq_lengths[slot] = real_len + plen
+
+
+def _turn_resume_fixup(model: Decoder, lora, s: _RefillState, slot: int, cand: int,
+                       obs: np.ndarray, obs_len: int, gen_len: int, seq_len: int,
+                       real_len: int, *, page_size: int, lora_scale: float, max_steps: int,
+                       capture_logprobs: bool) -> None:
+    """Continue a FINISHED candidate in place with an environment's
+    observation (the JAX package's ``_turn_resume_fixup``), in place. Unlike
+    ``_resume_fixup`` the slot was never released: the conversation's KV
+    (prompt and every turn so far) is resident in its pages, so only the
+    observation's ``obs_len`` tokens (``obs`` padded to the window) go
+    through one chunked forward, at positions ``seq_len + i``. The padding
+    lanes' positions are clamped to the slot's coverage, ``real_len +
+    max_steps - 1`` (the host resumes only when ``gen_len + obs_len <
+    max_steps``, so no real token reaches the clamp). The observation is
+    recorded in the candidate's ``out`` row (the driver decodes it with the
+    answer) with behavior logprobs of 0: the loss mask keeps it out of the
+    update. The slot's logits, cursors and ``done`` flag take the
+    continuation."""
+    logits = _resume_forward(model, lora, s, slot, obs, obs_len, seq_len,
+                             page_size=page_size, lora_scale=lora_scale,
+                             logits_position=max(obs_len - 1, 0),
+                             max_position=real_len + max_steps - 1)
+    dev = s.out.device
+    cols = slice(gen_len, gen_len + obs_len)
+    s.out[cand, cols] = _to_device(obs[:obs_len], dev, torch.int32)
+    if capture_logprobs:
+        s.logps_buf[cand, cols] = 0.0
+    new_gen = gen_len + obs_len
+    s.lengths_buf[cand] = new_gen
+    s.done[slot] = False
+    s.logits[slot] = logits
+    s.gen_lengths[slot] = new_gen
+    s.seq_lengths[slot] = seq_len + obs_len
 
 
 def _spec_resume_fixup(model: Decoder, lora, s: SpecRefillState, slot: int, cand: int,
@@ -931,6 +985,13 @@ class PagedGenerationEngine(LoraMailbox, ScanChunks):
         self.last_round_stats: dict | None = None
         self.last_pool_stats: dict | None = None
         self.last_spec_stats: dict | None = None
+        # multi-turn episodes: an owner (the trainer's env driver) sets a
+        # turn hook here, and the refill scheduler's idle pass consults it
+        # before it retires a finished candidate: ``hook(cand_id,
+        # gen_tokens) -> np.ndarray | None`` returns observation tokens to
+        # append in place, or None to finish; ``hook.declined(cand_id)``
+        # takes back an observation the engine could not seat
+        self.turn_hook: Any = None
 
     def _static_state(self, b: int, n: int, max_total_pages: int) -> _PagedDecodeState:
         """The wave state and page pools captured chunks read, for ``b``
@@ -1002,12 +1063,18 @@ class PagedGenerationEngine(LoraMailbox, ScanChunks):
         self.last_pool_stats = None
         self.last_spec_stats = None
         total = prompt_ids.shape[0] * max(sampling.n, 1)
+        if self.turn_hook is not None and (
+                self.scheduler != "refill" or not self.max_concurrent_rows or self.spec_draft):
+            raise ValueError(
+                "turn_hook (multi-turn episodes) requires the refill scheduler with "
+                "max_concurrent_rows set and no spec_draft — turn continuation lives in "
+                "the refill idle pass")
         with torch.inference_mode():
-            # a speculative or prefix-sharing engine never falls back to
-            # waves on a small batch
+            # a speculative, prefix-sharing or turn-hooked engine never
+            # falls back to waves on a small batch
             if self.scheduler == "refill" and (
                     total > self.max_concurrent_rows or self.spec_draft
-                    or self.prefix_sharing):
+                    or self.prefix_sharing or self.turn_hook is not None):
                 return self._generate_refill(model, lora, prompt_ids, prompt_mask,
                                              sampling, seed)
             return generate_in_waves(
@@ -1094,8 +1161,7 @@ class PagedGenerationEngine(LoraMailbox, ScanChunks):
     def _generate_refill(self, model, lora, prompt_ids, prompt_mask,
                          sampling: SamplingConfig, seed: int) -> GenerationResult:
         """Continuous batching: R decode slots, refilled per candidate (the
-        JAX package's ``_generate_refill`` without the turn and gateway
-        hooks). The host mirrors slot occupancy; per-slot epochs make it
+        JAX package's ``_generate_refill`` without the gateway hooks). The host mirrors slot occupancy; per-slot epochs make it
         ignore snapshots taken before a slot was refilled.
 
         With prefix sharing a group's candidates alias one refcounted prompt
@@ -1117,6 +1183,8 @@ class PagedGenerationEngine(LoraMailbox, ScanChunks):
         dev = self.device
         ps = self.page_size
         spec = self.spec_draft > 0
+        # the turn hook, read once a round; None costs one check an idle pass
+        th = self.turn_hook
         sharing = self.prefix_sharing
         continuous = self.continuous_admission
         prompt_ids_h, prompt_mask_h = np.asarray(prompt_ids), np.asarray(prompt_mask)
@@ -1535,6 +1603,66 @@ class PagedGenerationEngine(LoraMailbox, ScanChunks):
                     _resume_fixup(model, lora_cell[0], s, s_i, prefix, plen, rl,
                                   page_size=ps, lora_scale=self.lora_scale)
 
+        turn = dict(resumes=0, saved=0, window_short=0)
+        window_declines: list[tuple[int, int]] = []  # (obs tokens, window needed)
+
+        def try_turn_resume(s_i: int, c: int) -> bool:
+            """Before a finished candidate is retired, offer its tokens to the
+            turn hook. An observation that fits the window and the pool is
+            appended in place: the slot keeps its occupant and pages, so
+            the conversation's ``seq_len`` resident tokens are never
+            prefilled again. Returns True when the slot resumed (the idle
+            pass must not release it). A decline (no room in the window,
+            no pages) goes back to the hook through ``declined``; it never
+            preempts another slot, so a turn's continuation ranks below
+            first-turn progress."""
+            nonlocal budget
+            # a blocking read of the candidate's current truth (done is
+            # monotone per epoch, so it has finished); turn ends are rare
+            # beside decode steps, the cost argument of preempt()
+            gen_len = int(state.lengths_buf[c])
+            if gen_len + 2 > max_steps:
+                # no room for one observation token and one decode token:
+                # the hook is not consulted, the driver scores the last turn
+                # from the result tensors
+                turn["window_short"] += 1
+                return False
+            tokens = state.out[c, :gen_len].cpu().numpy().astype(np.int32)
+            obs = th(c, tokens)
+            if obs is None:
+                return False
+            obs = np.asarray(obs, np.int32).ravel()
+            t_obs = int(obs.size)
+            if t_obs == 0 or gen_len + t_obs + 1 > max_steps:
+                if t_obs > 0:
+                    window_declines.append((t_obs, gen_len + t_obs + 1))
+                th.declined(c)
+                return False
+            rl = int(real_len_h[c // n])
+            seq_len = rl + gen_len
+            if pool.ensure(s_i, admit_last_pos(rl, gen_len + t_obs)):
+                th.declined(c)
+                return False
+            # pages ensure granted reach the device before the chunked
+            # forward writes the observation's KV
+            ship_table(state)
+            obs_pad = np.full(max_steps, self.pad_id, np.int32)
+            obs_pad[:t_obs] = obs
+            _turn_resume_fixup(model, lora_cell[0], state, s_i, c, obs_pad, t_obs, gen_len,
+                               seq_len, rl, page_size=ps, lora_scale=self.lora_scale,
+                               max_steps=max_steps, capture_logprobs=self.capture_logprobs)
+            # snapshots queued while the slot's done flag was set must not
+            # retire the resumed occupant
+            epoch[s_i] += 1
+            # each resume may spend one more notice window of slot-steps
+            # before the occupant's next EOS is seen
+            budget += 2 * check
+            turn["resumes"] += 1
+            turn["saved"] += seq_len
+            telemetry.counter_add(ENGINE_TURN_RESUMES)
+            telemetry.counter_add(ENGINE_TURN_PREFILL_SAVED, float(seq_len))
+            return True
+
         def preempt(s_i: int) -> None:
             """Evict slot ``s_i``'s occupant: requeue it at the FRONT with its
             generated prefix (for its resume; with host spill its written
@@ -1642,6 +1770,11 @@ class PagedGenerationEngine(LoraMailbox, ScanChunks):
             idle = [int(s_i) for s_i in np.nonzero(done_h)[0] if snap_epoch[s_i] == epoch[s_i]]
             for s_i in idle:
                 c = snap_cand[s_i]
+                if (th is not None and c < total and not finished[c]
+                        and try_turn_resume(int(s_i), int(c))):
+                    # the episode continues in place: occupant, pages and KV
+                    # kept; the slot is neither released nor retired
+                    continue
                 if pool.owned[s_i] or pool.shared[s_i]:
                     pool.release(s_i)  # frees its pages, points it at scratch
                 if c < total:
@@ -1752,11 +1885,33 @@ class PagedGenerationEngine(LoraMailbox, ScanChunks):
             "restored_pages": radix_delta["restored_pages"] if cache_on else None,
             "spill_restore_ms_p50": (round(float(np.percentile(restore_ms, 50)), 3)
                                      if cache_on and restore_ms else None),
+            # in-place turn resumes and the conversation tokens they kept
+            # resident (None: no turn hook, the single-turn round)
+            "turn_resumes": turn["resumes"] if th is not None else None,
+            "turn_prefill_saved_tokens": turn["saved"] if th is not None else None,
         }
         if not finished.all():
             raise RuntimeError(
                 f"refill scheduler exhausted its step budget ({budget}) with "
                 f"{int((~finished).sum())}/{total} candidates unfinished")
+        if th is not None and turn["resumes"] == 0 and (window_declines
+                                                        or turn["window_short"]):
+            # every turn continuation this round was declined for want of
+            # window room: the round ran single-turn. One warning naming the
+            # observation length seen and the least window that would do
+            if window_declines:
+                detail = (f"observed observation length up to "
+                          f"{max(t for t, _ in window_declines)} tokens; minimum viable "
+                          f"max_new_tokens window: {max(w for _, w in window_declines)}")
+            else:
+                detail = (f"every finished candidate was within 2 tokens of the window, "
+                          f"so no observation could seat at all (max_new_tokens={max_steps})")
+            warnings.warn(
+                f"multi-turn window exhausted: all "
+                f"{len(window_declines) + turn['window_short']} turn continuations this "
+                f"round were declined for max_new_tokens room — the round degraded to "
+                f"single-turn. {detail} (need gen_len + obs_tokens + 1 <= max_new_tokens)",
+                RuntimeWarning, stacklevel=3)
         # host copies: a chunked engine's state is the next round's
         out = _host(state.out[:total]).reshape(b, n, max_steps)
         lengths = _host(state.lengths_buf[:total]).reshape(b, n)

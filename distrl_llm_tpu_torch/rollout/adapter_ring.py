@@ -1,4 +1,4 @@
-"""The pushed adapter under the overlapped rollout modes: copies into a
+"""The pushed weights under the overlapped rollout modes: copies into a
 small ring of persistent buffers, ordered against the rollout's stream.
 
 In the pipelined and async modes a generation round runs while the learner
@@ -30,6 +30,14 @@ graph keys of a shape stay bounded by the ring's size.
   host order suffices.
 * **Identity.** Each push publishes a new dict over the buffer's tensors:
   the engine's radix cache keys cached KV on the adapter object's identity.
+* **Any tree of weights.** The buffers may be modules instead of adapter
+  dicts: full fine-tuning's rollout copies, ``Decoder``s at the rollout's
+  dtype that the caller hands in (``buffers=``), each push casting the f32
+  masters into one of them, parameter by parameter. A module is published
+  as itself with its ``weights_version`` bumped: each copy carries its own
+  version, so the engine's prefix cache, which keys cached KV on the model
+  object and its version, never serves KV written under another copy or
+  an older push, and each copy is one key of the engine's graphs.
 """
 
 from __future__ import annotations
@@ -39,7 +47,9 @@ import threading
 import torch
 
 
-def _leaves(tree: dict) -> list[torch.Tensor]:
+def _leaves(tree) -> list[torch.Tensor]:
+    if isinstance(tree, torch.nn.Module):
+        return list(tree.parameters())
     return [tree["layers"][t][k] for t in sorted(tree["layers"]) for k in ("a", "b")]
 
 
@@ -54,16 +64,21 @@ class _Round:
 
 
 class AdapterRing:
-    """``size`` persistent adapter buffers on ``device``; the learner
-    ``push``es into them, rounds ``acquire`` the published one."""
+    """``size`` persistent weight buffers on ``device``; the learner
+    ``push``es into them, rounds ``acquire`` the published one. Adapter
+    buffers are allocated at their first push; module buffers (``buffers``,
+    ``size`` of them) are the caller's."""
 
-    def __init__(self, size: int, device: torch.device):
+    def __init__(self, size: int, device: torch.device, *,
+                 buffers: list[torch.nn.Module] | None = None):
         if size < 2:
             raise ValueError(f"an adapter ring needs at least 2 buffers, got {size}")
+        if buffers is not None and len(buffers) != size:
+            raise ValueError(f"a ring of {size} buffers was given {len(buffers)}")
         self.size = size
         self.device = torch.device(device)
         self._cuda = self.device.type == "cuda"
-        self._bufs: list[dict | None] = [None] * size
+        self._bufs: list = list(buffers) if buffers is not None else [None] * size
         # the latest published dict over each buffer and its version
         self._dicts: list[dict | None] = [None] * size
         self._versions: list[int | None] = [None] * size
@@ -75,13 +90,18 @@ class AdapterRing:
         self._cv = threading.Condition()
         self.pushes = 0
         self.push_waits = 0  # pushes that waited on the host for a free buffer
+        # per push: (buffer written, version, every buffer's holds when it
+        # was chosen, the released events its copy waited on)
+        self.books: list[tuple[int, int, tuple, int]] = []
 
     # ------------------------------------------------------------- learner
 
-    def push(self, tree: dict, version: int) -> dict:
-        """Copy ``tree`` ({"layers": {target: {"a", "b"}}}) into a free
-        buffer on the calling thread's stream, publish it as ``version`` and
-        return the new dict over that buffer's tensors."""
+    def push(self, tree, version: int):
+        """Copy ``tree`` ({"layers": {target: {"a", "b"}}}, or a module whose
+        parameters match the module buffers') into a free buffer on the
+        calling thread's stream, casting to the buffer's dtype, publish it
+        as ``version`` and return what rounds read: a new dict over that
+        buffer's tensors, or the module buffer itself."""
         with self._cv:
             while True:
                 free = [j for j in self._order() if self._holds[j] == 0]
@@ -91,6 +111,7 @@ class AdapterRing:
                 self._cv.wait()
             j = free[0]
             waits, self._released[j] = self._released[j], []
+            self.books.append((j, version, tuple(self._holds), len(waits)))
         stream = torch.cuda.current_stream(self.device) if self._cuda else None
         for event in waits:
             stream.wait_event(event)
@@ -105,7 +126,12 @@ class AdapterRing:
         if self._cuda:
             ready = torch.cuda.Event()
             ready.record(stream)
-        published = {"layers": {t: dict(ab) for t, ab in self._bufs[j]["layers"].items()}}
+        buf = self._bufs[j]
+        if isinstance(buf, torch.nn.Module):
+            buf.weights_version += 1
+            published = buf
+        else:
+            published = {"layers": {t: dict(ab) for t, ab in buf["layers"].items()}}
         with self._cv:
             self._ready[j], self._dicts[j], self._versions[j] = ready, published, version
             self._published = j
@@ -120,7 +146,7 @@ class AdapterRing:
 
     # ------------------------------------------------------------- rollout
 
-    def acquire(self) -> tuple[dict, int, _Round]:
+    def acquire(self) -> tuple:
         """At a round's entry: hold the published buffer and order the
         calling stream after its copy; returns (adapter, version, the
         round's handle for ``release_round``). The engine runs one round at

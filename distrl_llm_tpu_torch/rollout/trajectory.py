@@ -17,7 +17,7 @@ down-weights stale-beyond-K tokens (learner/losses.py::grpo_aipo_loss).
 
 The multi-turn fields (``loss_mask``, ``rewards``, the turn provenance in
 ``meta``) and the turn-aware version bounds are carried as data: the
-environments that fill them are ROADMAP queue 1 item 8b.
+environments' driver (``env/driver.py``) fills them.
 """
 
 from __future__ import annotations

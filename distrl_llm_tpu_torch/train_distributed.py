@@ -151,8 +151,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--rpc_backoff_s", type=float, default=0.25,
                    help="base delay of the seeded backoff before a producer restart")
     p.add_argument("--env", type=str, default="math", choices=["code", "math", "verifier"],
-                   help="rollout environment; the port runs 'math' (the others: "
-                        "ROADMAP item 8b)")
+                   help="rollout environment: 'math' (single-turn), 'code' (sandboxed "
+                        "<tool> execution) or 'verifier' (critique and retry); the "
+                        "multi-turn ones need the paged refill engine with "
+                        "--continuous_batching --continuous_admission")
+    p.add_argument("--max_turns", type=int, default=1,
+                   help="conversation-turn budget per episode for multi-turn --env "
+                        "values (env='math' is single-turn; > 1 there is refused)")
     p.add_argument("--format_reward", type=str, default="soft", choices=["soft", "strict"])
     p.add_argument("--no_print_samples", dest="print_samples", action="store_false",
                    help="disable the per-update sample dump")
@@ -221,9 +226,12 @@ def run_smoke(config: TrainConfig, device: str = "cuda") -> None:
     from distrl_llm_tpu_torch.utils.device import resolve_device
 
     dev = resolve_device(device)
+    multi_turn = config.env != "math"
     config = dataclasses.replace(
         config, model="tiny", episodes=1, batch_size=4, num_candidates=4, topk=4,
-        train_batch_size=4, max_prompt_tokens=64, max_new_tokens=32,
+        # a multi-turn episode's turns share the window: room for the
+        # verifier's ~130-token critique and a turn after it
+        train_batch_size=4, max_prompt_tokens=64, max_new_tokens=224 if multi_turn else 32,
         number_of_actors=1, number_of_learners=1, learner_chunk_size=1,
         eval_every=0, save_every=0, metrics_backend="null",
         max_lora_rank=4, lora_alpha=8, lr=1e-3,
@@ -237,9 +245,12 @@ def run_smoke(config: TrainConfig, device: str = "cuda") -> None:
     # TINY's projections take 64 or 128 inputs: groups of 16 divide them
     quantize_base(model, config.base_quant,
                   None if config.base_quant == "none" else config.quant_group_size or 16)
+    # random weights almost never sample the one EOS id, so a turn would
+    # never end by choice: a multi-turn smoke ends turns on every 16th id too
+    eos = [tokenizer.eos_token_id] + (list(range(5, TINY.vocab_size, 16)) if multi_turn else [])
     common = dict(
         max_prompt_tokens=config.max_prompt_tokens, max_new_tokens=config.max_new_tokens,
-        eos_token_ids=[tokenizer.eos_token_id], pad_token_id=tokenizer.pad_token_id,
+        eos_token_ids=eos, pad_token_id=tokenizer.pad_token_id,
         lora_scale=lora_scale(config.max_lora_rank, config.lora_alpha),
         capture_logprobs=config.clip_ratio > 0.0, attn_impl=config.attn_impl, device=dev,
     )
@@ -247,7 +258,8 @@ def run_smoke(config: TrainConfig, device: str = "cuda") -> None:
         engine = PagedGenerationEngine(
             TINY, page_size=8, max_concurrent_rows=4,
             scheduler="refill" if config.continuous_batching else "waves",
-            decode_chunk=4, **common)
+            prefix_sharing=config.prefix_sharing,
+            continuous_admission=config.continuous_admission, decode_chunk=4, **common)
     else:
         engine = GenerationEngine(TINY, **common)
     sink = MemorySink()
@@ -257,6 +269,10 @@ def run_smoke(config: TrainConfig, device: str = "cuda") -> None:
     train_recs = [m for _, m in sink.records if "loss" in m]
     assert train_recs, "no train steps ran"
     assert all(np.isfinite(m["loss"]) for m in train_recs), "non-finite loss"
+    if multi_turn:
+        print(f"env {config.env}: turns per episode, mean "
+              f"{np.mean([m['env/turns_mean'] for m in train_recs]):.2f}, max "
+              f"{max(m['env/turns_max'] for m in train_recs)}")
     print(f"SMOKE OK — {len(train_recs)} train steps on {dev}")
     print(train_recs[-1])
 

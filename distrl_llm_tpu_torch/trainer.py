@@ -31,15 +31,22 @@ distributed_trainer.py:13-416) on one card, one learner:
   ``Decoder`` built from the base), and the base becomes the rollout copy:
   each push casts the masters into it in place, at the base's dtype, and
   bumps its ``weights_version``; the engine samples it with no adapter.
+  Under the overlapped modes the rollout copy is a ring of two such
+  ``Decoder``s (the base and one more), and each push casts into the one
+  no round in flight holds, as the adapter ring does for adapters.
+* **Multi-turn environments** (``env`` "code" or "verifier",
+  ``env/driver.py``): the driver is the paged engine's turn hook for each
+  round; each candidate carries its loss mask (0 on injected observation
+  tokens), the environment's (n, 2) rewards (the reward pass does not score
+  such a round again), its turns' provenance and the ``env/*`` metrics.
 * **Metrics**: the reference's exact names (distributed_trainer.py:348-366,
   :412-415) through a pluggable sink (``metrics.py``); each phase's
   ``timing/*_duration`` ends on finished device work.
 * **Checkpointing**: the resume state (``checkpoint.py``) and the per-step
   adapter artifact.
 
-Not ported (each raises where a config would reach it): multi-turn envs and
-full fine-tuning under the overlapped modes (ROADMAP queue 1 item 8b),
-remote workers (item 9), meshes, the hybrid actor/learner split and full
+Not ported (each raises where a config would reach it): remote workers
+(ROADMAP queue 1 item 9), meshes, the hybrid actor/learner split and full
 fine-tuning past one card (item 10), and the observability, lineage,
 control and gateway planes (item 11).
 """
@@ -129,7 +136,8 @@ def make_engine(config: TrainConfig, model: Decoder, tokenizer, *,
     ``engine/budget.py::kv_pool_pages`` under ``learner_gpu_usage``: the
     engine and the learner share the card (``hbm_bytes`` defaults to the
     card's memory), so with ``full_finetune`` the learner's f32 masters,
-    grads and moments are charged beside the rollout weights."""
+    grads and moments are charged beside the rollout weights (and, under the
+    overlapped modes, the second rollout copy of the trainer's ring)."""
     from distrl_llm_tpu_torch.engine import GenerationEngine, PagedGenerationEngine
 
     dev = model.embed.device
@@ -157,6 +165,9 @@ def make_engine(config: TrainConfig, model: Decoder, tokenizer, *,
         if config.full_finetune:
             need = full_finetune_bytes(model.cfg, str(model.embed.dtype).removeprefix("torch."))
             learner_bytes = need["masters"] + need["grads"] + need["moments"]
+            if config.async_rollout:
+                # the overlapped modes' second rollout copy (the trainer's ring)
+                learner_bytes += need["rollout"]
         kwargs["max_kv_pages"] = kv_pool_pages(
             model.cfg,
             gpu_usage=config.learner_gpu_usage,
@@ -197,6 +208,16 @@ class EngineHangError(RuntimeError):
 
 def _leaves(lora: dict) -> list[torch.Tensor]:
     return [lora["layers"][t][k] for t in sorted(lora["layers"]) for k in ("a", "b")]
+
+
+def _env_turn_counts(candidates: list[dict]) -> list[int]:
+    """Per-episode turn counts from the provenance that rode a consumed
+    batch (the async learner's: the round's stats stayed with the
+    producer). ``cand["turns"]`` nests group-major: per group, per
+    candidate row, that episode's turn records; the count is the innermost
+    length."""
+    return [len(row or ()) for c in candidates if "turns" in c
+            for grp in c["turns"] for row in (grp or ())]
 
 
 class Trainer:
@@ -248,6 +269,21 @@ class Trainer:
                 "the one passed to Trainer — pass the fn in exactly one place")
         self.rewards = reward_computer
         self._reward_fn = reward_function
+
+        # a multi-turn environment arms the engine's turn hook each round:
+        # finished turns step the environment and continuing conversations
+        # resume on their resident KV; env="math" keeps the single-turn path
+        self._env_driver: Any = None
+        if config.env != "math":
+            from distrl_llm_tpu_torch.env import EnvRolloutDriver
+
+            if not hasattr(engine, "turn_hook"):
+                raise ValueError(
+                    f"env={config.env!r} needs an engine with a turn_hook (the paged "
+                    f"refill engine); {type(engine).__name__} has none")
+            self._env_driver = EnvRolloutDriver(
+                config.env, tokenizer, max_turns=config.max_turns,
+                max_new_tokens=config.max_new_tokens, format_scorer=config.format_reward)
 
         # inflight_weight_updates needs an engine that can swap a round in
         # flight: one without a real push_lora is refused here, never a
@@ -324,9 +360,14 @@ class Trainer:
 
         # the overlapped modes' pushes go through a ring of persistent
         # adapter copies (three when the self-drafter keeps the previous one
-        # resident), which the engine's mailbox tells of each swap
+        # resident), which the engine's mailbox tells of each swap; full
+        # fine-tuning's ring holds two rollout copies, the base and one more
         self._ring: AdapterRing | None = None
-        if config.async_rollout and not self._full:
+        if config.async_rollout and self._full:
+            base = self._rollout_model
+            self._ring = AdapterRing(2, self.device, buffers=[
+                base, Decoder(base.cfg, dtype=base.embed.dtype, device=self.device)])
+        elif config.async_rollout:
             self._ring = AdapterRing(3 if getattr(engine, "_track_prev_lora", False) else 2,
                                      self.device)
         if hasattr(engine, "lora_swap_hook"):
@@ -528,8 +569,14 @@ class Trainer:
         the rollout copy in place, at its dtype (one persistent ``Decoder``,
         no allocation per push), and its ``weights_version`` goes up by one:
         the engine's prefix cache keys its cached KV on it, so KV written
-        under the weights before a push is never served after it."""
-        if self._full:
+        under the weights before a push is never served after it. Pipelined
+        and async: a round in flight reads its copy while the learner
+        pushes, so the masters are cast into the ring's other copy, which
+        becomes the published rollout copy."""
+        if self._full and self._ring is not None:
+            self._rollout_model = self._ring.push(self.lora, self.weight_version)
+            self._lora_rollout = None
+        elif self._full:
             with torch.no_grad():
                 for p, src in zip(self._rollout_model.parameters(), self.lora.parameters(),
                                   strict=True):
@@ -557,11 +604,11 @@ class Trainer:
         with self._rng_mu:
             return int(torch.randint(2**62, (), generator=self._gen))
 
-    def _dispatch_rollout(self, prompt_ids, prompt_mask, sampling: SamplingConfig, lora):
+    def _dispatch_rollout(self, prompt_ids, prompt_mask, sampling: SamplingConfig,
+                          model: Decoder, lora):
         """One generation round: one engine call over the whole batch (one
         card has no disjoint learner devices for the JAX package's hybrid
         actor/learner split)."""
-        model = self._rollout_model if self._full else self.model
         return self._call_engine(model, lora, prompt_ids, prompt_mask, sampling,
                                  self._next_rng())
 
@@ -648,9 +695,11 @@ class Trainer:
         allowed_lag = self.config.allowed_weight_lag
         hold = None
         if self._ring is not None:  # holds the published copy until released
-            lora, rollout_version, hold = self._ring.acquire()
+            held, rollout_version, hold = self._ring.acquire()
+            model, lora = (held, None) if self._full else (self.model, held)
         else:
-            lora, rollout_version = self._engine_params()[1], self._rollout_weight_version
+            (model, lora), rollout_version = self._engine_params(), self._rollout_weight_version
+        driver = self._env_driver
         try:
             lag = self.weight_version - rollout_version
             if not 0 <= lag <= allowed_lag:
@@ -662,11 +711,19 @@ class Trainer:
             # the mailbox's swap log before dispatch, so this round's
             # in-flight swaps (and their versions) can be sliced out after
             swaps_before = len(getattr(self.engine, "last_swap_steps", ()))
-            result = self._dispatch_rollout(prompt_ids, prompt_mask, sampling, lora)
+            if driver is not None:
+                # one environment per candidate row (padding rows get born-done
+                # episodes); the driver is the engine's turn hook for the round
+                driver.begin_round(problems + [""] * (b_pad - b_real),
+                                   solutions + [""] * (b_pad - b_real), sampling.n)
+                self.engine.turn_hook = driver
+            result = self._dispatch_rollout(prompt_ids, prompt_mask, sampling, model, lora)
         except EngineHangError:
             hold = None  # the hung round still reads its adapter: the hold stays
             raise
         finally:
+            if driver is not None:
+                self.engine.turn_hook = None
             if hold is not None:
                 self._ring.release_round(hold)
         n = sampling.n
@@ -700,6 +757,21 @@ class Trainer:
             cand["version_tags"] = [tags for _ in range(b_real)]
             cand["base_version"] = rollout_version
             cand["swap_events"] = events
+        if driver is not None:
+            # score the turns the engine finished without consulting the hook
+            # and assemble the loss masks (1 on policy spans, 0 on injected
+            # observations), the environment's (n, 2) rewards (each turn was
+            # scored live: the reward pass must not score them again) and
+            # the turns' provenance
+            width = result.tokens.shape[-1]
+            env_round = driver.finish_round(np.asarray(result.tokens).reshape(-1, width),
+                                            np.asarray(result.lengths).reshape(-1))
+            cand["loss_mask"] = [env_round.loss_mask[i * n:(i + 1) * n] for i in range(b_real)]
+            cand["rewards"] = [env_round.group_rewards[i] for i in range(b_real)]
+            cand["turns"] = [env_round.turn_provenance[i * n:(i + 1) * n]
+                             for i in range(b_real)]
+            cand["env_name"] = driver.env_name
+            cand["env_stats"] = env_round.stats
         # pool and round stats snapshotted here, on the thread that ran the
         # round: the next round (or an eval) may overwrite the engine's
         # attributes before the update logs them
@@ -712,8 +784,11 @@ class Trainer:
         return [cand]
 
     def _compute_round_rewards(self, candidates: list[dict[str, Any]]) -> None:
-        """Per-task-group (n, 2) rewards (distributed_trainer.py:205-219)."""
+        """Per-task-group (n, 2) rewards (distributed_trainer.py:205-219); an
+        environment's round brings its own."""
         for cand in candidates:
+            if "rewards" in cand:
+                continue
             groups = [(cand["answers"][j], cand["solution"][j])
                       for j in range(len(cand["answers"]))]
             cand["rewards"] = self.rewards(groups, reward_fn=self._reward_fn)
@@ -1041,6 +1116,21 @@ class Trainer:
                               ("pool/preemptions", "preemptions")):
                 if pool.get(key) is not None:
                     metrics[name] = pool[key]
+        # an environment's rounds: the turn and tool series the driver
+        # assembled; a batch the async learner pulled carries only the turns'
+        # provenance, from which the turn counts follow
+        env_stats = next((c["env_stats"] for c in candidates if "env_stats" in c), None)
+        if env_stats is not None:
+            metrics["env/turns_mean"] = env_stats.turns_mean
+            metrics["env/turns_max"] = env_stats.turns_max
+            metrics["env/step_ms_p50"] = env_stats.env_step_ms_p50
+            metrics["env/round_tool_calls"] = env_stats.tool_calls
+            metrics["env/round_resume_declined"] = env_stats.resume_declined
+        elif any("turns" in c for c in candidates):
+            counts = _env_turn_counts(candidates)
+            if counts:
+                metrics["env/turns_mean"] = float(np.mean(counts))
+                metrics["env/turns_max"] = int(np.max(counts))
         metrics.update(self._engine_metrics(candidates))
         metrics.update(extra_metrics)
         metrics.update(timer.metrics())

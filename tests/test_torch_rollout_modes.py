@@ -4,8 +4,10 @@ CPU at TINY in f32 (``rollout_mode`` "pipelined" and "async",
 
 * **Config.** Every value of the rollout fields the JAX ``TrainConfig``
   accepts, the port's accepts with the same derived values (the alias,
-  ``allowed_weight_lag``), and what it rejects the port rejects; the two
-  refusals name ROADMAP item 8b. The CLI's flags reach the fields.
+  ``allowed_weight_lag``), and what it rejects the port rejects; the
+  configurations once refused under ROADMAP item 8b (full fine-tuning
+  overlapped, a multi-turn environment) both take. The CLI's flags reach
+  the fields.
 * **A schedule fixed by the test** (``FixedSchedule``, installed on both
   packages' trainer and engine alike; neither package holds such a gate):
   the push after update u waits until round u+1 has entered ``generate``
@@ -162,9 +164,15 @@ def test_rollout_validation_matches_jax(kw):
                                      continuous_batching=True, continuous_admission=True,
                                      max_concurrent_sequences=8)])
 def test_the_refusals_name_item_8b(kw):
-    jconfig.TrainConfig(**kw)  # the JAX package takes it
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8b"):
-        config.TrainConfig(**kw)
+    """The configurations the port once refused naming ROADMAP item 8b (full
+    fine-tuning under the overlapped modes, a multi-turn environment): both
+    packages take them now, with the same rollout fields and engine
+    knobs."""
+    j, p = jconfig.TrainConfig(**kw), config.TrainConfig(**kw)
+    for f in FIELDS + ("allowed_weight_lag", "full_finetune", "env", "max_turns"):
+        assert getattr(p, f) == getattr(j, f), f
+    assert trainer.engine_kwargs_from_config(p) == __import__(
+        "distrl_llm_tpu.trainer", fromlist=["x"]).engine_kwargs_from_config(j)
 
 
 def test_alias_and_allowed_lag():

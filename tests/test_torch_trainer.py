@@ -306,7 +306,23 @@ VALID = [
     dict(run_name="r1", format_reward="strict", eval_n=4, top_p_exact=True),
     dict(rollout_mode="pipelined"),
     dict(rollout_mode="async", clip_ratio=0.2, max_staleness=3, inflight_weight_updates=True),
+    # ROADMAP item 8b: full fine-tuning under the overlapped modes and the
+    # multi-turn environments (once refused by the port, now taken by both)
+    dict(rollout_mode="pipelined", full_finetune=True, model="tiny"),
+    dict(rollout_mode="async", clip_ratio=0.2, full_finetune=True, model="tiny"),
+    dict(env="code", engine_impl="paged", continuous_batching=True,
+         max_concurrent_sequences=8, continuous_admission=True),
+    # tests/test_config.py::TestEnvConfig's accepted shapes
+    dict(env="code", max_turns=3, engine_impl="paged", continuous_batching=True,
+         continuous_admission=True, max_concurrent_sequences=4),
+    dict(env="verifier", max_turns=3, engine_impl="paged", continuous_batching=True,
+         continuous_admission=True, max_concurrent_sequences=4, format_reward="strict"),
 ]
+
+# tests/test_config.py::TestEnvConfig's multi-turn shape, varied one knob at
+# a time
+_MULTI = dict(env="code", max_turns=3, engine_impl="paged", continuous_batching=True,
+              continuous_admission=True, max_concurrent_sequences=4)
 
 INVALID = [
     dict(learner="ppo"),
@@ -323,6 +339,14 @@ INVALID = [
     dict(decode_scan_chunk=-1),
     dict(env="chess"),
     dict(format_reward="lenient"),
+    dict(env="math", max_turns=2),
+    {**_MULTI, "max_turns": 0},
+    dict(env="code"),
+    {**_MULTI, "continuous_admission": False},
+    {**_MULTI, "spec_draft": 2},
+    {**_MULTI, "engine_impl": "dense"},
+    dict(env="verifier", engine_impl="paged", continuous_batching=True,
+         max_concurrent_sequences=4),
     dict(continuous_batching=True),
     dict(continuous_batching=True, engine_impl="paged"),
     dict(spec_draft=4),
@@ -345,12 +369,8 @@ INVALID = [
 # the unported knobs they need there), the port raises NotImplementedError
 # naming the ROADMAP item
 UNPORTED = [
-    (dict(rollout_mode="pipelined", full_finetune=True, model="tiny"), {}, "item 8"),
-    (dict(rollout_mode="async", clip_ratio=0.2, full_finetune=True, model="tiny"), {}, "item 8"),
     (dict(engine_impl="paged_sharded"), {}, "item 10"),
     (dict(full_finetune=True), {}, "item 10"),
-    (dict(env="code", engine_impl="paged", continuous_batching=True,
-          max_concurrent_sequences=8), dict(continuous_admission=True), "item 8"),
 ]
 
 
