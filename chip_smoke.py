@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (``distrl_llm_tpu_torch``).
 
-    python3 chip_smoke.py [--layers N] [--seed S] [--profile] [--until 6|7|...|15]
+    python3 chip_smoke.py [--layers N] [--seed S] [--profile] [--until 6|7|...|16]
 
 Needs one NVIDIA GPU (Hopper: the kernels build for ``sm_90a``) and ``nvcc``.
 Without a GPU it exits non-zero before computing anything. Phases, each
@@ -154,8 +154,9 @@ printing its own lines:
    bf16 backward at head_dim 256).
 11. scan chunks: the dense engine and the paged wave scheduler with
    ``scan_chunk`` 16, each chunk of 16 decode steps captured once as a CUDA
-   graph and replayed, at phase 4's cell (28 layers, the same weights from
-   the seed, 4 prompts x 16 x 128 new tokens). (a) dense and (b) paged
+   graph and replayed, at phase 4's cell (the same weights from the seed, 4
+   prompts x 16 x 128 new tokens; (a)-(d) at 14 layers, SHALLOW_LAYERS, the
+   depth cut that makes room for phase 16; 28 before it). (a) dense and (b) paged
    (bf16 pages), greedy: a first graphed round (its first chunk eager, the
    second captured), then graphed and eager rounds in turns (G E G; a
    second eager round was cut in PR 17 for the script's time), the
@@ -181,10 +182,11 @@ printing its own lines:
    counts are reset around it and held to what it dispatched (K1 per
    sampler call, K2 per layer per plain or drafter forward, K5 per layer per
    verify forward, replays included); every graphed/eager pair has equal
-   tokens, lengths and logprobs. (a) plain refill, greedy, 28 layers, G E G
-   (the first graphed round holds the capture; a second eager round was
-   cut in PR 17 for the script's time); (b) speculative refill
-   (``spec_draft=4``, n-gram 2), greedy, 28 layers, G G E, with accept rate
+   tokens, lengths and logprobs. (a) plain refill, greedy, G E G (the first
+   graphed round holds the capture; a second eager round was cut for the
+   script's time); (b) speculative refill (``spec_draft=4``, n-gram
+   2), greedy, G G E, (a) and (b) at 14 layers (SHALLOW_LAYERS: the depth cut
+   that makes room for phase 16; 28 before it), with accept rate
    and tokens per verify step; with ``--profile`` device ms per step and
    the idle share of (a) and (b) graphed and eager. Depth cut to 7 layers
    (GRAPH_TRAIN_LAYERS, phase 11 (f)'s) for (c)-(e): (c) prefix sharing,
@@ -213,8 +215,8 @@ printing its own lines:
    counts say, and add up to the run's; pipelined round t >= 1 opened with
    version t - 1; async swaps are real learner versions on chunk
    boundaries, the tags change exactly there, the buffer's books balance;
-   a graphed round captures only over adapters no earlier round used, at
-   most the ring's buffers; every regime's first train round equals (a)'s
+   each graph key is captured at most once, by a train round over weights
+   it or an earlier train round read, at most the ring's buffers; every regime's first train round equals (a)'s
    bit for bit; finite losses, the adapter within Adam8bit's clip. Printed:
    ms per training step and each ``timing/*_duration``, the seconds of
    host-clock overlap between rounds and updates, peak GiB allocated and
@@ -264,6 +266,35 @@ printing its own lines:
    the eval equal to a sync trainer's from the same seed. Printed: turns,
    resumes, declines, ``env/step_ms_p50``, each ``timing/*_duration``, the
    ring's books, peak GiB beside phase 10's, the phase's seconds.
+16. remote rollout workers (ROADMAP item 9): phase 13's QLoRA configuration
+   (int4 g64, GRPO clip 0.2, rank 32, splash, 4 x 16 x 128) at 7 layers
+   (GRAPH_TRAIN_LAYERS) through ``Trainer.from_pretrained`` with
+   ``rollout_workers``: a checkpoint written once by ``save_hf_checkpoint``
+   with phase 8's tokenizer, then for each regime two worker processes on
+   the card (``distributed/worker_main.py``, started with ``subprocess``,
+   each a refill engine of 16 slots over the int4 base with splash
+   prefills and behavior logprobs, a 0.12 share of the card for its page
+   pool; phase 13's 32 slots split over the two), the adapter over the
+   versioned weight bus. (a) sync, graphed
+   workers (scan chunk 16): the initial eval (greedy) and 2 steps; the
+   eval round's tokens equal an in-process refill engine's over the same
+   weights shard by shard. (b) async with ``inflight_weight_updates`` and
+   ``max_staleness=2``, graphed workers, 2 steps, under a fixed schedule
+   (round 1 enters once update 0's train step is done; that update's push
+   starts as the round is about to dispatch, and the round's shards go out
+   once the bus has encoded it): the push swaps in mid-round on a chunk
+   boundary of a graphed worker round, and the round's version tags change
+   exactly there. Then sync and pipelined over eager workers, 2 steps
+   each: the GIL measurement, printed, not claimed. Every run: finite
+   losses, the adapter within Adam8bit's clip, every version broadcast
+   (full at v0, deltas after) and acked by both workers with the driver's
+   checksum, no shard resubmitted or retried and both workers alive, the
+   driver's launches as its learner dispatched (K3 and K4, no K1 or K2),
+   and each worker's launches, read at its SIGTERM drain, as its rounds
+   dispatched (K1 per sampler call, K2 per layer per decode forward, K3 7
+   per layer per model forward, K4 per layer per splash prefill). Printed:
+   ms per step by phase, push ms and bytes of the full push and of each
+   delta, each process's peak GiB, the phase's seconds.
 
 Phase 3 holds K4 (forward and backward) against its plain version at the
 learner's [8, 1550, 28 / 4, 128] and at Gemma-2B's [8, 1550, 8 / 1, 256],
@@ -4708,11 +4739,13 @@ def graph_phase(cfg, args, card: str, t_start: float, *, qlora_tokens) -> list:
     import torch
 
     t0 = time.perf_counter()
-    weights = make_weights(cfg, "cuda", seed=args.seed)
+    # (a)-(d) at SHALLOW_LAYERS: the depth cut that makes room for phase 16
+    mid = dataclasses.replace(cfg, num_layers=min(cfg.num_layers, SHALLOW_LAYERS))
+    weights = make_weights(mid, "cuda", seed=args.seed)
     counted = []
     ab = {}
     for engine in ("dense", "paged"):
-        ab[engine] = graph_ab(cfg, "cuda", weights, engine=engine, seed=args.seed, card=card,
+        ab[engine] = graph_ab(mid, "cuda", weights, engine=engine, seed=args.seed, card=card,
                               profile=args.profile)
         counted += [ab[engine]["first"]["counts"]] + [
             r["counts"] for _, r in ab[engine]["rounds"]]
@@ -4720,9 +4753,9 @@ def graph_phase(cfg, args, card: str, t_start: float, *, qlora_tokens) -> list:
         print(f"graphed {engine}: {g:.3f} ms/step graphed vs {e:.3f} eager; total "
               f"{time.perf_counter() - t_start:.1f} s; {card}")
     ab.pop("paged")["g"].release_decode_graphs()
-    counted += graph_sampled(ab["dense"], weights, seed=args.seed, layers=cfg.num_layers,
+    counted += graph_sampled(ab["dense"], weights, seed=args.seed, layers=mid.num_layers,
                              card=card)
-    counted += graph_swap(ab["dense"], weights, cfg, seed=args.seed, card=card)
+    counted += graph_swap(ab["dense"], weights, mid, seed=args.seed, card=card)
     ab["dense"]["g"].release_decode_graphs()
     del ab, weights
     gc.collect()
@@ -5079,9 +5112,11 @@ def refill_graph_phase(cfg, args, card: str, t_start: float) -> list:
     counted = []
     gc.collect()
     torch.cuda.empty_cache()
-    weights = make_weights(cfg, "cuda", seed=args.seed)
+    # (a) and (b) at SHALLOW_LAYERS: the depth cut that makes room for phase 16
+    mid = dataclasses.replace(cfg, num_layers=min(cfg.num_layers, SHALLOW_LAYERS))
+    weights = make_weights(mid, "cuda", seed=args.seed)
     for d in (0, SPEC_DRAFT):
-        ab = refill_graph_ab(cfg, "cuda", weights, seed=args.seed, spec_draft=d, card=card,
+        ab = refill_graph_ab(mid, "cuda", weights, seed=args.seed, spec_draft=d, card=card,
                              profile=args.profile)
         counted += [r["counts"] for r in ab["rounds"]]
         g = [r["ms_per_step"] for r in ab["rounds"][1:] if r["kind"] == "graphed"]
@@ -5247,7 +5282,8 @@ def overlap_run(build, *, label: str, drive=None) -> dict:
         if ident != main:
             rollout_threads.add(ident)
         c0, f0 = launch_count.thread_counts(), fwd[ident]
-        g0 = (eng.decode_graphs.captures, eng.decode_graphs.replays)
+        g0 = (eng.decode_graphs.captures, eng.decode_graphs.replays,
+              len(eng.decode_graphs.captured_keys))
         swapped[ident] = []
         t0 = time.perf_counter()
         res = generate(*a, **kw)
@@ -5267,6 +5303,7 @@ def overlap_run(build, *, label: str, drive=None) -> dict:
             "counts": _kernel_counts(launch_count.thread_counts() - c0),
             "captures": eng.decode_graphs.captures - g0[0],
             "replays": eng.decode_graphs.replays - g0[1],
+            "captured_keys": eng.decode_graphs.captured_keys[g0[2]:],
             "model_key": tensors_key(a[0]),
             "adapters": [tensors_key(a[1]), *swapped[ident]]})
         return res
@@ -5357,8 +5394,9 @@ def check_overlap_run(out: dict, layers: int, *, steps: int, cuda: bool) -> None
     metric names; the adapter within Adam8bit's clip; the versions each
     round sampled (pipelined: round t >= 1 the version t - 1; async: every
     swap a real learner version on a chunk boundary, the tags changing
-    exactly there); the buffer's books; no capture after the first two
-    train rounds and no more than the ring's buffers per key; on the card
+    exactly there); the buffer's books; each graph key captured at most
+    once, by a train round over weights that it or an earlier one read, and
+    no more adapters than the ring's buffers; on the card
     each round's and each update's own launches as its counts say, and
     together all the run's."""
     import numpy as np
@@ -5409,18 +5447,25 @@ def check_overlap_run(out: dict, layers: int, *, steps: int, cuda: bool) -> None
               + s["occupancy"], f"{label}: the buffer's books do not balance: {s}")
     graphed = (cfg.decode_scan_chunk or 0) > 1
     if graphed and cuda:
-        # a key is captured in its first train round: a round whose weights
-        # (the model and each adapter it read) were all seen before replays
-        # only, and the train rounds' captures are at most the ring's
-        # buffers (adapters; in full mode the rollout copies)
+        # each key is captured at most once over the run (its graph cache
+        # keys, from the engine), and a train round captures only keys over
+        # weights (the model and an adapter) that it or an earlier train
+        # round read: a key's first chunk runs eagerly, so a swap in a
+        # round's last chunk leaves its capture to the next round. In all
+        # the train rounds read at most the ring's buffers (adapters; in
+        # full mode the rollout copies)
+        every = [key for r in out["rounds"] for key in r["captured_keys"]]
+        check(len(set(every)) == len(every), f"{label}: {len(every) - len(set(every))} "
+              f"graph keys were captured twice")
         seen: set = set()
         for i, r in enumerate(out["train_rounds"]):
-            new = {(r["model_key"], a) for a in r["adapters"]} - seen
-            check(r["captures"] <= len(new), f"{label}: train round {i} captured "
-                  f"{r['captures']} chunks over adapters seen before")
-            seen |= new
+            seen |= {(r["model_key"], a) for a in r["adapters"]}
+            for key in r["captured_keys"]:
+                check(any(m in key and a in key for m, a in seen),
+                      f"{label}: train round {i} captured a key over weights no train round "
+                      f"had read by then")
+        captured = sum(len(r["captured_keys"]) for r in out["train_rounds"])
         ring = tr._ring.size if tr._ring is not None else 1
-        captured = sum(r["captures"] for r in out["train_rounds"])
         check(captured <= ring and len(seen) <= ring, f"{label}: {captured} captures over "
               f"{len(seen)} adapters, more than the ring's {ring} buffers")
     if not cuda:
@@ -6314,12 +6359,675 @@ def env_rehearsal(workdir) -> dict:
     return {"a": a, "b": b, "c": c}
 
 
+# ------------------------------------------------------------------ phase 16
+# remote rollout workers: phase 13's QLoRA configuration (int4 g64, GRPO clip
+# 0.2, rank 32, splash) at 7 layers through Trainer.from_pretrained with
+# rollout_workers: two worker processes on the card, each a refill engine
+# over the same checkpoint, the adapter over the versioned weight bus
+REMOTE_WORKERS = 2
+# phase 13's 32 slots split over the workers: each worker's 32 candidates
+# (2 prompts x 16) refill 16 slots, as phase 13's 64 refill 32
+REMOTE_SLOTS = TRAIN_SLOTS // REMOTE_WORKERS
+# each worker's share of the card for its weights and KV pool: ~150 pages of
+# 128 tokens beside the int4 base (the round needs 64 private pages), so the
+# driver and all eight workers the phase starts fit the card at once
+REMOTE_GPU_USAGE = 0.12
+REMOTE_GATE_TIMEOUT_S = 600.0
+# (label, graphed workers, the regime's config): (a) sync, (b) async with
+# in-flight updates, then the GIL measurement: sync and pipelined over eager
+# workers. Each run gets a pair of its own (a worker's adapter cache names
+# versions, and a second trainer's versions would meet the first's); all
+# pairs start together before the first run (the checkpoint's pages are
+# shared in the page cache: safetensors_io maps the file) and drain together
+# after the last
+REMOTE_REGIMES = (
+    ("sync", True, dict(rollout_mode="sync")),
+    ("async", True, dict(rollout_mode="async", inflight_weight_updates=True, max_staleness=2,
+                         rollout_buffer_groups=1)),
+    ("sync_eager", False, dict(rollout_mode="sync")),
+    ("pipelined_eager", False, dict(rollout_mode="pipelined")),
+)
+
+
+def write_checkpoint(cfg, device, *, seed: int, path: Path, tokenizer_dir: Path) -> int:
+    """Random weights from ``seed`` (bf16 on the card, f32 on the CPU)
+    written by ``save_hf_checkpoint`` with the tokenizer files; its bytes."""
+    import shutil
+
+    import torch
+
+    from distrl_llm_tpu_torch.models.loading import save_hf_checkpoint
+
+    model, _ = make_weights(cfg, device, seed=seed)
+    save_hf_checkpoint(model, str(path))
+    for name in ("tokenizer.json", "tokenizer_config.json"):
+        shutil.copy(tokenizer_dir / name, path / name)
+    del model
+    if str(device).startswith("cuda"):
+        torch.cuda.empty_cache()
+    return sum(f.stat().st_size for f in path.iterdir())
+
+
+def worker_command(ckpt: Path, config, *, device: str, graphed: bool, group) -> list[str]:
+    """The worker_main command line serving ``config``'s rollout shape over
+    ``ckpt``: the refill engine, the int4 base, splash prefills, behavior
+    logprobs, scan chunks of 16 when ``graphed``, and on the card a
+    ``REMOTE_GPU_USAGE`` share for the page pool."""
+    cmd = [sys.executable, "-m", "distrl_llm_tpu_torch.distributed.worker_main", "--port", "0",
+           "--serve-model", str(ckpt), "--device", device,
+           "--dtype", "bfloat16" if device == "cuda" else "float32",
+           "--max-prompt-tokens", str(config.max_prompt_tokens),
+           "--max-new-tokens", str(config.max_new_tokens),
+           "--lora-rank", str(config.max_lora_rank), "--lora-alpha", str(config.lora_alpha),
+           "--base-quant", "int4", "--quant-group-size", str(group),
+           "--engine-impl", "paged", "--scheduler", "refill",
+           "--max-concurrent-sequences", str(REMOTE_SLOTS), "--attn-impl", config.attn_impl,
+           "--capture-logprobs"]
+    if graphed:
+        cmd += ["--scan-chunk", str(GRAPH_CHUNK)]
+    if device == "cuda":
+        cmd += ["--gpu-usage", str(REMOTE_GPU_USAGE), "--budget-batch", str(config.batch_size)]
+    return cmd
+
+
+class WorkerPool:
+    """Worker processes (``subprocess``, never a fork of this CUDA process),
+    started at construction; ``ready()`` waits for each one's ``PORT n``;
+    ``drain()`` sends SIGTERM and reads each one's launch counts and peak
+    memory; ``kill()`` stops whatever is left. A worker's stderr goes to a
+    file of its own."""
+
+    def __init__(self, cmd: list[str], n: int, logdir: Path):
+        import os
+
+        logdir.mkdir(parents=True, exist_ok=True)
+        self.procs, self.logs, self.addresses, self.stopped = [], [], [], False
+        env = {**os.environ, "PYTHONPATH": str(HERE)}
+        self.t0 = time.perf_counter()
+        try:
+            for i in range(n):
+                self.logs.append(logdir / f"worker{i}.err")
+                with open(self.logs[-1], "w") as err:
+                    self.procs.append(subprocess.Popen(
+                        cmd, stdout=subprocess.PIPE, stderr=err, text=True, env=env,
+                        cwd=str(HERE)))
+        except BaseException:
+            self.kill()
+            raise
+
+    def ready(self) -> list[str]:
+        """The workers' addresses, once each printed its port."""
+        for i, p in enumerate(self.procs[len(self.addresses):], len(self.addresses)):
+            line = p.stdout.readline().strip()
+            check(line.startswith("PORT "), f"worker {i} did not start: {line!r}; "
+                  f"{self.tail(i)}")
+            self.addresses.append(f"127.0.0.1:{int(line.split()[1])}")
+        self.start_s = time.perf_counter() - self.t0
+        return self.addresses
+
+    def tail(self, i: int) -> str:
+        try:
+            return self.logs[i].read_text()[-2000:]
+        except OSError:
+            return ""
+
+    def alive(self) -> bool:
+        return all(p.poll() is None for p in self.procs)
+
+    def stop(self) -> None:
+        """SIGTERM each worker once: a graceful drain (a second SIGTERM may
+        land after the drain, at the interpreter's exit)."""
+        import signal
+
+        if not self.stopped:
+            for p in self.procs:
+                p.send_signal(signal.SIGTERM)
+            self.stopped = True
+
+    def drain(self) -> list[dict]:
+        """``stop()``, then each worker's launch counts by KERNELS name and
+        peak GiB (NaN on the CPU) from its last lines; fails unless each
+        drained and exited 0."""
+        self.stop()
+        out = []
+        for i, p in enumerate(self.procs):
+            stdout, _ = p.communicate(timeout=60)
+            lines = stdout.splitlines()
+            check(p.returncode == 0 and "DRAINED" in lines, f"worker {i} did not drain "
+                  f"(exit {p.returncode}): {stdout[-500:]!r}; {self.tail(i)}")
+            launches = json.loads(next(x for x in lines if x.startswith("LAUNCHES "))[9:])
+            peak = next((float(x.split()[1]) for x in lines if x.startswith("PEAK_GIB ")),
+                        float("nan"))
+            out.append({"counts": {k["name"]: launches[f"{k['module']}.{k['counter']}"]
+                                   for k in KERNELS}, "peak_gib": peak})
+        return out
+
+    def kill(self) -> None:
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait(timeout=30)
+            if p.stdout is not None:
+                p.stdout.close()
+
+
+def fix_push_schedule(trainer, *, steps: int) -> None:
+    """(b)'s schedule, fixed so that an in-flight push lands inside a worker
+    round, early enough to change its tags (the async producer would
+    otherwise finish a round before the update that follows it ends, and a
+    push takes hundreds of ms to encode, send and decode): train round t >=
+    1 enters the engine once update t - 1's train step has finished, so it
+    opens with version t - 1; that update's push of version t starts as the
+    round is about to dispatch, and the round's shards go out once the bus
+    has encoded the push. The push then lands while the workers decode."""
+    import threading as _threading
+
+    eng = trainer.engine
+    generate, dispatch, push = eng.generate, eng.driver.dispatch_objects, trainer._push_weights
+    encode = eng.bus._encoded
+    calls, sent = [0], [0]  # the initial eval's round is call 0
+    learner_done, round_out, encoded = ([_threading.Event() for _ in range(steps)]
+                                        for _ in range(3))
+
+    def gen(*a, **kw):
+        t = calls[0] - 1
+        calls[0] += 1
+        if 1 <= t < steps:
+            check(learner_done[t - 1].wait(REMOTE_GATE_TIMEOUT_S),
+                  f"round {t}: update {t - 1} never finished")
+        return generate(*a, **kw)
+
+    def dispatched(*a, **kw):
+        t = sent[0] - 1
+        sent[0] += 1
+        if 1 <= t < steps:
+            round_out[t].set()
+            check(encoded[t].wait(REMOTE_GATE_TIMEOUT_S), f"the push of v{t} never encoded")
+        return dispatch(*a, **kw)
+
+    def encoded_once(tree, version, base):
+        out = encode(tree, version, base)
+        if 1 <= version < steps:
+            encoded[version].set()
+        return out
+
+    def pushed():
+        v = trainer.weight_version  # the version this push publishes
+        if 1 <= v < steps:
+            learner_done[v - 1].set()
+            check(round_out[v].wait(REMOTE_GATE_TIMEOUT_S), f"round {v} never went out")
+        push()
+
+    eng.generate, eng.driver.dispatch_objects, trainer._push_weights = gen, dispatched, pushed
+    eng.bus._encoded = encoded_once
+
+
+def remote_run(build, *, label: str, schedule=None) -> dict:
+    """``build(sink)`` makes a ``Trainer`` over a ``RemoteEngine``; this runs
+    its ``train()`` with the counts reset just before and read just after,
+    recording each remote round (its inputs, result and per-shard worker
+    stats, the version it dispatched), each train round's version tags and
+    swaps, the learner's forwards (the driver's only kernel launches), each
+    train record's host time, the weight bus's broadcasts and the driver's
+    peak memory. ``schedule(trainer)``, when given, installs a fixed
+    schedule first."""
+    import numpy as np
+    import torch
+
+    cell = []
+    sink = _StepSink(cell)
+    trainer = build(sink)
+    cell.append(trainer)
+    if schedule is not None:
+        schedule(trainer)
+    eng, model = trainer.engine, trainer.model
+    dev = model.embed.device
+    cuda = dev.type == "cuda"
+    learner = [0]
+
+    def hook(*_):
+        learner[0] += 1
+
+    handle = model.register_forward_hook(hook)
+    rounds, tagged, stamps = [], [], []
+    generate, gen_round, log = eng.generate, trainer._generate_round, sink.log
+
+    def recorded(*a, **kw):
+        state = eng._bus_state
+        t0 = time.perf_counter()
+        res = generate(*a, **kw)
+        rounds.append({"t": (t0, time.perf_counter()), "ids": a[2], "mask": a[3],
+                       "sampling": a[4], "res": res,
+                       "shards": [dict(m) for m in eng.last_shard_meta],
+                       "lora_np": state[1] if state else None,
+                       "version": state[2] if state else None})
+        return res
+
+    def round_tags(batch, sampling):
+        out = gen_round(batch, sampling)
+        c = out[0]
+        if sampling.n == trainer.config.num_candidates and "base_version" in c:
+            tagged.append({"base": c["base_version"], "events": list(c["swap_events"]),
+                           "tags": np.asarray(c["version_tags"][0])})
+        return out
+
+    def logged(metrics, step):
+        stamps.append((time.perf_counter(), "loss" in metrics))
+        log(metrics, step)
+
+    eng.generate, trainer._generate_round, sink.log = recorded, round_tags, logged
+    initial = _lora_host(trainer.lora)
+    if cuda:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    try:
+        reset_counts()
+        t = time.perf_counter()
+        trainer.train()
+        wall = time.perf_counter() - t
+        counts = read_counts()
+    finally:
+        handle.remove()
+        eng.generate, trainer._generate_round = generate, gen_round
+    acked = eng.bus.flush(60.0) if eng.bus is not None else True
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30 if cuda else float("nan")
+    step_ms = [1e3 * (t1 - t0) for (t0, _), (t1, is_train) in zip(stamps, stamps[1:])
+               if is_train]
+    return {"trainer": trainer, "label": label, "records": sink.records,
+            "adapters": [initial] + sink.adapters, "rounds": rounds, "tagged": tagged,
+            "counts": counts, "wall_s": wall, "peak_gib": peak, "step_ms": step_ms,
+            "learner_forwards": learner[0], "flushed": acked,
+            "broadcasts": list(eng.bus.history) if eng.bus is not None else []}
+
+
+def worker_rounds(out: dict) -> dict[str, list[dict]]:
+    """Each worker's round stats over a run's rounds, by its address."""
+    by: dict[str, list[dict]] = {}
+    for r in out["rounds"]:
+        for shard in r["shards"]:
+            check(shard["worker"] is not None and shard["round_stats"] is not None,
+                  f"{out['label']}: a shard came back from no worker")
+            by.setdefault(shard["worker"], []).append(shard["round_stats"])
+    return by
+
+
+def worker_want(stats: list[dict], layers: int) -> dict[str, int]:
+    """What a worker's rounds dispatched: K1 per sampler call, K2 per layer
+    per decode forward, K3 7 per layer per model forward (the int4 base),
+    K4 forward per layer per splash prefill."""
+    decode = sum(s["decode_forwards"] for s in stats)
+    model = sum(s["model_forwards"] for s in stats)
+    prefills = sum(s["model_forwards"] - s["decode_forwards"] - s["resumes"] for s in stats)
+    want = {k["name"]: 0 for k in KERNELS}
+    want.update(fused_sample=sum(s["sampler_calls"] for s in stats),
+                paged_attention=layers * decode, quant_matmul=7 * layers * model,
+                flash_attention_fwd=layers * prefills)
+    return want
+
+
+def check_remote_run(out: dict, layers: int, *, steps: int, workers: int, cuda: bool) -> None:
+    """A run over the workers: ``steps`` finite losses and the reference's
+    metric names, the adapter within Adam8bit's clip; every broadcast acked
+    by every worker, each worker holding the last version with the
+    driver's checksum; the deltas smaller than the first (full) push; no
+    shard resubmitted, retried or lost, both workers healthy; on the card
+    the driver's launches as its learner dispatched (K3 7 x layers and K4
+    per layer twice per learner forward, K4 backward once), no K1 or K2."""
+    from distrl_llm_tpu_torch.distributed.weight_bus import checksum_tree
+
+    tr, label = out["trainer"], out["label"]
+    eng = tr.engine
+    train = [m for _, m in out["records"] if "loss" in m]
+    check(len(train) == steps, f"{label}: {len(train)} train records, want {steps}")
+    for m in train:
+        check(math.isfinite(m["loss"]), f"{label}: loss {m['loss']}")
+        check(TRAIN_METRICS <= set(m), f"{label}: train record lacks {TRAIN_METRICS - set(m)}")
+        for key in ("cp/resubmits", "cp/retries", "cp/degraded_groups", "cp/poison_shards"):
+            check(not m.get(key), f"{label}: {key} {m.get(key)}")
+    check(tr.weight_version == steps, f"{label}: weight version {tr.weight_version}")
+    check_adapter_clip(out["adapters"], tr.config.lr, label)
+    check(eng.driver.num_healthy == workers, f"{label}: {eng.driver.num_healthy} healthy "
+          f"workers, want {workers}")
+    check(out["flushed"], f"{label}: the weight bus did not drain")
+    b = out["broadcasts"]
+    check([x["version"] for x in b] == list(range(steps + 1)),
+          f"{label}: broadcasts of versions {[x['version'] for x in b]}")
+    for x in b:
+        check(len(x["acked"]) == workers, f"{label}: v{x['version']} acked by {x['acked']}")
+        check(set(x["modes"].values()) == {"full" if x["version"] == 0 else "delta"},
+              f"{label}: v{x['version']} went as {x['modes']}")
+    full = min(b[0]["bytes"].values())
+    check(all(n < full for x in b[1:] for n in x["bytes"].values()),
+          f"{label}: a delta was no smaller than the full push ({full} bytes)")
+    for addr in eng.driver.addresses:
+        check(eng.bus.acked_version(addr) == steps, f"{label}: {addr} acked "
+              f"v{eng.bus.acked_version(addr)}")
+    debug = eng.driver.dispatch_objects([("weights_debug", None)] * workers)
+    want = checksum_tree(eng._bus_state[1])
+    for d in debug:
+        check(d["current"] == steps and d["checksums"][steps] == want,
+              f"{label}: a worker holds {d}, the driver's v{steps} checksum is {want}")
+    out["checksum"] = want
+    if not cuda:
+        return
+    lf = out["learner_forwards"]
+    check(lf == steps * tr.config.batch_size * tr.config.num_candidates
+          // tr.config.train_batch_size, f"{label}: {lf} learner forwards")
+    c = out["counts"]
+    wantd = {k["name"]: 0 for k in KERNELS}
+    wantd.update(quant_matmul=7 * layers * 2 * lf, flash_attention_fwd=layers * 2 * lf,
+                 flash_attention_bwd=layers * lf)
+    check(c == wantd, f"{label}: the driver's launches {c}, want {wantd} ({lf} learner forwards)")
+
+
+def check_inflight_swap(out: dict, cuda: bool) -> dict:
+    """(b): a push landed inside a worker's round (on the card a graphed
+    one) on a chunk boundary after step 0, and the round's version tags
+    changed to that version exactly there."""
+    import numpy as np
+
+    label = out["label"]
+    found = None
+    for r, t in zip([r for r in out["rounds"] if r["sampling"].n ==
+                     out["trainer"].config.num_candidates], out["tagged"]):
+        steps = r["res"].tokens.shape[-1]
+        for step, v in t["events"]:
+            if 0 < step and step + 1 < steps:
+                graphed = [s["round_stats"].get("graph_steps", 0) for s in r["shards"]]
+                if cuda:
+                    check(all(g > 0 for g in graphed), f"{label}: the round that swapped "
+                          f"at {step} was not graphed ({graphed})")
+                check(step % GRAPH_CHUNK == 0 or not cuda,
+                      f"{label}: swap at {step}, not on a chunk boundary")
+                want = np.where(np.arange(steps) <= step, t["base"], v)
+                check(np.array_equal(t["tags"][0], want),
+                      f"{label}: tags {t['tags'][0]} do not change to v{v} at {step}")
+                found = {"step": step, "version": v, "base": t["base"], "graph_steps": graphed}
+    check(found is not None or not cuda,
+          f"{label}: no in-flight swap landed inside a round (events "
+          f"{[t['events'] for t in out['tagged']]})")
+    return found or {}
+
+
+def eval_against_in_process(out: dict, cfg, device, *, pad: int, scan_chunk) -> dict:
+    """The eval round's greedy tokens against an in-process refill engine
+    built as the workers build theirs (the trainer's int4 base, the
+    round's adapter, the same page pool, shard by shard: the same kernels
+    over the same rows in the same order)."""
+    import numpy as np
+    import torch
+
+    from distrl_llm_tpu_torch.engine import PagedGenerationEngine
+    from distrl_llm_tpu_torch.engine.budget import kv_pool_pages, tree_bytes
+    from distrl_llm_tpu_torch.models.convert import lora_from_numpy
+    from distrl_llm_tpu_torch.models.lora import lora_scale
+    from distrl_llm_tpu_torch.ops.paged import DEFAULT_PAGE_SIZE
+
+    tr = out["trainer"]
+    c, r = tr.config, out["rounds"][0]
+    check(r["sampling"].temperature == 0.0, "the eval round is not greedy")
+    cuda = str(device).startswith("cuda")
+    pages = kv_pool_pages(cfg, gpu_usage=REMOTE_GPU_USAGE, param_bytes=tree_bytes(tr.model),
+                          batch_prompts=c.batch_size, max_prompt_tokens=c.max_prompt_tokens,
+                          max_new_tokens=c.max_new_tokens, page_size=DEFAULT_PAGE_SIZE,
+                          device=device) if cuda else 0
+    eng = PagedGenerationEngine(
+        cfg, max_prompt_tokens=c.max_prompt_tokens, max_new_tokens=c.max_new_tokens,
+        eos_token_ids=tr.engine.eos_token_ids, pad_token_id=pad,
+        lora_scale=lora_scale(c.max_lora_rank, c.lora_alpha),
+        cache_dtype=tr.model.embed.dtype, attn_impl=c.attn_impl, scheduler="refill",
+        max_concurrent_rows=REMOTE_SLOTS, max_kv_pages=pages, capture_logprobs=True,
+        scan_chunk=scan_chunk, device=device)
+    lora = lora_from_numpy(r["lora_np"], cfg, device=device)
+    toks = []
+    for shard in r["shards"]:
+        lo, hi = shard["rows"]
+        res = eng.generate(tr.model, lora, r["ids"][lo:hi], r["mask"][lo:hi], r["sampling"], 0)
+        toks.append(res.tokens)
+    got = np.concatenate(toks)
+    same = got == r["res"].tokens
+    check(same.all(), f"the eval round's tokens differ from the in-process engine's on "
+          f"{int((~same).sum())} of {same.size} positions")
+    eng.release_decode_graphs()
+    del eng, lora
+    if cuda:
+        torch.cuda.empty_cache()
+    return {"rows": got.shape[0] * got.shape[1], "positions": same.size}
+
+
+def remote_trainer(cfg, device, *, seed: int, workdir: Path, tokenizer_dir: Path,
+                   group=QMM_GROUP, regimes=REMOTE_REGIMES, **config_kw) -> dict:
+    """Phase 16: a checkpoint written once, a pair of worker processes for
+    each regime of ``regimes`` (all started together), then each regime
+    over its pair: the first through ``Trainer.from_pretrained``
+    with ``rollout_workers``, the rest over the base it loaded; each run
+    checked by ``check_remote_run``, (a)'s eval round against an in-process
+    engine, (b)'s in-flight swap; each pair drained and its launches held
+    to its rounds."""
+    import torch
+
+    from distrl_llm_tpu_torch.tokenizer import load_tokenizer
+
+    ckpt = workdir / "hf"
+    t = time.perf_counter()
+    nbytes = write_checkpoint(cfg, device, seed=seed, path=ckpt, tokenizer_dir=tokenizer_dir)
+    write_s = time.perf_counter() - t
+    tok = load_tokenizer(str(ckpt))
+    train, test = trainer_datasets(tok)
+    cuda = str(device).startswith("cuda")
+    out: dict = {"ckpt_bytes": nbytes, "write_s": write_s, "runs": {}}
+    shapes, pools = {}, {}
+    try:
+        for label, graphed, regime in regimes:
+            kw = dict(seed=seed, quant_group_size=group, learner="grpo", clip_ratio=0.2,
+                      lora_dropout=0.0, save_every=0, write_adapter_file=False,
+                      checkpoint_dir=None, engine_impl="dense", continuous_batching=False,
+                      max_concurrent_sequences=0, eval_temperature=0.0,
+                      workers_capture_logprobs=True, weight_bus="broadcast", dtype=(
+                          "bfloat16" if cuda else "float32"))
+            shapes[label] = trainer_config(workdir / label, **{**kw, **regime, **config_kw})
+            pools[label] = WorkerPool(
+                worker_command(ckpt, shapes[label], device=device, graphed=graphed,
+                               group=group), REMOTE_WORKERS, workdir / label / "logs")
+        t = time.perf_counter()
+        for pool in pools.values():
+            pool.ready()
+        out["start_s"] = time.perf_counter() - t
+        model = None  # the first regime's from_pretrained loads it; the rest reuse it
+        for label, graphed, _ in regimes:
+            out["runs"][label] = run = _remote_regime(
+                label, graphed, shapes[label], pools[label], train=train, test=test, tok=tok,
+                ckpt=ckpt, cfg=cfg, device=device, model=model)
+            model = run.pop("model")
+            gc.collect()
+            if cuda:
+                torch.cuda.empty_cache()
+        t = time.perf_counter()
+        for pool in pools.values():
+            pool.stop()
+        for label, run in out["runs"].items():
+            _check_workers(run, pools[label], cfg.num_layers, cuda)
+        out["drain_s"] = time.perf_counter() - t
+    finally:
+        for pool in pools.values():
+            pool.kill()
+    return out
+
+
+def _check_workers(run: dict, pool: WorkerPool, layers: int, cuda: bool) -> None:
+    """A regime's workers drained: every worker served rounds, and on the
+    card each one's launches equal what its rounds dispatched."""
+    label = run["label"]
+    run["workers"] = pool.drain()
+    run.pop("driver").shutdown()
+    by = worker_rounds(run)
+    check(sorted(by) == sorted(pool.addresses), f"{label}: rounds came from {sorted(by)}, "
+          f"not from every worker {pool.addresses}")
+    if not cuda:
+        return
+    for addr, w in zip(pool.addresses, run["workers"]):
+        want = worker_want(by[addr], layers)
+        check(w["counts"] == want, f"{label}: worker {addr} launched {w['counts']}, its "
+              f"rounds dispatched {want}")
+        check(want["fused_sample"] > 0 and want["quant_matmul"] > 0,
+              f"{label}: worker {addr} decoded nothing")
+
+
+def _remote_regime(label: str, graphed: bool, shape, pool: WorkerPool, *, train, test, tok,
+                   ckpt: Path, cfg, device, model=None) -> dict:
+    """One regime of phase 16 over its ready pair (see ``remote_trainer``):
+    ``Trainer.from_pretrained``, or with ``model`` (the int4 base an
+    earlier regime's from_pretrained loaded; the learner trains only the
+    adapter) the ``Trainer`` over ``trainer.remote_engine``."""
+    from distrl_llm_tpu_torch.trainer import Trainer, remote_engine
+
+    cuda = str(device).startswith("cuda")
+    config = dataclasses.replace(shape, rollout_workers=tuple(pool.addresses))
+    steps = len(train["problem"]) // config.batch_size
+
+    def build(sink):
+        if model is None:
+            return Trainer.from_pretrained(train, test, smoke_reward, config,
+                                           checkpoint_path=str(ckpt), tokenizer=tok, sink=sink,
+                                           device=device)
+        return Trainer(train, test, smoke_reward, config, tokenizer=tok,
+                       engine=remote_engine(config, tok), model=model, sink=sink)
+
+    run = remote_run(
+        build,
+        label=label, schedule=(lambda tr: fix_push_schedule(tr, steps=steps))
+        if config.rollout_mode == "async" else None)
+    check(pool.alive(), f"{label}: a worker died: {pool.tail(0)} {pool.tail(1)}")
+    check_remote_run(run, cfg.num_layers, steps=steps, workers=REMOTE_WORKERS,
+                     cuda=cuda)
+    if config.rollout_mode == "async":
+        run["swap"] = check_inflight_swap(run, cuda)
+    if label == "sync":
+        run["eval"] = eval_against_in_process(
+            run, cfg, device, scan_chunk=GRAPH_CHUNK if graphed else None,
+            pad=tok.pad_token_id if tok.pad_token_id is not None else tok.eos_token_id)
+    run["start_s"], run["graphed"], run["config"] = pool.start_s, graphed, config
+    trainer = run.pop("trainer")
+    run["model"], run["driver"] = trainer.model, trainer.engine.driver
+    return run
+
+
+def remote_lines(out: dict, card: str) -> list[str]:
+    lines = []
+    for label, run in out["runs"].items():
+        recs = [m for _, m in run["records"] if "loss" in m]
+        ph = {k: [1e3 * m[f"timing/{k}_duration"] for m in recs]
+              for k in ("generation", "reward", "update")}
+        b = run["broadcasts"]
+        full = [n for x in b if x["version"] == 0 for n in x["bytes"].values()]
+        delta = [n for x in b[1:] for n in x["bytes"].values()]
+        kind = "graphed, scan chunk 16" if run["graphed"] else "eager"
+        if run["config"].rollout_mode == "async":
+            kind += "; steps under the phase's fixed push schedule"
+        lines.append(
+            f"remote {label}: {REMOTE_WORKERS} worker processes ({kind}; ready "
+            f"{run['start_s']:.1f} s after they started), rollout_mode "
+            f"{run['config'].rollout_mode}: "
+            f"{len(recs)} steps, ms per training step (record to record) "
+            f"{', '.join(f'{x:.1f}' for x in run['step_ms'])}; timing/generation_duration "
+            f"{', '.join(f'{x:.1f}' for x in ph['generation'])}, reward "
+            f"{', '.join(f'{x:.1f}' for x in ph['reward'])}, update "
+            f"{', '.join(f'{x:.1f}' for x in ph['update'])} ms; train() {run['wall_s']:.1f} s; "
+            f"losses {[round(m['loss'], 6) for m in recs]}; {card}")
+        lines.append(
+            f"remote {label}: weight bus: full push {full} bytes a worker in "
+            f"{b[0]['ms']:.1f} ms; deltas {delta} bytes a worker in "
+            f"{', '.join(f'{x['ms']:.1f}' for x in b[1:])} ms (push to last ack); leaf "
+            f"encodings by version {[next(iter(x['leaf_modes'].values())) for x in b]}; every "
+            f"version acked by both workers, checksum {run['checksum']:#x} on both; {card}")
+        pools = [s["round_stats"] for r in run["rounds"] for s in r["shards"]
+                 if s["round_stats"].get("pool_pages") is not None]  # refill rounds
+        lines.append(
+            f"remote {label}: {len(pools)} refill shard rounds, page pools "
+            f"{sorted({p['pool_pages'] for p in pools})} pages, peak used "
+            f"{max((p['peak_pages_used'] for p in pools), default=0)}, preemptions "
+            f"{sum(p['preemptions'] for p in pools)}; peak GiB allocated: driver "
+            f"{run['peak_gib']:.2f}, workers "
+            f"{', '.join(f'{w['peak_gib']:.2f}' for w in run['workers'])}; launches: driver "
+            f"{run['counts']}, workers {[w['counts'] for w in run['workers']]}; {card}")
+        if "eval" in run:
+            lines.append(f"remote {label}: the eval round's greedy tokens equal an in-process "
+                         f"refill engine's over the same weights, shard by shard "
+                         f"({run['eval']['positions']} positions)")
+        if run.get("swap"):
+            s = run["swap"]
+            lines.append(f"remote {label}: in-flight swap to v{s['version']} at decode step "
+                         f"{s['step']} of a graphed worker round (graph steps {s['graph_steps']})"
+                         f", tags v{s['base']} before it and v{s['version']} from it; {card}")
+    runs = out["runs"]
+    if "sync_eager" in runs and "pipelined_eager" in runs:
+        # whole runs: in a run this short the pipelined mode's last step
+        # only updates (its round went out during the step before)
+        se, pe = runs["sync_eager"], runs["pipelined_eager"]
+        lines.append(f"remote GIL: eager workers, pipelined / sync train() wall "
+                     f"{pe['wall_s'] / se['wall_s']:.3f} ({pe['wall_s']:.1f} s / "
+                     f"{se['wall_s']:.1f} s, each the eval and {len(se['step_ms'])} steps; ms "
+                     f"per step pipelined {', '.join(f'{x:.1f}' for x in pe['step_ms'])}, "
+                     f"sync {', '.join(f'{x:.1f}' for x in se['step_ms'])}; measured, not "
+                     f"claimed); {card}")
+    return lines
+
+
+def remote_phase(cfg, args, card: str, t_start: float) -> list:
+    """Phase 16 on the card (see the module's docstring). Returns the launch
+    counts of the driver's runs and of every worker."""
+    import tempfile
+
+    import torch
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    shallow = dataclasses.replace(cfg, num_layers=min(cfg.num_layers, GRAPH_TRAIN_LAYERS))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_remote_") as tmp:
+        work = Path(tmp)
+        tok_dir = write_bpe_tokenizer(work / "tokenizer", cfg.vocab_size)
+        out = remote_trainer(shallow, "cuda", seed=args.seed, workdir=work,
+                             tokenizer_dir=tok_dir)
+    print(f"remote: a {shallow.num_layers}-layer Qwen2.5-7B-wide bf16 checkpoint of "
+          f"{out['ckpt_bytes'] / 1e9:.2f} GB written in {out['write_s']:.1f} s; "
+          f"{len(out['runs']) * REMOTE_WORKERS} worker processes up in {out['start_s']:.1f} s and "
+          f"drained in {out['drain_s']:.1f} s; "
+          f"Trainer.from_pretrained with rollout_workers, int4 g{QMM_GROUP} base, GRPO clip 0.2, "
+          f"4 x 16 x {TRAIN_NEW_TOKENS}, each worker a refill engine of {REMOTE_SLOTS} slots "
+          f"with a {REMOTE_GPU_USAGE} share of the card; {card}")
+    for line in remote_lines(out, card):
+        print(line)
+    print(f"remote: phase 16 {time.perf_counter() - t0:.1f} s; total "
+          f"{time.perf_counter() - t_start:.1f} s; {card}")
+    counts = []
+    for run in out["runs"].values():
+        counts.append(run["counts"])
+        counts += [w["counts"] for w in run["workers"]]
+    return counts
+
+
+def remote_rehearsal(workdir) -> dict:
+    """Phase 16 at TINY's width with a 1024-token vocabulary on the CPU
+    (8 new tokens, f32, worker processes on the CPU): every regime run and
+    checked as on the card, launch counts and the in-flight swap apart."""
+    from distrl_llm_tpu_torch.models.configs import TINY
+
+    cfg = dataclasses.replace(TINY, vocab_size=1024)
+    work = Path(workdir)
+    tok = write_bpe_tokenizer(work / "tok", cfg.vocab_size)
+    return remote_trainer(cfg, "cpu", seed=0, workdir=work, tokenizer_dir=tok, group=16,
+                          max_prompt_tokens=96, max_new_tokens=8,
+                          num_candidates=4, topk=4, train_batch_size=4, eval_n=2,
+                          max_lora_rank=4)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=28,
                     help="decoder depth of the Qwen2.5-7B-wide model (28 = full)")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--until", type=int, default=15, choices=tuple(range(6, 16)),
+    ap.add_argument("--until", type=int, default=16, choices=tuple(range(6, 17)),
                     help="the last phase to run; 6 skips speculative decoding "
                          "(with --profile, the long part), 7 the trainer, 8 the "
                          "refill engine's riders, 9 full fine-tuning at Gemma-2B "
@@ -6327,7 +7035,8 @@ def main(argv=None) -> int:
                          "scheduler's, 12 the overlapped rollout modes, 13 the "
                          "kernel domains past rank 64 and 64 query rows, 14 the "
                          "multi-turn environments and full fine-tuning under the "
-                         "overlapped modes; a partial run prints no result line")
+                         "overlapped modes, 15 the remote rollout workers; a partial run "
+                         "prints no result line")
     ap.add_argument("--profile", action="store_true",
                     help="also print the device time per decode step and per "
                          "learner step by kernel (torch.profiler) and the "
@@ -6742,6 +7451,15 @@ def main(argv=None) -> int:
     # the in-place turn resume against a dense decode of the whole
     # conversation; full fine-tuning at Gemma-2B width pipelined and async
     counted += env_phase(args, card, t_start)
+    if args.until < 16:
+        print(f"chip_smoke: phases 1-{args.until} done in {time.perf_counter() - t_start:.1f} s "
+              f"(a partial run prints no result line); {card}")
+        return 0
+
+    # 16. remote rollout workers: Trainer.from_pretrained with two worker
+    # processes on the card over the control plane and the weight bus, sync
+    # and async with an in-flight swap graphed, sync and pipelined eager
+    counted += remote_phase(cfg, args, card, t_start)
     print(f"chip_smoke: done in {time.perf_counter() - t_start:.1f} s; {card}")
 
     kernels = []

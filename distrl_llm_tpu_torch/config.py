@@ -7,9 +7,8 @@ base quantization, the engines, the learner, checkpointing, metrics). Field
 names, defaults and validation rules are the JAX package's. A value that
 only an unported path accepts raises ``NotImplementedError`` naming its
 ROADMAP item. The flags of planes that are not ported (observability,
-control, lineage, gateway, remote workers, autotune, meshes) are not fields
-here, but ``rpc_backoff_s``, whose seeded backoff the async producer's
-restarts use.
+control, lineage, gateway, the elastic fleet, autotune, meshes) are not
+fields here.
 """
 
 from __future__ import annotations
@@ -242,10 +241,35 @@ class TrainConfig:
     # engine swaps at its next step or chunk boundary); needs an overlapped
     # mode and clip_ratio > 0
     inflight_weight_updates: bool = False
-    # the async producer's restart budget, with seeded exponential backoff
-    # from rpc_backoff_s (the JAX package's RPC retry base)
-    producer_restarts: int = 2
+    # control-plane rollout workers ("host:port", ...): generation goes to
+    # these worker processes (distributed/worker_main.py) over the C++
+    # control plane instead of a local engine, which from_pretrained then
+    # does not build; the learner runs here
+    rollout_workers: tuple[str, ...] = ()
+    # the driver's word that every worker was started with
+    # --capture-logprobs (clip_ratio > 0 and async over workers need them)
+    workers_capture_logprobs: bool = False
+    # learner -> worker adapter transport: "broadcast" ships each optimizer
+    # step's adapter once per version over the versioned weight bus
+    # (delta-encoded out-of-band pushes; dispatches carry a version); it is
+    # what delivers in-flight updates to workers. "dispatch" ships the
+    # adapter in every shard
+    weight_bus: str = "broadcast"
+    # re-dial unhealthy workers with seeded backoff and re-admit them cold
+    worker_rejoin: bool = True
+    # transient worker errors retry this many times on the same worker with
+    # seeded exponential backoff (base rpc_backoff_s, which the async
+    # producer's restarts also use) before the shard is requeued
+    rpc_retries: int = 2
     rpc_backoff_s: float = 0.25
+    # a shard failing on this many distinct workers is quarantined
+    poison_shard_k: int = 3
+    # on a quarantined shard, drop its prompts (counted in
+    # cp/degraded_groups) instead of failing the round
+    degrade_on_poison: bool = False
+    # the async producer's restart budget, with seeded exponential backoff
+    # from rpc_backoff_s
+    producer_restarts: int = 2
     # per-update sample dump (distributed_trainer.py:297-299)
     print_samples: bool = True
     # HF-format merged-model snapshots at run_dir/model_{step}; needs
@@ -338,6 +362,13 @@ class TrainConfig:
             raise ValueError(
                 "kl_coeff uses the frozen base as the reference policy — "
                 "full_finetune has no frozen base (keep a LoRA run, or 0)")
+        if self.full_finetune and self.rollout_workers:
+            raise ValueError(
+                "full_finetune cannot ship full weights to rollout_workers "
+                "(workers receive adapters only); run local rollout")
+        if self.weight_bus not in ("broadcast", "dispatch"):
+            raise ValueError(
+                f"weight_bus must be 'broadcast' or 'dispatch', got {self.weight_bus!r}")
         if self.inflight_weight_updates:
             if not self.async_rollout:
                 raise ValueError(
@@ -352,6 +383,25 @@ class TrainConfig:
                 raise ValueError(
                     "inflight_weight_updates requires a LoRA run (full_finetune swaps "
                     "the whole param tree, not an adapter)")
+            if self.rollout_workers and self.weight_bus != "broadcast":
+                raise ValueError(
+                    "inflight_weight_updates over rollout_workers requires "
+                    "weight_bus='broadcast' (the weight bus delivers mid-round adapters "
+                    "to workers; 'dispatch' ships weights only at round entry)")
+        if self.clip_ratio > 0 and self.rollout_workers and not self.workers_capture_logprobs:
+            raise ValueError(
+                "clip_ratio > 0 with rollout_workers requires workers started with "
+                "--capture-logprobs AND --workers_capture_logprobs on the driver")
+        if self.rpc_retries < 0:
+            raise ValueError(f"rpc_retries must be >= 0, got {self.rpc_retries}")
+        if self.poison_shard_k < 1:
+            raise ValueError(f"poison_shard_k must be >= 1, got {self.poison_shard_k}")
+        if self.rollout_workers and (
+            self.kv_cache_quant not in (None, "none") or self.engine_impl != "dense"
+        ):
+            raise ValueError(
+                "engine_impl/kv_cache_quant are local-engine knobs; with "
+                "rollout_workers, configure the workers via worker_main flags")
         if self.rpc_backoff_s < 0:
             raise ValueError(f"rpc_backoff_s must be >= 0, got {self.rpc_backoff_s}")
         if self.producer_restarts < 0:
@@ -391,6 +441,10 @@ class TrainConfig:
                 raise ValueError(
                     f"env={self.env!r} is incompatible with spec_draft: the turn hook "
                     "and the speculative resume contend for the same slot state")
+            if self.rollout_workers:
+                raise ValueError(
+                    f"env={self.env!r} runs driver-local only: rollout_workers have no "
+                    "turn hook")
         if self.continuous_batching and (
             self.engine_impl != "paged" or not self.max_concurrent_sequences
         ):

@@ -80,9 +80,10 @@ def tensors_key(tree: Any) -> Hashable:
 
 class DecodeGraphs:
     """The captured chunks of one engine, by key, with their counts:
-    ``captures`` and ``replays``, and ``eager_chunks`` (chunks run as plain
+    ``captures`` and ``replays``, ``eager_chunks`` (chunks run as plain
     launches: a key's first chunk on a thread and stream on the card, every
-    chunk on the CPU)."""
+    chunk on the CPU), and ``captured_keys``, every key captured, in order
+    and across ``clear``."""
 
     def __init__(self):
         self._graphs: dict[Hashable, tuple[torch.cuda.CUDAGraph, dict]] = {}
@@ -94,6 +95,7 @@ class DecodeGraphs:
         self.captures = 0
         self.replays = 0
         self.eager_chunks = 0
+        self.captured_keys: list[Hashable] = []
 
     def run(self, key: Hashable, body: Callable[[], None], device: torch.device,
             generators: tuple = ()) -> None:
@@ -142,6 +144,7 @@ class DecodeGraphs:
             self._pool = graph.pool()
         self._graphs[key] = (graph, dict(launches))
         self.captures += 1
+        self.captured_keys.append(key)
         return graph, launches
 
     def clear(self) -> None:

@@ -487,6 +487,16 @@ class LoraMailbox:
         with self._pending_mu:
             self._pending = (lora, version)
 
+    def discard_pending_at_or_below(self, version: int) -> None:
+        """Drop a pending swap whose version the adapter a round opens with
+        already covers (a remote worker's weight bus pushes every update into
+        the mailbox, so the entry version would replay as a step-0 swap).
+        Atomic with ``push_lora``: a strictly newer push survives."""
+        with self._pending_mu:
+            pending = self._pending
+            if pending is not None and pending[1] is not None and int(pending[1]) <= int(version):
+                self._pending = None
+
     def _take_pending_lora(self, lora_cell: list, dispatched: int) -> None:
         with self._pending_mu:
             pending, self._pending = self._pending, None

@@ -42,6 +42,12 @@ def _copy(dst: torch.Tensor, src, name: str) -> None:
             f"{tuple(dst.shape)}")
     if not torch.is_tensor(src):
         src = torch.from_numpy(np.require(src, requirements=["C", "W"]))  # copies only if needed
+    elif (src.device != dst.device and src.dim() >= 2 and not src.is_contiguous()
+          and src.mT.is_contiguous()):
+        # a transposed view (a checkpoint's [out, in] weight read as [in,
+        # out]): its contiguous bytes go across, the transpose runs where
+        # they land (the host would make a strided copy first)
+        src = src.mT.to(dst.device).mT
     dst.copy_(src)
 
 

@@ -34,7 +34,7 @@ def build_library(source_name: str) -> str:
     if out.exists():
         return str(out)
     if not native_available():
-        raise RuntimeError("g++ not found; the native tokenizer cannot be built")
+        raise RuntimeError(f"g++ not found; {source_name} cannot be built")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(out.name + f".tmp{os.getpid()}")
     proc = subprocess.run(

@@ -21,7 +21,10 @@ graph keys of a shape stay bounded by the ring's size.
   the self-drafter the dropped adapter is the previous one the engine lets
   go of; the superseded one stays held as the new previous adapter. A push writes a buffer that is neither published
   nor held, waiting on the host for one when there is none (a round that
-  has not yet reached the boundary where it lets go).
+  has not yet reached the boundary where it lets go). A round that opens
+  with an adapter no buffer holds (a remote worker's dispatch naming a
+  version that later pushes overwrote, or shipping an adapter of its own)
+  has it copied into a free buffer that it holds (``acquire(load=)``).
 * **Device order.** Every hand-off between the learner's stream and the
   rollout's is a CUDA event, never a device-wide synchronize: the push waits
   (on the learner's stream) for the events the rollout recorded on its own
@@ -86,6 +89,7 @@ class AdapterRing:
         self._ready: list = [None] * size  # recorded after the buffer's last write
         self._released: list[list] = [[] for _ in range(size)]  # since that write
         self._published: int | None = None
+        self._writing: int | None = None  # the buffer a push is copying into
         self._live: _Round | None = None  # the round in flight on the engine
         self._cv = threading.Condition()
         self.pushes = 0
@@ -104,14 +108,26 @@ class AdapterRing:
         buffer's tensors, or the module buffer itself."""
         with self._cv:
             while True:
-                free = [j for j in self._order() if self._holds[j] == 0]
+                free = self._free()
                 if free:
                     break
                 self.push_waits += 1
                 self._cv.wait()
             j = free[0]
+            self._writing = j
             waits, self._released[j] = self._released[j], []
             self.books.append((j, version, tuple(self._holds), len(waits)))
+        published = self._write(j, tree, waits)
+        with self._cv:
+            self._dicts[j], self._versions[j] = published, version
+            self._published, self._writing = j, None
+            self.pushes += 1
+        return published
+
+    def _write(self, j: int, tree, waits: list):
+        """Copy ``tree`` into buffer ``j`` on the calling stream after the
+        ``waits`` events, record its ready event; returns the buffer's new
+        published form."""
         stream = torch.cuda.current_stream(self.device) if self._cuda else None
         for event in waits:
             stream.wait_event(event)
@@ -133,36 +149,70 @@ class AdapterRing:
         else:
             published = {"layers": {t: dict(ab) for t, ab in buf["layers"].items()}}
         with self._cv:
-            self._ready[j], self._dicts[j], self._versions[j] = ready, published, version
-            self._published = j
-            self.pushes += 1
+            self._ready[j] = ready
         return published
 
-    def _order(self) -> list[int]:
-        """Buffers a push may write, the one after the published first."""
+    def _free(self) -> list[int]:
+        """Buffers a copy may write, the one after the published first:
+        neither published nor held nor being written."""
         start = 0 if self._published is None else self._published + 1
-        return [(start + i) % self.size for i in range(self.size)
-                if (start + i) % self.size != self._published]
+        order = [(start + i) % self.size for i in range(self.size)]
+        return [j for j in order if j != self._published and j != self._writing
+                and self._holds[j] == 0]
 
     # ------------------------------------------------------------- rollout
 
-    def acquire(self) -> tuple:
-        """At a round's entry: hold the published buffer and order the
-        calling stream after its copy; returns (adapter, version, the
-        round's handle for ``release_round``). The engine runs one round at
-        a time, so the swaps its mailbox reports belong to this round until
-        it is released, whichever thread decodes it (the hang detector's
-        runs the round on a thread of its own)."""
+    def acquire(self, version: int | None = None, *, load=None) -> tuple:
+        """At a round's entry: hold the published buffer (with ``version``,
+        the buffer that holds that version: a remote worker's round opens
+        with the version its dispatch names, which a later push may already
+        have superseded) and order the calling stream after its copy;
+        returns (adapter, version, the round's handle for
+        ``release_round``). With ``load`` (a callable returning the adapter
+        tree), an adapter no buffer holds (a ``version`` later pushes
+        overwrote, or with ``version`` None one a dispatch ships of its own)
+        is copied into a free buffer that is not published and held by the
+        round, so that the round still reads the ring's addresses; without
+        it such a version raises ``LookupError``. The engine runs one round
+        at a time, so the swaps its mailbox reports belong to this round
+        until it is released, whichever thread decodes it (the hang
+        detector's runs the round on a thread of its own)."""
         with self._cv:
-            j = self._published
-            if j is None:
-                raise RuntimeError("no adapter was pushed into the ring")
             if self._live is not None:
                 raise RuntimeError("a round acquired the adapter ring while another "
                                    "round on its engine was in flight")
-            self._holds[j] += 1
-            self._live = handle = _Round(j)
-            ready, d, v = self._ready[j], self._dicts[j], self._versions[j]
+            j = self._published
+            if version is not None and j is not None and self._versions[j] != version:
+                j = next((i for i, v in enumerate(self._versions) if v == version), None)
+            if version is None and load is not None:
+                j = None
+            if j is None:
+                if load is None:
+                    if self._published is None:
+                        raise RuntimeError("no adapter was pushed into the ring")
+                    raise LookupError(f"no ring buffer holds adapter version {version}")
+                free = self._free()
+                if not free:  # no round is in flight to let go of one
+                    raise RuntimeError(f"no free ring buffer for adapter version {version}: "
+                                       f"holds {self._holds}")
+                j = free[0]
+                self._holds[j] += 1
+                self._live = handle = _Round(j)
+                waits, self._released[j] = self._released[j], []
+            else:
+                self._holds[j] += 1
+                self._live = handle = _Round(j)
+                ready, d, v = self._ready[j], self._dicts[j], self._versions[j]
+                waits = None
+        if waits is not None:
+            try:
+                d, v = self._write(j, load(), waits), version
+            except BaseException:
+                self.release_round(handle)
+                raise
+            with self._cv:
+                self._dicts[j], self._versions[j] = d, v
+            return d, v, handle
         self._wait_ready(ready)
         return d, v, handle
 

@@ -146,10 +146,37 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--inflight_weight_updates", action="store_true",
                    help="push each optimizer step's adapter into the round in flight "
                         "(requires an overlapped --rollout_mode and --clip_ratio > 0)")
+    p.add_argument("--workers_capture_logprobs", action="store_true",
+                   help="declare that every --rollout_workers process was started with "
+                        "worker_main --capture-logprobs, enabling --clip_ratio/"
+                        "--rollout_mode async over remote workers")
+    p.add_argument("--rollout_workers", type=str, default="",
+                   help="comma-separated control-plane workers (host:port,...) to "
+                        "dispatch generation to; start them with python -m "
+                        "distrl_llm_tpu_torch.distributed.worker_main --serve-model")
+    p.add_argument("--weight_bus", type=str, default="broadcast",
+                   choices=["broadcast", "dispatch"],
+                   help="learner -> worker adapter transport for --rollout_workers: "
+                        "'broadcast' ships each optimizer step's adapter once per version "
+                        "over an out-of-band delta-encoded push (enables "
+                        "--inflight_weight_updates over workers); 'dispatch' ships the "
+                        "adapter in every shard")
+    p.add_argument("--worker_rejoin", type=str, default="on", choices=["on", "off"],
+                   help="re-dial unhealthy --rollout_workers with seeded backoff and "
+                        "re-admit them after a PING")
+    p.add_argument("--rpc_retries", type=int, default=2,
+                   help="transient worker-error retries per RPC before the shard is "
+                        "requeued to a different worker")
+    p.add_argument("--rpc_backoff_s", type=float, default=0.25,
+                   help="base delay of the seeded exponential backoff of RPC retries, "
+                        "worker reconnects and the async producer's restarts")
+    p.add_argument("--poison_shard_k", type=int, default=3,
+                   help="quarantine a shard that fails on this many distinct workers")
+    p.add_argument("--degrade_on_poison", action="store_true",
+                   help="on a quarantined shard, drop its prompts (cp/degraded_groups) "
+                        "instead of failing the round")
     p.add_argument("--producer_restarts", type=int, default=2,
                    help="restart budget of the async producer's failed rounds")
-    p.add_argument("--rpc_backoff_s", type=float, default=0.25,
-                   help="base delay of the seeded backoff before a producer restart")
     p.add_argument("--env", type=str, default="math", choices=["code", "math", "verifier"],
                    help="rollout environment: 'math' (single-turn), 'code' (sandboxed "
                         "<tool> execution) or 'verifier' (critique and retry); the "
@@ -192,6 +219,9 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
     fields = {k: v for k, v in vars(args).items() if k in TrainConfig.__dataclass_fields__}
     # tri-state: omitted = None (unset), "on"/"off" a pin
     fields["prefix_cache"] = None if args.prefix_cache is None else args.prefix_cache == "on"
+    fields["rollout_workers"] = tuple(
+        w.strip() for w in str(args.rollout_workers or "").split(",") if w.strip())
+    fields["worker_rejoin"] = args.worker_rejoin == "on"
     fields["prompt_buckets"] = parse_buckets(args.prompt_buckets)
     fields["learner_len_buckets"] = parse_buckets(args.learner_len_buckets,
                                                   field="learner_len_buckets")

@@ -39,16 +39,24 @@ distributed_trainer.py:13-416) on one card, one learner:
   round; each candidate carries its loss mask (0 on injected observation
   tokens), the environment's (n, 2) rewards (the reward pass does not score
   such a round again), its turns' provenance and the ``env/*`` metrics.
+* **Remote rollout workers** (``rollout_workers``): generation runs in
+  worker processes (``distributed/worker_main.py``) behind a
+  ``RemoteEngine`` over the control plane; ``from_pretrained`` then builds
+  no local engine, and the base it loads serves the learner only. Each push
+  is a host copy of the adapter, handed once per version to the versioned
+  weight bus (``weight_bus="broadcast"``) or shipped in every shard
+  ("dispatch"); a round a quarantined shard degraded drops its lost prompts
+  with exact accounting.
 * **Metrics**: the reference's exact names (distributed_trainer.py:348-366,
   :412-415) through a pluggable sink (``metrics.py``); each phase's
   ``timing/*_duration`` ends on finished device work.
 * **Checkpointing**: the resume state (``checkpoint.py``) and the per-step
   adapter artifact.
 
-Not ported (each raises where a config would reach it): remote workers
-(ROADMAP queue 1 item 9), meshes, the hybrid actor/learner split and full
-fine-tuning past one card (item 10), and the observability, lineage,
-control and gateway planes (item 11).
+Not ported (each raises where a config would reach it): meshes, the hybrid
+actor/learner split and full fine-tuning past one card (ROADMAP queue 1
+item 10), and the observability, lineage, control, gateway and elastic-fleet
+planes (item 11).
 """
 
 from __future__ import annotations
@@ -73,7 +81,7 @@ from distrl_llm_tpu_torch.data import DictDataset
 from distrl_llm_tpu_torch.learner.optim import check_state_format, make_optimizer
 from distrl_llm_tpu_torch.learner.train_step import make_train_step, prepare_update_batch
 from distrl_llm_tpu_torch.metrics import MetricsSink, make_sink
-from distrl_llm_tpu_torch.models.convert import param_stacks
+from distrl_llm_tpu_torch.models.convert import lora_to_numpy, param_stacks
 from distrl_llm_tpu_torch.models.lora import init_lora_params, lora_scale
 from distrl_llm_tpu_torch.models.transformer import Decoder
 from distrl_llm_tpu_torch.rewards import (
@@ -128,6 +136,16 @@ def engine_kwargs_from_config(config: TrainConfig) -> dict[str, Any]:
     return kwargs
 
 
+def stop_token_ids(tokenizer) -> list[int]:
+    """The tokenizer's EOS id with its extra stop ids (Qwen's ``<|im_end|>``
+    beside ``<|endoftext|>``), as every engine of the trainer stops on."""
+    eos = [tokenizer.eos_token_id]
+    extra_eos = getattr(tokenizer, "eos_token_ids", None)
+    if extra_eos:
+        eos = sorted(set(eos) | set(extra_eos))
+    return eos
+
+
 def make_engine(config: TrainConfig, model: Decoder, tokenizer, *,
                 hbm_bytes: int | None = None):
     """The rollout engine ``Trainer.from_pretrained`` builds for ``model``
@@ -141,14 +159,10 @@ def make_engine(config: TrainConfig, model: Decoder, tokenizer, *,
     from distrl_llm_tpu_torch.engine import GenerationEngine, PagedGenerationEngine
 
     dev = model.embed.device
-    eos = [tokenizer.eos_token_id]
-    extra_eos = getattr(tokenizer, "eos_token_ids", None)
-    if extra_eos:
-        eos = sorted(set(eos) | set(extra_eos))
     common = dict(
         max_prompt_tokens=config.max_prompt_tokens,
         max_new_tokens=config.max_new_tokens,
-        eos_token_ids=eos,
+        eos_token_ids=stop_token_ids(tokenizer),
         pad_token_id=(tokenizer.pad_token_id if tokenizer.pad_token_id is not None
                       else tokenizer.eos_token_id),
         lora_scale=lora_scale(config.max_lora_rank, config.lora_alpha),
@@ -191,6 +205,38 @@ def make_engine(config: TrainConfig, model: Decoder, tokenizer, *,
     # the dense engine (a bf16 or int8 cache); decode_scan_chunk > 1 runs its
     # decode steps as CUDA graph chunks
     return GenerationEngine(model.cfg, **common, **kwargs)
+
+
+def remote_engine(config: TrainConfig, tokenizer):
+    """The ``RemoteEngine`` over ``config.rollout_workers`` that
+    ``Trainer.from_pretrained`` connects (JAX trainer.py:644-681): the
+    trainer's stop-token set and LoRA scale, the control plane's seeded
+    retry policy, quarantine threshold, rejoin and degradation, and the
+    configured weight bus."""
+    from distrl_llm_tpu_torch.distributed import connect_remote_engine
+    from distrl_llm_tpu_torch.distributed.resilience import RetryPolicy
+
+    addresses = []
+    for spec in config.rollout_workers:
+        host, _, port = spec.rpartition(":")
+        addresses.append((host or "127.0.0.1", int(port)))
+    return connect_remote_engine(
+        addresses,
+        max_prompt_tokens=config.max_prompt_tokens,
+        max_new_tokens=config.max_new_tokens,
+        # generation_timeout_s <= 0 turns the hang detector off; the control
+        # plane still needs a deadline: a day
+        timeout_ms=(int(config.generation_timeout_s * 1000)
+                    if config.generation_timeout_s > 0 else 86_400_000),
+        lora_scale=lora_scale(config.max_lora_rank, config.lora_alpha),
+        eos_token_ids=stop_token_ids(tokenizer),
+        retry_policy=RetryPolicy(max_call_retries=config.rpc_retries,
+                                 base_s=config.rpc_backoff_s, seed=config.seed),
+        poison_threshold=config.poison_shard_k,
+        rejoin=config.worker_rejoin,
+        degrade_on_shard_failure=config.degrade_on_poison,
+        weight_bus=config.weight_bus,
+    )
 
 
 class StaleWeightsError(RuntimeError):
@@ -287,14 +333,15 @@ class Trainer:
 
         # inflight_weight_updates needs an engine that can swap a round in
         # flight: one without a real push_lora is refused here, never a
-        # silent no-op
+        # silent no-op; a RemoteEngine can only over the broadcast bus
         if config.inflight_weight_updates:
             push = getattr(engine, "push_lora", None)
-            if not callable(push):
+            if not callable(push) or not getattr(engine, "supports_inflight_push", True):
                 raise ValueError(
                     "inflight_weight_updates requires an engine with a real push_lora "
                     f"(in-flight weight-update mailbox); {type(engine).__name__} cannot "
-                    "swap a round in flight")
+                    "swap a round in flight — use a local engine or a RemoteEngine with "
+                    "weight_bus='broadcast'")
 
         # chunk-composition validation parity (distributed_trainer.py:34-36)
         chunk_sizes(config.batch_size, config.number_of_actors,
@@ -361,13 +408,16 @@ class Trainer:
         # the overlapped modes' pushes go through a ring of persistent
         # adapter copies (three when the self-drafter keeps the previous one
         # resident), which the engine's mailbox tells of each swap; full
-        # fine-tuning's ring holds two rollout copies, the base and one more
+        # fine-tuning's ring holds two rollout copies, the base and one more.
+        # A remote engine's rounds read host copies (``_push_weights``), so
+        # it needs none
+        self._remote = getattr(engine, "is_remote", False)
         self._ring: AdapterRing | None = None
         if config.async_rollout and self._full:
             base = self._rollout_model
             self._ring = AdapterRing(2, self.device, buffers=[
                 base, Decoder(base.cfg, dtype=base.embed.dtype, device=self.device)])
-        elif config.async_rollout:
+        elif config.async_rollout and not self._remote:
             self._ring = AdapterRing(3 if getattr(engine, "_track_prev_lora", False) else 2,
                                      self.device)
         if hasattr(engine, "lora_swap_hook"):
@@ -443,7 +493,12 @@ class Trainer:
         # the reference's 4-bit base (LOAD_IN_4BIT): the seven projections
         # quantized in place, layer by layer
         quantize_base(model, config.base_quant, config.quant_group_size)
-        engine = make_engine(config, model, tokenizer, hbm_bytes=hbm_bytes)
+        if config.rollout_workers:
+            # generation runs in the worker processes: no local engine, and
+            # the base serves the learner only (JAX trainer.py:629-681)
+            engine = remote_engine(config, tokenizer)
+        else:
+            engine = make_engine(config, model, tokenizer, hbm_bytes=hbm_bytes)
         return cls(train_dataset, test_dataset, reward_function, config,
                    tokenizer=tokenizer, engine=engine, model=model, sink=sink)
 
@@ -573,7 +628,15 @@ class Trainer:
         and async: a round in flight reads its copy while the learner
         pushes, so the masters are cast into the ring's other copy, which
         becomes the published rollout copy."""
-        if self._full and self._ring is not None:
+        if self._remote:
+            # a host copy made here, on the learner's thread (the optimizer
+            # updates self.lora in place), in the JAX tree's layout; the bus
+            # broadcasts it once per version, and the round's dispatch names
+            # the version (or, without the bus, carries the tree)
+            self._lora_rollout = lora_to_numpy(self.lora)
+            if getattr(self.engine, "bus", None) is not None:
+                self.engine.push_lora(self._lora_rollout, version=self.weight_version)
+        elif self._full and self._ring is not None:
             self._rollout_model = self._ring.push(self.lora, self.weight_version)
             self._lora_rollout = None
         elif self._full:
@@ -726,21 +789,33 @@ class Trainer:
                 self.engine.turn_hook = None
             if hold is not None:
                 self._ring.release_round(hold)
+        # a degraded remote round (a quarantined shard under
+        # degrade_on_poison): its rows came back zero-filled; their prompts
+        # are dropped, never trained on, with exact accounting
+        lost = {int(r) for r in getattr(self.engine, "last_lost_rows", ()) or ()}
+        kept = [i for i in range(b_real) if i not in lost]
+        if len(kept) < b_real:
+            if not kept:
+                raise RuntimeError("every group in the round was lost to quarantined "
+                                   "shards — nothing survives to train on")
+            assert len(kept) + len(lost & set(range(b_real))) == b_real  # conservation
+            log.warning("dropping %d/%d group(s) lost to quarantined shards",
+                        b_real - len(kept), b_real)
         n = sampling.n
         cand: dict[str, Any] = {
             "answers": [decode_batch(self.tokenizer, result.tokens[i], result.lengths[i])
-                        for i in range(b_real)],
-            "problem": [[p] * n for p in problems],
-            "solution": [[s] * n for s in solutions],
-            "token_lengths": [[int(x) for x in result.lengths[i]] for i in range(b_real)],
+                        for i in kept],
+            "problem": [[problems[i]] * n for i in kept],
+            "solution": [[solutions[i]] * n for i in kept],
+            "token_lengths": [[int(x) for x in result.lengths[i]] for i in kept],
         }
         # the engine's own tokens and behavior logprobs (when it captures
         # them): the clip objective trains on these ids, not on retokenized
         # text, whose token boundaries can shift
         if result.logprobs is not None:
-            cand["answer_tokens"] = [result.tokens[i] for i in range(b_real)]
-            cand["behavior_logps"] = [result.logprobs[i] for i in range(b_real)]
-            cand["gen_lengths"] = [result.lengths[i] for i in range(b_real)]
+            cand["answer_tokens"] = [result.tokens[i] for i in kept]
+            cand["behavior_logps"] = [result.logprobs[i] for i in kept]
+            cand["gen_lengths"] = [result.lengths[i] for i in kept]
             # per-token policy-version tags (rollout/trajectory.py): the
             # round opens at the version it acquired; each in-flight swap it
             # consumed advances the tag from its recorded step on (a swap
@@ -754,7 +829,7 @@ class Trainer:
                 inferred = int(v) if v is not None else inferred + 1
                 events.append((int(step), inferred))
             tags = version_tags_for_round(n, result.tokens.shape[2], rollout_version, events)
-            cand["version_tags"] = [tags for _ in range(b_real)]
+            cand["version_tags"] = [tags for _ in kept]
             cand["base_version"] = rollout_version
             cand["swap_events"] = events
         if driver is not None:

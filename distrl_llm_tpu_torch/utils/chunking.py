@@ -5,6 +5,7 @@ per-worker batch sizes — actors first, then learners at a fixed
 ``learner_chunk_size`` — with the reference's degradation policy when the
 batch is smaller than the worker pool (distributed_trainer.py:77-124). The
 trainer calls it for its validation (distributed_trainer.py:34-36).
+``even_chunks`` splits a round over the remote engine's workers.
 """
 
 from __future__ import annotations
@@ -59,3 +60,10 @@ def chunk_sizes(
         sizes = [base + (1 if i < extra else 0) for i in range(num_actors)]
     sizes.extend([learner_chunk_size] * num_learners)
     return sizes
+
+
+def even_chunks(total: int, parts: int) -> list[int]:
+    """Split ``total`` items into ``parts`` near-even chunk sizes, the
+    remainder spread over the leading chunks (distributed_trainer.py:312-314)."""
+    base, extra = divmod(total, parts)
+    return [base + (1 if i < extra else 0) for i in range(parts)]

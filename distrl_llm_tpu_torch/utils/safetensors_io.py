@@ -15,6 +15,7 @@ Dtypes: BF16, F16, F32, I8, I32.
 from __future__ import annotations
 
 import json
+import mmap
 import struct
 from typing import Mapping
 
@@ -75,12 +76,13 @@ def read_header(path: str) -> tuple[dict, int]:
 
 
 def load_file(path: str) -> dict[str, torch.Tensor]:
-    """Every tensor of a safetensors file, as CPU tensors viewing one buffer
-    read from the file."""
+    """Every tensor of a safetensors file, as CPU tensors viewing one
+    copy-on-write mapping of the file: processes that load one checkpoint
+    share its pages in the page cache, and a write to a tensor stays
+    private to it."""
     header, start = read_header(path)
     with open(path, "rb") as f:
-        f.seek(start)
-        buf = bytearray(f.read())
+        buf = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_COPY)
     out = {}
     for name, spec in header.items():
         if spec["dtype"] not in _DTYPES:
@@ -90,12 +92,12 @@ def load_file(path: str) -> dict[str, torch.Tensor]:
         begin, end = spec["data_offsets"]
         shape = tuple(spec["shape"])
         numel = int(np.prod(shape, dtype=np.int64))
-        if end - begin != numel * dtype.itemsize or end > len(buf):
+        if end - begin != numel * dtype.itemsize or start + end > len(buf):
             raise ValueError(f"{path}: {name}'s data_offsets {spec['data_offsets']} do not "
                              f"hold {shape} {spec['dtype']}")
         if numel == 0:
             out[name] = torch.empty(shape, dtype=dtype)
         else:
             out[name] = torch.frombuffer(buf, dtype=dtype, count=numel,
-                                         offset=begin).reshape(shape)
+                                         offset=start + begin).reshape(shape)
     return out

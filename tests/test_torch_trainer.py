@@ -317,6 +317,14 @@ VALID = [
          continuous_admission=True, max_concurrent_sequences=4),
     dict(env="verifier", max_turns=3, engine_impl="paged", continuous_batching=True,
          continuous_admission=True, max_concurrent_sequences=4, format_reward="strict"),
+    # ROADMAP item 9: remote rollout workers (JAX config.py:770-775,
+    # :1049-1052, :1115-1191)
+    dict(rollout_workers=("h:1", "h:2"), weight_bus="dispatch", worker_rejoin=False,
+         rpc_retries=0, rpc_backoff_s=0.0, poison_shard_k=1, degrade_on_poison=True),
+    dict(rollout_workers=("h:1",), clip_ratio=0.2, workers_capture_logprobs=True,
+         rollout_mode="async", inflight_weight_updates=True, max_staleness=2),
+    dict(rollout_workers=("h:1",), kv_cache_quant="none", base_quant="int4", attn_impl="splash"),
+    dict(weight_bus="dispatch", workers_capture_logprobs=True, rpc_retries=5),
 ]
 
 # tests/test_config.py::TestEnvConfig's multi-turn shape, varied one knob at
@@ -363,6 +371,17 @@ INVALID = [
     dict(learner_prompt_buckets=(351,)),
     dict(number_of_learners=0),
     dict(number_of_actors=-1),
+    dict(weight_bus="carrier"),
+    dict(rpc_retries=-1),
+    dict(poison_shard_k=0),
+    dict(rpc_backoff_s=-0.1),
+    dict(rollout_workers=("h:1",), clip_ratio=0.2),
+    dict(rollout_workers=("h:1",), clip_ratio=0.2, workers_capture_logprobs=True,
+         rollout_mode="async", inflight_weight_updates=True, weight_bus="dispatch"),
+    dict(rollout_workers=("h:1",), engine_impl="paged"),
+    dict(rollout_workers=("h:1",), kv_cache_quant="int8"),
+    dict(rollout_workers=("h:1",), full_finetune=True, model="tiny"),
+    {**_MULTI, "engine_impl": "dense", "rollout_workers": ("h:1",)},
 ]
 
 # values only an unported path takes: the JAX package accepts them (with
