@@ -44,8 +44,9 @@ printing its own lines:
    round; then, at 2 layers in f32, the learner's loss and LoRA grads with
    K4 against its plain version and its logprobs of the engine's greedy
    tokens against the logprobs the engine captured.
-6. QLoRA, at 14 of the 28 layers (SHALLOW_LAYERS: the depth cut that makes
-   room for phase 9; phase 8's trainer drives the int4 base at 28): the
+6. QLoRA, at 7 of the 28 layers (SHALLOW_LAYERS: the depth cut that makes
+   room for phases 9 and 17; phase 8's trainer drives the
+   int4 base at 14): the
    same weights with the seven projections quantized on the card
    to int4 in groups of 64 (the reference's 4-bit base), every projection
    through K3 with the adapter in its epilogue: the dense and the paged
@@ -55,7 +56,7 @@ printing its own lines:
    scales); the dense engine's f32 logits, teacher-forced, with K3 against
    K3's plain version (``k3_plain_version()``), beside their distance from
    the bf16 base's; one Adam8bit learner step on phase 5's batch (K3 2 x 7
-   x 14 x 8 times; phase 8 takes two over the int4 base at 28 layers); and
+   x 7 x 8 times; phase 8 takes two over the int4 base at 14 layers); and
    a 2-layer f32 learner parity run, K3 against
    its plain version.
 
@@ -66,8 +67,8 @@ printing its own lines:
    bits), and timed against its bound and the unrolled 5 x K2 as K2 is; then the
    engine of the README's BASELINE config 2 (refill scheduler, 64 slots,
    ``spec_draft=4``, n-gram 2, 128-token pages) over 8 math prompts x 16
-   candidates x 256 new tokens, at 14 layers (SHALLOW_LAYERS, the depth
-   cut that makes room for phase 12): speculative and plain refill greedy
+   candidates x 256 new tokens, at 7 layers (SHALLOW_LAYERS, the depth
+   cut that makes room for phases 12 and 17): speculative and plain refill greedy
    rounds with bf16 pages, then with int8 pages, and one sampled
    speculative round, each with the counts reset around it
    (K5 = layers x verify forwards and no K2 in a speculative round; K2 =
@@ -94,8 +95,8 @@ printing its own lines:
    completion (``smoke_reward``) and the learner trains on every
    microbatch. The counts are reset around ``train()`` and held to what the
    path dispatched: K1 per sampler call (decode steps and admissions), K2
-   28 per decode forward, K3 7 x 28 per engine forward and twice that per
-   learner forward, K4 28 per splash prefill and 2 x 28 per learner forward
+   14 per decode forward, K3 7 x 14 per engine forward and twice that per
+   learner forward, K4 14 per splash prefill and 2 x 14 per learner forward
    (backward 28); each step's generation, reward and update times and
    their sum, ms per training step, are printed; the loss finite, the
    adapter within Adam8bit's clip at each step, weight version 2, the
@@ -105,9 +106,9 @@ printing its own lines:
    weights read back bit for bit, the native tokenizer, one step with
    K1-K4 launched.
 9. the refill engine's riders and the dense slice's leftovers, at
-   Qwen2.5-7B width (bf16, phase 7's weights and prompts; (a)-(c) at 14
-   layers, SHALLOW_LAYERS, the depth cut that makes room for phase 12, (d)
-   at 28), each round with the counts reset around it and held to what it
+   Qwen2.5-7B width (bf16, phase 7's weights and prompts; (a)-(c) at 7
+   layers, SHALLOW_LAYERS, the depth cut that makes room for phases 12 and
+   17, (d) at 28), each round with the counts reset around it and held to what it
    dispatched:
    (a) prefix sharing, continuous admission and the radix cache (64 slots,
    64-token pages so every prompt has a full page to cache, splash): two
@@ -121,7 +122,7 @@ printing its own lines:
    lengths; (b) host
    spill under an 80-page budget (8 x 16 x 128), preempted slots' pages and
    logits rows parked and copied back, greedy tokens equal to the
-   worst-case pool's at 14 layers bf16 and at 4 layers f32; (c) the
+   worst-case pool's at 7 layers bf16 and at 4 layers f32; (c) the
    self-drafter with spec_adapt (d = 4; 4 x 16 x 128, 64 slots): adapter v1
    drafts for v2 (v1 moved by one Adam8bit step at lr 2e-5), a greedy and a
    sampled round beside plain decoding with the same push, accept rate,
@@ -135,7 +136,7 @@ printing its own lines:
    and ``Trainer.from_pretrained`` on a 2-layer Gemma-2B-wide checkpoint
    with a Unigram tokenizer the script writes (the native SPM tokenizer,
    the script's expected ids, one step over the int8 dense cache).
-10. full fine-tuning at Gemma-2B width (all 18 layers, D 2048, 8 / 1
+10. full fine-tuning at Gemma-2B width (9 of its 18 layers, D 2048, 8 / 1
    heads of head_dim 256, F 16384, V 256,000, tied embeddings; random bf16
    weights from the seed; phase 9's Unigram tokenizer): (a)
    ``Trainer.train()`` with ``full_finetune=True`` and ``attn_impl=
@@ -155,8 +156,9 @@ printing its own lines:
 11. scan chunks: the dense engine and the paged wave scheduler with
    ``scan_chunk`` 16, each chunk of 16 decode steps captured once as a CUDA
    graph and replayed, at phase 4's cell (the same weights from the seed, 4
-   prompts x 16 x 128 new tokens; (a)-(d) at 14 layers, SHALLOW_LAYERS, the
-   depth cut that makes room for phase 16; 28 before it). (a) dense and (b) paged
+   prompts x 16 x 128 new tokens; (a)-(d) at 7 layers, GRAPH_TRAIN_LAYERS, the
+   depth cut that makes room for phase 17; 14 before it, 28 before that). (a)
+   dense and (b) paged
    (bf16 pages), greedy: a first graphed round (its first chunk eager, the
    second captured), then graphed and eager rounds in turns (G E G; a
    second eager round was cut in PR 17 for the script's time), the
@@ -168,7 +170,7 @@ printing its own lines:
    idle share of both. (c) a sampled round, graphed vs eager, tokens equal.
    (d) a second adapter pushed at step 32 (a chunk boundary) on both
    engines: the same swap log, tokens equal. (e) two graphed greedy rounds
-   over the int4 g64 base at 14 layers (SHALLOW_LAYERS), the second all
+   over the int4 g64 base at 7 layers (SHALLOW_LAYERS), the second all
    replays: tokens equal to phase 6's eager round, K3 7 x layers x model
    forwards. (f) one
    ``Trainer.train()`` step with ``decode_scan_chunk=16`` on the dense
@@ -185,8 +187,9 @@ printing its own lines:
    tokens, lengths and logprobs. (a) plain refill, greedy, G E G (the first
    graphed round holds the capture; a second eager round was cut for the
    script's time); (b) speculative refill (``spec_draft=4``, n-gram
-   2), greedy, G G E, (a) and (b) at 14 layers (SHALLOW_LAYERS: the depth cut
-   that makes room for phase 16; 28 before it), with accept rate
+   2), greedy, G G E, (a) and (b) at 7 layers (GRAPH_TRAIN_LAYERS: the depth
+   cut that makes room for phase 17; 14 before it, 28 before that), with
+   accept rate
    and tokens per verify step; with ``--profile`` device ms per step and
    the idle share of (a) and (b) graphed and eager. Depth cut to 7 layers
    (GRAPH_TRAIN_LAYERS, phase 11 (f)'s) for (c)-(e): (c) prefix sharing,
@@ -258,7 +261,7 @@ printing its own lines:
    observation continues exactly as a dense engine's greedy round over the
    whole conversation (tokens; logprobs within 1e-4; the logits the resume
    leaves within ``LOGIT_F32_ATOL`` of a dense forward's); (c) phase 10's
-   full fine-tuning at Gemma-2B width (18 layers, graphed) pipelined, then
+   full fine-tuning at Gemma-2B width (9 layers, graphed) pipelined, then
    async (clip 0.2, ``max_staleness=2``), 3 steps each: the rollout copy a
    ring of two bf16 ``Decoder``s, every push writing the copy no round
    held (the ring's books), the rounds reading only those two copies (two
@@ -295,6 +298,26 @@ printing its own lines:
    per layer per model forward, K4 per layer per splash prefill). Printed:
    ms per step by phase, push ms and bytes of the full push and of each
    delta, each process's peak GiB, the phase's seconds.
+17. learners sharded over ranks (ROADMAP item 10a), in a child process
+   (``--mesh-child``) whose one-rank process group runs over NCCL, so that
+   every collective of the path (the fsdp gathers, the dp merge, the push)
+   runs on the real backend and the group ends with the phase: (a) phase
+   13 (a)'s configuration (int4 g64, GRPO clip 0.2, rank 32, splash, 4 x
+   16 x 128, decode chunks of 16 graphed, 7 layers) through
+   ``Trainer.train()``, the initial eval and 2 steps, first without a
+   process group, then with ``MeshConfig(fsdp=1)``'s default roles, which
+   timeshare the rank: records and the adapter after each step bit for bit
+   the same; (b) the same cell with ``engine_impl="paged_sharded"`` (the
+   wave scheduler, greedy eval): its eval round's tokens equal one paged
+   wave engine's over the same weights; (c) full fine-tuning at Llama-3-8B
+   width (D 4096, F 14336, 32 / 8 heads, V 128,256) cut to 4 of 32 layers
+   (1.92 B parameters), as BASELINE config 3 runs it (bf16 rollout copy,
+   f32 masters sharded at fsdp 1, GRPO, splash, phase 10's engine and
+   cell), 2 steps: every master moved within Adam8bit's clip, the rollout
+   copy the masters cast. Every run's launches held to what it dispatched
+   (``check_trainer_run``). Printed: ms per step by phase, peak GiB, the
+   rank's shard bytes and ``check_full_finetune_fits``' verdicts for 32
+   layers at fsdp 1 (raises) and 4 (passes).
 
 Phase 3 holds K4 (forward and backward) against its plain version at the
 learner's [8, 1550, 28 / 4, 128] and at Gemma-2B's [8, 1550, 8 / 1, 256],
@@ -512,11 +535,10 @@ QMM_RANK = 32
 QMM_HIGH_RANKS = (128, 200)
 QMM_HIGH_RANK_ROWS = (64, 416, 12400)
 QMM_F32_REL = 1e-4
-# phase 6, and phase 7's rounds besides its greedy bf16 pair, run at half
-# of Qwen2.5-7B's depth, which keeps the script with phase 9 inside its
-# time; phases 4 and 5, phase 7's bf16 pair, phase 8's trainer (the int4
-# base included) and phase 9 run all 28 layers
-SHALLOW_LAYERS = 14
+# phases 6 and 7, 9 (a)-(c) and 11 (e) run at a quarter of Qwen2.5-7B's
+# depth, which keeps the script with phase 17 inside its time; phases 4 and
+# 5 and 9 (d) run all 28 layers, phase 8's trainer (TRAINER_LAYERS) half
+SHALLOW_LAYERS = 7
 
 
 def reset_counts() -> None:
@@ -2113,6 +2135,8 @@ def _trainable_copy(lora):
 
 
 def _lora_leaves(lora):
+    if not isinstance(lora, dict):  # a ShardedLora (phase 17): gathered whole
+        lora = lora.full()
     return [x for t in sorted(lora["layers"]) for x in (lora["layers"][t]["a"],
                                                         lora["layers"][t]["b"])]
 
@@ -3082,6 +3106,9 @@ TRAIN_PROBLEMS = PROBLEMS + (
     ("What is the greatest common divisor of 48 and 18?", "6"),
 )
 TRAIN_SLOTS = 32
+# phase 8 (a)'s depth: half of Qwen2.5-7B's 28, the cut that makes room for
+# phase 17
+TRAINER_LAYERS = 14
 TRAIN_NEW_TOKENS = 128
 # a phase's time ends on finished device work: a synchronize right after
 # the phase returns waits for nothing but its own launch (tens of us); a
@@ -3397,7 +3424,8 @@ def check_trainer_run(out: dict, layers: int, *, steps: int, lr: float, cuda: bo
         f32_bwd=k4_lrn if learner_f32 else 0)
     want = {
         "fused_sample": sum(r["sampler_calls"] for r in rounds),
-        "paged_attention": layers * decode_fwd if tr.config.engine_impl == "paged" else 0,
+        "paged_attention": (layers * decode_fwd
+                            if tr.config.engine_impl in ("paged", "paged_sharded") else 0),
         "quant_matmul": 7 * layers * (out["engine_forwards"] + 2 * learner) if quantized else 0,
         "flash_attention_fwd": layers * (prefills + 2 * learner) if k4 else 0,
         "flash_attention_bwd": layers * learner if k4 else 0,
@@ -3537,6 +3565,7 @@ def trainer_phase(cfg, args, card: str, t_start: float) -> list:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_trainer_") as tmp:
         work = Path(tmp)
         tok_dir = write_bpe_tokenizer(work / "tokenizer", cfg.vocab_size)
+        cfg = dataclasses.replace(cfg, num_layers=min(cfg.num_layers, TRAINER_LAYERS))
         a = trainer_smoke(cfg, "cuda", seed=args.seed, workdir=work / "a", tokenizer_dir=tok_dir)
         check_trainer_run(a, cfg.num_layers, steps=2, lr=a["config"].lr, cuda=True)
         check(a["adapter_equal"], "trainer: the saved adapter file does not read back equal "
@@ -4198,6 +4227,9 @@ FULL_PROMPT_TOKENS = 256  # the R1 prompts are 202-232 Unigram tokens
 FULL_NEW_TOKENS = 128
 FULL_SLOTS = 16  # every row of a 4 x 4 round decodes at once
 FULL_GPU_USAGE = 0.9  # the KV budget beside ~30 GB of learner state
+# phases 10 and 15 (c): half of Gemma-2B's 18 layers, the cut that makes room
+# for phase 17
+FULL_LAYERS = 9
 
 
 def full_config(workdir: Path, **kw):
@@ -4355,7 +4387,7 @@ def full_finetune_phase(args, card: str, t_start: float) -> list:
     from distrl_llm_tpu_torch.config import full_finetune_bytes
     from distrl_llm_tpu_torch.models.configs import GEMMA_2B
 
-    cfg = GEMMA_2B
+    cfg = dataclasses.replace(GEMMA_2B, num_layers=FULL_LAYERS)
     est = full_finetune_bytes(cfg)["total"]
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_full_") as tmp:
@@ -4433,8 +4465,9 @@ GRAPH_SWAP_STEP = 32  # (d): an in-flight push lands at this chunk boundary
 GRAPH_TRACE_STEPS = 16  # the profiled graphed round of every cell: one chunk
 GRAPH_SHAPE = dict(max_prompt_tokens=350, max_new_tokens=128, n=PA_N, page_size=128,
                    rank=32, chunk=GRAPH_CHUNK)
-# (f)'s depth: half of SHALLOW_LAYERS, the cut that keeps the script near 700
-# s; (e) stays at SHALLOW_LAYERS, where phase 6's eager tokens were taken
+# (f)'s depth, the cut that keeps the script near 700 s (SHALLOW_LAYERS is
+# the same); (e) stays at SHALLOW_LAYERS, where phase 6's eager
+# tokens were taken
 GRAPH_TRAIN_LAYERS = 7
 
 
@@ -4739,8 +4772,8 @@ def graph_phase(cfg, args, card: str, t_start: float, *, qlora_tokens) -> list:
     import torch
 
     t0 = time.perf_counter()
-    # (a)-(d) at SHALLOW_LAYERS: the depth cut that makes room for phase 16
-    mid = dataclasses.replace(cfg, num_layers=min(cfg.num_layers, SHALLOW_LAYERS))
+    # (a)-(d) at GRAPH_TRAIN_LAYERS: the depth cut that makes room for phase 17
+    mid = dataclasses.replace(cfg, num_layers=min(cfg.num_layers, GRAPH_TRAIN_LAYERS))
     weights = make_weights(mid, "cuda", seed=args.seed)
     counted = []
     ab = {}
@@ -4801,7 +4834,7 @@ def graph_phase(cfg, args, card: str, t_start: float, *, qlora_tokens) -> list:
 # trainer's refill cell (32 slots, phase 4's 4 prompts x 16 x 128 new tokens:
 # 64 candidates over 32 slots, so slots refill); (c)-(e) at
 # GRAPH_TRAIN_LAYERS, phase 11 (f)'s depth, the cut that keeps the script near
-# 820 s (at SHALLOW_LAYERS their rounds alone took ~100 s)
+# 820 s (at 14 layers their rounds alone took ~100 s)
 REFILL_GRAPH_SHAPE = dict(max_prompt_tokens=350, max_new_tokens=TRAIN_NEW_TOKENS, n=PA_N,
                           page_size=128, rank=32, chunk=GRAPH_CHUNK, slots=TRAIN_SLOTS)
 REFILL_GRAPH_SWAP_STEP = 32  # (d): a push lands at this chunk boundary
@@ -5112,8 +5145,8 @@ def refill_graph_phase(cfg, args, card: str, t_start: float) -> list:
     counted = []
     gc.collect()
     torch.cuda.empty_cache()
-    # (a) and (b) at SHALLOW_LAYERS: the depth cut that makes room for phase 16
-    mid = dataclasses.replace(cfg, num_layers=min(cfg.num_layers, SHALLOW_LAYERS))
+    # (a) and (b) at GRAPH_TRAIN_LAYERS: the depth cut that makes room for phase 17
+    mid = dataclasses.replace(cfg, num_layers=min(cfg.num_layers, GRAPH_TRAIN_LAYERS))
     weights = make_weights(mid, "cuda", seed=args.seed)
     for d in (0, SPEC_DRAFT):
         ab = refill_graph_ab(mid, "cuda", weights, seed=args.seed, spec_draft=d, card=card,
@@ -5865,7 +5898,7 @@ EXACT_OBS = 16
 EXACT_LOGP_ATOL = 1e-4  # f32 behavior logprobs, paged chunked vs dense attention
 # (c) phase 10's full fine-tuning at Gemma-2B width, pipelined and async
 FULL_OVERLAP_STEPS = 3
-FULL_OVERLAP_LAYERS = 18
+FULL_OVERLAP_LAYERS = FULL_LAYERS
 PHASE10_PEAK_GIB = 34.2  # smoke-full-gemma's peak allocated, one rollout copy (PR 12)
 
 
@@ -6322,8 +6355,8 @@ def env_phase(args, card: str, t_start: float) -> list:
               f", update {', '.join(f'{x:.1f}' for x in phases['update'])} ms; overlap "
               f"{run['overlap_s']:.3f} s; captures {run['captures']}, replays {run['replays']}; "
               f"{run['kv_pages']} KV pages; peak {run['peak_gib']:.2f} GiB allocated, "
-              f"{run['reserved_gib']:.2f} reserved (phase 10, one rollout copy: "
-              f"{PHASE10_PEAK_GIB}); launches {run['counts']}; {card}")
+              f"{run['reserved_gib']:.2f} reserved (phase 10 at all 18 layers, one rollout "
+              f"copy: {PHASE10_PEAK_GIB}); launches {run['counts']}; {card}")
     print(f"env (c): round 0 and the eval before it equal the sync trainer's "
           f"({len(c['sync']['rounds_res'])} rounds)")
     print(f"env: phase 15 {time.perf_counter() - t0:.1f} s ((a) {t_a:.1f}, (b) {t_b:.1f}, (c) "
@@ -7022,12 +7055,404 @@ def remote_rehearsal(workdir) -> dict:
                           max_lora_rank=4)
 
 
+# ------------------------------------------------------------------ phase 17
+
+# learners sharded over ranks (ROADMAP item 10a) on the one card, in a child
+# process whose one-rank process group runs over NCCL (the group must not
+# outlive the phase in this process): (a) phase 13 (a)'s QLoRA cell with the
+# learner mesh against the same run without a group, (b) the cell with
+# engine_impl="paged_sharded", (c) full fine-tuning at Llama-3-8B width
+MESH_FULL_LAYERS = 4  # of Llama-3-8B's 32: about 1.9 B parameters
+MESH_TIMEOUT_S = 900
+
+
+def mesh_qlora(cfg, device, *, seed: int, workdir: Path, tokenizer_dir: Path, meshes,
+               label: str, group=QMM_GROUP, hbm_bytes=None, **config_kw) -> dict:
+    """(a) and (b): ``Trainer.train()`` of phase 13 (a)'s configuration (int4
+    g64, GRPO clip 0.2, rank 32, splash, 4 x 16 x 128, the initial eval and 2
+    steps, decode chunks of 16 graphed) over ``meshes`` (None: no process
+    group), checked by ``check_trainer_run``; keeps the eval round's inputs
+    (the adapter copied) for (b)'s comparison."""
+    import torch
+
+    from distrl_llm_tpu_torch.ops.quant import quantize_base
+    from distrl_llm_tpu_torch.tokenizer import load_tokenizer
+    from distrl_llm_tpu_torch.trainer import Trainer, make_engine
+
+    tok = load_tokenizer(str(tokenizer_dir))
+    train, test = trainer_datasets(tok)
+    model, _ = make_weights(cfg, device, seed=seed)
+    quantize_base(model, "int4", group)
+    config = trainer_config(workdir / label, seed=seed, quant_group_size=group, learner="grpo",
+                            clip_ratio=0.2, save_every=0, write_adapter_file=False,
+                            checkpoint_dir=None, rollout_mode="sync",
+                            decode_scan_chunk=GRAPH_CHUNK, **config_kw)
+    engine = make_engine(config, model, tok, hbm_bytes=hbm_bytes, meshes=meshes)
+    first, generate = [], engine.generate
+
+    def keep_first(model_, lora, *rest):
+        if not first:
+            first.append((model_, {"layers": {t: {k: x.detach().clone() for k, x in ab.items()}
+                                              for t, ab in lora["layers"].items()}}, *rest))
+        return generate(model_, lora, *rest)
+
+    engine.generate = keep_first
+    out = trainer_run(lambda sink: Trainer(train, test, smoke_reward, config, tokenizer=tok,
+                                           engine=engine, model=model, sink=sink,
+                                           meshes=meshes), label=label)
+    check_trainer_run(out, cfg.num_layers, steps=2, lr=config.lr, cuda=device == "cuda")
+    out.update(eval_args=first[0], config=config, tok=tok)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return out
+
+
+def _record_values(records) -> list:
+    """Each record's values but its times and rates."""
+    return [(step, {k: v for k, v in m.items() if not k.startswith(("timing/", "engine/"))})
+            for step, m in records]
+
+
+def check_mesh_plain(plain: dict, mesh: dict) -> None:
+    """(a): the mesh run's records and its adapter after each step equal the
+    run without a process group, bit for bit (one rank: every gather and
+    every merge is a copy)."""
+    import torch
+
+    check(_record_values(mesh["records"]) == _record_values(plain["records"]),
+          "(a) the records over the learner mesh differ from the run without a group")
+    for i, (a, b) in enumerate(zip(mesh["adapters"], plain["adapters"], strict=True)):
+        check(all(torch.equal(x, y) for x, y in zip(a, b, strict=True)),
+              f"(a) the adapter after step {i} over the learner mesh differs")
+
+
+def save_state(tr, directory: Path) -> tuple[bytes, float]:
+    """``tr.save_checkpoint()`` into ``directory`` (the trainer's own save
+    path; over a learner mesh gathered a member at a time): the file's bytes
+    and the save's ms."""
+    from distrl_llm_tpu_torch.checkpoint import CheckpointManager
+
+    tr.ckpt = CheckpointManager(str(directory))
+    t = time.perf_counter()
+    tr.save_checkpoint()
+    ms = 1e3 * (time.perf_counter() - t)
+    return Path(tr.ckpt.path(tr.total_batch_steps)).read_bytes(), ms
+
+
+def _state_equal(a: dict, b: dict) -> bool:
+    import torch
+
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_state_equal(a[k], b[k]) for k in a)
+    if torch.is_tensor(a):
+        return torch.equal(a.cpu(), b.cpu())
+    return a == b
+
+
+def check_mesh_checkpoint(tr, plain_file: bytes, directory: Path) -> dict:
+    """(a): the learner mesh's checkpoint is byte for byte the run's without
+    a group; then the trained shards zeroed and resumed from it (each rank
+    reading its ranges of the file, memory-mapped) hold the saved state
+    again."""
+    import torch
+
+    data, save_ms = save_state(tr, directory)
+    check(data == plain_file,
+          "(a) the checkpoint over the learner mesh differs from the run's without a group")
+    before = tr._state_tree()
+    with torch.no_grad():
+        for p in tr.lora.trainable():
+            p.zero_()
+    t = time.perf_counter()
+    tr._try_resume()
+    resume_ms = 1e3 * (time.perf_counter() - t)
+    after = tr._state_tree()
+    check(_state_equal(after["lora"], before["lora"])
+          and _state_equal(after["opt_state"], before["opt_state"])
+          and after["step"] == before["step"],
+          "(a) the state resumed over the learner mesh differs from the saved one")
+    return {"bytes": len(data), "save_ms": save_ms, "resume_ms": resume_ms}
+
+
+def save_peak(tr, cuda: bool) -> dict:
+    """(c): the gathered state a checkpoint writes (``_state_tree``, a member
+    at a time to the host), its seconds and the device memory it takes
+    beyond what the trainer holds: at most one member whole and its piece,
+    so no more than twice the largest member."""
+    import torch
+
+    largest = max(4 * s.numel for s in tr.lora.shards.values())
+    if cuda:
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    state = tr._state_tree()
+    seconds = time.perf_counter() - t
+    extra = torch.cuda.max_memory_allocated() - held if cuda else 0
+    whole = sum(x.numel() * x.element_size() for x in state["lora"].values())
+    whole += sum(x.numel() * x.element_size() for e in state["opt_state"]["state"].values()
+                 for x in e.values())
+    check(all(x.device.type == "cpu" for x in state["lora"].values()),
+          "(c) the gathered state is not on the host")
+    check(extra <= 2 * largest + 2**26,
+          f"(c) the save took {extra} bytes of the card beyond the trainer's state, more "
+          f"than twice the largest member ({largest} bytes)")
+    del state
+    gc.collect()
+    return {"extra": extra, "largest": largest, "whole": whole, "seconds": seconds}
+
+
+def check_sharded_eval(out: dict, hbm_bytes=None) -> dict:
+    """(b): the eval round of ``paged_sharded`` (greedy) against one plain
+    paged wave engine over the same model, adapter, prompts and seed; its
+    launches are not the path's."""
+    import dataclasses as dc
+
+    import numpy as np
+
+    from distrl_llm_tpu_torch.trainer import make_engine
+
+    model, lora, ids, mask, sampling, seed = out["eval_args"]
+    check(sampling.temperature == 0.0, "(b) the eval round is not greedy")
+    plain = make_engine(dc.replace(out["config"], engine_impl="paged"), model, out["tok"],
+                        hbm_bytes=hbm_bytes)
+    res = plain.generate(model, lora, ids, mask, sampling, seed)
+    got = out["rounds"][0]["res"]
+    same = np.array_equal(got.tokens, res.tokens) and np.array_equal(got.lengths, res.lengths)
+    check(same, "(b) the sharded engine's eval round differs from one paged wave engine's")
+    plain.release_decode_graphs()
+    return {"rows": int(ids.shape[0]), "tokens": int(np.asarray(res.lengths).sum())}
+
+
+def mesh_full(cfg, device, *, seed: int, workdir: Path, tokenizer_dir: Path, meshes,
+              hbm_bytes=None, **config_kw) -> dict:
+    """(c): full fine-tuning as BASELINE config 3 runs it (bf16 rollout copy,
+    f32 masters, no quantized base, GRPO, splash; phase 10's refill engine
+    and cell) on the learner mesh at fsdp 1, the initial eval and 2 steps:
+    every master moved within Adam8bit's clip, the rollout copy the masters
+    cast to bf16, the launches as ``check_trainer_run`` holds them."""
+    import torch
+
+    from distrl_llm_tpu_torch.config import MeshConfig
+    from distrl_llm_tpu_torch.tokenizer import load_tokenizer
+    from distrl_llm_tpu_torch.trainer import Trainer, make_engine
+
+    tok = load_tokenizer(str(tokenizer_dir))
+    train, test = trainer_datasets(tok)
+    model, _ = make_weights(cfg, device, seed=seed)
+    initial = {n: p.detach().to("cpu", copy=True) for n, p in model.named_parameters()}
+    # a name no preset claims: the width rule holds the loaded 4 layers (the
+    # Trainer's check), not Llama-3-8B's 32
+    config = full_config(workdir / "full", model="random-weights-at-llama3-width",
+                         learner="grpo", seed=seed,
+                         dtype=str(model.embed.dtype).removeprefix("torch."),
+                         **{"max_prompt_tokens": 350, **config_kw},
+                         mesh=MeshConfig(fsdp=meshes.learner.fsdp))
+    engine = make_engine(config, model, tok, hbm_bytes=hbm_bytes, meshes=meshes)
+    out = trainer_run(lambda sink: Trainer(train, test, smoke_reward, config, tokenizer=tok,
+                                           engine=engine, model=model, sink=sink,
+                                           meshes=meshes), label="mesh_full")
+    check_trainer_run(out, cfg.num_layers, steps=2, lr=config.lr, cuda=device == "cuda")
+    tr, lr = out["trainer"], config.lr
+    rollout = dict(tr._engine_params()[0].named_parameters())
+    worst, still = 0.0, []
+    for name, m in tr.lora.full_named():
+        d = (m - initial[name].to(m.device, torch.float32)).abs()
+        bound = 2 * 5 * lr * (1 + 1e-6) + 2 * m.abs() * 2.0**-23
+        check(bool((d <= bound).all()), f"(c) {name} moved beyond 2 Adam8bit steps")
+        worst = max(worst, float(d.max()))
+        if not bool((d > 0).any()):
+            still.append(name)
+        check(torch.equal(rollout[name], m.to(rollout[name].dtype)),
+              f"(c) the rollout copy's {name} is not the master cast to its dtype")
+    check(not still, f"(c) parameters that did not move: {still}")
+    opt = tr.optimizer.state_dict()["state"]
+    out.update(max_move=worst, params=sum(s.numel for s in tr.lora.shards.values()),
+               shard_bytes={"masters": sum(4 * s.data.numel() for s in tr.lora.shards.values()),
+                            "moments": sum(t.numel() * t.element_size() for e in opt.values()
+                                           for t in e.values())})
+    return out
+
+
+def mesh_runs(qwen, llama, device, *, seed: int, workdir: Path, card: str,
+              group=QMM_GROUP, hbm_bytes=None, **config_kw) -> tuple[list, list]:
+    """(a) without a group, then in a one-rank process group (NCCL on the
+    card, gloo on the CPU) (a) over the learner mesh, (b) and (c): their
+    lines and launch counts. The group is left for the caller to close."""
+    import torch
+
+    from distrl_llm_tpu_torch.config import MeshConfig, check_full_finetune_fits
+    from distrl_llm_tpu_torch.distributed import initialize_distributed
+    from distrl_llm_tpu_torch.models.configs import LLAMA3_8B
+    from distrl_llm_tpu_torch.parallel import build_role_meshes
+
+    cuda = device == "cuda"
+
+    def release():
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+
+    tok_dir = write_bpe_tokenizer(workdir / "tokenizer", qwen.vocab_size)
+    kw = dict(seed=seed, workdir=workdir, tokenizer_dir=tok_dir, group=group,
+              hbm_bytes=hbm_bytes, **config_kw)
+    plain = mesh_qlora(qwen, device, meshes=None, label="mesh_qlora_plain", **kw)
+    counts = [plain.pop("counts")]
+    plain_file, _ = save_state(plain["trainer"], workdir / "ckpt_plain")
+    for key in ("trainer", "eval_args"):  # both hold the model
+        plain.pop(key)
+    release()
+
+    info = initialize_distributed(device=device, group=True)
+    check(info.backend == ("nccl" if cuda else "gloo") and info.num_processes == 1,
+          f"phase 17: the process group is {info.backend} over {info.num_processes} ranks")
+    meshes = build_role_meshes(MeshConfig(fsdp=1))
+    check(meshes.timeshared and meshes.learner.shape == {"dp": 1, "fsdp": 1, "sp": 1, "tp": 1},
+          f"phase 17: the default roles over one rank: {meshes}")
+    a = mesh_qlora(qwen, device, meshes=meshes, label="mesh_qlora", **kw)
+    check_mesh_plain(plain, a)
+    ck = check_mesh_checkpoint(a["trainer"], plain_file, workdir / "ckpt_mesh")
+    lines = trainer_step_lines(plain, card) + trainer_step_lines(a, card)
+    lines.append(f"mesh (a): records and adapters over the one-rank {info.backend} learner "
+                 f"mesh equal the run without a group, bit for bit; peak {a['peak_gib']:.2f} "
+                 f"GiB (without a group {plain['peak_gib']:.2f}); launches {a['counts']}; {card}")
+    lines.append(f"mesh (a) checkpoint: {ck['bytes']} bytes gathered over the group, byte for "
+                 f"byte the run's without a group, saved in {ck['save_ms']:.1f} ms; the zeroed "
+                 f"shards resumed from it in {ck['resume_ms']:.1f} ms equal the saved state; "
+                 f"{card}")
+    counts.append(a.pop("counts"))
+    del a, plain
+    release()
+
+    b = mesh_qlora(qwen, device, meshes=meshes, label="mesh_paged_sharded",
+                   **{**kw, "engine_impl": "paged_sharded", "continuous_batching": False,
+                      "max_concurrent_sequences": 0, "eval_temperature": 0.0})
+    counts.append(b.pop("counts"))  # read before the plain engine's round
+    ev = check_sharded_eval(b, hbm_bytes)
+    lines += trainer_step_lines(b, card)
+    lines.append(f"mesh (b) paged_sharded: the eval round ({ev['rows']} prompts x "
+                 f"{b['config'].eval_n}, greedy, {ev['tokens']} tokens) equals one paged wave "
+                 f"engine's token for token; peak {b['peak_gib']:.2f} GiB; launches "
+                 f"{counts[-1]}; {card}")
+    b.pop("trainer")
+    del b
+    release()
+
+    ltok = write_bpe_tokenizer(workdir / "tokenizer_llama", llama.vocab_size)
+    c = mesh_full(llama, device, seed=seed, workdir=workdir, tokenizer_dir=ltok, meshes=meshes,
+                  hbm_bytes=hbm_bytes, **config_kw)
+    counts.append(c.pop("counts"))
+    sv = save_peak(c["trainer"], cuda)
+    hbm = hbm_bytes
+    if hbm is None:
+        from distrl_llm_tpu_torch.engine.budget import device_hbm_bytes
+
+        hbm = device_hbm_bytes()
+    verdicts = {}
+    for fsdp in (1, 4):
+        try:
+            check_full_finetune_fits(LLAMA3_8B, "bfloat16", "Llama-3-8B", hbm, fsdp=fsdp)
+            verdicts[fsdp] = "passes"
+        except ValueError:
+            verdicts[fsdp] = "raises"
+    if cuda:
+        check(verdicts == {1: "raises", 4: "passes"},
+              f"(c) check_full_finetune_fits at 32 layers: {verdicts}")
+    sb = c["shard_bytes"]
+    lines += trainer_step_lines(c, card)
+    lines.append(
+        f"mesh (c) full fine-tuning at Llama-3-8B width, {llama.num_layers} of 32 layers "
+        f"({c['params'] / 1e9:.3f} B parameters), fsdp 1 over one {info.backend} rank: peak "
+        f"{c['peak_gib']:.2f} GiB; the rank's sharded state {sb['masters'] / 2**30:.2f} GiB "
+        f"of f32 masters (their grads the same during a step) and {sb['moments'] / 2**30:.2f}"
+        f" GiB of Adam8bit moments; largest move {c['max_move']:.3g}; "
+        f"check_full_finetune_fits for 32 layers on {hbm / 1e9:.1f} GB: fsdp 1 "
+        f"{verdicts[1]}, fsdp 4 {verdicts[4]}; launches {counts[-1]}; {card}")
+    lines.append(
+        f"mesh (c) the checkpoint's gathered state: {sv['whole'] / 2**30:.2f} GiB on the host "
+        f"in {sv['seconds']:.2f} s, a member at a time; the card's peak beyond the trainer's "
+        f"state {sv['extra'] / 2**30:.2f} GiB (largest member {sv['largest'] / 2**30:.2f} "
+        f"GiB); {card}")
+    return lines, counts
+
+
+def mesh_child(workdir: Path, seed: int) -> None:
+    """Phase 17's child process: ``mesh_runs`` at Qwen2.5-7B width (7
+    layers) and Llama-3-8B width (4 layers). Prints its lines and, last,
+    ``MESH_COUNTS`` and the runs' launch counts."""
+    import torch
+
+    from distrl_llm_tpu_torch.models.configs import LLAMA3_8B, QWEN2_7B
+    from distrl_llm_tpu_torch.ops import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    _build.build_all()
+    card = f"card: {nvidia_smi()}"
+    lines, counts = mesh_runs(dataclasses.replace(QWEN2_7B, num_layers=GRAPH_TRAIN_LAYERS),
+                              dataclasses.replace(LLAMA3_8B, num_layers=MESH_FULL_LAYERS),
+                              "cuda", seed=seed, workdir=workdir, card=card)
+    lines.append(f"mesh: phase 17's child {time.perf_counter() - t0:.1f} s; {card}")
+    for line in lines:
+        print(line, flush=True)
+    torch.distributed.destroy_process_group()
+    print("MESH_COUNTS " + json.dumps(counts), flush=True)
+
+
+def mesh_rehearsal(workdir) -> tuple[list, list]:
+    """Phase 17 at TINY on the CPU over a one-rank gloo group (the Qwen run
+    with a 1024-token vocabulary for the hand-written BPE, the full run on
+    TINY's shape without biases, as Llama's): every run checked as on the
+    card, launch counts apart. Run it in a process of its own: it leaves a
+    process group."""
+    import torch
+
+    from distrl_llm_tpu_torch.models.configs import TINY
+
+    torch.set_num_threads(1)
+    qwen = dataclasses.replace(TINY, vocab_size=1024)
+    llama = dataclasses.replace(qwen, attention_bias=False)
+    return mesh_runs(qwen, llama, "cpu", seed=0, workdir=Path(workdir), card="cpu", group=16,
+                     hbm_bytes=2**30, max_prompt_tokens=96, max_new_tokens=8, num_candidates=4,
+                     topk=4, train_batch_size=4, eval_n=2, max_concurrent_sequences=8,
+                     max_lora_rank=4)
+
+
+def mesh_phase(args, card: str, t_start: float) -> list:
+    """Phase 17 (see the module's docstring) in a child process; returns the
+    launch counts of its runs."""
+    import tempfile
+
+    import torch
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()  # the child's card is this process's card
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+        proc = subprocess.run(
+            [sys.executable, str(HERE / "chip_smoke.py"), "--mesh-child", tmp,
+             "--seed", str(args.seed)],
+            stdout=subprocess.PIPE, text=True, timeout=MESH_TIMEOUT_S, cwd=str(HERE))
+    lines = proc.stdout.splitlines()
+    for line in lines:
+        if not line.startswith("MESH_COUNTS "):
+            print(line)
+    check(proc.returncode == 0, f"phase 17's child exited {proc.returncode}")
+    counts = [json.loads(line[len("MESH_COUNTS "):]) for line in lines
+              if line.startswith("MESH_COUNTS ")]
+    check(len(counts) == 1, "phase 17's child printed no launch counts")
+    print(f"mesh: phase 17 {time.perf_counter() - t0:.1f} s; total "
+          f"{time.perf_counter() - t_start:.1f} s; {card}")
+    return counts[0]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=28,
                     help="decoder depth of the Qwen2.5-7B-wide model (28 = full)")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--until", type=int, default=16, choices=tuple(range(6, 17)),
+    ap.add_argument("--until", type=int, default=17, choices=tuple(range(6, 18)),
                     help="the last phase to run; 6 skips speculative decoding "
                          "(with --profile, the long part), 7 the trainer, 8 the "
                          "refill engine's riders, 9 full fine-tuning at Gemma-2B "
@@ -7035,8 +7460,9 @@ def main(argv=None) -> int:
                          "scheduler's, 12 the overlapped rollout modes, 13 the "
                          "kernel domains past rank 64 and 64 query rows, 14 the "
                          "multi-turn environments and full fine-tuning under the "
-                         "overlapped modes, 15 the remote rollout workers; a partial run "
-                         "prints no result line")
+                         "overlapped modes, 15 the remote rollout workers, 16 the learners "
+                         "sharded over ranks; a partial run prints no result line")
+    ap.add_argument("--mesh-child", type=Path, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--profile", action="store_true",
                     help="also print the device time per decode step and per "
                          "learner step by kernel (torch.profiler) and the "
@@ -7051,6 +7477,10 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, str(HERE))
     import distrl_llm_tpu_torch
+
+    if args.mesh_child is not None:  # phase 17's child process
+        mesh_child(args.mesh_child, args.seed)
+        return 0
 
     pkg = Path(distrl_llm_tpu_torch.__file__).resolve().parent
     check(pkg == HERE / "distrl_llm_tpu_torch",
@@ -7460,6 +7890,16 @@ def main(argv=None) -> int:
     # processes on the card over the control plane and the weight bus, sync
     # and async with an in-flight swap graphed, sync and pipelined eager
     counted += remote_phase(cfg, args, card, t_start)
+    if args.until < 17:
+        print(f"chip_smoke: phases 1-{args.until} done in {time.perf_counter() - t_start:.1f} s "
+              f"(a partial run prints no result line); {card}")
+        return 0
+
+    # 17. learners sharded over ranks: a child process in a one-rank NCCL
+    # group runs phase 13 (a)'s QLoRA cell over the learner mesh (held to the
+    # run without a group), with paged_sharded, and full fine-tuning at
+    # Llama-3-8B width
+    counted += mesh_phase(args, card, t_start)
     print(f"chip_smoke: done in {time.perf_counter() - t_start:.1f} s; {card}")
 
     kernels = []

@@ -119,14 +119,16 @@ class CheckpointManager:
             except OSError:  # a concurrent save already pruned it
                 pass
 
-    def restore(self, step: int | None = None) -> dict | None:
+    def restore(self, step: int | None = None, *, mmap: bool = False) -> dict | None:
         """The state saved at ``step`` (default the latest) on the CPU; None
-        when there is no checkpoint."""
+        when there is no checkpoint. ``mmap``: the tensors map the file
+        (copy on write) and are read only where used, as a rank of a learner
+        mesh reads only its shards' ranges."""
         if step is None:
             step = self.latest_step()
         if step is None:
             return None
-        return torch.load(self.path(step), map_location="cpu", weights_only=True)
+        return torch.load(self.path(step), map_location="cpu", weights_only=True, mmap=mmap)
 
 
 # the adapter's peft tensor names: the stacked [L, in, out] layout unstacks

@@ -7,8 +7,11 @@ base quantization, the engines, the learner, checkpointing, metrics). Field
 names, defaults and validation rules are the JAX package's. A value that
 only an unported path accepts raises ``NotImplementedError`` naming its
 ROADMAP item. The flags of planes that are not ported (observability,
-control, lineage, gateway, the elastic fleet, autotune, meshes) are not
-fields here.
+control, lineage, gateway, the elastic fleet, autotune) are not fields
+here. ``MeshConfig`` carves the ranks of a ``torch.distributed`` job into
+rollout and learner roles (ROADMAP item 10a: dp and fsdp); tensor and
+sequence parallelism, and a mesh under the overlapped modes, remote workers
+or multi-turn environments, are item 10b.
 """
 
 from __future__ import annotations
@@ -17,13 +20,12 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Any
 
-from distrl_llm_tpu_torch.models.configs import preset_for_model_name
 
 #: every top-p filter name the JAX package knows (ops/sampling.py TOP_P_IMPLS);
 #: the port implements all three (ops/sampling.py)
 TOP_P_IMPL_NAMES = ("exact", "bisect", "bisect_mw")
 
-_MULTI_GPU_ITEM = "ROADMAP queue 1 item 10: multi-GPU"
+_ITEM_10B = "ROADMAP queue 1 item 10b: tensor and sequence parallelism"
 
 
 @dataclass
@@ -59,42 +61,78 @@ class SamplingConfig:
         return dataclasses.replace(self, **kw)
 
 
+@dataclass
+class MeshConfig:
+    """How ranks are carved into roles and parallelism axes (the JAX
+    package's ``MeshConfig``, config.py:88-111): the first
+    ``number_of_actors`` data-parallel groups of ``tp * sp * fsdp`` ranks
+    are rollout ranks, the next ``number_of_learners`` groups learner ranks.
+    With fewer ranks than roles (one card) the roles time-share them."""
+
+    number_of_actors: int = 2
+    number_of_learners: int = 1
+    tp: int = 1  # tensor-parallel size within each role group (item 10b)
+    sp: int = 1  # sequence-parallel (ring attention) size (item 10b)
+    fsdp: int = 1  # sharding of the learner state
+    allow_timeshare: bool = True
+
+    @property
+    def num_roles(self) -> int:
+        return self.number_of_actors + self.number_of_learners
+
+
 # the capacity a full-FT config is held to when no card is visible: the
 # NVIDIA H100 80GB the port runs on
 DEFAULT_CARD_BYTES = 80 * 10**9
 _DTYPE_BYTES = {"float32": 4, "bfloat16": 2, "float16": 2}
 
 
-def full_finetune_bytes(model_cfg, dtype: str = "bfloat16") -> dict[str, int]:
-    """Device bytes full fine-tuning holds for ``model_cfg`` (P parameters):
-    the f32 master weights (4 P), their f32 grads (4 P), Adam8bit's two
-    int8 moments with one f32 scale per 256-element block (2 P + P / 32)
-    and the rollout copy at ``dtype`` (the JAX trainer.py:298-322 and
-    :939-943 layout); about 12 P bytes at bf16."""
+def full_finetune_bytes(model_cfg, dtype: str = "bfloat16", fsdp: int = 1) -> dict[str, int]:
+    """Device bytes one rank holds for full fine-tuning of ``model_cfg`` (P
+    parameters) with the learner state sharded over ``fsdp`` ranks: the f32
+    master weights (4 P), their f32 grads (4 P) and Adam8bit's two int8
+    moments with one f32 scale per 256-element block (2 P + P / 32), each
+    divided by ``fsdp``, and the rollout copy at ``dtype``, whole on every
+    rollout rank (the JAX trainer.py:298-322 and :939-943 layout); about
+    12 P bytes at bf16 on one rank."""
     p = model_cfg.param_count
-    out = {"masters": 4 * p, "grads": 4 * p, "moments": 2 * p + p // 32,
-           "rollout": _DTYPE_BYTES[dtype] * p}
+    out = {"masters": 4 * p // fsdp, "grads": 4 * p // fsdp,
+           "moments": (2 * p + p // 32) // fsdp, "rollout": _DTYPE_BYTES[dtype] * p}
     out["total"] = sum(out.values())
     return out
 
 
 def check_full_finetune_fits(model_cfg, dtype: str = "bfloat16", name: str = "this model",
-                             hbm_bytes: int | None = None) -> None:
-    """Raise ``NotImplementedError`` naming ROADMAP item 10 when full
-    fine-tuning's state (``full_finetune_bytes``) and the learner's
-    workspace (the share of the card ``engine/budget.py`` keeps for
-    activations, ``ACTIVATION_RESERVE``) exceed one card of ``hbm_bytes``
-    (default ``DEFAULT_CARD_BYTES``)."""
+                             hbm_bytes: int | None = None, fsdp: int = 1) -> None:
+    """Raise ``ValueError`` when one rank's share of full fine-tuning's state
+    (``full_finetune_bytes`` at ``fsdp``) and the learner's workspace (the
+    share of the card ``engine/budget.py`` keeps for activations,
+    ``ACTIVATION_RESERVE``) exceed one card of ``hbm_bytes`` (default
+    ``DEFAULT_CARD_BYTES``)."""
     from distrl_llm_tpu_torch.engine.budget import ACTIVATION_RESERVE
 
     hbm = DEFAULT_CARD_BYTES if hbm_bytes is None else hbm_bytes
-    need = full_finetune_bytes(model_cfg, dtype)["total"]
+    need = full_finetune_bytes(model_cfg, dtype, fsdp)["total"]
     if need + ACTIVATION_RESERVE * hbm > hbm:
-        raise NotImplementedError(
+        raise ValueError(
             f"full_finetune of {name} ({model_cfg.param_count / 1e9:.2f} B parameters) "
-            f"needs {need / 1e9:.1f} GB of f32 masters, grads, 8-bit moments and the "
-            f"{dtype} rollout copy, plus the learner's workspace: more than one card of "
-            f"{hbm / 1e9:.1f} GB ({_MULTI_GPU_ITEM})")
+            f"at fsdp={fsdp} needs {need / 1e9:.1f} GB a rank of f32 masters, grads, 8-bit "
+            f"moments and the {dtype} rollout copy, plus the learner's workspace: more "
+            f"than one card of {hbm / 1e9:.1f} GB; shard the learner state over more "
+            "ranks (mesh.fsdp)")
+
+
+def check_mesh_supported(config: "TrainConfig") -> None:
+    """Raise ``NotImplementedError`` naming ROADMAP item 10b for what a
+    learner mesh does not run yet: the overlapped rollout modes, remote
+    rollout workers and multi-turn environments."""
+    for bad, what in ((config.rollout_mode != "sync", f"rollout_mode={config.rollout_mode!r}"),
+                      (bool(config.rollout_workers), "rollout_workers"),
+                      (config.env != "math", f"env={config.env!r}")):
+        if bad:
+            raise NotImplementedError(
+                f"{what} on a learner mesh is not ported yet ({_ITEM_10B}, and a mesh "
+                "under the overlapped modes, remote workers or multi-turn envs)")
 
 
 def parse_buckets(spec: str | None, field: str = "prompt_buckets") -> tuple[int, ...]:
@@ -168,14 +206,15 @@ class TrainConfig:
     # positions (0 = dense)
     logprob_chunk: int = 128
     # full-rank fine-tuning (BASELINE config 3): the whole model trains as
-    # f32 master weights; widths past one card are item 10
+    # f32 master weights, sharded over mesh.fsdp ranks
     full_finetune: bool = False
     # prompt length buckets for the rollout engine; empty = one bucket
     prompt_buckets: tuple[int, ...] = ()
     # answer / prompt length buckets for the learner's update batch
     learner_len_buckets: tuple[int, ...] = ()
     learner_prompt_buckets: tuple[int, ...] = ()
-    # rollout engine: "dense" or "paged" ("paged_sharded": item 10)
+    # rollout engine: "dense", "paged", or "paged_sharded" (the paged wave
+    # engine with the round's rows split over the rollout ranks)
     engine_impl: str = "dense"
     # KV cache format: None or "none" (the cache dtype) or "int8"
     kv_cache_quant: str | None = None
@@ -279,7 +318,7 @@ class TrainConfig:
     resume: bool = False
     metrics_backend: str = "auto"  # {"auto","wandb","jsonl","null"}
     # attention for the learner and the prefill: "reference", "flash",
-    # "splash" (kernel K4 on the GPU); "ring"/"ulysses": item 10
+    # "splash" (kernel K4 on the GPU); "ring"/"ulysses": item 10b
     attn_impl: str = "reference"
     write_adapter_file: bool = False  # the reference's per-step adapter file
     # hang detector on generation rounds, seconds (0 = off; the reference's
@@ -297,6 +336,9 @@ class TrainConfig:
     max_turns: int = 1
     # format-reward gate: "soft" (the reference's) or "strict"
     format_reward: str = "soft"
+    # ranks -> roles and parallelism axes; its role counts follow
+    # number_of_actors / number_of_learners
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
 
     def __post_init__(self):
         if self.learner not in ("pg", "grpo"):
@@ -334,9 +376,6 @@ class TrainConfig:
         if self.engine_impl not in ("dense", "paged", "paged_sharded"):
             raise ValueError(
                 f"engine_impl must be dense/paged/paged_sharded, got {self.engine_impl!r}")
-        if self.engine_impl == "paged_sharded":
-            raise NotImplementedError(
-                f"engine_impl='paged_sharded' is not ported ({_MULTI_GPU_ITEM})")
         if self.kv_cache_quant not in (None, "none", "int8"):
             raise ValueError(
                 f"kv_cache_quant must be none/int8 (or unset), got {self.kv_cache_quant!r}")
@@ -406,10 +445,6 @@ class TrainConfig:
             raise ValueError(f"rpc_backoff_s must be >= 0, got {self.rpc_backoff_s}")
         if self.producer_restarts < 0:
             raise ValueError(f"producer_restarts must be >= 0, got {self.producer_restarts}")
-        if self.full_finetune:
-            model_cfg = preset_for_model_name(self.model)
-            if model_cfg is not None:  # else the Trainer checks its loaded model
-                check_full_finetune_fits(model_cfg, self.dtype, self.model)
         if self.decode_scan_chunk is not None and self.decode_scan_chunk < 0:
             raise ValueError(f"decode_scan_chunk must be >= 0, got {self.decode_scan_chunk}")
         from distrl_llm_tpu_torch.env.registry import env_names
@@ -518,6 +553,27 @@ class TrainConfig:
             raise ValueError("need at least one learner")
         if self.number_of_actors < 0:
             raise ValueError("number_of_actors must be >= 0")
+        # the flat flags are authoritative for role counts (the reference CLI
+        # contract); a custom MeshConfig may only restate them
+        default_roles = (MeshConfig().number_of_actors, MeshConfig().number_of_learners)
+        mesh_roles = (self.mesh.number_of_actors, self.mesh.number_of_learners)
+        flat_roles = (self.number_of_actors, self.number_of_learners)
+        if mesh_roles != default_roles and mesh_roles != flat_roles:
+            raise ValueError(
+                f"mesh role counts {mesh_roles} conflict with number_of_actors/"
+                f"number_of_learners {flat_roles}; set the flat flags instead")
+        self.mesh = MeshConfig(**{**dataclasses.asdict(self.mesh),
+                                  "number_of_actors": self.number_of_actors,
+                                  "number_of_learners": self.number_of_learners})
+        if min(self.mesh.tp, self.mesh.sp, self.mesh.fsdp) < 1:
+            raise ValueError(f"mesh axes must be >= 1, got {self.mesh}")
+        for axis in ("tp", "sp"):
+            if getattr(self.mesh, axis) > 1:
+                raise NotImplementedError(
+                    f"mesh.{axis}={getattr(self.mesh, axis)} is not ported yet ({_ITEM_10B})")
+        if self.attn_impl in ("ring", "ulysses"):
+            raise NotImplementedError(
+                f"attn_impl={self.attn_impl!r} is not ported yet ({_ITEM_10B})")
 
     @property
     def max_seq_length(self) -> int:

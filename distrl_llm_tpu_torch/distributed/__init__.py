@@ -1,13 +1,15 @@
-"""The multi-process rollout runtime: the C++ control plane, remote rollout
-workers, the versioned weight bus and their resilience layer (ROADMAP queue
-1 item 9). ``initialize_distributed`` (the JAX package's
-``jax.distributed`` entry) is item 10."""
+"""The multi-process runtime: the C++ control plane, remote rollout workers,
+the versioned weight bus and their resilience layer (ROADMAP queue 1 item
+9), and ``initialize_distributed``, the ``torch.distributed`` process group
+that learners sharded over ranks run in (item 10a; the JAX package's
+``jax.distributed`` entry)."""
 
 from distrl_llm_tpu_torch.distributed.control_plane import (
     DriverClient,
     WorkerDeadError,
     WorkerServer,
 )
+from distrl_llm_tpu_torch.distributed.launch import ProcessInfo, initialize_distributed
 from distrl_llm_tpu_torch.distributed.remote_engine import (
     RemoteEngine,
     connect_remote_engine,
@@ -29,6 +31,7 @@ __all__ = [
     "AdapterCache",
     "DriverClient",
     "FaultInjector",
+    "ProcessInfo",
     "RemoteEngine",
     "RetryPolicy",
     "ShardFailedError",
@@ -39,4 +42,5 @@ __all__ = [
     "WorkerError",
     "WorkerServer",
     "connect_remote_engine",
+    "initialize_distributed",
 ]

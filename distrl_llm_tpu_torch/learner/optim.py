@@ -142,7 +142,13 @@ class Adam8bit(torch.optim.Optimizer):
     leaf's even where a member's size is not a multiple of 256 (a norm or
     a bias). The update runs over block-aligned chunks of at most
     ``CHUNK`` elements, which bounds its temporaries (``_fma`` works in
-    f64) at any parameter size."""
+    f64) at any parameter size.
+
+    Over a learner mesh the members are a rank's block-aligned ranges of
+    the leaf's members (``parallel/partition.py::FlatShard``), each a whole
+    number of blocks: the blocks a rank holds, and their codes and scales,
+    are the whole leaf's, and ``partition.gather_opt_state`` puts them back
+    in a one-rank run's layout."""
 
     CHUNK = 1 << 22
 

@@ -22,6 +22,17 @@ step in place.
 Batch layout (``prepare_update_batch``): all tensors lead with N =
 num_micro · micro_size; rows past the real sample count are padding with
 ``sample_mask`` 0.
+
+On a learner mesh (``mesh=``, ``parallel/mesh.py``) the trained tree is a
+``ShardedLora`` or ``ShardedDecoder`` (``parallel/partition.py``): each
+microbatch gathers the whole adapter (full fine-tuning: each layer gathers
+its weights in its forward), so every kernel sees whole local tensors, and
+the backward leaves each rank its range of the grads. The rows go over dp
+by whole microbatches (``prepare_update_batch(mesh=)``): each dp group runs
+its own microbatches, and the grads, the count of real microbatches and
+the loss are summed over dp before the division, which is the global-batch
+mean JAX's ``psum`` gives (the reference's multi-learner gradient merge,
+SURVEY §3.4).
 """
 
 from __future__ import annotations
@@ -48,7 +59,7 @@ _RATIO_BOUNDS: tuple[float, ...] = (
 )
 _GRAD_DEPTH_BUCKETS = 4  # LoRA grad-norm depth groups (a0..a3 / b0..b3)
 
-_MULTI_GPU_ITEM = "ROADMAP queue 1 item 10: multi-GPU"
+_ITEM_10B = "ROADMAP queue 1 item 10b: tensor and sequence parallelism"
 
 
 class UpdateBatch(NamedTuple):
@@ -230,6 +241,7 @@ def make_train_step(
     remat: bool = True,
     attn_impl: str = "reference",
     attn_mesh=None,
+    mesh=None,
     lora_dropout: float = 0.0,
     logit_chunk: int = 0,
     train_mode: str = "lora",
@@ -250,14 +262,22 @@ def make_train_step(
     and ``base`` is None. It returns ``loss_sum`` (a 0-dim f32 tensor), or
     ``(loss_sum, dynamics)`` with ``emit_dynamics``. ``dropout_seed`` (LoRA
     dropout) is drawn anew by the caller per step; each microbatch, layer
-    and target derives its own mask seed from it."""
+    and target derives its own mask seed from it.
+
+    ``mesh`` (the learner ``RoleMesh``): ``lora`` is the sharded tree and
+    ``batch`` this rank's rows (``prepare_update_batch(mesh=)``); the grads,
+    the real-microbatch count and the loss are summed over the dp group.
+    Every rank of the mesh must call the step."""
     if train_mode not in ("lora", "full"):
         raise ValueError(f"train_mode must be 'lora' or 'full', got {train_mode!r}")
     if train_mode == "full" and kl_coeff > 0.0:
         # full mode has no frozen base to serve as the reference policy
         raise ValueError("kl_coeff requires train_mode='lora' (frozen base = ref)")
     if attn_mesh is not None:
-        raise NotImplementedError(f"attn_mesh is not ported yet ({_MULTI_GPU_ITEM})")
+        raise NotImplementedError(f"attn_mesh (ring/ulysses) is not ported yet ({_ITEM_10B})")
+    if mesh is not None and emit_dynamics:
+        raise ValueError("emit_dynamics reads whole grads; a learner mesh keeps shards")
+    dp_group = mesh.group("dp") if mesh is not None and mesh.device_mesh is not None else None
     if off_policy not in ("clip", "aipo"):
         raise ValueError(f"off_policy must be 'clip' or 'aipo', got {off_policy!r}")
     kw = dict(learner_type=learner_type, lora_scale=lora_scale, remat=remat,
@@ -275,37 +295,52 @@ def make_train_step(
         if n % micro_size:
             raise ValueError(f"batch {n} not divisible by micro {micro_size}")
         num_micro = n // micro_size
-        leaves = _leaves(lora)
+        # on a learner mesh the tree is ``shard_tree``'s: its shards train
+        leaves = lora.trainable() if mesh is not None else _leaves(lora)
         for p in leaves:
             p.grad = None
         dev = batch.coeffs.device
         loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
         num_real = 0.0
         sums = None
+        # this rank's microbatches are the global ones from first_micro on
+        first_micro = mesh.coordinate()[0] * num_micro if mesh is not None else 0
         for i in range(num_micro):
             mb = UpdateBatch(*(None if x is None else x[i * micro_size:(i + 1) * micro_size]
                                for x in batch))
             weight, has_real = _microbatch_weight(mb, skip_semantics)
             num_real += has_real
-            seed = dropout_stream(dropout_seed, i) if dropout_seed is not None else None
+            seed = (dropout_stream(dropout_seed, first_micro + i)
+                    if dropout_seed is not None else None)
             if weight == 0.0 and not emit_dynamics:
                 continue  # adds exactly 0 to the loss and the grads
+            # a sharded adapter is gathered whole for each microbatch (its
+            # backward keeps this rank's ranges); a sharded model gathers
+            # its layers itself
+            trained = lora.gather() if mesh is not None and train_mode == "lora" else lora
             with torch.set_grad_enabled(weight != 0.0):
-                loss, dyn = _microbatch_loss(lora, base, mb, dropout_seed=seed, **kw)
+                loss, dyn = _microbatch_loss(trained, base, mb, dropout_seed=seed, **kw)
             if weight != 0.0:
                 loss.backward()
                 loss_sum = loss_sum + loss.detach()
             if emit_dynamics:
                 sums = dyn if sums is None else {k: sums[k] + dyn[k] for k in sums}
-        # reference scaling: each microbatch contributes grad/num_batches;
-        # num_batches counts microbatches with real rows, skipped or not
-        denom = max(num_real, 1.0)
         with torch.no_grad():
             for p in leaves:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
-                else:
-                    p.grad.div_(denom)
+            if dp_group is not None:
+                # the gradient merge: each dp group's sums over its rows,
+                # summed over dp, then divided once as one rank divides
+                real = torch.tensor([num_real], dtype=torch.float32, device=dev)
+                for t in (real, loss_sum, *(p.grad for p in leaves)):
+                    torch.distributed.all_reduce(t, group=dp_group)
+                num_real = float(real.item())
+            # reference scaling: each microbatch contributes grad/num_batches;
+            # num_batches counts microbatches with real rows, skipped or not
+            denom = max(num_real, 1.0)
+            for p in leaves:
+                p.grad.div_(denom)
         dynamics = None
         if emit_dynamics:
             grads = ([p.grad for p in leaves] if train_mode == "full"
@@ -355,10 +390,32 @@ def prepare_update_batch(
     own tokens and behavior logprobs from ``raw_rollout``), rows padded up
     to a multiple of ``micro_size`` with ``sample_mask`` 0. ``answer_buckets``
     / ``prompt_buckets`` cut all-masked columns to the smallest bucket that
-    holds the longest real row."""
-    if mesh is not None:
-        raise NotImplementedError(f"a learner mesh is not ported yet ({_MULTI_GPU_ITEM})")
-    dev = resolve_device(device)
+    holds the longest real row. ``mesh``: this rank's rows
+    (``place_update_batch``)."""
+    arrays = update_arrays(
+        tokenizer, problems, answers, coeffs, max_prompt_tokens=max_prompt_tokens,
+        max_new_tokens=max_new_tokens, raw_rollout=raw_rollout,
+        answer_buckets=answer_buckets, prompt_buckets=prompt_buckets,
+        current_version=current_version)
+    return place_update_batch(arrays, micro_size=micro_size, device=device, mesh=mesh)
+
+
+def update_arrays(
+    tokenizer,
+    problems: list[str],
+    answers: list[str],
+    coeffs: np.ndarray,
+    *,
+    max_prompt_tokens: int,
+    max_new_tokens: int,
+    raw_rollout: dict | None = None,
+    answer_buckets: Sequence[int] | None = None,
+    prompt_buckets: Sequence[int] | None = None,
+    current_version: int | None = None,
+) -> dict:
+    """The update batch's host arrays by ``UpdateBatch`` field, one row per
+    real sample (None where a field is absent): what rank 0 hands the
+    learner ranks."""
     n_real = len(problems)
     prompt_ids, prompt_mask = encode_fixed(tokenizer, problems, max_prompt_tokens, side="left")
     if prompt_buckets:
@@ -400,21 +457,40 @@ def prepare_update_batch(
                 version_lag = version_lag[:, :width]
             if loss_mask is not None:
                 loss_mask = loss_mask[:, :width]
-    n = -(-max(n_real, 1) // micro_size) * micro_size
-    pad = n - n_real
+    return dict(
+        prompt_ids=prompt_ids, prompt_mask=prompt_mask, answer_ids=answer_ids,
+        answer_mask=answer_mask, coeffs=np.asarray(coeffs, np.float32),
+        sample_mask=np.ones(n_real, np.float32), behavior_logps=behavior_logps,
+        version_lag=version_lag, loss_mask=loss_mask)
+
+
+def place_update_batch(arrays: dict, *, micro_size: int,
+                       device: str | torch.device | None = None, mesh=None) -> UpdateBatch:
+    """``update_arrays``' rows padded up to a multiple of ``micro_size``
+    with ``sample_mask`` 0, copied to ``device``. ``mesh`` (the learner
+    ``RoleMesh``): the rows are padded up to ``micro_size * dp`` and this
+    rank gets its dp group's contiguous share, whole microbatches (JAX lays
+    the rows over "dp" when their count divides by dp and keeps them
+    replicated otherwise; the padding microbatches hold no real row, so
+    they add nothing to the loss, the grads or the divisor, and the result
+    is the same)."""
+    dev = resolve_device(device)
+    dp, d = 1, 0
+    if mesh is not None:
+        from distrl_llm_tpu_torch.parallel.partition import _check_mesh
+
+        _check_mesh(mesh)
+        dp, d = mesh.dp, mesh.coordinate()[0]
+    n_real = len(arrays["coeffs"])
+    unit = micro_size * dp
+    n = -(-max(n_real, 1) // unit) * unit
+    lo, hi = d * n // dp, (d + 1) * n // dp
 
     def put(x):
         if x is None:
             return None
         x = np.asarray(x)
-        x = np.pad(x, ((0, pad),) + ((0, 0),) * (x.ndim - 1))
+        x = np.pad(x, ((0, n - n_real),) + ((0, 0),) * (x.ndim - 1))[lo:hi]
         return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
 
-    sample_mask = np.zeros(n_real, np.float32)
-    sample_mask[:] = 1.0
-    return UpdateBatch(
-        prompt_ids=put(prompt_ids), prompt_mask=put(prompt_mask),
-        answer_ids=put(answer_ids), answer_mask=put(answer_mask),
-        coeffs=put(np.asarray(coeffs, np.float32)), sample_mask=put(sample_mask),
-        behavior_logps=put(behavior_logps), version_lag=put(version_lag),
-        loss_mask=put(loss_mask))
+    return UpdateBatch(**{f: put(arrays[f]) for f in UpdateBatch._fields})

@@ -17,6 +17,12 @@ stacked ``[L, ...]`` leaf per layer parameter), the order and grouping
 full fine-tuning's Adam8bit keeps its state in. The caller converts on the
 JAX side (``jax.tree_util.tree_map(np.asarray, tree)``), so the port never
 sees a JAX array.
+
+Over a learner mesh (``parallel/partition.py``): ``lora_from_numpy(...,
+mesh=)`` returns the adapter sharded over the mesh's fsdp axis, and
+``lora_to_numpy`` / ``params_to_numpy`` take a sharded adapter or model and
+gather it whole (a collective: every fsdp rank must call them). Every
+conversion still copies.
 """
 
 from __future__ import annotations
@@ -126,9 +132,10 @@ def params_from_numpy(tree: Tree, cfg: ModelConfig,
 
 def lora_from_numpy(tree: Tree, cfg: ModelConfig,
                     dtype: torch.dtype = torch.float32,
-                    device: str | torch.device | None = None) -> dict:
+                    device: str | torch.device | None = None, mesh=None):
     """JAX-layout numpy adapter tree → the port's adapter dict of tensors on
-    ``device`` (default the GPU), shapes checked against ``cfg``."""
+    ``device`` (default the GPU), shapes checked against ``cfg``; with
+    ``mesh`` (a learner ``RoleMesh``) this rank's ``ShardedLora``."""
     dev = resolve_device(device)
     out = {}
     for target, ab in tree["layers"].items():
@@ -147,14 +154,20 @@ def lora_from_numpy(tree: Tree, cfg: ModelConfig,
         # must never write into the caller's numpy arrays
         out[target] = {"a": torch.tensor(a, dtype=dtype, device=dev),
                        "b": torch.tensor(b, dtype=dtype, device=dev)}
+    if mesh is not None:
+        from distrl_llm_tpu_torch.parallel.partition import shard_tree
+
+        return shard_tree({"layers": out}, mesh)
     return {"layers": out}
 
 
-def lora_to_numpy(lora: dict) -> dict:
-    """The port's adapter dict → a JAX-layout numpy tree (f32 copies on the
-    host), the inverse of ``lora_from_numpy``. Always a copy: an f32 CPU
-    tensor's ``.numpy()`` shares its memory, and the optimizer updates the
-    adapter in place."""
+def lora_to_numpy(lora) -> dict:
+    """The port's adapter dict (or ``ShardedLora``, gathered) → a JAX-layout
+    numpy tree (f32 copies on the host), the inverse of ``lora_from_numpy``.
+    Always a copy: an f32 CPU tensor's ``.numpy()`` shares its memory, and
+    the optimizer updates the adapter in place."""
+    if not isinstance(lora, dict):  # a ShardedLora
+        lora = lora.full()
     return {"layers": {t: {k: x.detach().to("cpu", torch.float32, copy=True).numpy()
                            for k, x in ab.items()}
                        for t, ab in lora["layers"].items()}}
@@ -180,15 +193,27 @@ def params_to_numpy(model: Decoder) -> dict:
     ``params_from_numpy`` (stacked ``[L, ...]`` layer leaves, the tied
     embedding once), copied to the host in the model's dtype widened to f32
     where numpy has no such type (bf16). Always a copy: the optimizer
-    updates the parameters in place."""
+    updates the parameters in place. A ``ShardedDecoder`` is gathered whole,
+    a parameter at a time."""
+    from distrl_llm_tpu_torch.parallel.partition import ShardedDecoder
+
     def host(x: torch.Tensor) -> np.ndarray:
-        x = x.detach()
         return (x.float() if x.dtype == torch.bfloat16 else x).to("cpu", copy=True).numpy()
+
+    if isinstance(model, ShardedDecoder):  # its parameters are on the meta device
+        whole = {n: host(t) for n, t in model.full_named()}
+        name_of = {id(p): n for n, p in model.named_parameters()}
+
+        def value(t: torch.Tensor) -> np.ndarray:
+            return whole[name_of[id(t)]]
+    else:
+        def value(t: torch.Tensor) -> np.ndarray:
+            return host(t.detach())
 
     tree: dict = {"layers": {}}
     for key, ts in param_stacks(model).items():
         if key.startswith("layers."):
-            tree["layers"][key.split(".", 1)[1]] = host(torch.stack([t.detach() for t in ts]))
+            tree["layers"][key.split(".", 1)[1]] = np.stack([value(t) for t in ts])
         else:
-            tree[key] = host(ts[0])
+            tree[key] = value(ts[0])
     return tree

@@ -415,7 +415,7 @@ class Decoder(nn.Module):
         if attn_impl in ("ring", "ulysses"):
             raise NotImplementedError(
                 f"attn_impl={attn_impl!r} is not ported yet (ROADMAP: queue 1, "
-                "multi-GPU: ring/ulysses sequence parallelism)")
+                "item 10b: ring/ulysses sequence parallelism)")
         paged = kv_cache is not None and "page_indices" in kv_cache
         if (paged_verify or paged_chunked or paged_prefix) and not paged:
             raise ValueError("paged_verify, paged_chunked and paged_prefix need a "
@@ -488,7 +488,8 @@ class Decoder(nn.Module):
         layer_loras = _split_lora(lora, cfg.num_layers)
         dropping = lora_dropout > 0.0 and dropout_seed is not None
         ckpt = remat and kv_cache is None and torch.is_grad_enabled()
-        for i, layer in enumerate(self.layers):
+        for i in range(len(self.layers)):
+            layer = self._layer_call(i)
             kw = dict(cos=cos, sin=sin, mask=mask, cache_offset=cache_offset,
                       lora_scale=lora_scale, attn_impl=attn_impl,
                       key_valid=attention_mask,
@@ -515,6 +516,11 @@ class Decoder(nn.Module):
         if skip_lm_head:
             return x, kv_cache
         return linear(x, self.lm_head_weight()).float(), kv_cache
+
+    def _layer_call(self, i: int):
+        """What runs layer ``i`` (a subclass that keeps its weights elsewhere
+        gathers them here: ``parallel/partition.py::ShardedDecoder``)."""
+        return self.layers[i]
 
     def lm_head_weight(self) -> torch.Tensor:
         """The ``[D, V]`` output projection (the embedding's transpose when

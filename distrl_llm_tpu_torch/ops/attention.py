@@ -13,8 +13,8 @@ and the probabilities (the JAX package's "dot" formulation).
 ``attention(..., impl=...)`` dispatches: "reference" is the plain path
 below; "flash" and "splash" both go to kernel K4
 (``ops/flash_attention.py``), which computes their one function with GQA
-native; "ring" and "ulysses" raise ``NotImplementedError`` naming ROADMAP's
-multi-GPU item.
+native; "ring" and "ulysses" raise ``NotImplementedError`` naming ROADMAP
+item 10b (sequence parallelism).
 """
 
 from __future__ import annotations
@@ -126,7 +126,7 @@ def attention(q, k, v, mask, scale: float | None = None,
     if impl in ("ring", "ulysses"):
         raise NotImplementedError(
             f"attn_impl={impl!r} is not ported yet (ROADMAP: queue 1, "
-            "multi-GPU: ring/ulysses sequence parallelism)")
+            "item 10b: ring/ulysses sequence parallelism)")
     if impl != "reference":
         raise ValueError(f"unknown attn_impl {impl!r}")
     return attention_reference(q, k, v, mask, scale=scale)

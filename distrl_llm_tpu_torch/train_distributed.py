@@ -4,6 +4,8 @@
     python -m distrl_llm_tpu_torch.train_distributed --model /path/to/checkpoint \\
         --learner grpo --base_quant int4 --engine_impl paged
     python -m distrl_llm_tpu_torch.train_distributed --smoke [--device cpu]
+    torchrun --nproc-per-node 4 -m distrl_llm_tpu_torch.train_distributed \
+        --model /path/to/checkpoint --full_finetune --fsdp 4 --number_of_actors 0
 
 The non-smoke path loads a LOCAL HF checkpoint directory (``--checkpoint_path``,
 default ``--model`` as a path) and prepares the dataset through ``data.py``
@@ -11,13 +13,21 @@ default ``--model`` as a path) and prepares the dataset through ``data.py``
 template), then trains. ``--smoke`` needs no files: a random TINY model, the
 byte-level ``CharTokenizer`` and 8 inline problems through the real engine,
 learner and trainer. ``--device`` (default ``cuda``) is where everything runs.
+
+Across ranks (ROADMAP item 10a): ``initialize_distributed`` runs first and
+joins the job's process group when torchrun's ``RANK`` / ``WORLD_SIZE`` /
+``MASTER_ADDR`` (or the JAX package's ``DISTRL_COORDINATOR`` /
+``DISTRL_NUM_PROCESSES`` / ``DISTRL_PROCESS_ID``) are set, each rank on
+``cuda:LOCAL_RANK``; ``--fsdp`` (and ``--tp`` / ``--sp``, item 10b) shape
+the role meshes. Every rank runs the trainer; rank 0 drives it. ``--smoke``
+keeps its one-process path.
 """
 
 from __future__ import annotations
 
 import argparse
 
-from distrl_llm_tpu_torch.config import TrainConfig, parse_buckets
+from distrl_llm_tpu_torch.config import MeshConfig, TrainConfig, parse_buckets
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -72,7 +82,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "weights (models past one card: not ported)")
     p.add_argument("--attn_impl", type=str, default="reference",
                    choices=["reference", "flash", "splash", "ring", "ulysses"])
-    p.add_argument("--engine_impl", type=str, default="dense", choices=["dense", "paged"],
+    p.add_argument("--tp", type=int, default=1, help="tensor-parallel ranks per role (item 10b)")
+    p.add_argument("--sp", type=int, default=1,
+                   help="sequence-parallel ranks (ring/ulysses attention; item 10b)")
+    p.add_argument("--fsdp", type=int, default=1, help="learner state sharding")
+    p.add_argument("--engine_impl", type=str, default="dense",
+                   choices=["dense", "paged", "paged_sharded"],
                    help="rollout engine: dense cache, or paged KV (kernel K2)")
     p.add_argument("--kv_cache_quant", type=str, default=None, choices=["none", "int8"],
                    help="paged KV page format; unset = the cache dtype")
@@ -231,6 +246,8 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
         # the smoke trains TINY (run_smoke): the config's width rules
         # (full_finetune's fit on one card) are TINY's, not --model's
         fields["model"] = "tiny"
+    # the role counts follow number_of_actors / number_of_learners
+    fields["mesh"] = MeshConfig(tp=args.tp, sp=args.sp, fsdp=args.fsdp)
     return TrainConfig(**fields)
 
 
@@ -290,6 +307,12 @@ def run_smoke(config: TrainConfig, device: str = "cuda") -> None:
             scheduler="refill" if config.continuous_batching else "waves",
             prefix_sharing=config.prefix_sharing,
             continuous_admission=config.continuous_admission, decode_chunk=4, **common)
+    elif config.engine_impl == "paged_sharded":  # one rank: the whole round on this card
+        from distrl_llm_tpu_torch.engine.sharded_paged import ShardedPagedEngine
+        from distrl_llm_tpu_torch.parallel.mesh import build_role_meshes
+
+        engine = ShardedPagedEngine(TINY, build_role_meshes(config.mesh).rollout, page_size=8,
+                                    decode_chunk=4, **common)
     else:
         engine = GenerationEngine(TINY, **common)
     sink = MemorySink()
@@ -315,10 +338,14 @@ def main(argv: list[str] | None = None) -> None:
         return
 
     from distrl_llm_tpu_torch.data import prepare_dataset
+    from distrl_llm_tpu_torch.distributed.launch import initialize_distributed
     from distrl_llm_tpu_torch.rewards import reward_function
     from distrl_llm_tpu_torch.tokenizer import load_tokenizer
     from distrl_llm_tpu_torch.trainer import Trainer
 
+    # first: under torchrun (or the DISTRL_* variables) each rank joins the
+    # job's process group on its own card
+    args.device = str(initialize_distributed(device=args.device).device)
     tokenizer = load_tokenizer(args.checkpoint_path or config.model)
     train_ds, test_ds = prepare_dataset(config.dataset, tokenizer, test_size=0.1,
                                         seed=config.seed)

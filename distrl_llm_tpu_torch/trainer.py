@@ -53,19 +53,37 @@ distributed_trainer.py:13-416) on one card, one learner:
 * **Checkpointing**: the resume state (``checkpoint.py``) and the per-step
   adapter artifact.
 
-Not ported (each raises where a config would reach it): meshes, the hybrid
-actor/learner split and full fine-tuning past one card (ROADMAP queue 1
-item 10), and the observability, lineage, control, gateway and elastic-fleet
-planes (item 11).
+* **Learners sharded over ranks** (``meshes``, ROADMAP item 10a): one
+  process a card in a ``torch.distributed`` job, the ranks carved into
+  rollout and learner meshes (``parallel/mesh.py``). Rank 0 is the driver:
+  it runs this loop, the rewards, the metrics and the checkpoints; every
+  other rank's ``train()`` follows it (``follow``), taking each collective
+  step rank 0 announces over the process group: a round (the stale-weights
+  check on every rollout rank, then the engine: one replica on the rollout
+  mesh's first rank, the rows split over the rollout ranks with
+  ``engine_impl="paged_sharded"``, or the hybrid actor/learner split on
+  disjoint roles), an update (each learner rank its dp group's rows, the
+  grads merged over dp, the state sharded over fsdp by
+  ``parallel/partition.py``), a push (the adapter, or full fine-tuning's
+  masters cast to the rollout copy, gathered over fsdp and broadcast from
+  the learners to the rollout ranks), and the gathers behind a checkpoint
+  and an HF export, which rank 0 alone writes.
+
+Not ported (each raises where a config would reach it): tensor and
+sequence parallelism, and a mesh under the overlapped modes, remote
+workers or multi-turn environments (ROADMAP queue 1 item 10b); the
+observability, lineage, control, gateway and elastic-fleet planes (item
+11).
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import logging
 import os
 import threading
-from typing import Any, Callable, Mapping, Sequence
+from typing import Any, Callable, Mapping, NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -75,11 +93,14 @@ from distrl_llm_tpu_torch.checkpoint import (
     CheckpointManager, load_rollout_state, save_adapter_file, save_rollout_state,
 )
 from distrl_llm_tpu_torch.config import (
-    SamplingConfig, TrainConfig, check_full_finetune_fits, full_finetune_bytes,
+    SamplingConfig, TrainConfig, check_full_finetune_fits, check_mesh_supported,
+    full_finetune_bytes,
 )
 from distrl_llm_tpu_torch.data import DictDataset
 from distrl_llm_tpu_torch.learner.optim import check_state_format, make_optimizer
-from distrl_llm_tpu_torch.learner.train_step import make_train_step, prepare_update_batch
+from distrl_llm_tpu_torch.learner.train_step import (
+    make_train_step, place_update_batch, update_arrays,
+)
 from distrl_llm_tpu_torch.metrics import MetricsSink, make_sink
 from distrl_llm_tpu_torch.models.convert import lora_to_numpy, param_stacks
 from distrl_llm_tpu_torch.models.lora import init_lora_params, lora_scale
@@ -127,7 +148,9 @@ def engine_kwargs_from_config(config: TrainConfig) -> dict[str, Any]:
             kwargs["kv_spill"] = True
             if config.kv_spill_host_mb:
                 kwargs["kv_spill_host_mb"] = config.kv_spill_host_mb
-    if config.max_concurrent_sequences:
+    if config.max_concurrent_sequences and config.engine_impl != "paged_sharded":
+        # the sharded engine runs whole waves a rank; a row cap is the
+        # per-replica engines' admission knob
         kwargs["max_concurrent_rows"] = config.max_concurrent_sequences
     if config.clip_ratio > 0.0:
         # behavior-logprob capture costs a vocab logsumexp a step: only when
@@ -147,15 +170,19 @@ def stop_token_ids(tokenizer) -> list[int]:
 
 
 def make_engine(config: TrainConfig, model: Decoder, tokenizer, *,
-                hbm_bytes: int | None = None):
+                hbm_bytes: int | None = None, meshes=None):
     """The rollout engine ``Trainer.from_pretrained`` builds for ``model``
     (the JAX package's local-engine branch, trainer.py:711-782), on the
     model's device. The paged engine's KV pool is budgeted by
-    ``engine/budget.py::kv_pool_pages`` under ``learner_gpu_usage``: the
-    engine and the learner share the card (``hbm_bytes`` defaults to the
+    ``engine/budget.py::kv_pool_pages`` under ``learner_gpu_usage`` where
+    the engine and the learner share the card (``hbm_bytes`` defaults to the
     card's memory), so with ``full_finetune`` the learner's f32 masters,
-    grads and moments are charged beside the rollout weights (and, under the
-    overlapped modes, the second rollout copy of the trainer's ring)."""
+    grads and moments (this rank's fsdp share) are charged beside the
+    rollout weights (and, under the overlapped modes, the second rollout
+    copy of the trainer's ring); a rank of a disjoint rollout mesh is the
+    reference's actor GPU, budgeted under ``actor_gpu_usage`` (JAX
+    trainer.py:728-733). ``engine_impl="paged_sharded"`` splits each round's
+    rows over ``meshes.rollout``'s ranks."""
     from distrl_llm_tpu_torch.engine import GenerationEngine, PagedGenerationEngine
 
     dev = model.embed.device
@@ -171,20 +198,31 @@ def make_engine(config: TrainConfig, model: Decoder, tokenizer, *,
         device=dev,
     )
     kwargs = engine_kwargs_from_config(config)
+    if config.engine_impl == "paged_sharded":
+        from distrl_llm_tpu_torch.engine.sharded_paged import ShardedPagedEngine
+        from distrl_llm_tpu_torch.parallel.mesh import build_role_meshes
+
+        mesh = (meshes or build_role_meshes(config.mesh)).rollout
+        return ShardedPagedEngine(model.cfg, mesh, **common, **kwargs)
     if config.engine_impl == "paged":
         from distrl_llm_tpu_torch.engine.budget import kv_pool_pages, tree_bytes
         from distrl_llm_tpu_torch.ops.paged import DEFAULT_PAGE_SIZE
 
+        actor = meshes is not None and not meshes.timeshared
+        if actor and _rank() in meshes.learner:
+            actor = False  # a learner rank's engine serves the hybrid learner share
         learner_bytes = 0
-        if config.full_finetune:
-            need = full_finetune_bytes(model.cfg, str(model.embed.dtype).removeprefix("torch."))
+        if config.full_finetune and not actor:
+            need = full_finetune_bytes(model.cfg, str(model.embed.dtype).removeprefix("torch."),
+                                       config.mesh.fsdp if meshes is not None else 1)
             learner_bytes = need["masters"] + need["grads"] + need["moments"]
             if config.async_rollout:
                 # the overlapped modes' second rollout copy (the trainer's ring)
                 learner_bytes += need["rollout"]
+        usage = config.actor_gpu_usage if actor else config.learner_gpu_usage
         kwargs["max_kv_pages"] = kv_pool_pages(
             model.cfg,
-            gpu_usage=config.learner_gpu_usage,
+            gpu_usage=usage,
             param_bytes=tree_bytes(model) + learner_bytes,
             batch_prompts=config.batch_size,
             max_prompt_tokens=config.max_prompt_tokens,
@@ -199,8 +237,9 @@ def make_engine(config: TrainConfig, model: Decoder, tokenizer, *,
             continuous=config.continuous_admission,
             prefix_cache=bool(config.prefix_cache),
         )
-        log.info("paged engine: %d KV pages of %d tokens under learner_gpu_usage=%.2f",
-                 kwargs["max_kv_pages"], DEFAULT_PAGE_SIZE, config.learner_gpu_usage)
+        log.info("paged engine: %d KV pages of %d tokens under %s_gpu_usage=%.2f",
+                 kwargs["max_kv_pages"], DEFAULT_PAGE_SIZE, "actor" if actor else "learner",
+                 usage)
         return PagedGenerationEngine(model.cfg, **common, **kwargs)
     # the dense engine (a bf16 or int8 cache); decode_scan_chunk > 1 runs its
     # decode steps as CUDA graph chunks
@@ -256,6 +295,55 @@ def _leaves(lora: dict) -> list[torch.Tensor]:
     return [lora["layers"][t][k] for t in sorted(lora["layers"]) for k in ("a", "b")]
 
 
+def _rank() -> int:
+    return torch.distributed.get_rank() if torch.distributed.is_initialized() else 0
+
+
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    return tree.cpu() if torch.is_tensor(tree) else tree
+
+
+class _Slot(NamedTuple):
+    """A tensor's place in a tree sent a tensor at a time."""
+    shape: tuple
+    dtype: torch.dtype
+
+
+def _skeleton(tree, leaves: list):
+    """``tree`` with each tensor replaced by its ``_Slot``, the tensors
+    appended to ``leaves`` in order."""
+    if isinstance(tree, dict):
+        return {k: _skeleton(v, leaves) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_skeleton(v, leaves) for v in tree]
+    if torch.is_tensor(tree):
+        leaves.append(tree)
+        return _Slot(tuple(tree.shape), tree.dtype)
+    return tree
+
+
+def _fill(skeleton, take):
+    """The inverse of ``_skeleton``: each ``_Slot`` replaced by ``take(slot)``
+    in the same order."""
+    if isinstance(skeleton, dict):
+        return {k: _fill(v, take) for k, v in skeleton.items()}
+    if isinstance(skeleton, list):
+        return [_fill(v, take) for v in skeleton]
+    return take(skeleton) if isinstance(skeleton, _Slot) else skeleton
+
+
+def _decoder_from(cfg, named: dict) -> Decoder:
+    """An f32 ``Decoder`` on the host holding ``named``'s whole tensors (a
+    gathered full fine-tuning tree, for the HF export)."""
+    model = Decoder(cfg, dtype=torch.float32, device="cpu")
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.copy_(named[name])
+    return model
+
+
 def _env_turn_counts(candidates: list[dict]) -> list[int]:
     """Per-episode turn counts from the provenance that rode a consumed
     batch (the async learner's: the round's stats stayed with the
@@ -270,7 +358,13 @@ class Trainer:
     """Owns the episode/batch loop. The tokenizer, the model and the engine
     are injected, so the loop runs on test doubles (``engine/fake.py``);
     ``from_pretrained`` assembles the real thing from a checkpoint
-    directory. The learner runs on ``model``'s device."""
+    directory. The learner runs on ``model``'s device.
+
+    ``meshes`` (``parallel/mesh.py::build_role_meshes``, in a
+    ``torch.distributed`` job): every rank builds its Trainer with its own
+    engine and a whole copy of ``model`` (the frozen base, or full
+    fine-tuning's starting weights) and calls ``train()``; rank 0 drives and
+    the others follow it (module docstring)."""
 
     def __init__(
         self,
@@ -284,6 +378,7 @@ class Trainer:
         model: Decoder,
         sink: MetricsSink | None = None,
         reward_computer: RewardComputer | None = None,
+        meshes=None,
     ):
         self.config = config
         self.train_dataset = DictDataset.wrap(train_dataset)
@@ -298,6 +393,15 @@ class Trainer:
         self.device = model.embed.device
         self._full = config.full_finetune
         self.sink = sink
+        # a learner mesh: this rank's roles (every rank is both without one)
+        self.meshes = meshes
+        self._rank = _rank() if meshes is not None else 0
+        self._world = (torch.distributed.get_world_size()
+                       if meshes is not None and torch.distributed.is_initialized() else 1)
+        if meshes is not None:
+            check_mesh_supported(config)
+        self._learner = meshes is None or self._rank in meshes.learner
+        self._announce = False  # rank 0 inside lead(): collective steps go to the followers
         # format-reward gate: "strict" swaps the scorer in the parity
         # reward; with a custom reward_function it would be ambiguous
         if config.format_reward != "soft":
@@ -359,36 +463,50 @@ class Trainer:
         lora_gen = torch.Generator(device=self.device).manual_seed(self._next_rng())
         if self._full:
             self.lora = self._master_weights(model)
-            opt_leaves = list(param_stacks(self.lora).values())
+            opt_leaves = (None if self.lora is None else
+                          self.lora.leaf_groups(param_stacks(self.lora)) if meshes is not None
+                          else list(param_stacks(self.lora).values()))
         else:
             # adapters train in f32; the base stays at its dtype
             self.lora = init_lora_params(lora_gen, self.model_cfg, config.max_lora_rank,
                                          dtype=torch.float32)
-            for leaf in _leaves(self.lora):
-                leaf.requires_grad_(True)
-            opt_leaves = _leaves(self.lora)
-        self.optimizer = make_optimizer(opt_leaves, config.lr, use_8bit=config.optimizer_8bit)
-        self.train_step = make_train_step(
-            self.model_cfg,
-            learner_type=config.learner,
-            optimizer=self.optimizer,
-            lora_scale=self.scale,
-            micro_size=config.train_batch_size,
-            skip_semantics="all_zero" if config.skip_all_zero_reward_batches else "any_zero",
-            attn_impl=config.attn_impl,
-            lora_dropout=config.lora_dropout,
-            logit_chunk=config.logprob_chunk,
-            clip_ratio=config.clip_ratio,
-            kl_coeff=config.kl_coeff,
-            train_mode="full" if self._full else "lora",
-            # async trains on data up to max_staleness steps old: the
-            # truncated-IS objective (AIPO) with its per-token version-lag
-            # mask; the mask stays off (0) under the downweight policy, whose
-            # fade trains the beyond-K tokens on purpose
-            off_policy="aipo" if config.rollout_mode == "async" else "clip",
-            is_cap=config.rollout_is_cap,
-            max_staleness=config.max_staleness if config.staleness_policy == "drop" else 0,
-        )
+            if meshes is not None:
+                from distrl_llm_tpu_torch.parallel.partition import shard_tree
+
+                # the drawn adapter becomes the rollout copy's buffers, which
+                # each push overwrites; the learner ranks train its shards
+                self._lora_buf = self.lora
+                self.lora = shard_tree(self.lora, meshes.learner) if self._learner else None
+            else:
+                for leaf in _leaves(self.lora):
+                    leaf.requires_grad_(True)
+            opt_leaves = (None if self.lora is None else self.lora.trainable()
+                          if meshes is not None else _leaves(self.lora))
+        self.optimizer = self.train_step = None
+        if opt_leaves is not None:  # a learner rank
+            self.optimizer = make_optimizer(opt_leaves, config.lr, use_8bit=config.optimizer_8bit)
+            self.train_step = make_train_step(
+                self.model_cfg,
+                learner_type=config.learner,
+                optimizer=self.optimizer,
+                lora_scale=self.scale,
+                micro_size=config.train_batch_size,
+                skip_semantics="all_zero" if config.skip_all_zero_reward_batches else "any_zero",
+                attn_impl=config.attn_impl,
+                lora_dropout=config.lora_dropout,
+                logit_chunk=config.logprob_chunk,
+                clip_ratio=config.clip_ratio,
+                kl_coeff=config.kl_coeff,
+                train_mode="full" if self._full else "lora",
+                # async trains on data up to max_staleness steps old: the
+                # truncated-IS objective (AIPO) with its per-token version-lag
+                # mask; the mask stays off (0) under the downweight policy, whose
+                # fade trains the beyond-K tokens on purpose
+                off_policy="aipo" if config.rollout_mode == "async" else "clip",
+                is_cap=config.rollout_is_cap,
+                max_staleness=config.max_staleness if config.staleness_policy == "drop" else 0,
+                mesh=self.meshes.learner if self.meshes is not None else None,
+            )
 
         self.total_batch_steps = 0
         self.total_samples_processed = 0
@@ -439,26 +557,36 @@ class Trainer:
 
     # ------------------------------------------------------------------ setup
 
-    def _master_weights(self, model: Decoder) -> Decoder:
+    def _master_weights(self, model: Decoder) -> Decoder | None:
         """Full fine-tuning's trainable tree (JAX trainer.py:298-322): an f32
         copy of ``model`` whose every parameter trains (with lr ~2e-5 a
         step is below bf16's ~0.4% resolution, so bf16 weights would round
         many updates away). ``model`` stays as the rollout copy, which each
-        push overwrites, and the trainer keeps no frozen base."""
+        push overwrites, and the trainer keeps no frozen base. On a learner
+        mesh the masters are this rank's fsdp shards of that copy
+        (``ShardedDecoder``); a rank off the learner mesh holds none."""
         if model.quant is not None:
             raise ValueError("full_finetune requires an unquantized base")
+        fsdp = self.config.mesh.fsdp if self.meshes is not None else 1
         if self.device.type == "cuda":
             from distrl_llm_tpu_torch.engine.budget import device_hbm_bytes
 
             check_full_finetune_fits(model.cfg, str(model.embed.dtype).removeprefix("torch."),
-                                     self.config.model, device_hbm_bytes(self.device))
+                                     self.config.model, device_hbm_bytes(self.device), fsdp=fsdp)
+        # a rank of the learner mesh alone keeps no rollout copy
+        learner_only = (self.meshes is not None and self._learner
+                        and self._rank not in self.meshes.rollout)
+        self._rollout_model = None if learner_only else model
+        self.model = None
+        if self.meshes is not None:
+            from distrl_llm_tpu_torch.parallel.partition import shard_tree
+
+            return shard_tree(model, self.meshes.learner) if self._learner else None
         masters = Decoder(model.cfg, dtype=torch.float32, device=self.device)
         with torch.no_grad():
             for p, src in zip(masters.parameters(), model.parameters(), strict=True):
                 p.copy_(src)
                 p.requires_grad_(True)
-        self._rollout_model = model
-        self.model = None
         return masters
 
     @classmethod
@@ -479,13 +607,23 @@ class Trainer:
         ``config.dtype``, quantized per ``base_quant``) and the engine, on
         ``device``. ``checkpoint_path`` is a local HF checkpoint directory
         (default ``config.model`` as a path: no hub download). Pass
-        ``tokenizer`` if the caller already loaded it."""
+        ``tokenizer`` if the caller already loaded it. In a
+        ``torch.distributed`` job (``distributed/launch.py``) every rank
+        calls it: the ranks are carved into role meshes by ``config.mesh``
+        and each loads the base whole onto its own card (JAX
+        trainer.py:596-735)."""
         from distrl_llm_tpu_torch.models.loading import load_pretrained
         from distrl_llm_tpu_torch.ops.quant import quantize_base
         from distrl_llm_tpu_torch.tokenizer import load_tokenizer
         from distrl_llm_tpu_torch.utils.device import resolve_device
 
         path = checkpoint_path or config.model
+        meshes = None
+        if torch.distributed.is_initialized():
+            from distrl_llm_tpu_torch.parallel.mesh import build_role_meshes
+
+            check_mesh_supported(config)
+            meshes = build_role_meshes(config.mesh)
         if tokenizer is None:
             tokenizer = load_tokenizer(path)
         model, _ = load_pretrained(path, dtype=getattr(torch, config.dtype),
@@ -498,21 +636,28 @@ class Trainer:
             # the base serves the learner only (JAX trainer.py:629-681)
             engine = remote_engine(config, tokenizer)
         else:
-            engine = make_engine(config, model, tokenizer, hbm_bytes=hbm_bytes)
+            engine = make_engine(config, model, tokenizer, hbm_bytes=hbm_bytes, meshes=meshes)
         return cls(train_dataset, test_dataset, reward_function, config,
-                   tokenizer=tokenizer, engine=engine, model=model, sink=sink)
+                   tokenizer=tokenizer, engine=engine, model=model, sink=sink, meshes=meshes)
 
     # ------------------------------------------------------------- checkpoint
 
-    def _state_tree(self) -> dict:
-        if self._full:  # the f32 master weights by parameter name
+    def _state_tree(self) -> dict | None:
+        if self.meshes is not None:  # gathered to rank 0 in a one-rank run's layout
+            learner = self._collective("state", True)
+            if learner is None:  # every rank but 0
+                return None
+            trained, opt_state = learner["lora"], learner["opt_state"]
+        elif self._full:  # the f32 master weights by parameter name
             trained = {n: p.detach() for n, p in self.lora.named_parameters()}
+            opt_state = self.optimizer.state_dict()
         else:
             trained = {"layers": {t: {k: x.detach() for k, x in ab.items()}
                                   for t, ab in self.lora["layers"].items()}}
+            opt_state = self.optimizer.state_dict()
         return {
             "lora": trained,
-            "opt_state": self.optimizer.state_dict(),
+            "opt_state": opt_state,
             "step": self.total_batch_steps,
             "episode": self.episode,
             "batch_in_episode": self.batch_in_episode,
@@ -522,9 +667,36 @@ class Trainer:
 
     def _try_resume(self) -> None:
         assert self.ckpt is not None
-        restored = self.ckpt.restore()
+        if self.meshes is not None:
+            # rank 0 names the step; every rank reads that checkpoint itself
+            # (the checkpoint directory must be visible to every rank, as on
+            # one host or a shared file system) and takes its shards (all
+            # ranks are here, in the constructor)
+            box = [self.ckpt.latest_step() if self._rank == 0 else None]
+            if self._world > 1:
+                torch.distributed.broadcast_object_list(box, src=0)
+            restored = self._load_shards(box[0])
+        else:
+            restored = self._load_local(self.ckpt.restore())
         if restored is None:
             return
+        self.total_batch_steps = int(restored["step"])
+        self.episode = int(restored["episode"])
+        self.batch_in_episode = int(restored["batch_in_episode"])
+        self.total_samples_processed = int(restored["samples"])
+        self._gen.set_state(restored["rng"])
+        self.weight_version = self.total_batch_steps
+        if self.config.rollout_mode == "async":
+            # buffered but unconsumed trajectories and the producer's cursor;
+            # an absent or corrupt sidecar degrades to a fresh buffer
+            self._resume_rollout_state = load_rollout_state(self.config.checkpoint_dir,
+                                                            self.total_batch_steps)
+        log.info("resumed from step %d (episode %d, batch %d)",
+                 self.total_batch_steps, self.episode, self.batch_in_episode)
+
+    def _load_local(self, restored: dict | None) -> dict | None:
+        if restored is None:
+            return None
         # in place: the optimizer holds these very tensors
         with torch.no_grad():
             if self._full:
@@ -540,24 +712,16 @@ class Trainer:
                         x.copy_(restored["lora"]["layers"][t][k])
         self.optimizer.load_state_dict(restored["opt_state"])
         check_state_format(self.optimizer)
-        self.total_batch_steps = int(restored["step"])
-        self.episode = int(restored["episode"])
-        self.batch_in_episode = int(restored["batch_in_episode"])
-        self.total_samples_processed = int(restored["samples"])
-        self._gen.set_state(restored["rng"])
-        self.weight_version = self.total_batch_steps
-        if self.config.rollout_mode == "async":
-            # buffered but unconsumed trajectories and the producer's cursor;
-            # an absent or corrupt sidecar degrades to a fresh buffer
-            self._resume_rollout_state = load_rollout_state(self.config.checkpoint_dir,
-                                                            self.total_batch_steps)
-        log.info("resumed from step %d (episode %d, batch %d)",
-                 self.total_batch_steps, self.episode, self.batch_in_episode)
+        return restored
 
     def save_checkpoint(self) -> None:
         if self.ckpt is None:
             return
-        self.ckpt.save(self.total_batch_steps, self._state_tree())
+        state = self._state_tree()
+        if self._rank != 0:
+            return
+        # on the host, as a learner mesh gathers it: the same bytes either way
+        self.ckpt.save(self.total_batch_steps, _to_cpu(state))
         buffer = self._rollout_buffer
         if buffer is not None:
             # async: the queued trajectories and the producer's cursor ride as
@@ -585,11 +749,19 @@ class Trainer:
         from distrl_llm_tpu_torch.models.loading import save_hf_checkpoint
 
         path = os.path.join(self.config.run_directory, f"model_{self.total_batch_steps}")
+        trained = self.lora
+        if self.meshes is not None:  # gathered to rank 0's host, which alone writes
+            trained = self._collective("state", False)["lora"]
+            if self._full:
+                trained = _decoder_from(self.model_cfg, trained)
+            else:  # merged into the base on its device
+                trained = {"layers": {t: {k: x.to(self.device) for k, x in ab.items()}
+                                      for t, ab in trained["layers"].items()}}
         try:
             if self._full:  # the trained tree itself (its f32 master weights)
-                save_hf_checkpoint(self.lora, path)
+                save_hf_checkpoint(trained, path)
             else:
-                save_hf_checkpoint(self.model, path, lora=self.lora,
+                save_hf_checkpoint(self.model, path, lora=trained,
                                    lora_alpha=self.config.lora_alpha)
             self._last_hf_export_step = self.total_batch_steps
         except NotImplementedError as e:
@@ -600,7 +772,8 @@ class Trainer:
         -> save_lora). Export only: weight sync is in memory."""
         if self._full:
             raise RuntimeError("full_finetune has no LoRA adapter to export")
-        save_adapter_file(self.lora, self.config.lora_save_path,
+        lora = self.lora if self.meshes is None else self._collective("state", False)["lora"]
+        save_adapter_file(lora, self.config.lora_save_path,
                           rank=self.config.max_lora_rank, alpha=self.config.lora_alpha,
                           model_name=self.config.model)
 
@@ -627,7 +800,12 @@ class Trainer:
         under the weights before a push is never served after it. Pipelined
         and async: a round in flight reads its copy while the learner
         pushes, so the masters are cast into the ring's other copy, which
-        becomes the published rollout copy."""
+        becomes the published rollout copy.
+
+        On a learner mesh every rank takes part (``_push_op``)."""
+        if self.meshes is not None:
+            self._collective("push", self.weight_version)
+            return
         if self._remote:
             # a host copy made here, on the learner's thread (the optimizer
             # updates self.lora in place), in the JAX tree's layout; the bus
@@ -657,6 +835,228 @@ class Trainer:
                                              for t, ab in self.lora["layers"].items()}}
         self._rollout_weight_version = self.weight_version
 
+    # ------------------------------------------------------------ learner mesh
+
+    @contextlib.contextmanager
+    def lead(self):
+        """Rank 0's side of a learner mesh: inside, each collective step
+        (``_collective``) is announced to the followers, and leaving tells
+        them to stop. Without a mesh, or on one rank, it does nothing."""
+        announce = self.meshes is not None and self._world > 1 and not self._announce
+        self._announce = self._announce or announce
+        try:
+            yield self
+        finally:
+            if announce:
+                self._collective("stop")
+                self._announce = False
+
+    def follow(self) -> None:
+        """A follower rank's ``train()``: run each collective step rank 0
+        announces (``lead``) until it stops. A round refused as stale is
+        refused on rank 0 too, which raises it; the follower goes on."""
+        while True:
+            msg = [None, None]
+            torch.distributed.broadcast_object_list(msg, src=0)
+            op, payload = msg
+            if op == "stop":
+                return
+            try:
+                getattr(self, f"_{op}_op")(payload)
+            except StaleWeightsError as e:
+                log.warning("rank %d: %s", self._rank, e)
+
+    def _collective(self, op: str, payload=None):
+        """Run step ``op`` here; inside ``lead`` announce it first, so that
+        every rank enters its collectives together."""
+        if self._announce:
+            torch.distributed.broadcast_object_list([op, payload], src=0)
+        return getattr(self, f"_{op}_op")(payload)
+
+    def _stop_op(self, _) -> None:
+        return None
+
+    def _from_learners(self, value):
+        """``value`` from the learner mesh's first rank to every rank (rank 0
+        is off the learner mesh on disjoint roles)."""
+        if self.meshes is None or 0 in self.meshes.learner:
+            return value
+        box = [value]
+        torch.distributed.broadcast_object_list(box, src=self.meshes.learner.first_rank)
+        return box[0]
+
+    def _check_lag(self, learner_version: int, rollout_version: int) -> None:
+        allowed = self.config.allowed_weight_lag
+        if not 0 <= learner_version - rollout_version <= allowed:
+            raise StaleWeightsError(
+                f"rollout holds adapter v{rollout_version} but learner is at "
+                f"v{learner_version} — rollout_mode={self.config.rollout_mode!r} "
+                f"allows lag <= {allowed}; _push_weights() was not called after "
+                "the last optimizer step, or the staleness bound is misconfigured")
+
+    def _hybrid_rows(self, rows: int, n_real: int) -> int:
+        """The actors' rows of the hybrid actor/learner split (JAX
+        trainer.py:1038-1110), 0 for no split: disjoint roles split the round
+        by ``chunk_sizes``, the learners' ``learner_chunk_size`` share
+        decoding on the learner mesh's first rank with the learner-resident
+        adapter. No split when the learners' share would be padding only,
+        for a mesh-bound engine (``paged_sharded``), or in full mode (the
+        learner ranks hold only shards of the weights)."""
+        cfg = self.config
+        if (self.meshes.timeshared or cfg.number_of_actors == 0 or cfg.learner_chunk_size <= 0
+                or self._full or getattr(self.engine, "mesh", None) is not None):
+            return 0
+        sizes = chunk_sizes(rows, cfg.number_of_actors, cfg.number_of_learners,
+                            cfg.learner_chunk_size)
+        actor_rows = sum(sizes[:cfg.number_of_actors])
+        return 0 if actor_rows >= n_real else actor_rows
+
+    def _round_op(self, payload):
+        """Every rank: one generation round. The stale-weights check first
+        (every rank tracks the pushed version), then the engine: every
+        rollout rank with ``paged_sharded``, else the rollout mesh's first
+        rank (rank 0) over the actors' rows and, on a hybrid split, the
+        learner mesh's first rank over the rest. The result is rank 0's."""
+        ids, mask, sampling, seeds, version, split = payload
+        self._check_lag(version, self._rollout_weight_version)
+        m = self.meshes
+        if getattr(self.engine, "mesh", None) is not None:
+            if self._rank not in m.rollout:
+                return None
+            return self._call_engine(*self._engine_params(), ids, mask, sampling, seeds[0])
+        res = None
+        if self._rank == m.rollout.first_rank:
+            rows = split or ids.shape[0]
+            res = self._call_engine(*self._engine_params(), ids[:rows], mask[:rows], sampling,
+                                    seeds[0])
+        if not split:
+            return res
+        share = None
+        if self._rank == m.learner.first_rank:
+            share = self._call_engine(self.model, self._lora_learner, ids[split:], mask[split:],
+                                      sampling, seeds[1])
+        box = [share]
+        torch.distributed.broadcast_object_list(box, src=m.learner.first_rank)
+        if res is None:
+            return None
+        share = box[0]
+        both = res.logprobs is not None and share.logprobs is not None
+        return type(res)(
+            tokens=np.concatenate([res.tokens, share.tokens]),
+            lengths=np.concatenate([res.lengths, share.lengths]),
+            steps_dispatched=(res.steps_dispatched or 0) + (share.steps_dispatched or 0),
+            logprobs=np.concatenate([res.logprobs, share.logprobs]) if both else None)
+
+    def _update_op(self, payload) -> float | None:
+        """The optimizer step over ``update_arrays``' rows: on a learner mesh
+        each learner rank takes its dp group's rows and the loss comes back
+        from the learners."""
+        arrays, dropout_seed = payload
+        loss = None
+        if self._learner:
+            update = place_update_batch(
+                arrays, micro_size=self.config.train_batch_size, device=self.device,
+                mesh=self.meshes.learner if self.meshes is not None else None)
+            loss = float(self.train_step(self.lora, self.model, update, dropout_seed))
+        return self._from_learners(loss)
+
+    def _push_op(self, version: int) -> None:
+        """Every rank: the learners gather the trained tree over fsdp and it
+        lands in each rollout rank's copy, broadcast from the learner mesh's
+        first rank on disjoint roles. LoRA: into persistent buffers (a new
+        dict over them each push, which the prefix cache keys on); full
+        fine-tuning: each master cast into the rollout copy in place, then
+        its ``weights_version`` bumped."""
+        m = self.meshes
+        send = None if m.timeshared else m.learner.first_rank
+        with torch.no_grad():
+            if self._full:
+                if self._learner:
+                    named = self.lora.full_named()
+                else:
+                    named = ((n, torch.empty(p.shape, dtype=torch.float32, device=self.device))
+                             for n, p in self._rollout_model.named_parameters())
+                dst = (dict(self._rollout_model.named_parameters())
+                       if self._rollout_model is not None else {})
+                for name, t in named:
+                    if send is not None:
+                        torch.distributed.broadcast(t, src=send)
+                    if name in dst:
+                        dst[name].copy_(t)
+                if self._rollout_model is not None:
+                    self._rollout_model.weights_version += 1
+                self._lora_rollout = None
+            else:
+                full = self.lora.full() if self._learner else None
+                self._lora_learner = full
+                buf = self._lora_buf
+                for t in sorted(buf["layers"]):
+                    for k in ("a", "b"):
+                        x = full["layers"][t][k] if full is not None else buf["layers"][t][k]
+                        if send is not None:
+                            torch.distributed.broadcast(x, src=send)
+                        buf["layers"][t][k].copy_(x)
+                self._lora_rollout = {"layers": {t: dict(ab) for t, ab in buf["layers"].items()}}
+        self._rollout_weight_version = version
+
+    def _state_op(self, with_opt: bool) -> dict | None:
+        """The trained tree (and the optimizer state) in a one-rank run's
+        layout on rank 0's host: what a checkpoint and an HF export write.
+        Gathered a member at a time into the learner mesh's first rank and
+        copied to its host (``to_host``), then sent on to rank 0 where rank
+        0 is off the learner mesh. No card ever holds more than one member
+        whole, and no other rank receives any of it."""
+        from distrl_llm_tpu_torch.parallel.partition import gather_opt_state
+
+        out = None
+        if self._learner:
+            dst = self.meshes.learner.first_rank
+            trained = self.lora.to_host(dst)
+            opt_state = gather_opt_state(self.optimizer, self.lora, dst) if with_opt else None
+            if trained is not None:
+                out = {"lora": trained, **({"opt_state": opt_state} if with_opt else {})}
+        return self._host_to_rank0(out)
+
+    def _host_to_rank0(self, tree):
+        """``tree`` (host tensors and plain values) from the learner mesh's
+        first rank to rank 0's host: its skeleton as an object, then one
+        tensor at a time through the two ranks' devices (NCCL moves device
+        tensors). Other ranks take no part and get None."""
+        src = self.meshes.learner.first_rank
+        if src == 0 or self._rank not in (0, src):
+            return tree if self._rank == 0 else None
+        if self._rank == src:
+            leaves: list[torch.Tensor] = []
+            torch.distributed.send_object_list([_skeleton(tree, leaves)], dst=0)
+            for t in leaves:
+                torch.distributed.send(t.to(self.device), dst=0)
+            return None
+        box = [None]
+        torch.distributed.recv_object_list(box, src=src)
+
+        def recv(slot: _Slot) -> torch.Tensor:
+            buf = torch.empty(slot.shape, dtype=slot.dtype, device=self.device)
+            torch.distributed.recv(buf, src=src)
+            return buf.to("cpu", copy=True)
+
+        return _fill(box[0], recv)
+
+    def _load_shards(self, step: int | None) -> dict | None:
+        """Every rank: the checkpoint of ``step`` read memory-mapped, each
+        learner rank copying in only its shards' ranges of the trained tree
+        and of the optimizer state (the rest of the file is never read)."""
+        from distrl_llm_tpu_torch.parallel.partition import shard_opt_state
+
+        if step is None:
+            return None
+        restored = self.ckpt.restore(step, mmap=True)
+        if self._learner:
+            self.lora.load_full(restored["lora"])
+            self.optimizer.load_state_dict(shard_opt_state(restored["opt_state"],
+                                                           self.optimizer, self.lora))
+            check_state_format(self.optimizer)
+        return restored
+
     # ---------------------------------------------------------------- rollout
 
     def _next_rng(self) -> int:
@@ -668,12 +1068,17 @@ class Trainer:
             return int(torch.randint(2**62, (), generator=self._gen))
 
     def _dispatch_rollout(self, prompt_ids, prompt_mask, sampling: SamplingConfig,
-                          model: Decoder, lora):
-        """One generation round: one engine call over the whole batch (one
-        card has no disjoint learner devices for the JAX package's hybrid
-        actor/learner split)."""
-        return self._call_engine(model, lora, prompt_ids, prompt_mask, sampling,
-                                 self._next_rng())
+                          model: Decoder, lora, n_real: int):
+        """One generation round: one engine call over the whole batch, or on a
+        learner mesh the collective round (``_round_op``), with the hybrid
+        actor/learner split of the JAX package on disjoint roles."""
+        if self.meshes is None:
+            return self._call_engine(model, lora, prompt_ids, prompt_mask, sampling,
+                                     self._next_rng())
+        split = self._hybrid_rows(prompt_ids.shape[0], n_real)
+        seeds = [self._next_rng() for _ in range(2 if split else 1)]
+        return self._collective("round", (prompt_ids, prompt_mask, sampling, seeds,
+                                          self.weight_version, split))
 
     def _on_rollout_stream(self, fn, *args):
         """``fn(*args)`` on the overlapped modes' rollout thread: on the card,
@@ -755,7 +1160,6 @@ class Trainer:
         # more than the mode allows (sync 0, pipelined 1, async
         # max_staleness). The rollout's version is read FIRST: a learner
         # step landing between the two reads is a benign positive lag
-        allowed_lag = self.config.allowed_weight_lag
         hold = None
         if self._ring is not None:  # holds the published copy until released
             held, rollout_version, hold = self._ring.acquire()
@@ -764,13 +1168,8 @@ class Trainer:
             (model, lora), rollout_version = self._engine_params(), self._rollout_weight_version
         driver = self._env_driver
         try:
-            lag = self.weight_version - rollout_version
-            if not 0 <= lag <= allowed_lag:
-                raise StaleWeightsError(
-                    f"rollout holds adapter v{rollout_version} but learner is at "
-                    f"v{self.weight_version} — rollout_mode={self.config.rollout_mode!r} "
-                    f"allows lag <= {allowed_lag}; _push_weights() was not called after "
-                    "the last optimizer step, or the staleness bound is misconfigured")
+            if self.meshes is None:  # on a mesh every rollout rank checks (_round_op)
+                self._check_lag(self.weight_version, rollout_version)
             # the mailbox's swap log before dispatch, so this round's
             # in-flight swaps (and their versions) can be sliced out after
             swaps_before = len(getattr(self.engine, "last_swap_steps", ()))
@@ -780,7 +1179,8 @@ class Trainer:
                 driver.begin_round(problems + [""] * (b_pad - b_real),
                                    solutions + [""] * (b_pad - b_real), sampling.n)
                 self.engine.turn_hook = driver
-            result = self._dispatch_rollout(prompt_ids, prompt_mask, sampling, model, lora)
+            result = self._dispatch_rollout(prompt_ids, prompt_mask, sampling, model, lora,
+                                            b_real)
         except EngineHangError:
             hold = None  # the hung round still reads its adapter: the hold stays
             raise
@@ -878,6 +1278,15 @@ class Trainer:
     # ------------------------------------------------------------------ train
 
     def train(self) -> None:
+        """The training run. On a learner mesh every rank calls it: rank 0
+        runs the loop below and each other rank follows it (``follow``)."""
+        if self.meshes is not None and self._rank != 0:
+            self.follow()
+            return
+        with self.lead():
+            self._train()
+
+    def _train(self) -> None:
         cfg = self.config
         if self.sink is None:
             self.sink = make_sink(cfg.metrics_backend, run_name=cfg.run_name,
@@ -1129,27 +1538,25 @@ class Trainer:
                 raise RuntimeError(
                     "clip_ratio requires engine-captured behavior logprobs; "
                     "this engine returned none (GenerationResult.logprobs)")
-            update = prepare_update_batch(
+            arrays = update_arrays(
                 self.tokenizer, problems, answers, coeffs,
                 max_prompt_tokens=cfg.max_prompt_tokens,
                 max_new_tokens=cfg.max_new_tokens,
-                micro_size=cfg.train_batch_size,
                 raw_rollout=raw if cfg.clip_ratio > 0.0 else None,
                 answer_buckets=cfg.learner_len_buckets or None,
                 prompt_buckets=cfg.learner_prompt_buckets or None,
-                device=self.device,
                 # async: per-token version lag (learner version minus each
                 # token's sampling version) feeds AIPO's staleness mask
                 current_version=self.weight_version if cfg.rollout_mode == "async" else None,
             )
-            answer_width = int(update.answer_ids.shape[1])
-            prompt_width = int(update.prompt_ids.shape[1])
+            answer_width = int(arrays["answer_ids"].shape[1])
+            prompt_width = int(arrays["prompt_ids"].shape[1])
             # LoRA dropout draws a fresh seed per update
             dropout_seed = self._next_rng() if cfg.lora_dropout > 0.0 else None
-            # float() ends the phase on finished device work: the copy of
-            # the loss waits for every kernel before it on the stream, the
+            # ends the phase on finished device work: the loss's copy to the
+            # host waits for every kernel before it on the stream, the
             # optimizer's included
-            loss = float(self.train_step(self.lora, self.model, update, dropout_seed))
+            loss = self._collective("update", (arrays, dropout_seed))
         self.weight_version += 1
         self._push_weights()
         if cfg.inflight_weight_updates:

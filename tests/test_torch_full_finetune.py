@@ -70,7 +70,7 @@ from distrl_llm_tpu_torch.engine.engine import GenerationEngine
 from distrl_llm_tpu_torch.engine.fake import FakeEngine
 from distrl_llm_tpu_torch.engine.paged_engine import PagedGenerationEngine
 from distrl_llm_tpu_torch.learner import optim, train_step as ts
-from distrl_llm_tpu_torch.models.configs import ModelConfig
+from distrl_llm_tpu_torch.models.configs import ModelConfig, preset_for_model_name
 from distrl_llm_tpu_torch.models.convert import param_stacks, params_from_numpy, params_to_numpy
 from distrl_llm_tpu_torch.rewards import reward_function
 from distrl_llm_tpu_torch.tokenizer import CharTokenizer
@@ -336,11 +336,15 @@ def test_full_finetune_rules_match_jax(kw):
                                         ("meta-llama/Meta-Llama-3-8B", False)])
 def test_full_finetune_validates_where_one_card_holds_it(model, fits):
     jconfig.TrainConfig(full_finetune=True, model=model)  # the JAX package takes every width
+    # so does the port's config: the Trainer holds the width to the card it
+    # runs on and the learner mesh's fsdp; here one 80 GB card at fsdp 1
+    assert config.TrainConfig(full_finetune=True, model=model).full_finetune
+    preset = preset_for_model_name(model)
     if fits:
-        assert config.TrainConfig(full_finetune=True, model=model).full_finetune
+        config.check_full_finetune_fits(preset, hbm_bytes=80 * 10**9)
     else:
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
-            config.TrainConfig(full_finetune=True, model=model)
+        with pytest.raises(ValueError, match="mesh.fsdp"):
+            config.check_full_finetune_fits(preset, hbm_bytes=80 * 10**9)
 
 
 def test_full_finetune_bytes_at_gemma_2b():
@@ -351,7 +355,7 @@ def test_full_finetune_bytes_at_gemma_2b():
     assert need["masters"] == need["grads"] == 4 * GEMMA_2B.param_count
     assert 30e9 < need["total"] < 31e9
     config.check_full_finetune_fits(GEMMA_2B, hbm_bytes=80 * 10**9)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(ValueError, match="mesh.fsdp"):
         config.check_full_finetune_fits(GEMMA_2B, hbm_bytes=32 * 10**9)
 
 

@@ -49,6 +49,7 @@ from distrl_llm_tpu_torch.models.convert import (
     lora_from_numpy, lora_to_numpy, params_from_numpy,
 )
 from distrl_llm_tpu_torch.ops.linear import dropout_stream, lora_delta
+from distrl_llm_tpu_torch.parallel.mesh import RoleMesh
 from distrl_llm_tpu_torch.tokenizer import CharTokenizer
 
 LOSS_RTOL = 1e-6
@@ -180,8 +181,9 @@ def test_prepare_update_batch_matches_jax(variant):
         assert (g is None) == (w is None), name
         if g is not None:
             np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
+    tp_mesh = RoleMesh(np.arange(2).reshape(1, 1, 1, 2))  # tensor parallelism: item 10b
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ts.prepare_update_batch(tok, problems, answers, coeffs, device="cpu", mesh=object(), **kw)
+        ts.prepare_update_batch(tok, problems, answers, coeffs, device="cpu", mesh=tp_mesh, **kw)
 
 
 # ----------------------------------------------------------------- losses
@@ -373,7 +375,7 @@ def _assert_close_trees(a, b, atol):
 
 
 def test_train_step_refuses_unported_modes(model):
-    """A learner mesh is item 10. Full fine-tuning is ported
+    """Ring and ulysses attention meshes are item 10b. Full fine-tuning is ported
     (``tests/test_torch_full_finetune.py``): only its KL term, which needs
     a frozen base, and an unknown mode raise."""
     opt = optim.make_optimizer([torch.zeros(1, requires_grad=True)], LR)

@@ -325,6 +325,9 @@ VALID = [
          rollout_mode="async", inflight_weight_updates=True, max_staleness=2),
     dict(rollout_workers=("h:1",), kv_cache_quant="none", base_quant="int4", attn_impl="splash"),
     dict(weight_bus="dispatch", workers_capture_logprobs=True, rpc_retries=5),
+    # ROADMAP item 10a: full fine-tuning at any width; the Trainer holds one
+    # rank's fsdp share to the card it runs on (config.check_full_finetune_fits)
+    dict(full_finetune=True, model="meta-llama/Meta-Llama-3-8B"),
 ]
 
 # tests/test_config.py::TestEnvConfig's multi-turn shape, varied one knob at
@@ -388,14 +391,17 @@ INVALID = [
 # the unported knobs they need there), the port raises NotImplementedError
 # naming the ROADMAP item
 UNPORTED = [
-    (dict(engine_impl="paged_sharded"), {}, "item 10"),
-    (dict(full_finetune=True), {}, "item 10"),
+    (dict(attn_impl="ring"), {}, "item 10b"),
+    (dict(attn_impl="ulysses"), {}, "item 10b"),
 ]
 
 
 def test_config_defaults_match_jax():
     j, p = jconfig.TrainConfig(), config.TrainConfig()
     for f in PORTED:
+        if f == "mesh":  # each package's own MeshConfig class
+            assert dataclasses.asdict(p.mesh) == dataclasses.asdict(j.mesh)
+            continue
         assert getattr(p, f) == getattr(j, f), f
         assert type(getattr(p, f)) is type(getattr(j, f)), f
 
